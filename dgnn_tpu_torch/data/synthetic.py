@@ -1,0 +1,111 @@
+"""Synthetic citation datasets (numpy), a copy of ``dgnn_tpu/data/synthetic.py``.
+
+Deterministic generators at each dataset's scale and statistics (node,
+edge, feature and class counts, label homophily, power-law degrees for the
+large graphs).  The output is identical, array for array, to the JAX
+package's for the same seed (tests/test_torch_graph.py holds them equal).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+__all__ = ["CitationData", "synthetic_citation", "rmat_edges",
+           "CITATION_SHAPES"]
+
+# name: (num_nodes, num_edges(directed, pre-self-loop), n_feats, n_classes)
+CITATION_SHAPES = {
+    "cora": (2708, 10556, 1433, 7),
+    "citeseer": (3327, 9228, 3703, 6),
+    "pubmed": (19717, 88651, 500, 3),
+    "reddit": (232965, 114615892, 602, 41),
+}
+
+
+@dataclasses.dataclass
+class CitationData:
+    src: np.ndarray
+    dst: np.ndarray
+    num_nodes: int
+    features: np.ndarray  # [N, F] float32
+    labels: np.ndarray  # [N] int32
+    train_mask: np.ndarray  # [N] bool
+    val_mask: np.ndarray
+    test_mask: np.ndarray
+    n_classes: int
+
+
+def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0,
+               a: float = 0.57, b: float = 0.19, c: float = 0.19) -> tuple:
+    """R-MAT power-law edge generator (Graph500-style recursive quadrants),
+    vectorized over all edges at once; undirected-ized by symmetrizing."""
+    rng = np.random.default_rng(seed)
+    scale = int(np.ceil(np.log2(max(num_nodes, 2))))
+    n_half = num_edges // 2 + 1
+    src = np.zeros(n_half, dtype=np.int64)
+    dst = np.zeros(n_half, dtype=np.int64)
+    for _ in range(scale):
+        r = rng.random(n_half)
+        right = r >= a + b  # falls into lower quadrants (dst bit set)
+        down = ((r >= a) & (r < a + b)) | (r >= a + b + c)  # src bit set
+        src = (src << 1) | down.astype(np.int64)
+        dst = (dst << 1) | right.astype(np.int64)
+    src %= num_nodes
+    dst %= num_nodes
+    # permute node ids so hubs aren't clustered at low ids
+    perm = rng.permutation(num_nodes)
+    src, dst = perm[src], perm[dst]
+    s = np.concatenate([src, dst])[:num_edges]
+    d = np.concatenate([dst, src])[:num_edges]
+    return s, d
+
+
+def synthetic_citation(name: str = "cora", seed: int = 0,
+                       homophily: float = 0.7) -> CitationData:
+    """Citation-style node-classification task at the named dataset's scale.
+
+    Labels come from random class assignment; edges are rewired so a
+    `homophily` fraction connects same-class nodes; features are a noisy
+    class signature, so a GNN can actually learn.
+    """
+    if name not in CITATION_SHAPES:
+        raise ValueError(f"Unknown dataset: {name} "
+                         f"(known: {sorted(CITATION_SHAPES)})")
+    n, e, f, c = CITATION_SHAPES[name]
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, c, n).astype(np.int32)
+
+    if name == "reddit":
+        src, dst = rmat_edges(n, e, seed=seed)
+    else:
+        src = rng.integers(0, n, e)
+        dst = rng.integers(0, n, e)
+    # homophilous rewiring: for a fraction of edges, resample dst from the
+    # same class as src (vectorized via per-class node pools)
+    order = np.argsort(labels, kind="stable")
+    class_start = np.searchsorted(labels[order], np.arange(c))
+    class_count = np.bincount(labels, minlength=c)
+    rewire = rng.random(len(src)) < homophily
+    cls = labels[src[rewire]]
+    offs = (rng.random(rewire.sum()) * class_count[cls]).astype(np.int64)
+    dst = dst.copy()
+    dst[rewire] = order[class_start[cls] + offs]
+
+    # features: class centroid (sparse-ish signature) + noise
+    centroids = (rng.random((c, f)) < 0.05).astype(np.float32)
+    feats = centroids[labels] + rng.normal(0, 0.5, (n, f)).astype(np.float32)
+
+    idx = rng.permutation(n)
+    n_train = max(20 * c, n // 10)
+    n_val = max(500, n // 20)
+    train_mask = np.zeros(n, bool)
+    val_mask = np.zeros(n, bool)
+    test_mask = np.zeros(n, bool)
+    train_mask[idx[:n_train]] = True
+    val_mask[idx[n_train:n_train + n_val]] = True
+    test_mask[idx[n_train + n_val:]] = True
+    return CitationData(src=src, dst=dst, num_nodes=n, features=feats,
+                        labels=labels, train_mask=train_mask, val_mask=val_mask,
+                        test_mask=test_mask, n_classes=c)

@@ -1,0 +1,11 @@
+from .structure import (
+    BinnedAdj,
+    CombineTable,
+    Graph,
+    build_graph,
+    build_graph_from_csr,
+    from_binned,
+)
+
+__all__ = ["BinnedAdj", "CombineTable", "Graph", "build_graph",
+           "build_graph_from_csr", "from_binned"]

@@ -1,0 +1,134 @@
+"""GAT layer and network as ``nn.Module``s (port of ``dgnn_tpu/models/gat.py``).
+
+Dense projection and attention-coefficient reductions are plain torch
+(``nn.Linear``, elementwise products); everything sparse is the fused
+``gat_aggregate`` op.  Semantics match the flax modules: bias only on
+hidden layers after the first and on the output layer, the output layer
+averaged over its heads, feature dropout on the projected features.
+
+Init follows flax's ``variance_scaling(gain**2, "fan_avg", "normal")`` with
+the ReLU gain.  For ``attn_l`` / ``attn_r`` of shape (1, H, F) flax takes
+fan_in = H and fan_out = F (``torch.nn.init.xavier_normal_`` would take
+fan_in = H*F), so the std is computed here the flax way.  Every random draw
+(init, feature dropout) comes from an explicit ``torch.Generator``;
+attention dropout takes one uint32 seed per layer.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from ..graph.structure import Graph
+from ..ops.gat import gat_aggregate
+
+__all__ = ["GATConv", "GAT"]
+
+_GAIN_RELU = math.sqrt(2.0)
+
+
+def _fan_avg_normal_(t: torch.Tensor, fan_in: int, fan_out: int,
+                     generator: torch.Generator | None):
+    std = _GAIN_RELU * math.sqrt(2.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        t.normal_(0.0, std, generator=generator)
+
+
+def _dropout(x, p: float, generator: torch.Generator | None):
+    """Inverted dropout as flax's nn.Dropout: keep with prob 1 - p."""
+    if generator is None:
+        raise ValueError("feature dropout in training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention layer over the fused aggregation.
+
+    Output: [N, num_heads, out_feats]."""
+
+    def __init__(self, in_feats: int, out_feats: int, num_heads: int, *,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 negative_slope: float = 0.2, use_bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.out_feats = out_feats
+        self.num_heads = num_heads
+        self.feat_drop = feat_drop
+        self.attn_drop = attn_drop
+        self.negative_slope = negative_slope
+        hf = num_heads * out_feats
+        self.W = nn.Linear(in_feats, hf, bias=False)
+        _fan_avg_normal_(self.W.weight, in_feats, hf, generator)
+        self.attn_l = nn.Parameter(torch.empty(1, num_heads, out_feats))
+        self.attn_r = nn.Parameter(torch.empty(1, num_heads, out_feats))
+        _fan_avg_normal_(self.attn_l, num_heads, out_feats, generator)
+        _fan_avg_normal_(self.attn_r, num_heads, out_feats, generator)
+        self.bias = (nn.Parameter(torch.zeros(1, num_heads, out_feats))
+                     if use_bias else None)
+
+    def forward(self, graph: Graph, feat: torch.Tensor, *,
+                generator: torch.Generator | None = None,
+                seed: int | None = None) -> torch.Tensor:
+        x = self.W(feat).reshape(-1, self.num_heads, self.out_feats)
+        if self.training and self.feat_drop > 0.0:
+            x = _dropout(x, self.feat_drop, generator)
+        attn_row = (self.attn_l * x).sum(dim=-1)  # [N, H] dst coefficients
+        attn_col = (self.attn_r * x).sum(dim=-1)  # [N, H] src coefficients
+        rst = gat_aggregate(graph, attn_row, attn_col, x,
+                            negative_slope=self.negative_slope,
+                            attn_drop=self.attn_drop, seed=seed,
+                            training=self.training)
+        if self.bias is not None:
+            rst = rst + self.bias
+        return rst
+
+
+class GAT(nn.Module):
+    """Multi-layer GAT: ``num_layers`` hidden layers with ``heads[l]`` heads
+    whose outputs are flattened, then an output layer averaged over its
+    heads.  Layers are ``convs["gat_0"] ... convs["gat_out"]``, the flax
+    module names."""
+
+    def __init__(self, in_feats: int, num_layers: int, n_hidden: int,
+                 n_classes: int, heads: Sequence[int], *,
+                 feat_drop: float = 0.0, attn_drop: float = 0.0,
+                 negative_slope: float = 0.2,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.attn_drop = attn_drop
+        convs = {}
+        dim = in_feats
+        for layer in range(num_layers):
+            convs[f"gat_{layer}"] = GATConv(
+                dim, n_hidden, heads[layer], feat_drop=feat_drop,
+                attn_drop=attn_drop, negative_slope=negative_slope,
+                use_bias=layer > 0,  # the input projection has no bias
+                generator=generator)
+            dim = n_hidden * heads[layer]
+        convs["gat_out"] = GATConv(
+            dim, n_classes, heads[-1], feat_drop=feat_drop,
+            attn_drop=attn_drop, negative_slope=negative_slope,
+            generator=generator)
+        self.convs = nn.ModuleDict(convs)
+
+    def forward(self, graph: Graph, feat: torch.Tensor, *,
+                generator: torch.Generator | None = None,
+                attn_seeds: Sequence[int] | None = None) -> torch.Tensor:
+        """Logits [N, n_classes].  In training, ``generator`` draws the
+        feature dropout and ``attn_seeds`` holds one uint32 attention-dropout
+        seed per layer (required when attn_drop > 0)."""
+        if self.training and self.attn_drop > 0.0:
+            if attn_seeds is None or len(attn_seeds) != len(self.convs):
+                raise ValueError(f"attention dropout in training needs "
+                                 f"{len(self.convs)} attn_seeds, one per layer")
+        h = feat
+        for i, (name, conv) in enumerate(self.convs.items()):
+            seed = attn_seeds[i] if attn_seeds is not None else None
+            h = conv(graph, h, generator=generator, seed=seed)
+            if name != "gat_out":
+                h = h.reshape(h.shape[0], -1)
+        return h.mean(dim=1)

@@ -1,0 +1,105 @@
+"""Build and load the CUDA kernels of csrc/ at first use.
+
+``nvcc`` compiles ``csrc/bin_gat.cu`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface, which is loaded with ctypes.  The library
+goes to ``build/dgnn_tpu_torch/<hash>/`` at the root of the checkout (listed
+in .gitignore), keyed by a hash of the sources and the flags, so a changed
+source is rebuilt and an unchanged one is loaded as it is.  ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
+beside the library as ``build.log``.
+
+Nothing is built or loaded at import time; a missing ``nvcc`` or a failed
+build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCES = ("bin_gat.cu",)
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dgnn_tpu_torch"
+_LIB_NAME = "libdgnn_bin_gat.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in ([home] if home else []) + ["/usr/local/cuda"]:
+        cand = Path(root) / "bin" / "nvcc"
+        if cand.exists():
+            return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): "
+                       "the dgnn_tpu_torch CUDA kernels cannot be built")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256()
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD_ROOT / h.hexdigest()[:16] / _LIB_NAME
+
+
+def build() -> Path:
+    """Compile the kernels unless the library for these sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    so.parent.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(_CSRC / s) for s in _SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    (so.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
+                           f"{res.stderr[-4000:]}")
+    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load once per process, declare the C signatures."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.dgnn_bin_gat_fwd.argtypes = [
+            vp, vp, vp, vp, vp, vp,             # x ac ar nbr row count
+            ci, ci, ci, ci,                     # S W H F
+            cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
+            vp, vp, vp, vp, vp,                 # m l lpos acc accpos
+            vp]                                 # stream
+        lib.dgnn_bin_gat_fwd.restype = ci
+        lib.dgnn_bin_gat_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp,         # g ar M Linv ws ac x
+            vp, vp, vp,                         # nbr row count
+            ci, ci, ci, ci,                     # S W H F
+            cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
+            vp, vp,                             # dx dac
+            vp]                                 # stream
+        lib.dgnn_bin_gat_bwd.restype = ci
+        _lib = lib
+        return lib

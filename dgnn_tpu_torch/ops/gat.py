@@ -1,0 +1,151 @@
+"""Fused multi-head GAT aggregation: score -> edge softmax -> weighted sum.
+
+Port of ``dgnn_tpu/ops/gat.py`` (``gat_aggregate`` and its custom VJP,
+``_gat_fused`` / ``_gat_fused_fwd`` / ``_gat_fused_bwd``) as a
+``torch.autograd.Function``.  One training step makes exactly two
+edge-sized passes:
+
+  pass A (forward, CSR bins): per segment (m, l, acc) plus the sign-split
+      partials (lpos, accpos) restricted to raw score >= 0, merged per row
+      by a log-sum-exp combine into out, M, L, out_pos = sum_{s>=0} a^ x
+      and r = sum_{s>=0} a;
+  pass B (backward, CSC bins): per source, dX and d attn_col.
+
+The per-destination half of softmax backward is closed-form over pass-A
+residuals (no third pass):
+    ws   = <g, out>
+    t1   = <g, slope * out + (1 - slope) * out_pos>
+    t2   = slope + (1 - slope) * r
+    d_ar = t1 - ws * t2
+The backward saves only M, L, out, out_pos, r (and the inputs) and
+recomputes per-edge attention in pass B.  Attention dropout is re-derived
+from (seed, dst, src, head) by ops/common.pair_keep's hash in both passes.
+
+The per-bin passes are ops/bins.bin_gat_fwd / bin_gat_bwd: CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..graph.structure import BinnedAdj, Graph
+from .bins import bin_gat_bwd, bin_gat_fwd
+from .common import combine_lse, combine_sum
+
+__all__ = ["gat_aggregate"]
+
+
+def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed,
+                 with_pos=True):
+    """Pass A over ``adj``'s bins, merged through its combine table.
+    Returns (out, M, L, out_pos, r); out_pos and r are None unless
+    ``with_pos``."""
+    ms, ls, lps, accs, accps = [], [], [], [], []
+    for _width, nbr, _edge, row, count in adj.bins():
+        m, l, lpos, acc, accpos = bin_gat_fwd(
+            feat, ac, ar, nbr, row, count, slope=slope, with_pos=with_pos,
+            p=p, seed=seed)
+        ms.append(m)
+        ls.append(l)
+        lps.append(lpos)
+        accs.append(acc)
+        accps.append(accpos)
+    parts = [torch.cat(ls), torch.cat(accs)]
+    if with_pos:
+        parts += [torch.cat(lps), torch.cat(accps)]
+    M, merged = combine_lse(adj.cmb, torch.cat(ms), parts)
+    L = merged[0]
+    Linv = 1.0 / torch.clamp(L, min=1e-20)
+    out = merged[1] * Linv[..., None]
+    if not with_pos:
+        return out, M, L, None, None
+    return out, M, L, merged[3] * Linv[..., None], merged[2] * Linv
+
+
+class _GATFused(torch.autograd.Function):
+    """Pass A forward; closed-form d_ar and pass B backward."""
+
+    @staticmethod
+    def forward(ctx, ar, ac, feat, graph, slope, p, seed):
+        out, M, L, out_pos, r = _gat_forward(graph.fwd, ar, ac, feat, slope,
+                                             p, seed)
+        ctx.save_for_backward(ar, ac, feat, M, L, out, out_pos, r)
+        ctx.graph, ctx.slope, ctx.p, ctx.seed = graph, slope, p, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        ar, ac, feat, M, L, out, out_pos, r = ctx.saved_tensors
+        slope, p, seed = ctx.slope, ctx.p, ctx.seed
+        adj_bwd = ctx.graph.bwd
+        g = g_out.contiguous()
+        # per-destination softmax backward, closed-form (module docstring)
+        ws = (g * out).sum(dim=-1)
+        t1 = (g * (slope * out + (1.0 - slope) * out_pos)).sum(dim=-1)
+        t2 = slope + (1.0 - slope) * r
+        d_ar = t1 - ws * t2
+        # pass B over the CSC bins: dX and d attn_col, per-source sums
+        Linv = 1.0 / torch.clamp(L, min=1e-20)
+        dx_parts, dac_parts = [], []
+        for _width, nbr, _edge, row, count in adj_bwd.bins():
+            dxp, dacp = bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row,
+                                    count, slope=slope, p=p, seed=seed)
+            dx_parts.append(dxp)
+            dac_parts.append(dacp)
+        d_feat, d_ac = combine_sum(adj_bwd.cmb, [torch.cat(dx_parts),
+                                                 torch.cat(dac_parts)])
+        need = ctx.needs_input_grad
+        return (d_ar if need[0] else None, d_ac if need[1] else None,
+                d_feat if need[2] else None, None, None, None, None)
+
+
+def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
+                  negative_slope: float = 0.2, attn_drop: float = 0.0,
+                  seed: int | None = None, training: bool = False,
+                  gather_dtype=None):
+    """Fused GAT neighbourhood aggregation.
+
+    out[i, h] = sum_j softmax_j(LeakyReLU(attn_row[i,h] + attn_col[j,h]))
+                * feat[j, h, :]        over in-neighbours j of i.
+
+    Args:
+      graph: Graph (graph.structure.build_graph) on the tensors' device.
+      attn_row: [N, H] float32 destination attention coefficients.
+      attn_col: [N, H] float32 source attention coefficients.
+      feat: [N, H, F] float32 node features.
+      negative_slope: LeakyReLU slope for edge scores.
+      attn_drop: attention dropout probability (training only).
+      seed: uint32 dropout seed, required if training and attn_drop > 0
+        (the JAX package draws it as ``jax.random.bits(key, uint32)``).
+      training: enables dropout.
+      gather_dtype: bf16 feature gathers are not ported yet; must be None.
+    Returns:
+      [N, H, F] float32 aggregated features.
+
+    When no input needs a gradient (inference, or under ``torch.no_grad``),
+    the forward skips the sign-split partials and saves nothing.
+    """
+    if gather_dtype is not None:
+        raise NotImplementedError("gather_dtype (bf16 feature gathers) is not "
+                                  "ported to dgnn_tpu_torch yet")
+    if graph.fwd.cmb is None or graph.bwd.cmb is None:
+        raise ValueError("gat_aggregate needs the graph's combine tables")
+    for name, t in (("attn_row", attn_row), ("attn_col", attn_col),
+                    ("feat", feat)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    p = float(attn_drop) if training else 0.0
+    if p > 0.0:
+        if seed is None:
+            raise ValueError("attn_drop > 0 requires a seed in training")
+        seed = int(seed) & 0xFFFFFFFF
+    else:
+        seed = 0
+    slope = float(negative_slope)
+    ar, ac, x = attn_row.contiguous(), attn_col.contiguous(), feat.contiguous()
+    if not (torch.is_grad_enabled()
+            and (ar.requires_grad or ac.requires_grad or x.requires_grad)):
+        return _gat_forward(graph.fwd, ar, ac, x, slope, p, seed,
+                            with_pos=False)[0]
+    return _GATFused.apply(ar, ac, x, graph, slope, p, seed)

@@ -1,0 +1,174 @@
+"""Per-bin GAT passes: the port's plain versions against the JAX package's
+Pallas kernels (run in interpret mode off-TPU) on the same gathered data,
+and, on a CUDA device, the port's kernels against their plain versions.
+
+JAX is imported inside the JAX tests only, so that the CUDA test runs on a
+machine without JAX:  python -m pytest --noconftest -m cuda
+tests/test_torch_bins.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dgnn_tpu_torch.ops import bins
+
+SLOPE = 0.2
+SEED = 2 ** 31 + 12345  # a uint32 seed above the int32 range
+TOL = dict(rtol=1e-5, atol=1e-5)
+BWD_TOL = dict(rtol=1e-4, atol=1e-5)  # summation order differs
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _bin(rng, n=120, s=16, w=8, h=2, f=5):
+    """One bin's tables with partial, full and empty segments."""
+    count = rng.integers(1, w + 1, s).astype(np.int32)
+    count[[0, 5]] = 0        # empty segments
+    count[1] = w             # a full one
+    nbr = rng.integers(0, n, (s, w)).astype(np.int32)
+    nbr[np.arange(w)[None, :] >= count[:, None]] = 0  # padded slots
+    row = rng.integers(0, n, s).astype(np.int32)
+    t = dict(
+        nbr=nbr, row=row, count=count,
+        feat=rng.normal(size=(n, h, f)).astype(np.float32),
+        ac=rng.normal(size=(n, h)).astype(np.float32),
+        ar=rng.normal(size=(n, h)).astype(np.float32),
+        g=rng.normal(size=(n, h, f)).astype(np.float32),
+        M=(rng.normal(size=(n, h)) + 2.0).astype(np.float32),
+        Linv=rng.uniform(0.1, 1.0, (n, h)).astype(np.float32),
+        ws=rng.normal(size=(n, h)).astype(np.float32),
+    )
+    return t
+
+
+def _torch(t, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in t.items()}
+
+
+def _fwd_args(t):
+    return (t["feat"], t["ac"], t["ar"], t["nbr"], t["row"], t["count"])
+
+
+def _bwd_args(t):
+    return (t["g"], t["ar"], t["M"], t["Linv"], t["ws"], t["ac"], t["feat"],
+            t["nbr"], t["row"], t["count"])
+
+
+@pytest.mark.parametrize("with_pos", [True, False])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(2, 5), (1, 3)])
+def test_fwd_plain_matches_jax_kernel(rng, with_pos, p, h, f):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_bins import bin_gat_fwd as jax_fwd
+
+    t = _bin(rng, h=h, f=f)
+    n = t["feat"].shape[0]
+    xcat = np.concatenate([t["feat"].reshape(n, -1), t["ac"]], axis=1)
+    drop = None
+    if p > 0:
+        drop = (p, jnp.uint32(SEED), jnp.asarray(t["row"]),
+                jnp.asarray(t["nbr"].T))
+    want = jax_fwd(jnp.asarray(xcat[t["nbr"].T]),
+                   jnp.asarray(t["ar"][t["row"]]), jnp.asarray(t["count"]),
+                   H=h, F=f, slope=SLOPE, with_pos=with_pos, drop=drop,
+                   interpret=True)
+    got = bins.bin_gat_fwd_plain(*_fwd_args(_torch(t)), slope=SLOPE,
+                                 with_pos=with_pos, p=p, seed=SEED)
+    # the wrapper takes the plain version for CPU tensors
+    via_wrapper = bins.bin_gat_fwd(*_fwd_args(_torch(t)), slope=SLOPE,
+                                   with_pos=with_pos, p=p, seed=SEED)
+    names = ("m", "l", "lpos", "acc", "accpos")
+    for name, w, g, v in zip(names, want, got, via_wrapper):
+        if not with_pos and name in ("lpos", "accpos"):
+            assert w is None and g is None and v is None
+            continue
+        g = g.reshape(g.shape[0], -1).numpy()
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=name, **TOL)
+        np.testing.assert_array_equal(v.reshape(v.shape[0], -1).numpy(), g)
+    # empty segments: the kernels' finite sentinel and zero partials
+    assert np.all(got[0][[0, 5]].numpy() == np.float32(-1e30))
+    assert np.all(got[3][[0, 5]].numpy() == 0)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(2, 5), (1, 3)])
+def test_bwd_plain_matches_jax_kernel(rng, p, h, f):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_bins import bin_gat_bwd as jax_bwd
+
+    t = _bin(rng, h=h, f=f)
+    n = t["feat"].shape[0]
+    zcat = np.concatenate([t["g"].reshape(n, -1), t["ar"], t["M"],
+                           t["Linv"], t["ws"]], axis=1)
+    drop = None
+    if p > 0:
+        drop = (p, jnp.uint32(SEED), jnp.asarray(t["row"]),
+                jnp.asarray(t["nbr"].T))
+    want_dx, want_dac = jax_bwd(
+        jnp.asarray(zcat[t["nbr"].T]), jnp.asarray(t["ac"][t["row"]]),
+        jnp.asarray(t["feat"].reshape(n, -1)[t["row"]]),
+        jnp.asarray(t["count"]), H=h, slope=SLOPE, drop=drop, interpret=True)
+    dx, dac = bins.bin_gat_bwd_plain(*_bwd_args(_torch(t)), slope=SLOPE, p=p,
+                                     seed=SEED)
+    np.testing.assert_allclose(dx.reshape(dx.shape[0], -1).numpy(),
+                               np.asarray(want_dx), **BWD_TOL)
+    np.testing.assert_allclose(dac.numpy(), np.asarray(want_dac), **BWD_TOL)
+    assert np.all(dx[[0, 5]].numpy() == 0) and np.all(dac[[0, 5]].numpy() == 0)
+
+
+def test_wrappers_refuse_mixed_devices(rng):
+    t = _torch(_bin(rng))
+    bad = dict(t, ar=t["ar"].to("meta"))
+    with pytest.raises(ValueError, match="devices"):
+        bins.bin_gat_fwd(*_fwd_args(bad), slope=SLOPE, with_pos=True)
+    with pytest.raises(ValueError, match="shapes"):
+        bins.bin_gat_bwd(*_bwd_args(dict(t, row=t["row"][:3])), slope=SLOPE)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("w,h,f", [(4, 4, 64), (12, 1, 3), (96, 2, 5),
+                                   (8, 4, 300)])
+def test_cuda_kernels_match_plain(rng, cuda_device, p, w, h, f):
+    t = _torch(_bin(rng, n=500, s=40, w=w, h=h, f=f), cuda_device)
+    for with_pos in (True, False):
+        before = bins.LAUNCHES["bin_gat_fwd"]
+        got = bins.bin_gat_fwd(*_fwd_args(t), slope=SLOPE, with_pos=with_pos,
+                               p=p, seed=SEED)
+        assert bins.LAUNCHES["bin_gat_fwd"] == before + 1
+        want = bins.bin_gat_fwd_plain(*_fwd_args(t), slope=SLOPE,
+                                      with_pos=with_pos, p=p, seed=SEED)
+        torch.cuda.synchronize()
+        for g, wv in zip(got, want):
+            if wv is None:
+                assert g is None
+            else:
+                torch.testing.assert_close(g, wv, **TOL)
+    before = bins.LAUNCHES["bin_gat_bwd"]
+    got = bins.bin_gat_bwd(*_bwd_args(t), slope=SLOPE, p=p, seed=SEED)
+    assert bins.LAUNCHES["bin_gat_bwd"] == before + 1
+    want = bins.bin_gat_bwd_plain(*_bwd_args(t), slope=SLOPE, p=p, seed=SEED)
+    torch.cuda.synchronize()
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, **BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_bf16(rng, cuda_device):
+    t = _torch(_bin(rng), cuda_device)
+    bad = dict(t, feat=t["feat"].to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32"):
+        bins.bin_gat_fwd(*_fwd_args(bad), slope=SLOPE, with_pos=True)
