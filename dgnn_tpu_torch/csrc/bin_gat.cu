@@ -33,45 +33,26 @@
 // TMA prefetch of the next slots' rows, bf16 feature rows, and fusing the
 // segment merge (ops/common.py combine_lse / combine_sum) into the kernel.
 //
-// Dropout re-derives dgnn_tpu/ops/common.py:pair_keep bit for bit in
-// uint32 arithmetic: base = mix32(dst * 0x9E3779B9 ^ mix32(src ^ seed *
-// 0x85EBCA6B)), z = mix32(base * H + h), u = float(z >> 8) * 2^-24, keep
-// iff u > p, kept weights scale by float32(1 / (1 - p)).  Forward: dst =
-// segment row, src = slot; backward: dst = slot, src = segment row.
+// Dropout re-derives dgnn_tpu/ops/common.py:pair_keep bit for bit
+// (gat_common.cuh).  Forward: dst = segment row, src = slot; backward:
+// dst = slot, src = segment row.
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gat_common.cuh"
+
 namespace {
+
+using dgnn::leaky;
+using dgnn::pair_u;
 
 constexpr int kMaxHeads = 16;    // the wrapper refuses H > kMaxHeads
 constexpr int kChunk = 32;       // slots staged in shared memory at a time
 constexpr int kMaxThreads = 1024;
 constexpr float kNegB = -1e30f;  // finite "-inf": max of an empty segment
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ float pair_u(uint32_t seed, uint32_t dst,
-                                        uint32_t src, int H, int h) {
-  const uint32_t base = mix32((dst * 0x9E3779B9u) ^
-                              mix32(src ^ (seed * 0x85EBCA6Bu)));
-  const uint32_t z = mix32(base * static_cast<uint32_t>(H) +
-                           static_cast<uint32_t>(h));
-  return static_cast<float>(z >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float leaky(float x, float slope) {
-  return x >= 0.f ? x : x * slope;
-}
 
 __global__ void bin_gat_fwd_kernel(
     const float* __restrict__ x,      // [N, H*F] source features

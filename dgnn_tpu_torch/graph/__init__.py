@@ -1,11 +1,12 @@
 from .structure import (
     BinnedAdj,
     CombineTable,
+    DenseBlock,
     Graph,
     build_graph,
     build_graph_from_csr,
     from_binned,
 )
 
-__all__ = ["BinnedAdj", "CombineTable", "Graph", "build_graph",
+__all__ = ["BinnedAdj", "CombineTable", "DenseBlock", "Graph", "build_graph",
            "build_graph_from_csr", "from_binned"]

@@ -1,12 +1,9 @@
 """Graph containers as dataclasses of torch tensors.
 
 Port of ``dgnn_tpu/graph/structure.py``: raw CSR/CSC for generic use plus
-the two degree-binned layouts (binning.py) that the fused GAT op consumes.
-Every container has ``.to(device)``; the host build returns CPU tensors.
-
-The hub block (``dense="auto"`` planning a block, or a forced ``(R, C)``
-block) needs the dense hub-block kernels, which are not ported yet:
-``build_graph`` refuses such a graph with ``NotImplementedError``.
+the two degree-binned layouts (binning.py) that the fused GAT op consumes,
+each with its optional tile-sparse dense hub block (hub.py).  Every
+container has ``.to(device)``; the host build returns CPU tensors.
 """
 
 from __future__ import annotations
@@ -19,8 +16,9 @@ import torch
 
 from . import binning as _binning
 from . import build as _build
+from . import hub as _hub
 
-__all__ = ["BinnedAdj", "CombineTable", "Graph", "build_graph",
+__all__ = ["BinnedAdj", "CombineTable", "DenseBlock", "Graph", "build_graph",
            "build_graph_from_csr", "from_binned"]
 
 
@@ -48,19 +46,56 @@ class CombineTable:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenseBlock:
+    """Tile-sparse dense hub block (hub.DensePlan) as tensors.
+
+    Its per-row partials are appended AFTER every bin's segment partials and
+    merged through the same combine table.  ``row_ids``/``col_ids`` are
+    0-padded; padded rows have all-zero mask rows and are excluded from the
+    combine table.  ``chunk_ptr`` is made from ``first``: the schedule
+    entries of row chunk i are ``chunk_ptr[i]:chunk_ptr[i+1]``."""
+
+    row_ids: torch.Tensor    # [Rpad] int32 graph row id per dense row
+    col_ids: torch.Tensor    # [Cpad] int32 graph col id per block column
+    mask: torch.Tensor       # [T, RT, CT//8] uint8 bit-plane packed
+    rc: torch.Tensor         # [T] int32 row chunk per schedule entry
+    ct: torch.Tensor         # [T] int32 col tile per schedule entry
+    first: torch.Tensor      # [T] int32 1 iff first entry of its row chunk
+    chunk_ptr: torch.Tensor  # [Rpad/RT + 1] int32
+    num_rows: int            # real (unpadded) rows, a prefix of row_ids
+
+    def to(self, device) -> "DenseBlock":
+        return dataclasses.replace(
+            self, **{f.name: getattr(self, f.name).to(device)
+                     for f in dataclasses.fields(self)
+                     if f.name != "num_rows"})
+
+
+def _dense_block(plan: _hub.DensePlan) -> DenseBlock:
+    starts = np.flatnonzero(np.asarray(plan.first))
+    chunk_ptr = np.append(starts, len(plan.first))
+    return DenseBlock(row_ids=_t(plan.row_ids), col_ids=_t(plan.col_ids),
+                      mask=_t(plan.mask, torch.uint8), rc=_t(plan.rc),
+                      ct=_t(plan.ct), first=_t(plan.first),
+                      chunk_ptr=_t(chunk_ptr), num_rows=int(plan.num_rows))
+
+
+@dataclasses.dataclass(frozen=True)
 class BinnedAdj:
     """Degree-binned adjacency (see binning.BinnedCSR) as tensors.
 
     ``cmb``: [num_rows, K] combine table — per row, the positions of its
-    segment partials in the concatenated per-bin order.  ``epos``: the slot
+    segment partials in the concatenated per-bin order, then the dense
+    block's rows.  ``dense``: the hub block, or None.  ``epos``: the slot
     position of each CSR edge in the concatenated [S*W] slot order (only
-    with edge tables)."""
+    with edge tables and without a hub block, whose edges have no slot)."""
 
     nbr: tuple    # per bin: [S_b, W_b] int32
     edge: tuple   # per bin: [S_b, W_b] int32 global CSR edge id, or Nones
     row: tuple    # per bin: [S_b] int32
     count: tuple  # per bin: [S_b] int32
     cmb: CombineTable | None
+    dense: DenseBlock | None
     epos: torch.Tensor | None  # [num_edges] int32, or None
     widths: tuple
     num_rows: int
@@ -84,16 +119,21 @@ class BinnedAdj:
             self, nbr=mv(self.nbr), edge=mv(self.edge), row=mv(self.row),
             count=mv(self.count),
             cmb=None if self.cmb is None else self.cmb.to(device),
+            dense=None if self.dense is None else self.dense.to(device),
             epos=None if self.epos is None else self.epos.to(device))
 
 
-def from_binned(b: _binning.BinnedCSR, with_edge: bool = True) -> BinnedAdj:
-    """Host BinnedCSR -> BinnedAdj of CPU tensors.
+def from_binned(b: _binning.BinnedCSR, with_edge: bool = True,
+                dense: _hub.DensePlan | None = None) -> BinnedAdj:
+    """Host BinnedCSR (and hub.DensePlan) -> BinnedAdj of CPU tensors.
 
+    ``dense`` rows' partials are indexed AFTER every bin's segments in the
+    combine table; only its first ``num_rows`` rows are valid.
     ``with_edge=False`` omits the per-slot global-edge-id tables and the
-    inverse slot-position table ``epos``."""
+    inverse slot-position table ``epos``, which is built only without a
+    hub block."""
     epos = None
-    if with_edge:
+    if with_edge and dense is None:
         # inverse permutation: CSR edge id -> position in the concatenated
         # [S*W] slot order
         ep = np.full(b.num_edges, 0, np.int64)
@@ -110,9 +150,15 @@ def from_binned(b: _binning.BinnedCSR, with_edge: bool = True) -> BinnedAdj:
             raise ValueError(
                 f"padded slot count {off} overflows the int32 epos table")
         epos = _t(ep)
-    rows_concat = np.concatenate([np.asarray(r) for r in b.row])
-    valid = np.concatenate([np.asarray(c) > 0 for c in b.count])
-    main, ov_rows, ov = _binning.combine_tables(rows_concat, b.num_rows, valid)
+    rows_concat = [np.asarray(r) for r in b.row]
+    valid = [np.asarray(c) > 0 for c in b.count]
+    if dense is not None:
+        rows_concat.append(np.asarray(dense.row_ids, np.int64))
+        v = np.zeros(len(dense.row_ids), bool)
+        v[:dense.num_rows] = True
+        valid.append(v)
+    main, ov_rows, ov = _binning.combine_tables(
+        np.concatenate(rows_concat), b.num_rows, np.concatenate(valid))
     cmb = CombineTable(main=_t(main), ov_rows=_t(ov_rows), ov=_t(ov))
     return BinnedAdj(
         nbr=tuple(_t(x) for x in b.nbr),
@@ -121,6 +167,7 @@ def from_binned(b: _binning.BinnedCSR, with_edge: bool = True) -> BinnedAdj:
         row=tuple(_t(x) for x in b.row),
         count=tuple(_t(x) for x in b.count),
         cmb=cmb,
+        dense=None if dense is None else _dense_block(dense),
         epos=epos,
         widths=b.widths,
         num_rows=b.num_rows,
@@ -176,9 +223,10 @@ def build_graph(
     ``dgnn_tpu.graph.structure.build_graph``.
 
     ``widths=None`` picks bin widths per direction from the degree histogram
-    (binning.auto_widths).  ``dense="auto"`` runs the hub planner; a graph
-    whose plan keeps a hub block (or a forced ``(R, C)`` block) raises
-    ``NotImplementedError``."""
+    (binning.auto_widths).  ``dense``: route the hub-dominated core through
+    the dense hub-block kernels; "auto" plans the block per direction with
+    hub.plan_dense, an ``(R, C)`` tuple forces the top R rows by degree
+    against the top C columns, None disables it."""
     src = np.asarray(src)
     dst = np.asarray(dst)
     if self_loops:
@@ -189,14 +237,6 @@ def build_graph(
     return build_graph_from_csr(row_ptr, col_ind, col_ptr, row_ind, permute,
                                 widths=widths, dense=dense,
                                 edge_tables=edge_tables)
-
-
-def _refuse_hub_block(direction: str):
-    raise NotImplementedError(
-        f"the hub planner keeps a dense hub block in the {direction} "
-        "direction of this graph; its kernels (dense_gat_fwd / "
-        "dense_gat_bwd, dgnn_tpu/ops/pallas_dense.py) are not ported to "
-        "dgnn_tpu_torch yet")
 
 
 def build_graph_from_csr(
@@ -218,24 +258,36 @@ def build_graph_from_csr(
     permute = np.asarray(permute)
     num_nodes = len(row_ptr) - 1
 
-    def _one_dir(direction, rp, ci, eids, opp_deg):
-        if isinstance(dense, tuple):
-            _refuse_hub_block(direction)
+    if not (dense is None or dense == "auto" or isinstance(dense, tuple)):
+        raise ValueError(f"dense must be None, 'auto' or (R, C): {dense!r}")
+
+    def _one_dir(rp, ci, eids, opp_deg):
+        """Plan and split off the dense block, bin the residual."""
+        plan = None
+        sel = None
         if dense == "auto":
-            from . import hub as _hub
-            if _hub.plan_dense(rp, ci, opp_deg) is not None:
-                _refuse_hub_block(direction)
-        elif dense is not None:
-            raise ValueError(f"dense must be None, 'auto' or (R, C): {dense!r}")
+            sel = _hub.plan_dense(rp, ci, opp_deg)
+        elif isinstance(dense, tuple):
+            r, c = dense
+            rows_by = np.argsort(np.diff(rp), kind="stable")[::-1][:r]
+            cols_by = np.argsort(opp_deg, kind="stable")[::-1][:c]
+            sel = (rows_by, cols_by, None)  # keep every tile
+        if sel is not None:
+            rows_sel, cols_sel, keep_tiles = sel
+            if eids is None:
+                eids = np.arange(len(ci), dtype=np.int64)
+            plan, rp, ci, keep = _hub.build_dense_numpy(
+                rp, ci, rows_sel, cols_sel, keep_tiles)
+            eids = eids[keep]
         w = widths if widths is not None else _binning.auto_widths(
             np.diff(rp))
         binned = _binning.bin_csr(rp, ci, edge_ids=eids, widths=w)
-        return from_binned(binned, with_edge=edge_tables)
+        return from_binned(binned, with_edge=edge_tables, dense=plan)
 
     deg_in = np.diff(row_ptr)
     deg_out = np.diff(col_ptr)
-    fwd = _one_dir("forward", row_ptr, col_ind, None, deg_out)
-    bwd = _one_dir("backward", col_ptr, row_ind, permute, deg_in)
+    fwd = _one_dir(row_ptr, col_ind, None, deg_out)
+    bwd = _one_dir(col_ptr, row_ind, permute, deg_in)
     return Graph(
         row_ptr=_t(row_ptr),
         col_ind=_t(col_ind),

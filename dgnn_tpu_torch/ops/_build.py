@@ -1,12 +1,13 @@
 """Build and load the CUDA kernels of csrc/ at first use.
 
-``nvcc`` compiles ``csrc/bin_gat.cu`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, which is loaded with ctypes.  The library
-goes to ``build/dgnn_tpu_torch/<hash>/`` at the root of the checkout (listed
-in .gitignore), keyed by a hash of the sources and the flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is.  ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory, spills per kernel) is kept
-beside the library as ``build.log``.
+``nvcc`` compiles each source of ``csrc/`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into one
+shared library with a plain C interface, which is loaded with ctypes.  The
+library goes to ``build/dgnn_tpu_torch/<hash>/`` at the root of the checkout
+(listed in .gitignore), keyed by a hash of the sources, the headers and the
+flags, so a changed source is rebuilt and an unchanged one is loaded as it
+is.  ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills per
+kernel) is kept beside the library as ``build.log``.
 
 Nothing is built or loaded at import time; a missing ``nvcc`` or a failed
 build raises.
@@ -25,12 +26,13 @@ from pathlib import Path
 __all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bin_gat.cu",)
+_SOURCES = ("bin_gat.cu", "dense_gat.cu")
+_HEADERS = ("gat_common.cuh",)
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dgnn_tpu_torch"
-_LIB_NAME = "libdgnn_bin_gat.so"
+_LIB_NAME = "libdgnn_gat.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -52,7 +54,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -65,15 +67,34 @@ def build() -> Path:
     if so.exists():
         return so
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (so.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode}:\n"
-                           f"{res.stderr[-4000:]}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [so.with_name(f"{Path(s).stem}.{tag}.o") for s in _SOURCES]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)]
+            for s, o in zip(_SOURCES, objs)]
+    tmp = so.with_name(f"{_LIB_NAME}.{tag}")
+    cmds.append([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                 *map(str, objs)])
+    log = []
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds[:-1]]
+    results = [(c, p.communicate()[0], p.returncode)
+               for c, p in zip(cmds, procs)]
+    if all(rc == 0 for _, _, rc in results):
+        res = subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, check=False)
+        results.append((cmds[-1], res.stdout, res.returncode))
+    for cmd, out, _ in results:
+        log.append(" ".join(cmd) + "\n" + out)
+    (so.parent / "build.log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, out, rc) for cmd, out, rc in results if rc != 0]
+    if failed:
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed with code {rc} on "
+                           f"{cmd[-1]}:\n{out[-4000:]}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return so
 
@@ -101,5 +122,23 @@ def load() -> ctypes.CDLL:
             vp, vp,                             # dx dac
             vp]                                 # stream
         lib.dgnn_bin_gat_bwd.restype = ci
+        lib.dgnn_dense_gat_fwd.argtypes = [
+            vp, vp, vp, vp,                     # x ac ar acmax
+            vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
+            ci, ci, ci,                         # R H F
+            cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
+            ci,                                 # bf16
+            vp, vp, vp, vp, vp,                 # m l lpos acc accpos
+            vp]                                 # stream
+        lib.dgnn_dense_gat_fwd.restype = ci
+        lib.dgnn_dense_gat_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp,         # g ar M Linv ws ac x
+            vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
+            ci, ci, ci,                         # R H F
+            cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
+            ci,                                 # bf16
+            vp, vp,                             # dx dac
+            vp]                                 # stream
+        lib.dgnn_dense_gat_bwd.restype = ci
         _lib = lib
         return lib

@@ -21,8 +21,11 @@ The backward saves only M, L, out, out_pos, r (and the inputs) and
 recomputes per-edge attention in pass B.  Attention dropout is re-derived
 from (seed, dst, src, head) by ops/common.pair_keep's hash in both passes.
 
-The per-bin passes are ops/bins.bin_gat_fwd / bin_gat_bwd: CUDA kernels for
-CUDA tensors, their plain versions for CPU tensors.
+The per-bin passes are ops/bins.bin_gat_fwd / bin_gat_bwd, and a graph's
+tile-sparse hub block (graph.structure.DenseBlock) runs through
+ops/dense.dense_gat_fwd / dense_gat_bwd, whose per-row partials are appended
+after the bins' and merged through the same combine tables.  Each is a CUDA
+kernel for CUDA tensors and its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,14 +35,15 @@ import torch
 from ..graph.structure import BinnedAdj, Graph
 from .bins import bin_gat_bwd, bin_gat_fwd
 from .common import combine_lse, combine_sum
+from .dense import DENSE_DTYPES, dense_gat_bwd, dense_gat_fwd
 
 __all__ = ["gat_aggregate"]
 
 
-def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed,
+def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed, dense_dtype,
                  with_pos=True):
-    """Pass A over ``adj``'s bins, merged through its combine table.
-    Returns (out, M, L, out_pos, r); out_pos and r are None unless
+    """Pass A over ``adj``'s bins and hub block, merged through its combine
+    table.  Returns (out, M, L, out_pos, r); out_pos and r are None unless
     ``with_pos``."""
     ms, ls, lps, accs, accps = [], [], [], [], []
     for _width, nbr, _edge, row, count in adj.bins():
@@ -51,6 +55,13 @@ def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed,
         lps.append(lpos)
         accs.append(acc)
         accps.append(accpos)
+    if adj.dense is not None:
+        # the block's partials follow every bin's: m is the rows' score
+        # bound, which the log-sum-exp combine takes like an exact max
+        for lst, x in zip((ms, ls, lps, accs, accps), dense_gat_fwd(
+                adj.dense, ar, ac, feat, slope=slope, with_pos=with_pos,
+                p=p, seed=seed, dense_dtype=dense_dtype)):
+            lst.append(x)
     parts = [torch.cat(ls), torch.cat(accs)]
     if with_pos:
         parts += [torch.cat(lps), torch.cat(accps)]
@@ -67,11 +78,12 @@ class _GATFused(torch.autograd.Function):
     """Pass A forward; closed-form d_ar and pass B backward."""
 
     @staticmethod
-    def forward(ctx, ar, ac, feat, graph, slope, p, seed):
+    def forward(ctx, ar, ac, feat, graph, slope, p, seed, dense_dtype):
         out, M, L, out_pos, r = _gat_forward(graph.fwd, ar, ac, feat, slope,
-                                             p, seed)
+                                             p, seed, dense_dtype)
         ctx.save_for_backward(ar, ac, feat, M, L, out, out_pos, r)
         ctx.graph, ctx.slope, ctx.p, ctx.seed = graph, slope, p, seed
+        ctx.dense_dtype = dense_dtype
         return out
 
     @staticmethod
@@ -93,17 +105,24 @@ class _GATFused(torch.autograd.Function):
                                     count, slope=slope, p=p, seed=seed)
             dx_parts.append(dxp)
             dac_parts.append(dacp)
+        if adj_bwd.dense is not None:
+            # transposed block: rows = sources, cols = destinations
+            dxp, dacp = dense_gat_bwd(adj_bwd.dense, g, ar, M, Linv, ws, ac,
+                                      feat, slope=slope, p=p, seed=seed,
+                                      dense_dtype=ctx.dense_dtype)
+            dx_parts.append(dxp)
+            dac_parts.append(dacp)
         d_feat, d_ac = combine_sum(adj_bwd.cmb, [torch.cat(dx_parts),
                                                  torch.cat(dac_parts)])
         need = ctx.needs_input_grad
         return (d_ar if need[0] else None, d_ac if need[1] else None,
-                d_feat if need[2] else None, None, None, None, None)
+                d_feat if need[2] else None, None, None, None, None, None)
 
 
 def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
                   negative_slope: float = 0.2, attn_drop: float = 0.0,
                   seed: int | None = None, training: bool = False,
-                  gather_dtype=None):
+                  gather_dtype=None, dense_dtype: str = "bfloat16"):
     """Fused GAT neighbourhood aggregation.
 
     out[i, h] = sum_j softmax_j(LeakyReLU(attn_row[i,h] + attn_col[j,h]))
@@ -120,6 +139,9 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
         (the JAX package draws it as ``jax.random.bits(key, uint32)``).
       training: enables dropout.
       gather_dtype: bf16 feature gathers are not ported yet; must be None.
+      dense_dtype: operand precision of the hub block's products:
+        "bfloat16" (the default, as the JAX op) rounds them to bf16 and sums
+        in float32; "float32" is exact.  Unused without a hub block.
     Returns:
       [N, H, F] float32 aggregated features.
 
@@ -129,6 +151,9 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
     if gather_dtype is not None:
         raise NotImplementedError("gather_dtype (bf16 feature gathers) is not "
                                   "ported to dgnn_tpu_torch yet")
+    if dense_dtype not in DENSE_DTYPES:
+        raise ValueError(f"dense_dtype must be one of {DENSE_DTYPES}, got "
+                         f"{dense_dtype!r}")
     if graph.fwd.cmb is None or graph.bwd.cmb is None:
         raise ValueError("gat_aggregate needs the graph's combine tables")
     for name, t in (("attn_row", attn_row), ("attn_col", attn_col),
@@ -147,5 +172,5 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
     if not (torch.is_grad_enabled()
             and (ar.requires_grad or ac.requires_grad or x.requires_grad)):
         return _gat_forward(graph.fwd, ar, ac, x, slope, p, seed,
-                            with_pos=False)[0]
-    return _GATFused.apply(ar, ac, x, graph, slope, p, seed)
+                            dense_dtype, with_pos=False)[0]
+    return _GATFused.apply(ar, ac, x, graph, slope, p, seed, dense_dtype)

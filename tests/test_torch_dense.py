@@ -1,0 +1,384 @@
+"""Dense hub-block path: the port's host build and plain versions against
+the JAX package's (Pallas in interpret mode off-TPU), the op on cora against
+the JAX op, a forced block against the all-binned build, and, on a CUDA
+device, the port's kernels against their plain versions.
+
+JAX is imported inside the JAX tests only, so that the CUDA tests run on a
+machine without JAX:  python -m pytest --noconftest -m cuda
+tests/test_torch_dense.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dgnn_tpu_torch.data import synthetic
+from dgnn_tpu_torch.graph import hub
+from dgnn_tpu_torch.graph.structure import build_graph
+from dgnn_tpu_torch.ops import dense
+from dgnn_tpu_torch.ops.gat import gat_aggregate
+
+SLOPE = 0.2
+SEED = 2 ** 31 + 12345  # a uint32 seed above the int32 range
+FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # as tests/test_torch_gat_op.py
+# One hub-block row sums up to thousands of terms (a bin segment at most
+# 128), and the Pallas reference sums them through XLA's dot, whose order
+# varies from run to run: its float32 l reaches ~1e-5 relative off ours.
+BLOCK_TOL = dict(rtol=1e-4, atol=1e-5)
+# bf16 mode on both sides rounds the same operands the same way, so nearly
+# every element agrees to float32 summation order (BF16_TOL).  But XLA's and
+# torch's exp, and the two packages' merges of M and L, may differ by an
+# ulp, which can move a weight across a bf16 rounding boundary and change
+# that one term by 2^-8 of itself (up to ~1e-2 for unit-scale data).  So at
+# most BF16_FLIPS of the elements may leave BF16_TOL, and none may leave
+# BF16_BOUND, the bf16-vs-float32 tolerance of tests/test_dense_block.py.
+BF16_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_FLIPS = 1e-3
+BF16_BOUND = dict(rtol=2e-2, atol=2e-2)
+# Multi-tile forced block: 2 row chunks x 2 column tiles, with padded rows
+# (300 of 512 real) and padded columns (2100 of 4096 real).
+MULTI = dict(n=2400, r=300, c=2100)
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _assert_close(got, want, dense_dtype, tol, err_msg=""):
+    """float32: every element within ``tol``; bfloat16: see BF16_TOL."""
+    got, want = np.asarray(got), np.asarray(want)
+    if dense_dtype == "float32":
+        np.testing.assert_allclose(got, want, err_msg=err_msg, **tol)
+        return
+    np.testing.assert_allclose(got, want, err_msg=err_msg, **BF16_BOUND)
+    off = ~np.isclose(got, want, **BF16_TOL)
+    assert off.mean() <= BF16_FLIPS, (err_msg, int(off.sum()), off.size)
+
+
+def _edges(rng, n, avg_degree, power_law=True):
+    """Deduplicated random COO edges with Zipf-skewed destinations."""
+    e = int(n * avg_degree)
+    src = rng.integers(0, n, e)
+    dst = (np.minimum(rng.zipf(1.6, e) - 1, n - 1) if power_law
+           else rng.integers(0, n, e))
+    uniq = np.unique(np.stack([src, dst], 1), axis=0)
+    return uniq[:, 0], uniq[:, 1]
+
+
+def _tables(rng, n, h, f):
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    return dict(ar=t(n, h), ac=t(n, h), feat=t(n, h, f), g=t(n, h, f),
+                ws=t(n, h), M=t(n, h) + 2.0,
+                Linv=torch.from_numpy(
+                    rng.uniform(0.1, 1.0, (n, h)).astype(np.float32)))
+
+
+def _multi_graph(rng):
+    src, dst = _edges(rng, MULTI["n"], 4)
+    return src, dst, build_graph(src, dst, MULTI["n"],
+                                 dense=(MULTI["r"], MULTI["c"]))
+
+
+# ---------------------------------------------------------------------------
+# (a), (b): mask packing and the block build, array for array
+# ---------------------------------------------------------------------------
+
+
+def test_pack_and_unpack_mask_match_jax(rng):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.graph import hub as jhub
+    from dgnn_tpu.ops.pallas_dense import unpack_mask as jax_unpack
+
+    mask01 = rng.random((8, 2 * hub.DENSE_CT)) < 0.1
+    bits = hub.pack_mask_bits(mask01)
+    np.testing.assert_array_equal(bits, jhub.pack_mask_bits(mask01))
+    cb = hub.DENSE_CT // 8
+    for t in range(2):
+        tile = bits[:, t * cb:(t + 1) * cb]
+        got = dense.unpack_mask(torch.from_numpy(tile)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax_unpack(
+            jnp.asarray(tile))))
+        np.testing.assert_array_equal(
+            got, mask01[:, t * hub.DENSE_CT:(t + 1) * hub.DENSE_CT])
+
+
+@pytest.mark.parametrize("n,r,c", [(300, 40, 100),
+                                   (MULTI["n"], MULTI["r"], MULTI["c"])])
+def test_build_dense_numpy_matches_jax(rng, n, r, c):
+    from dgnn_tpu.graph import hub as jhub
+    from dgnn_tpu_torch.graph import build as tbuild
+
+    src, dst = _edges(rng, n, 4)
+    rp, ci = tbuild.coo_to_csr(src, dst, n)
+    cp, _, _ = tbuild.csr_to_csc_permute(rp, ci)
+    rows = np.argsort(np.diff(rp), kind="stable")[::-1][:r]
+    cols = np.argsort(np.diff(cp), kind="stable")[::-1][:c]
+    ours = hub.build_dense_numpy(rp, ci, rows, cols)
+    theirs = jhub.build_dense_numpy(rp, ci, rows, cols)
+    for key in ("row_ids", "col_ids", "mask", "rc", "ct", "first"):
+        np.testing.assert_array_equal(getattr(ours[0], key),
+                                      getattr(theirs[0], key), err_msg=key)
+    assert ours[0].num_rows == theirs[0].num_rows == min(r, n)
+    for x, y in zip(ours[1:], theirs[1:]):
+        np.testing.assert_array_equal(x, y)
+    if n > hub.DENSE_CT:
+        assert len(ours[0].rc) == 4 and ours[0].first.tolist() == [1, 0, 1, 0]
+
+
+# ---------------------------------------------------------------------------
+# (c): plain versions against the Pallas kernels, multi-tile block
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def multi_pair():
+    """The multi-tile forced block built by both packages, and tables."""
+    from dgnn_tpu.graph.structure import build_graph as jax_build_graph
+
+    rng = np.random.default_rng(1)
+    src, dst, tg = _multi_graph(rng)
+    jg = jax_build_graph(src, dst, MULTI["n"],
+                         dense=(MULTI["r"], MULTI["c"]))
+    return jg, tg, _tables(rng, MULTI["n"], 2, 5)
+
+
+def _jax_dt(dense_dtype):
+    import jax.numpy as jnp
+
+    return jnp.float32 if dense_dtype == "float32" else jnp.bfloat16
+
+
+@pytest.mark.parametrize("with_pos", [True, False])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_fwd_plain_matches_jax_kernel(multi_pair, with_pos, p, dense_dtype):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_dense import dense_gat_fwd as jax_fwd
+
+    jg, tg, tb = multi_pair
+    db = jg.fwd.dense
+    n, h, f = tb["feat"].shape
+    drop = (p, jnp.uint32(SEED), db.row_ids, db.col_ids) if p > 0 else None
+    want = jax_fwd(db, jnp.asarray(tb["ar"].numpy())[db.row_ids],
+                   jnp.asarray(tb["ac"].numpy())[db.col_ids],
+                   jnp.asarray(tb["feat"].numpy().reshape(n, -1))[db.col_ids],
+                   slope=SLOPE, with_pos=with_pos,
+                   mat_dtype=_jax_dt(dense_dtype), drop=drop, interpret=True)
+    args = (tg.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
+    kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED,
+              dense_dtype=dense_dtype)
+    got = dense.dense_gat_fwd_plain(*args, **kw)
+    via_wrapper = dense.dense_gat_fwd(*args, **kw)  # CPU: the plain version
+    for name, w, g, v in zip(("m", "l", "lpos", "acc", "accpos"), want, got,
+                             via_wrapper):
+        if w is None:
+            assert g is None and v is None, name
+            continue
+        g = g.reshape(g.shape[0], -1).numpy()
+        _assert_close(g, w, dense_dtype, BLOCK_TOL, name)
+        np.testing.assert_array_equal(v.reshape(v.shape[0], -1).numpy(), g)
+    # padded rows are finite
+    assert all(torch.isfinite(x).all() for x in got if x is not None)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_bwd_plain_matches_jax_kernel(multi_pair, p, dense_dtype):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_dense import dense_gat_bwd as jax_bwd
+
+    jg, tg, tb = multi_pair
+    db = jg.bwd.dense
+    n, h, f = tb["feat"].shape
+    cid = np.asarray(db.col_ids)
+    st = np.concatenate([tb[k].numpy() for k in ("ar", "M", "Linv", "ws")],
+                        axis=1)[cid]
+    drop = (p, jnp.uint32(SEED), db.row_ids, db.col_ids) if p > 0 else None
+    want = jax_bwd(db, jnp.asarray(tb["ac"].numpy())[db.row_ids],
+                   jnp.asarray(tb["feat"].numpy().reshape(n, -1))[db.row_ids],
+                   jnp.asarray(tb["g"].numpy().reshape(n, -1)[cid]),
+                   jnp.asarray(st), slope=SLOPE, H=h,
+                   mat_dtype=_jax_dt(dense_dtype), drop=drop, interpret=True)
+    got = dense.dense_gat_bwd(
+        tg.bwd.dense, *(tb[k] for k in ("g", "ar", "M", "Linv", "ws", "ac",
+                                        "feat")),
+        slope=SLOPE, p=p, seed=SEED, dense_dtype=dense_dtype)
+    for name, g, w in zip(("dx", "dac"), got, want):
+        _assert_close(g.reshape(g.shape[0], -1).numpy(), w, dense_dtype,
+                      BLOCK_TOL, name)
+
+
+# ---------------------------------------------------------------------------
+# (d): gat_aggregate on cora against the JAX op
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cora_pair():
+    from dgnn_tpu.graph.structure import build_graph as jax_build_graph
+
+    d = synthetic.synthetic_citation("cora")
+    tg = build_graph(d.src, d.dst, d.num_nodes, dense="auto")
+    jg = jax_build_graph(d.src, d.dst, d.num_nodes, dense="auto")
+    assert tg.fwd.dense is not None and tg.bwd.dense is not None
+    return jg, tg, d.num_nodes
+
+
+@pytest.mark.parametrize("h,f,dense_dtype,p", [
+    (2, 8, "float32", 0.0),
+    (2, 8, "float32", 0.3),
+    (4, 64, "bfloat16", 0.3),   # the bench width, the model's default dtype
+])
+def test_cora_op_matches_jax(cora_pair, h, f, dense_dtype, p):
+    import jax
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.gat import gat_aggregate as jax_gat
+
+    jg, tg, n = cora_pair
+    rng = np.random.default_rng(h * 100 + f)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((n, h), (n, h), (n, h, f))]
+    ct = rng.normal(size=(n, h, f)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    seed = int(jax.random.bits(key, dtype=jnp.uint32))
+
+    @jax.jit
+    def out_and_grads(g, ar, ac, feat, ct):
+        out, vjp = jax.vjp(
+            lambda *a: jax_gat(g, *a, attn_drop=p, key=key, training=True,
+                               dense_dtype=dense_dtype), ar, ac, feat)
+        return out, vjp(ct)
+
+    out_j, grads_j = out_and_grads(jg, *map(jnp.asarray, arrs),
+                                   jnp.asarray(ct))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    out_t = gat_aggregate(tg, *ts, attn_drop=p, seed=seed, training=True,
+                          dense_dtype=dense_dtype)
+    out_t.backward(torch.from_numpy(ct))
+    _assert_close(out_t.detach().numpy(), out_j, dense_dtype, FWD_TOL, "out")
+    for name, t, gj in zip(("ar", "ac", "feat"), ts, grads_j):
+        _assert_close(t.grad.numpy(), gj, dense_dtype, GRAD_TOL, name)
+
+
+def test_cora_inference_matches_jax(cora_pair):
+    """No input needs a gradient: the primal-only path (no sign-split) at
+    the default bf16."""
+    import jax
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.gat import gat_aggregate as jax_gat
+
+    jg, tg, n = cora_pair
+    rng = np.random.default_rng(5)
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((n, 1), (n, 1), (n, 1, 7))]
+    out_j = jax.jit(jax_gat)(jg, *map(jnp.asarray, arrs))
+    out_t = gat_aggregate(tg, *map(torch.from_numpy, arrs))
+    _assert_close(out_t.numpy(), out_j, "bfloat16", FWD_TOL, "out")
+
+
+# ---------------------------------------------------------------------------
+# (e): a forced block against the all-binned build, in the port alone
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+def test_forced_block_matches_binned(rng, p):
+    src, dst, g_dense = _multi_graph(rng)
+    g_plain = build_graph(src, dst, MULTI["n"])
+    assert g_dense.fwd.dense is not None and g_plain.fwd.dense is None
+    assert g_dense.fwd.num_edges < g_plain.fwd.num_edges
+    tb = _tables(rng, MULTI["n"], 2, 4)
+    res = []
+    for g in (g_dense, g_plain):
+        ins = [tb[k].clone().requires_grad_(True)
+               for k in ("ar", "ac", "feat")]
+        out = gat_aggregate(g, *ins, attn_drop=p, seed=SEED, training=True,
+                            dense_dtype="float32")
+        torch.sin(out).sum().backward()
+        res.append([out.detach()] + [t.grad for t in ins])
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=1e-4, atol=1e-5)
+    for a, b in zip(res[0][1:], res[1][1:]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=1e-4)
+
+
+def test_refusals(rng):
+    _, _, g = _multi_graph(rng)
+    tb = _tables(rng, MULTI["n"], 2, 4)
+    with pytest.raises(ValueError, match="dense_dtype"):
+        gat_aggregate(g, tb["ar"], tb["ac"], tb["feat"], dense_dtype="fp16")
+    with pytest.raises(ValueError, match="devices"):
+        dense.dense_gat_fwd(g.fwd.dense, tb["ar"].to("meta"), tb["ac"],
+                            tb["feat"], slope=SLOPE, with_pos=True)
+
+
+# ---------------------------------------------------------------------------
+# (f): the CUDA kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(4, 64), (1, 7), (3, 5)])
+def test_cuda_kernels_match_plain(rng, cuda_device, dense_dtype, p, h, f):
+    _, _, g = _multi_graph(rng)
+    g = g.to(cuda_device)
+    tb = {k: v.to(cuda_device) for k, v in
+          _tables(rng, MULTI["n"], h, f).items()}
+    tb["g"] = tb["g"] / 16  # see chip_smoke.py G_SCALE
+    for with_pos in (True, False):
+        args = (g.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
+        kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED,
+                  dense_dtype=dense_dtype)
+        before = dense.LAUNCHES["dense_gat_fwd"]
+        got = dense.dense_gat_fwd(*args, **kw)
+        assert dense.LAUNCHES["dense_gat_fwd"] == before + 1
+        want = dense.dense_gat_fwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for x, w in zip(got, want):
+            if w is None:
+                assert x is None
+            else:
+                torch.testing.assert_close(x, w, **BLOCK_TOL)
+    args = (g.bwd.dense, *(tb[k] for k in ("g", "ar", "M", "Linv", "ws",
+                                           "ac", "feat")))
+    kw = dict(slope=SLOPE, p=p, seed=SEED, dense_dtype=dense_dtype)
+    before = dense.LAUNCHES["dense_gat_bwd"]
+    got = dense.dense_gat_bwd(*args, **kw)
+    assert dense.LAUNCHES["dense_gat_bwd"] == before + 1
+    want = dense.dense_gat_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, **BLOCK_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
+    _, _, g = _multi_graph(rng)
+    g = g.to(cuda_device)
+    tb = {k: v.to(cuda_device) for k, v in
+          _tables(rng, MULTI["n"], 2, 4).items()}
+    with pytest.raises(TypeError, match="float32"):
+        dense.dense_gat_fwd(g.fwd.dense, tb["ar"],
+                            tb["ac"].to(torch.bfloat16), tb["feat"],
+                            slope=SLOPE, with_pos=True)
+    wide = torch.zeros((MULTI["n"], 2, 600), device=cuda_device)
+    with pytest.raises(ValueError, match="feature columns"):
+        dense.dense_gat_fwd(g.fwd.dense, tb["ar"], tb["ac"], wide,
+                            slope=SLOPE, with_pos=True)

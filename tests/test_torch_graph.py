@@ -1,5 +1,5 @@
 """The port's host layer against the JAX package's: synthetic data, degree
-bins, combine tables and hub planning must be identical."""
+bins, combine tables, hub planning and the hub block must be identical."""
 
 import numpy as np
 import pytest
@@ -51,6 +51,19 @@ def _assert_adj_equal(t, j):
         assert t.epos is None
     else:
         np.testing.assert_array_equal(t.epos.numpy(), np.asarray(j.epos))
+    if j.dense is None:
+        assert t.dense is None
+        return
+    for key in ("row_ids", "col_ids", "mask", "rc", "ct", "first"):
+        tv = getattr(t.dense, key)
+        assert tv.dtype == (torch.uint8 if key == "mask" else torch.int32)
+        np.testing.assert_array_equal(tv.numpy(),
+                                      np.asarray(getattr(j.dense, key)),
+                                      err_msg=f"dense.{key}")
+    assert t.dense.num_rows == j.dense.num_rows
+    starts = np.flatnonzero(t.dense.first.numpy())
+    np.testing.assert_array_equal(t.dense.chunk_ptr.numpy(),
+                                  np.append(starts, len(t.dense.first)))
 
 
 @pytest.mark.parametrize("power_law,widths,self_loops", [
@@ -95,7 +108,11 @@ def test_pubmed_plan_and_layout_identical():
     assert t.fwd.cmb.ov_rows.shape[0] > 0 and t.bwd.cmb.ov_rows.shape[0] > 0
 
 
-def test_cora_hub_block_refused():
+@pytest.mark.parametrize("dense", ["auto", (256, 2048)])
+def test_cora_hub_block_refused(dense):
+    """Cora's hub block (the name dates from when the port refused it) is
+    planned and built as the JAX package builds it, in both directions:
+    the dense block, the residual bins and the combine tables."""
     d = synthetic.synthetic_citation("cora")
     rp, ci = tbuild.coo_to_csr(*tbuild.add_self_loops(
         *tbuild.remove_self_loops(d.src, d.dst), d.num_nodes), d.num_nodes)
@@ -105,10 +122,13 @@ def test_cora_hub_block_refused():
     assert ours is not None and theirs is not None
     for x, y in zip(ours, theirs):
         np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="dense_gat_fwd"):
-        structure.build_graph(d.src, d.dst, d.num_nodes, dense="auto")
-    with pytest.raises(NotImplementedError, match="dense_gat_bwd"):
-        structure.build_graph(d.src, d.dst, d.num_nodes, dense=(256, 2048))
+    t = structure.build_graph(d.src, d.dst, d.num_nodes, dense=dense)
+    j = jstructure.build_graph(d.src, d.dst, d.num_nodes, dense=dense)
+    for adj_t, adj_j in ((t.fwd, j.fwd), (t.bwd, j.bwd)):
+        assert adj_t.dense is not None
+        _assert_adj_equal(adj_t, adj_j)
+    # the block's rows are valid entries of the combine table
+    assert t.fwd.cmb.main.max() >= sum(x.shape[0] for x in t.fwd.nbr)
 
 
 def test_graph_to_moves_every_table(rng):

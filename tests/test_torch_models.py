@@ -31,13 +31,13 @@ def _trainer():
     return mod
 
 
-def _problem(rng, n=80, in_feats=16, n_classes=3):
-    src, dst = random_graph(rng, n, 4)
+def _problem(rng, n=80, in_feats=16, n_classes=3, dense=None):
+    src, dst = random_graph(rng, n, 4, power_law=dense is not None)
     feat = rng.normal(size=(n, in_feats)).astype(np.float32)
     labels = rng.integers(0, n_classes, n).astype(np.int32)
     train_mask = rng.random(n) < 0.5
-    return (jax_build_graph(src, dst, n), build_graph(src, dst, n), feat,
-            labels, train_mask)
+    return (jax_build_graph(src, dst, n, dense=dense),
+            build_graph(src, dst, n, dense=dense), feat, labels, train_mask)
 
 
 def _models(jg, feat, attn_drop, n_classes=3):
@@ -86,6 +86,33 @@ def test_converted_logits_equal_with_attention_dropout(rng, monkeypatch):
     assert not np.allclose(got.numpy(), no_drop.numpy())
 
 
+@pytest.mark.parametrize("training", [False, True])
+def test_converted_logits_equal_on_hub_graph(rng, monkeypatch, training):
+    """A forced hub block at the model's default dense_dtype (bfloat16), in
+    eval and with attention dropout 0.3.  Both sides round the same
+    operands to bf16; the tolerance allows float32 summation order only."""
+    jg, tg, feat, _, _ = _problem(rng, n=200, dense=(64, 150))
+    assert tg.fwd.dense is not None and tg.bwd.dense is not None
+    jm, params, tm = _models(jg, feat, attn_drop=0.3)
+    seeds = []
+    orig = jax_gat_module.gat_aggregate
+
+    def recording(graph, ar, ac, x, **kw):
+        assert "dense_dtype" not in kw  # the flax model takes the default
+        if training:
+            seeds.append(int(jax.random.bits(kw["key"], dtype=jnp.uint32)))
+        return orig(graph, ar, ac, x, **kw)
+
+    monkeypatch.setattr(jax_gat_module, "gat_aggregate", recording)
+    want = jm.apply(params, jg, jnp.asarray(feat), training=training,
+                    rngs={"dropout": jax.random.PRNGKey(5)})
+    tm.train(training)
+    with torch.no_grad():
+        got = tm(tg, torch.from_numpy(feat),
+                 attn_seeds=seeds if training else None)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+
+
 def test_init_std_follows_flax_fan_avg():
     tm = GAT(500, 1, 64, 3, (4, 1), generator=torch.Generator().manual_seed(0))
     conv = tm.convs["gat_0"]
@@ -131,11 +158,17 @@ def test_trainers_agree_for_five_adam_steps(rng):
                                    err_msg=f"step {step}")
 
 
-def test_trainer_cli_refusals():
+def test_trainer_cli_refusals(capsys):
+    """The naive baseline is refused; cora (a hub block in both directions,
+    the CLI's default dataset) trains on the CPU's plain versions."""
     trainer = _trainer()
-    args = trainer.parser().parse_args(["--device", "cpu", "--n-epochs", "5"])
-    with pytest.raises(NotImplementedError, match="dense_gat"):
-        trainer.run(args)  # cora keeps a hub block
+    args = trainer.parser().parse_args(["--device", "cpu", "--n-epochs", "5",
+                                        "--attn-drop", "0.3"])
+    r = trainer.run(args)
+    assert r["graph"].fwd.dense is not None
+    assert r["graph"].bwd.dense is not None
+    assert len(r["losses"]) == 5 and np.isfinite(r["losses"]).all()
+    assert "Test Accuracy" in capsys.readouterr().out
     args = trainer.parser().parse_args(["--device", "cpu", "--impl", "naive"])
     with pytest.raises(NotImplementedError, match="naive"):
         trainer.run(args)
