@@ -24,24 +24,46 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                bfloat16 (BLOCK_TOL; bf16 also BF16_FLIPS).  Each kernel is
                held against its plain PyTorch version on the card.  One
                flipped dropout bit would give an O(1) difference, so this
-               also holds the dropout hash.
+               also holds the dropout hash.  The bins that these three
+               graphs keep beside their blocks go through the bin kernels
+               too, at the same shapes.
+               MoNet kernels, the same graphs: the bin kernels at (K, F) =
+               (3, 64) and (3, 3), the dense kernels at (3, 64) and (3, 7)
+               in both dense dtypes, D = 2, tanh on and off (same
+               tolerances; the backward's stat rows are held per segment
+               and per block row to BWD_TOL / BLOCK_TOL), and the bin
+               kernels on the hub graphs' bins at (3, 64) and (3, 7).
   4. op      - gat_aggregate forward and (ar, ac, feat) gradients on the
                card against the same op on CPU copies (the plain path):
                pubmed at p 0 and 0.3; cora (hub block) at p 0 and 0.3 in
-               both dense dtypes.
-  5. train   - the trainer (scripts/train_gat_torch.py) at the bench width:
-               heads (4, 1), hidden 64, feat_drop 0.5, attn_drop 0.3, Adam
-               lr 1e-3, weight decay 5e-4, 20 steps and an eval, on cora
-               (all four kernels) and on pubmed (the bin kernels).  The loss
-               must be finite and fall; the launch counts must be exactly
-               what the steps, evals, layers, bins and hub blocks imply; the
+               both dense dtypes.  gmm_aggregate_node forward and the
+               gradients of feat, proj_weight, proj_bias, mu and inv_sigma
+               the same way: pubmed; cora in both dense dtypes.  The
+               parameter gradients are sums of signed terms over every
+               edge, so they get PARAM_TOL, scaled to the edge count.
+  5. train   - the trainers at the bench widths, 20 steps and an eval each,
+               on cora (bin and dense kernels) and on pubmed (bin kernels):
+               scripts/train_gat_torch.py with heads (4, 1), hidden 64,
+               feat_drop 0.5, attn_drop 0.3, Adam lr 1e-3, weight decay
+               5e-4; scripts/train_gmm_torch.py with hidden 64, 3 kernels,
+               pseudo dim 2, dropout 0.5, Adam lr 1e-2, weight decay 5e-4.
+               The loss must be finite and fall; the launch counts must be
+               exactly what the steps, evals, layers, bins and hub blocks
+               imply, and the other model's kernels must not launch; the
                trained model's logits on the card must match a CPU copy's;
                test accuracy must clear a margin above chance.
   6. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
-               kernels over cora's hub block at (4, 64), p 0.3, bf16.  Then
-               one gat_aggregate forward + backward on cora with its hub
-               block against the all-binned build of the same graph.
+               kernels over cora's hub block, at the hidden layer's width
+               ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16.  Then one
+               gat_aggregate and one gmm_aggregate_node forward + backward
+               on cora with its hub block against the all-binned build of
+               the same graph, and a 1 GiB device-to-device copy.  Each
+               kernel's bound is the larger of its bytes (every input
+               tensor read once, of a hub block's node tables the rows its
+               ids name, every output written once) over 3.35 TB/s
+               and its operations (FLOPS_PER_EDGE) over 67 TFLOP/s float32,
+               the H100's published peaks.
 
 The last lines are a JSON object with every kernel, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -90,6 +112,18 @@ CORA_MIN_ACC = 0.4  # 7 classes: chance is 1/7; 20 CPU steps reach 0.72
 # and a wrong slot, weight or dropout bit still moves the result by far
 # more than the tolerance.
 G_SCALE = 1.0 / 16
+GMM_SHAPES = ((3, 64), (3, 3))  # (K, F) of pubmed's hidden and output layers
+GMM_DENSE_SHAPES = ((3, 64), (3, 7))  # (K, F) of cora's layers
+GMM_D = 2  # projected pseudo dimensions; Ds = Dd = 1 as the trainer's
+# MoNet's parameter gradients (mu, inv_sigma, the pseudo projection) are
+# sums over every edge of signed terms of about unit size, taken in another
+# order on the card than on the CPU: float32's 2^-23 per summed term is the
+# floor, so the absolute tolerance grows with the edge count.
+PARAM_TOL = dict(rtol=1e-4, atol_per_edge=2.0 ** -23)
+# The H100's published peaks (SXM): HBM3 bytes/s, float32 FLOP/s outside the
+# tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS_F32 = 67e12
 KERNELS = {
     "bin_gat_fwd": dict(route="cuda", source="dgnn_tpu_torch/csrc/bin_gat.cu",
                         replaces="dgnn_tpu/ops/pallas_bins.py:225"),
@@ -101,7 +135,33 @@ KERNELS = {
     "dense_gat_bwd": dict(route="cuda",
                           source="dgnn_tpu_torch/csrc/dense_gat.cu",
                           replaces="dgnn_tpu/ops/pallas_dense.py:430"),
+    "bin_gmm_node_fwd": dict(route="cuda",
+                             source="dgnn_tpu_torch/csrc/bin_gmm.cu",
+                             replaces="dgnn_tpu/ops/pallas_bins.py:453"),
+    "bin_gmm_node_bwd": dict(route="cuda",
+                             source="dgnn_tpu_torch/csrc/bin_gmm.cu",
+                             replaces="dgnn_tpu/ops/pallas_bins.py:554"),
+    "dense_gmm_fwd": dict(route="cuda",
+                          source="dgnn_tpu_torch/csrc/dense_gmm.cu",
+                          replaces="dgnn_tpu/ops/pallas_dense.py:539"),
+    "dense_gmm_bwd": dict(route="cuda",
+                          source="dgnn_tpu_torch/csrc/dense_gmm.cu",
+                          replaces="dgnn_tpu/ops/pallas_dense.py:648"),
 }
+# Float32 operations per edge that each function needs, by (C, G) = (feature
+# columns, heads or Gaussian kernels): a multiply-add per column and
+# weighted sum, plus the edge's score or Gaussian weights (a dozen
+# operations per head or kernel).  The backward adds the <x, g> products.
+FLOPS_PER_EDGE = {
+    "bin_gat_fwd": lambda C, G: 4 * C + 12 * G,    # acc and accpos
+    "bin_gat_bwd": lambda C, G: 4 * C + 14 * G,    # dx and <x, g>
+    "bin_gmm_node_fwd": lambda C, G: 2 * C + 12 * G,
+    "bin_gmm_node_bwd": lambda C, G: 4 * C + 30 * G,
+}
+for _k in ("gat_fwd", "gat_bwd"):
+    FLOPS_PER_EDGE["dense_" + _k] = FLOPS_PER_EDGE["bin_" + _k]
+for _k in ("fwd", "bwd"):
+    FLOPS_PER_EDGE["dense_gmm_" + _k] = FLOPS_PER_EDGE["bin_gmm_node_" + _k]
 
 
 def phase(name, msg):
@@ -222,12 +282,134 @@ def check_dense(dense, graph, tb, err):
     return n_cmp, n_off
 
 
+def gmm_tables(n, k, f, rng, dev):
+    """Node tables and parameters of one MoNet pass at (K, F), made with
+    numpy: features, the output gradient (at G_SCALE), both halves of the
+    projected pseudo-coordinate, the raw pseudo scalars, and the kernels'
+    means and inverse widths."""
+    def t(*shape, scale=1.0):
+        a = (rng.normal(size=shape) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(dev)
+
+    return dict(feat=t(n, k, f), g=t(n, k, f, scale=G_SCALE),
+                alpha=t(n, GMM_D), beta=t(n, GMM_D), sfeat=t(n, 1),
+                dfeat=t(n, 1), mu=t(k, GMM_D), isig=torch.from_numpy(
+                    (rng.random((k, GMM_D)) + 0.5).astype(np.float32)).to(dev))
+
+
+def gmm_bin_args(tb, nbr, row, count):
+    """(forward, backward) argument tuples of one bin."""
+    seg = (nbr, row, count, tb["mu"], tb["isig"])
+    return ((tb["feat"], tb["alpha"], tb["beta"], *seg),
+            (tb["g"], tb["beta"], tb["dfeat"], tb["alpha"], tb["feat"],
+             tb["sfeat"], *seg))
+
+
+def gmm_dense_args(graph, tb):
+    """(forward, backward) argument tuples of one graph's hub blocks."""
+    par = (tb["mu"], tb["isig"])
+    return ((graph.fwd.dense, tb["beta"], tb["alpha"], tb["feat"], *par),
+            (graph.bwd.dense, tb["g"], tb["beta"], tb["dfeat"], tb["alpha"],
+             tb["feat"], *par))
+
+
+def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err):
+    """Every bin of one graph, MoNet kernels against their plain versions,
+    tanh on and off; returns comparisons."""
+    n_cmp = 0
+    for use_tanh in (True, False):
+        for _w, nbr, _e, row, count in adj_fwd.bins():
+            args = gmm_bin_args(tb, nbr, row, count)[0]
+            got = bins.bin_gmm_node_fwd(*args, use_tanh=use_tanh)
+            want = bins.bin_gmm_node_fwd_plain(*args, use_tanh=use_tanh)
+            torch.testing.assert_close(got, want, **FWD_TOL)
+            err["bin_gmm_node_fwd"] = max(err["bin_gmm_node_fwd"],
+                                          float((got - want).abs().max()))
+            n_cmp += 1
+        for _w, nbr, _e, row, count in adj_bwd.bins():
+            args = gmm_bin_args(tb, nbr, row, count)[1]
+            got = bins.bin_gmm_node_bwd(*args, use_tanh=use_tanh)
+            want = bins.bin_gmm_node_bwd_plain(*args, use_tanh=use_tanh)
+            for name, g, w in zip(("dx", "stat rows"), got, want):
+                torch.testing.assert_close(
+                    g, w, **BWD_TOL,
+                    msg=lambda m: f"bin_gmm_node_bwd {name}: {m}")
+                err["bin_gmm_node_bwd"] = max(err["bin_gmm_node_bwd"],
+                                              float((g - w).abs().max()))
+            n_cmp += 1
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def check_gmm_dense(dense, graph, tb, err):
+    """Both dense MoNet kernels against their plain versions on one graph's
+    hub blocks; returns (comparisons, elements outside the float32
+    tolerance)."""
+    n_cmp = n_off = 0
+    fwd_args, bwd_args = gmm_dense_args(graph, tb)
+    for dt in DENSE_DTYPES:
+        for use_tanh in (True, False):
+            kw = dict(use_tanh=use_tanh, dense_dtype=dt)
+            got = dense.dense_gmm_fwd(*fwd_args, **kw)
+            want = dense.dense_gmm_fwd_plain(*fwd_args, **kw)
+            e, off = assert_close(got, want, BLOCK_TOL, dt,
+                                  f"dense_gmm_fwd acc {dt} tanh={use_tanh}: ")
+            err["dense_gmm_fwd"] = max(err["dense_gmm_fwd"], e)
+            n_off += off
+            got = dense.dense_gmm_bwd(*bwd_args, **kw)
+            want = dense.dense_gmm_bwd_plain(*bwd_args, **kw)
+            for name, g, w in zip(("dx", "stat rows"), got, want):
+                e, off = assert_close(
+                    g, w, BLOCK_TOL, dt,
+                    f"dense_gmm_bwd {name} {dt} tanh={use_tanh}: ")
+                err["dense_gmm_bwd"] = max(err["dense_gmm_bwd"], e)
+                n_off += off
+            n_cmp += 2
+    torch.cuda.synchronize()
+    return n_cmp, n_off
+
+
 def block_stats(adj):
     """Tiles, padded rows x columns and edges of one direction's block."""
     db = adj.dense
-    edges = int(np.unpackbits(db.mask.cpu().numpy()).sum())
     return (f"T={db.mask.shape[0]} {db.row_ids.shape[0]}x"
-            f"{db.col_ids.shape[0]} {edges} edges")
+            f"{db.col_ids.shape[0]} {block_edges(db)} edges")
+
+
+def block_edges(db):
+    return int(np.unpackbits(db.mask.cpu().numpy()).sum())
+
+
+def bound(name, inputs, outputs, edges, columns, groups):
+    """(bound_ms, bound_by) of one timed function on this run's inputs: the
+    larger of its bytes (each distinct input tensor read once, each output
+    written once) over the card's memory rate and its float32 operations
+    over the card's peak rate.  An input given as (table, rows) counts only
+    that many of the table's rows: a hub block reads the rows its row_ids
+    or col_ids name, not the whole node table."""
+    seen = {}
+    for t in list(inputs) + list(outputs):
+        rows = None
+        if isinstance(t, tuple):
+            t, rows = t
+        if isinstance(t, torch.Tensor):
+            nbytes = t.numel() * t.element_size()
+            if rows is not None:
+                nbytes = nbytes // t.shape[0] * rows
+            seen[t.data_ptr()] = nbytes
+    by_bytes = sum(seen.values()) / PEAK_BYTES_S
+    by_ops = edges * FLOPS_PER_EDGE[name](columns, groups) / PEAK_FLOPS_F32
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def flat(results):
+    """The tensors of a list of wrapper results (tuples with Nones)."""
+    out = []
+    for r in results:
+        out += [t for t in (r if isinstance(r, tuple) else (r,))
+                if t is not None]
+    return out
 
 
 def power_law_graph(structure, rng, n=4000):
@@ -248,15 +430,32 @@ def time_pair(fn_kernel, fn_plain, time_calls, dev):
     return min(t[1], t[2]) * 1e3, min(t[0], t[3]) * 1e3
 
 
-def run_trainer(trainer, dataset):
-    """20 steps at the bench width through the trainer's entry point, with
-    every launch count set to 0 just before and read just after."""
+# wrapper names per trainer: bin forward, bin backward, dense forward, dense
+# backward
+PATH_KERNELS = {
+    "gat": ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd"),
+    "gmm": ("bin_gmm_node_fwd", "bin_gmm_node_bwd", "dense_gmm_fwd",
+            "dense_gmm_bwd"),
+}
+
+
+def load_script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_trainer(trainer, model_kind, dataset):
+    """20 steps at the bench width (the trainer's BENCH_ARGV) through its
+    entry point, with every launch count set to 0 just before and read just
+    after."""
     from dgnn_tpu_torch.ops import bins, dense
 
     args = trainer.parser().parse_args(
-        ["--dataset", dataset, "--n-heads", "4", "--n-hidden", "64",
-         "--dropout", "0.5", "--attn-drop", "0.3", "--lr", "1e-3",
-         "--weight-decay", "5e-4", "--n-epochs", "20", "--device", "cuda"])
+        ["--dataset", dataset, *trainer.BENCH_ARGV, "--n-epochs", "20",
+         "--device", "cuda"])
     bins.reset_launches()
     dense.reset_launches()
     r = trainer.run(args)
@@ -267,14 +466,18 @@ def run_trainer(trainer, dataset):
     g = r["graph"]
     fwd_calls = (r["train_steps"] + r["infer_calls"]) * len(r["model"].convs)
     bwd_calls = r["train_steps"] * len(r["model"].convs)
-    want = {"bin_gat_fwd": fwd_calls * g.fwd.num_bins,
-            "bin_gat_bwd": bwd_calls * g.bwd.num_bins,
-            "dense_gat_fwd": fwd_calls * (g.fwd.dense is not None),
-            "dense_gat_bwd": bwd_calls * (g.bwd.dense is not None)}
+    bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
+    want = dict.fromkeys(launches, 0)  # the other model's kernels: none
+    want.update({bin_fwd: fwd_calls * g.fwd.num_bins,
+                 bin_bwd: bwd_calls * g.bwd.num_bins,
+                 dense_fwd: fwd_calls * (g.fwd.dense is not None),
+                 dense_bwd: bwd_calls * (g.bwd.dense is not None)})
     assert launches == want, (launches, want)
     model_cpu = copy.deepcopy(r["model"]).to("cpu").eval()
+    extra = ([type(r["pseudo"])(*(t.cpu() for t in r["pseudo"]))]
+             if "pseudo" in r else [])
     with torch.no_grad():
-        logits_cpu = model_cpu(g.to("cpu"), r["feats"].cpu())
+        logits_cpu = model_cpu(g.to("cpu"), r["feats"].cpu(), *extra)
     got = r["logits"].cpu()
     tol = dict(rtol=1e-4, atol=1e-4)
     r["logit_off"] = int((~torch.isclose(got, logits_cpu, **tol)).sum())
@@ -300,6 +503,7 @@ def main():
     from dgnn_tpu_torch.graph import structure
     from dgnn_tpu_torch.ops import _build, bins, dense
     from dgnn_tpu_torch.ops.gat import _gat_forward, gat_aggregate
+    from dgnn_tpu_torch.ops.gmm import gmm_aggregate_node
     from dgnn_tpu_torch.utils import time_calls
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -360,6 +564,39 @@ def main():
                   f"{block_stats(g.fwd)}, bwd block {block_stats(g.bwd)}: "
                   f"{n_cmp} kernel/plain comparisons agree ({n_off} bf16 "
                   "elements outside BLOCK_TOL)")
+            # the bins beside the block, at this graph's widths
+            n_cmp = check_bins(bins, g.fwd, g.bwd, tb, err)
+            phase("kernels", f"{name} H={h} F={f}: fwd widths "
+                  f"{g.fwd.widths} bwd widths {g.bwd.widths}: {n_cmp} "
+                  "kernel/plain comparisons agree")
+    # MoNet draws from a generator of its own, so that the GAT checks see
+    # the same numbers whether or not the MoNet ones run
+    grng = np.random.default_rng(1)
+    gmm_tabs = {}
+    for k, f in GMM_SHAPES:
+        gmm_tabs[(k, f)] = gmm_tables(pub.num_nodes, k, f, grng, dev)
+        n_cmp = check_gmm_bins(bins, pub.fwd, pub.bwd, gmm_tabs[(k, f)], err)
+        phase("kernels", f"pubmed MoNet K={k} F={f} D={GMM_D}: {n_cmp} "
+              "kernel/plain comparisons agree (tanh on and off)")
+        n_cmp = check_gmm_bins(bins, pl.fwd, pl.bwd,
+                               gmm_tables(pl.num_nodes, k, f, grng, dev), err)
+        phase("kernels", f"power-law MoNet K={k} F={f}: fwd widths "
+              f"{pl.fwd.widths} (one empty segment): {n_cmp} comparisons "
+              "agree")
+    cora_gmm_tabs = {}
+    for name, g in hubs.items():
+        for k, f in GMM_DENSE_SHAPES:
+            tb = gmm_tables(g.num_nodes, k, f, grng, dev)
+            if name == "cora":
+                cora_gmm_tabs[(k, f)] = tb
+            n_cmp, n_off = check_gmm_dense(dense, g, tb, err)
+            phase("kernels", f"{name} MoNet K={k} F={f} D={GMM_D}: {n_cmp} "
+                  f"kernel/plain comparisons agree ({n_off} bf16 elements "
+                  "outside BLOCK_TOL)")
+            n_cmp = check_gmm_bins(bins, g.fwd, g.bwd, tb, err)
+            phase("kernels", f"{name} MoNet K={k} F={f}: fwd widths "
+                  f"{g.fwd.widths} bwd widths {g.bwd.widths}: {n_cmp} "
+                  "bin kernel/plain comparisons agree (tanh on and off)")
     phase("kernels", f"max |kernel - plain|: {json.dumps(err)}")
 
     # 4. the op on the card against the op on CPU copies
@@ -386,29 +623,83 @@ def main():
         phase("op", f"gat_aggregate {name} H={h} F={f} p={p} dense_dtype "
               f"{dt}: output and d(ar, ac, feat) on the card match the CPU")
 
-    # 5. train through the trainer's entry point: cora (all four kernels),
-    #    then pubmed (the bin kernels)
-    spec = importlib.util.spec_from_file_location(
-        "train_gat_torch", ROOT / "scripts" / "train_gat_torch.py")
-    trainer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(trainer)
+    gmm_names = ("feat", "proj_weight", "proj_bias", "mu", "inv_sigma")
+    for name, graph, dt in [("pubmed", pub, "float32")] + [
+            ("cora", cora, dt) for dt in DENSE_DTYPES]:
+        k, f = GMM_SHAPES[0]
+        n = graph.num_nodes
+        arrs = dict(feat=grng.normal(size=(n, k, f)),
+                    proj_weight=grng.normal(size=(2, GMM_D)),
+                    proj_bias=grng.normal(size=(GMM_D,)),
+                    mu=grng.normal(size=(k, GMM_D)),
+                    inv_sigma=grng.random((k, GMM_D)) + 0.5,
+                    s=grng.normal(size=(n, 1)), d=grng.normal(size=(n, 1)),
+                    g=grng.normal(size=(n, k, f)) * G_SCALE)
+        arrs = {key: a.astype(np.float32) for key, a in arrs.items()}
+        res = {}
+        for where, to in (("card", dev), ("cpu", "cpu")):
+            t = {key: torch.from_numpy(a).to(to) for key, a in arrs.items()}
+            ins = {key: t[key].requires_grad_(True) for key in gmm_names}
+            out = gmm_aggregate_node(
+                graph.to(to), ins["feat"], t["s"], t["d"], ins["mu"],
+                ins["inv_sigma"], proj_weight=ins["proj_weight"],
+                proj_bias=ins["proj_bias"], dense_dtype=dt)
+            out.backward(t["g"])
+            res[where] = [out.detach().cpu()] + [ins[key].grad.cpu()
+                                                 for key in gmm_names]
+        assert_close(res["card"][0], res["cpu"][0], FWD_TOL, dt, "out: ")
+        assert_close(res["card"][1], res["cpu"][1], BWD_TOL, dt, "dfeat: ")
+        param_tol = dict(rtol=PARAM_TOL["rtol"],
+                         atol=PARAM_TOL["atol_per_edge"] * graph.num_edges)
+        worst = 0.0
+        for gname, a, b in zip(gmm_names[1:], res["card"][2:],
+                               res["cpu"][2:]):
+            # a handful of numbers each: the bf16 flip share does not apply
+            torch.testing.assert_close(
+                a, b, **(param_tol if dt == "float32" else BF16_BOUND),
+                msg=lambda m: f"d{gname} {name} {dt}: {m}")
+            worst = max(worst, float(((a - b).abs() / b.abs().clamp(
+                min=1e-12)).max()))
+        phase("op", f"gmm_aggregate_node {name} K={k} F={f} dense_dtype {dt}: "
+              "output and d(feat, proj_weight, proj_bias, mu, inv_sigma) on "
+              f"the card match the CPU (parameter gradients: rtol "
+              f"{param_tol['rtol']}, atol {param_tol['atol']:.3g}; largest "
+              f"relative difference {worst:.3g})")
+
+    # 5. train through the trainers' entry points: cora (bin and dense
+    #    kernels), then pubmed (the bin kernels), GAT then MoNet
+    trainers = {"gat": load_script("train_gat_torch"),
+                "gmm": load_script("train_gmm_torch")}
+    titles = {"gat": "GAT heads (4,1) hidden 64 attn_drop 0.3",
+              "gmm": "MoNet hidden 64 kernels 3 dim 2 dropout 0.5 lr 1e-2"}
     launches = {}
     # pubmed: 3 classes, chance 1/3
-    for dataset, min_acc in (("cora", CORA_MIN_ACC), ("pubmed", 0.5)):
-        r, launches[dataset] = run_trainer(trainer, dataset)
+    for kind, dataset, min_acc in (("gat", "cora", CORA_MIN_ACC),
+                                   ("gat", "pubmed", 0.5),
+                                   ("gmm", "cora", CORA_MIN_ACC),
+                                   ("gmm", "pubmed", 0.5)):
+        r, launches[(kind, dataset)] = run_trainer(trainers[kind], kind,
+                                                   dataset)
         losses = r["losses"]
-        assert r["test_acc"] > min_acc, (dataset, r["test_acc"])
-        phase("train", f"{dataset} GAT heads (4,1) hidden 64 attn_drop 0.3: "
+        assert r["test_acc"] > min_acc, (kind, dataset, r["test_acc"])
+        used = {k: v for k, v in launches[(kind, dataset)].items() if v}
+        phase("train", f"{dataset} {titles[kind]}: "
               f"{r['train_steps']} steps, loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}, train {r['train_s'] * 1e3:.3f} ms/step, "
               f"inference {r['infer_s'] * 1e3:.3f} ms, peak "
               f"{r['peak_mb']:.0f} MB, test acc {r['test_acc']:.4f} (> "
-              f"{min_acc}), launches {launches[dataset]}; card logits match "
+              f"{min_acc}), launches {used} (every other kernel 0); card "
+              "logits match "
               f"a CPU copy (max |diff| {r['logit_err']:.3g}, "
               f"{r['logit_off']} of {r['logits'].numel()} outside 1e-4)")
 
-    # 6. times: kernel and plain, in turns
-    times = {}
+    # 6. times: kernel and plain, in turns.  One job per (kernel, shape):
+    #    (what it ran on, kernel call, plain call, input tensors, edges,
+    #    feature columns, heads or Gaussian kernels)
+    def edges_of(adj):
+        return sum(int(c.sum()) for c in adj.count)
+
+    jobs = {}
     for h, f in SHAPES:
         tb = tabs[(h, f)]
         fwd_args = [(tb["feat"], tb["ac"], tb["ar"], nbr, row, count)
@@ -418,39 +709,105 @@ def main():
                     for _w, nbr, _e, row, count in pub.bwd.bins()]
         fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
         bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
-        times[("bin_gat_fwd", h, f)] = time_pair(
-            lambda: [bins.bin_gat_fwd(*a, **fkw) for a in fwd_args],
-            lambda: [bins.bin_gat_fwd_plain(*a, **fkw) for a in fwd_args],
-            time_calls, dev)
-        times[("bin_gat_bwd", h, f)] = time_pair(
-            lambda: [bins.bin_gat_bwd(*a, **bkw) for a in bwd_args],
-            lambda: [bins.bin_gat_bwd_plain(*a, **bkw) for a in bwd_args],
-            time_calls, dev)
-    for (name, h, f), (ms, plain_ms) in times.items():
-        phase("times", f"{name} pubmed all bins H={h} F={f} p=0.3: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}")
+        what = f"pubmed all bins H={h} F={f} p=0.3"
+        jobs[("bin_gat_fwd", h, f)] = (
+            what,
+            lambda a=fwd_args, kw=fkw: [bins.bin_gat_fwd(*x, **kw) for x in a],
+            lambda a=fwd_args, kw=fkw: [bins.bin_gat_fwd_plain(*x, **kw)
+                                        for x in a],
+            flat(fwd_args), edges_of(pub.fwd), h * f, h)
+        jobs[("bin_gat_bwd", h, f)] = (
+            what,
+            lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd(*x, **kw) for x in a],
+            lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd_plain(*x, **kw)
+                                        for x in a],
+            flat(bwd_args), edges_of(pub.bwd), h * f, h)
+    k, f = GMM_SHAPES[0]
+    tb = gmm_tabs[(k, f)]
+    fwd_args = [gmm_bin_args(tb, nbr, row, count)[0]
+                for _w, nbr, _e, row, count in pub.fwd.bins()]
+    bwd_args = [gmm_bin_args(tb, nbr, row, count)[1]
+                for _w, nbr, _e, row, count in pub.bwd.bins()]
+    what = f"pubmed all bins K={k} F={f} D={GMM_D} tanh"
+    jobs[("bin_gmm_node_fwd", k, f)] = (
+        what,
+        lambda a=fwd_args: [bins.bin_gmm_node_fwd(*x, use_tanh=True)
+                            for x in a],
+        lambda a=fwd_args: [bins.bin_gmm_node_fwd_plain(*x, use_tanh=True)
+                            for x in a],
+        flat(fwd_args), edges_of(pub.fwd), k * f, k)
+    jobs[("bin_gmm_node_bwd", k, f)] = (
+        what,
+        lambda a=bwd_args: [bins.bin_gmm_node_bwd(*x, use_tanh=True)
+                            for x in a],
+        lambda a=bwd_args: [bins.bin_gmm_node_bwd_plain(*x, use_tanh=True)
+                            for x in a],
+        flat(bwd_args), edges_of(pub.bwd), k * f, k)
+
+    def block_inputs(db, by_row, by_col, whole=()):
+        """A hub block's inputs: its ids, mask and schedule in full, and of
+        each node table the rows that row_ids (by_row) or col_ids (by_col)
+        name."""
+        n_row = int(torch.unique(db.row_ids).numel())
+        n_col = int(torch.unique(db.col_ids).numel())
+        return ([db.row_ids, db.col_ids, db.mask, db.ct, db.chunk_ptr, *whole]
+                + [(t, n_row) for t in by_row] + [(t, n_col) for t in by_col])
+
     h, f = DENSE_SHAPES[0]
     tb = cora_tabs[(h, f)]
     fa = (cora.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
     fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED,
                dense_dtype="bfloat16")
-    ba = (cora.bwd.dense, *(tb[k] for k in ("g", "ar", "M", "Linv", "ws",
-                                            "ac", "feat")))
+    ba = (cora.bwd.dense, *(tb[k_] for k_ in ("g", "ar", "M", "Linv", "ws",
+                                              "ac", "feat")))
     bkw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype="bfloat16")
-    times[("dense_gat_fwd", h, f)] = time_pair(
-        lambda: dense.dense_gat_fwd(*fa, **fkw),
-        lambda: dense.dense_gat_fwd_plain(*fa, **fkw), time_calls, dev)
-    times[("dense_gat_bwd", h, f)] = time_pair(
-        lambda: dense.dense_gat_bwd(*ba, **bkw),
-        lambda: dense.dense_gat_bwd_plain(*ba, **bkw), time_calls, dev)
-    for name in ("dense_gat_fwd", "dense_gat_bwd"):
-        ms, plain_ms = times[(name, h, f)]
-        phase("times", f"{name} cora hub block H={h} F={f} p=0.3 bf16: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | {smi}")
+    what = f"cora hub block H={h} F={f} p=0.3 bf16"
+    jobs[("dense_gat_fwd", h, f)] = (
+        what, lambda: [dense.dense_gat_fwd(*fa, **fkw)],
+        lambda: [dense.dense_gat_fwd_plain(*fa, **fkw)],
+        block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]]),
+        block_edges(fa[0]), h * f, h)
+    jobs[("dense_gat_bwd", h, f)] = (
+        what, lambda: [dense.dense_gat_bwd(*ba, **bkw)],
+        lambda: [dense.dense_gat_bwd_plain(*ba, **bkw)],
+        block_inputs(ba[0], [tb["ac"], tb["feat"]],
+                     [tb[k_] for k_ in ("g", "ar", "M", "Linv", "ws")]),
+        block_edges(ba[0]), h * f, h)
+    k, f = GMM_DENSE_SHAPES[0]
+    tb = cora_gmm_tabs[(k, f)]
+    gfa, gba = gmm_dense_args(cora, tb)
+    par = (tb["mu"], tb["isig"])
+    gkw = dict(use_tanh=True, dense_dtype="bfloat16")
+    what = f"cora hub block K={k} F={f} D={GMM_D} tanh bf16"
+    jobs[("dense_gmm_fwd", k, f)] = (
+        what, lambda: [dense.dense_gmm_fwd(*gfa, **gkw)],
+        lambda: [dense.dense_gmm_fwd_plain(*gfa, **gkw)],
+        block_inputs(gfa[0], [tb["beta"]], [tb["alpha"], tb["feat"]], par),
+        block_edges(gfa[0]), k * f, k)
+    jobs[("dense_gmm_bwd", k, f)] = (
+        what, lambda: [dense.dense_gmm_bwd(*gba, **gkw)],
+        lambda: [dense.dense_gmm_bwd_plain(*gba, **gkw)],
+        block_inputs(gba[0], [tb["alpha"], tb["feat"]],
+                     [tb["g"], tb["beta"], tb["dfeat"]], par),
+        block_edges(gba[0]), k * f, k)
+
+    times = {}
+    for key, (what, fn_kernel, fn_plain, inputs, edges, cols, groups) in \
+            jobs.items():
+        ms, plain_ms = time_pair(fn_kernel, fn_plain, time_calls, dev)
+        bound_ms, bound_by = bound(key[0], inputs, flat(fn_kernel()), edges,
+                                   cols, groups)
+        times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+        phase("times", f"{key[0]} {what}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"({edges} edges), no single library call | {smi}")
+
     dc = synthetic_citation("cora")
     cora_binned = structure.build_graph(dc.src, dc.dst, dc.num_nodes,
                                         dense=None, edge_tables=False).to(dev)
     n = cora.num_nodes
+    h, f = DENSE_SHAPES[0]
     ins = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
            .requires_grad_(True) for s in ((n, h), (n, h), (n, h, f))]
     g_out = torch.from_numpy(
@@ -463,19 +820,51 @@ def main():
 
     auto_ms, binned_ms = time_pair(lambda: step(cora), lambda: step(
         cora_binned), time_calls, dev)
-    phase("times", f"gat_aggregate fwd+bwd cora H={h} F={f} p=0.3: hub "
-          f"block (dense=auto, bins {cora.fwd.widths}/{cora.bwd.widths}) "
-          f"{auto_ms:.4f} ms, all-binned (bins {cora_binned.fwd.widths}/"
-          f"{cora_binned.bwd.widths}) {binned_ms:.4f} ms | {smi}")
+    layouts = (f"hub block (dense=auto, bins {cora.fwd.widths}/"
+               f"{cora.bwd.widths}) {{:.4f}} ms, all-binned (bins "
+               f"{cora_binned.fwd.widths}/{cora_binned.bwd.widths}) {{:.4f}} "
+               f"ms | {smi}")
+    phase("times", f"gat_aggregate fwd+bwd cora H={h} F={f} p=0.3: "
+          + layouts.format(auto_ms, binned_ms))
+    k, f = GMM_DENSE_SHAPES[0]
+    tb = cora_gmm_tabs[(k, f)]
+    gins = {key: tb[key].clone().requires_grad_(True)
+            for key in ("feat", "mu", "isig")}
+    pw = torch.from_numpy(grng.normal(size=(2, GMM_D)).astype(np.float32)) \
+        .to(dev).requires_grad_(True)
+    pb = torch.zeros(GMM_D, device=dev, requires_grad=True)
+
+    def gmm_step(graph):
+        out = gmm_aggregate_node(graph, gins["feat"], tb["sfeat"],
+                                 tb["dfeat"], gins["mu"], gins["isig"],
+                                 proj_weight=pw, proj_bias=pb)
+        out.backward(tb["g"])
+
+    auto_ms, binned_ms = time_pair(lambda: gmm_step(cora), lambda: gmm_step(
+        cora_binned), time_calls, dev)
+    phase("times", f"gmm_aggregate_node fwd+bwd cora K={k} F={f} D={GMM_D}: "
+          + layouts.format(auto_ms, binned_ms))
+    # the card's memory rate: a 1 GiB device-to-device copy reads and writes
+    # 1 GiB each
+    src = torch.empty(2 ** 30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_s = time_calls(lambda: dst.copy_(src), dev, iters=10, warmup=2)
+    phase("times", f"device copy 1 GiB: {copy_s * 1e3:.4f} ms, "
+          f"{2 * 2 ** 30 / copy_s / 1e12:.3f} TB/s read + write (published "
+          f"peak {PEAK_BYTES_S / 1e12} TB/s) | {smi}")
+    del src, dst
 
     report = []
     for name, meta in KERNELS.items():
-        shape = SHAPES[0] if name.startswith("bin") else DENSE_SHAPES[0]
-        ms, plain_ms = times[(name, *shape)]
-        # launches: cora's run, the one path that runs all four kernels
+        # the kernel's first job: the hidden layer's width
+        shape = next(key[1:] for key in jobs if key[0] == name)
+        # launches: the cora run of the kernel's model, the path that runs
+        # its bin and its dense kernels
+        kind = "gat" if "gat" in name else "gmm"
         report.append(dict(name=name, **meta,
-                           launches=launches["cora"][name],
-                           max_abs_err=err[name], ms=ms, plain_ms=plain_ms))
+                           launches=launches[(kind, "cora")][name],
+                           max_abs_err=err[name], **times[(name, *shape)]))
+        assert report[-1]["launches"] > 0, name
     print(json.dumps({"kernels": report}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,8 @@
 // Dense hub-block GAT passes for NVIDIA Hopper (sm_90a).
 //
-// The hub block (graph/hub.py) is a tile-sparse [R, C] adjacency between
-// the block's rows (row_ids) and columns (col_ids): schedule entry t is a
-// [256 x 2048] tile of row chunk rc[t] and column tile ct[t], stored as a
-// bit-plane packed mask (the bit of tile column j of a row lives in byte
-// j % 256 of the row's 256 bytes, bit j / 256).  The schedule is sorted by
-// row chunk; chunk_ptr[i]:chunk_ptr[i+1] are the entries of chunk i.
+// The hub block (graph/hub.py, tile geometry and mask format in
+// dense_common.cuh) is a tile-sparse [R, C] adjacency between the block's
+// rows (row_ids) and columns (col_ids).
 //
 //   dense_gat_fwd_kernel  replaces dgnn_tpu/ops/pallas_dense.py:dense_gat_fwd
 //     (kernel _gat_fwd_kernel).  Rows = destinations, columns = sources.
@@ -64,32 +61,32 @@
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "dense_common.cuh"
 #include "gat_common.cuh"
 
 namespace {
 
+using dgnn::cols_per_lane;
+using dgnn::compact_pass;
+using dgnn::kCT;
+using dgnn::kFull;
+using dgnn::kListCap;
+using dgnn::kPassWords;
+using dgnn::kRT;
+using dgnn::kRowWords;
+using dgnn::kWarps;
 using dgnn::leaky;
 using dgnn::pair_base;
 using dgnn::pair_u_head;
+using dgnn::rnd;
+using dgnn::warp_sum;
 
-constexpr int kRT = 256;               // rows per row chunk (DENSE_RT)
-constexpr int kCT = 2048;              // columns per tile (DENSE_CT)
-constexpr int kRowWords = kCT / 32;    // 64 mask words per tile row
-constexpr int kWarps = 4;              // block rows per thread block
 constexpr int kMaxHeads = 16;          // the wrapper refuses H > kMaxHeads
-constexpr int kPassWords = 32;         // mask words compacted per pass
-constexpr int kListCap = kPassWords * 32;  // set columns per pass, at most
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float rnd(float v, bool bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
 
 // Per-warp staging in shared memory.
 struct WarpStage {
@@ -100,39 +97,6 @@ struct WarpStage {
   float head0[kMaxHeads];          // fwd: ar of the row; bwd: ac of the row
   float head1[kMaxHeads];          // fwd: the row's bound
 };
-
-// Compacts the set columns of mask words [w0, w0 + 32) of one tile row into
-// st.cols, in increasing word order; returns how many there are.
-__device__ __forceinline__ int compact_pass(const uint32_t* mrow, int w0,
-                                            int lane, WarpStage& st) {
-  const uint32_t word = mrow[w0 + lane];
-  const int cnt = __popc(word);
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += v;
-  }
-  const int total = __shfl_sync(kFull, incl, 31);
-  int at = incl - cnt;
-  uint32_t bits = word;
-  const int byte0 = (w0 + lane) * 4;
-  while (bits) {
-    const int b = __ffs(bits) - 1;
-    bits &= bits - 1;
-    // bit b of the (little-endian) word: byte byte0 + b / 8, plane b % 8
-    st.cols[at++] = static_cast<unsigned short>((b & 7) * (kCT / 8) +
-                                                byte0 + (b >> 3));
-  }
-  __syncwarp();
-  return total;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
 
 template <int NC>
 __global__ void __launch_bounds__(kWarps * 32) dense_gat_fwd_kernel(
@@ -188,7 +152,7 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_fwd_kernel(
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
     const int* cid_tile = col_ids + static_cast<size_t>(ct[t]) * kCT;
     for (int w0 = 0; w0 < kRowWords; w0 += kPassWords) {
-      const int total = compact_pass(mrow, w0, lane, st);
+      const int total = compact_pass(mrow, w0, lane, st.cols);
       for (int e0 = 0; e0 < total; e0 += 32) {
         const int n = min(32, total - e0);
         // lane i: edge e0 + i's per-head weights
@@ -313,7 +277,7 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_bwd_kernel(
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
     const int* did_tile = col_ids + static_cast<size_t>(ct[t]) * kCT;
     for (int w0 = 0; w0 < kRowWords; w0 += kPassWords) {
-      const int total = compact_pass(mrow, w0, lane, st);
+      const int total = compact_pass(mrow, w0, lane, st.cols);
       for (int e0 = 0; e0 < total; e0 += 32) {
         const int n = min(32, total - e0);
         uint32_t did = 0;
@@ -377,13 +341,6 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_bwd_kernel(
       if (lane == h) dac_out[ro * H + h] = v - u;
     }
   }
-}
-
-// Feature columns per lane, rounded up to a power of two (HF <= 1024).
-int cols_per_lane(int HF) {
-  int nc = 1;
-  while (32 * nc < HF) nc *= 2;
-  return nc;
 }
 
 template <typename Launch>

@@ -1,7 +1,7 @@
 """Graph containers as dataclasses of torch tensors.
 
 Port of ``dgnn_tpu/graph/structure.py``: raw CSR/CSC for generic use plus
-the two degree-binned layouts (binning.py) that the fused GAT op consumes,
+the two degree-binned layouts (binning.py) that the fused ops consume,
 each with its optional tile-sparse dense hub block (hub.py).  Every
 container has ``.to(device)``; the host build returns CPU tensors.
 """
@@ -190,6 +190,11 @@ class Graph:
     bwd: BinnedAdj  # binned CSC: rows = sources, slots = destinations
     num_nodes: int
     num_edges: int
+
+    def in_degrees(self) -> torch.Tensor:
+        """[N] int32 in-degree per node, from the raw CSR (so before
+        ``slim()`` drops it)."""
+        return torch.diff(self.row_ptr)
 
     def slim(self) -> "Graph":
         """Graph with the raw CSR/CSC/permute arrays dropped (zero-length):

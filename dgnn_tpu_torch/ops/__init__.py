@@ -1,3 +1,4 @@
 from .gat import gat_aggregate
+from .gmm import NodePseudo, gmm_aggregate_node
 
-__all__ = ["gat_aggregate"]
+__all__ = ["gat_aggregate", "gmm_aggregate_node", "NodePseudo"]

@@ -26,10 +26,10 @@ from pathlib import Path
 __all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bin_gat.cu", "dense_gat.cu")
-_HEADERS = ("gat_common.cuh",)
+_SOURCES = ("bin_gat.cu", "dense_gat.cu", "bin_gmm.cu", "dense_gmm.cu")
+_HEADERS = ("gat_common.cuh", "dense_common.cuh", "gmm_common.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dgnn_tpu_torch"
-_LIB_NAME = "libdgnn_gat.so"
+_LIB_NAME = "libdgnn_torch.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -140,5 +140,34 @@ def load() -> ctypes.CDLL:
             vp, vp,                             # dx dac
             vp]                                 # stream
         lib.dgnn_dense_gat_bwd.restype = ci
+        lib.dgnn_bin_gmm_fwd.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp,     # x alpha beta nbr row count mu isig
+            ci, ci, ci, ci, ci, ci,             # S W K D F use_tanh
+            vp,                                 # acc
+            vp]                                 # stream
+        lib.dgnn_bin_gmm_fwd.restype = ci
+        lib.dgnn_bin_gmm_bwd.argtypes = [
+            vp, vp, vp, vp, vp, vp,             # g beta dfeat alpha x sfeat
+            vp, vp, vp, vp, vp,                 # nbr row count mu isig
+            ci, ci, ci, ci, ci, ci, ci, ci,     # S W K D Dd Ds F use_tanh
+            vp, vp,                             # dx st
+            vp]                                 # stream
+        lib.dgnn_bin_gmm_bwd.restype = ci
+        lib.dgnn_dense_gmm_fwd.argtypes = [
+            vp, vp, vp,                         # x alpha beta
+            vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
+            vp, vp,                             # mu isig
+            ci, ci, ci, ci, ci, ci,             # R K D F use_tanh bf16
+            vp,                                 # acc
+            vp]                                 # stream
+        lib.dgnn_dense_gmm_fwd.restype = ci
+        lib.dgnn_dense_gmm_bwd.argtypes = [
+            vp, vp, vp, vp, vp,                 # g beta dfeat alpha x
+            vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
+            vp, vp,                             # mu isig
+            ci, ci, ci, ci, ci, ci, ci,         # R K D Dd F use_tanh bf16
+            vp, vp,                             # dx st
+            vp]                                 # stream
+        lib.dgnn_dense_gmm_bwd.restype = ci
         _lib = lib
         return lib

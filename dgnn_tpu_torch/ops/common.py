@@ -7,7 +7,8 @@
   bit with no per-edge storage.  It is bit-identical to the JAX package's
   hash and to the one inside csrc/bin_gat.cu,
 - the scatter-free segment merges ``combine_sum`` / ``combine_lse`` over a
-  graph's combine table.
+  graph's combine table,
+- the Gaussian kernel weights of the MoNet passes (``gaussian_terms``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ __all__ = [
     "NEG_INF",
     "combine_lse",
     "combine_sum",
+    "gaussian_terms",
     "is_empty_m",
     "lane_mask",
     "leaky_relu",
@@ -192,3 +194,14 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
 
 def leaky_relu_grad(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, 1.0, slope).to(torch.float32)
+
+
+def gaussian_terms(pseudo: torch.Tensor, mu: torch.Tensor,
+                   inv_sigma: torch.Tensor):
+    """[..., D] coordinates, [K, D] means and inverse widths ->
+    (diff, t, w): diff = pseudo - mu and t = diff * inv_sigma, both
+    [..., K, D], and the Gaussian kernel weights
+    w = exp(-0.5 * sum_d t^2) [..., K]."""
+    diff = pseudo[..., None, :] - mu
+    t = diff * inv_sigma
+    return diff, t, torch.exp(-0.5 * (t * t).sum(dim=-1))

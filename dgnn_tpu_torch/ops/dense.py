@@ -1,10 +1,12 @@
-"""Dense hub-block GAT passes: CUDA kernel wrappers and their plain versions.
+"""Dense hub-block GAT and MoNet passes: CUDA kernel wrappers and their
+plain versions.
 
-Port of the GAT half of ``dgnn_tpu/ops/pallas_dense.py``.  ``dense_gat_fwd``
-and ``dense_gat_bwd`` launch the hand-written kernels of csrc/dense_gat.cu
-for CUDA tensors and raise on anything those kernels do not take.  Beside
-each is a plain PyTorch version (``*_plain``) with the same arguments and
-outputs; the wrapper takes it only when the tensors lie on the CPU.
+Port of ``dgnn_tpu/ops/pallas_dense.py``.  ``dense_gat_fwd`` /
+``dense_gat_bwd`` launch the hand-written kernels of csrc/dense_gat.cu and
+``dense_gmm_fwd`` / ``dense_gmm_bwd`` those of csrc/dense_gmm.cu for CUDA
+tensors, and raise on anything those kernels do not take.  Beside each is a
+plain PyTorch version (``*_plain``) with the same arguments and outputs;
+the wrapper takes it only when the tensors lie on the CPU.
 
 The block (graph.structure.DenseBlock) is a tile-sparse adjacency between
 its rows (``row_ids``) and columns (``col_ids``), walked by the schedule
@@ -14,9 +16,11 @@ mask bit is clear (a masked pair contributes exactly 0 in the TPU kernel).
 The plain versions take one tile at a time, so their memory is bounded by
 a tile's edges at any schedule length.
 
-``dense_dtype`` follows the JAX op: "bfloat16" (the default) rounds the
-operands the TPU kernel feeds its matmuls to bf16 (forward p^ and x,
-backward a^, g and x) and sums in float32; "float32" rounds nothing.
+``dense_dtype`` follows the JAX ops: "bfloat16" (the default) rounds the
+operands the TPU kernel feeds its matmuls to bf16 and sums in float32
+(GAT: forward p^ and x, backward a^, g and x; MoNet: forward w_k and x,
+backward w_k and g for dx, x and g for <x, g>, while c_k = <x, g> w_k and
+the stat rows use the unrounded w_k); "float32" rounds nothing.
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
 only where the kernel is launched).
@@ -28,18 +32,21 @@ import torch
 
 from ..graph.hub import DENSE_CT, DENSE_RT
 from . import _build
-from .bins import _check_cuda, _inv_keep, _on_cpu, _ptr
-from .common import leaky_relu, leaky_relu_grad, pair_keep
+from .bins import (_check_cuda, _check_gmm, _check_gmm_params, _inv_keep,
+                   _on_cpu, _ptr, gmm_stat_width)
+from .common import gaussian_terms, leaky_relu, leaky_relu_grad, pair_keep
 
 __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
-           "dense_gat_bwd_plain", "unpack_mask", "LAUNCHES", "reset_launches",
-           "DENSE_DTYPES", "MAX_HF"]
+           "dense_gat_bwd_plain", "dense_gmm_fwd", "dense_gmm_fwd_plain",
+           "dense_gmm_bwd", "dense_gmm_bwd_plain", "unpack_mask", "LAUNCHES",
+           "reset_launches", "DENSE_DTYPES", "MAX_HF"]
 
 DENSE_DTYPES = ("bfloat16", "float32")
 # Feature columns the kernels take: 32 lanes x at most 32 columns each.
 MAX_HF = 1024
 
-LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0}
+LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0,
+            "dense_gmm_fwd": 0, "dense_gmm_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -116,7 +123,7 @@ def dense_gat_fwd_plain(db, ar, ac, feat, *, slope: float, with_pos: bool,
     return bound, l, lpos, acc, accpos
 
 
-def _check_block(name, db, HF, H):
+def _check_block(name, db, HF, H=None):
     T = db.mask.shape[0]
     R, C = db.row_ids.shape[0], db.col_ids.shape[0]
     if (db.mask.dtype != torch.uint8 or db.mask.dim() != 3
@@ -275,3 +282,163 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
                            f"{err} (R={R}, H={H}, F={F})")
     LAUNCHES["dense_gat_bwd"] += 1
     return dx, dac
+
+
+# ---------------------------------------------------------------------------
+# MoNet (GMMConv), node-derived pseudo-coordinates (see ops/bins.py)
+# ---------------------------------------------------------------------------
+
+
+def dense_gmm_fwd_plain(db, beta, alpha, feat, mu, isig, *, use_tanh: bool,
+                        dense_dtype: str = "bfloat16"):
+    """Plain PyTorch hub-block MoNet forward; same arguments and output as
+    ``dense_gmm_fwd``."""
+    rnd = _rounder(dense_dtype)
+    rid_all = db.row_ids.long()
+    cid_all = db.col_ids.long()
+    acc = torch.zeros((rid_all.shape[0],) + tuple(feat.shape[1:]),
+                      device=feat.device, dtype=torch.float32)
+    for rows, cols in _tiles(db):
+        cid = cid_all[cols]
+        pre = beta[rid_all[rows]] + alpha[cid]             # [E, D]
+        p = torch.tanh(pre) if use_tanh else pre
+        w = gaussian_terms(p, mu, isig)[2]                 # [E, K]
+        acc.index_add_(0, rows, rnd(w)[..., None] * rnd(feat[cid]))
+    return acc
+
+
+def dense_gmm_fwd(db, beta, alpha, feat, mu, isig, *, use_tanh: bool,
+                  dense_dtype: str = "bfloat16"):
+    """The hub block's share of the MoNet forward.
+
+    Args:
+      db: graph.structure.DenseBlock of the forward direction.
+      beta: [Nr, D] float32 destination-side projection, bias folded in
+        (indexed by row_ids).
+      alpha: [N, D] float32 source-side projection, feat: [N, K, F] float32
+        source features (indexed by col_ids).
+      mu, isig: [K, D] float32 kernel means and inverse widths.
+      dense_dtype: "bfloat16" or "float32" (module docstring).
+    Returns acc [R, K, F] per block row: the sum over the row's set columns
+    of w_k * feat[col, k]; zeros for a row with no edge in the block.
+    """
+    _check_gmm_params("dense_gmm_fwd", mu, isig)
+    if _on_cpu(beta, alpha, feat, mu, isig, db.mask, db.row_ids, db.col_ids,
+               db.chunk_ptr):
+        return dense_gmm_fwd_plain(db, beta, alpha, feat, mu, isig,
+                                   use_tanh=use_tanh, dense_dtype=dense_dtype)
+    _rounder(dense_dtype)
+    N, K, F = feat.shape
+    D = mu.shape[1]
+    if (mu.shape[0] != K or alpha.shape != (N, D) or beta.dim() != 2
+            or beta.shape[1] != D):
+        raise ValueError(f"dense_gmm_fwd: feat {tuple(feat.shape)}, alpha "
+                         f"{tuple(alpha.shape)}, beta {tuple(beta.shape)}, "
+                         f"mu {tuple(mu.shape)}")
+    _check_gmm("dense_gmm_fwd", K, D, F)
+    _check_cuda("dense_gmm_fwd",
+                dict(feat=feat, alpha=alpha, beta=beta, mu=mu, isig=isig), {})
+    _check_block("dense_gmm_fwd", db, K * F)
+    R = db.row_ids.shape[0]
+    acc = torch.empty((R, K, F), device=feat.device, dtype=torch.float32)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = lib.dgnn_dense_gmm_fwd(
+        _ptr(feat), _ptr(alpha), _ptr(beta), _ptr(db.row_ids),
+        _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
+        _ptr(mu), _ptr(isig), R, K, D, F, int(use_tanh),
+        int(dense_dtype == "bfloat16"), _ptr(acc), stream)
+    if err:
+        raise RuntimeError(f"dense_gmm_fwd kernel launch failed: CUDA error "
+                           f"{err} (R={R}, K={K}, D={D}, F={F})")
+    LAUNCHES["dense_gmm_fwd"] += 1
+    return acc
+
+
+def dense_gmm_bwd_plain(db, g, beta, dfeat, alpha, feat, mu, isig, *,
+                        use_tanh: bool, dense_dtype: str = "bfloat16"):
+    """Plain PyTorch hub-block MoNet backward; same arguments and outputs
+    as ``dense_gmm_bwd``."""
+    rnd = _rounder(dense_dtype)
+    K, D = mu.shape
+    sid_all = db.row_ids.long()
+    did_all = db.col_ids.long()
+    R = sid_all.shape[0]
+    dx = torch.zeros((R,) + tuple(feat.shape[1:]), device=g.device,
+                     dtype=torch.float32)
+    st = torch.zeros((R, gmm_stat_width(K, D, dfeat.shape[1])),
+                     device=g.device, dtype=torch.float32)
+    for rows, cols in _tiles(db):
+        sid, did = sid_all[rows], did_all[cols]
+        pre = alpha[sid] + beta[did]                       # [E, D]
+        p = torch.tanh(pre) if use_tanh else pre
+        diff, t, w = gaussian_terms(p, mu, isig)           # [E, K, D], [E, K]
+        gi = rnd(g[did])                                   # [E, K, F]
+        dx.index_add_(0, rows, rnd(w)[..., None] * gi)
+        c = (rnd(feat[sid]) * gi).sum(dim=-1) * w          # [E, K]
+        ct = c[..., None] * t                              # [E, K, D]
+        dpre = -(ct * isig).sum(dim=1)                     # [E, D]
+        if use_tanh:
+            dpre = dpre * (1.0 - p * p)
+        st.index_add_(0, rows, torch.cat([
+            ct.flatten(1), (ct * diff).flatten(1), dpre,
+            (dpre[:, :, None] * dfeat[did][:, None, :]).flatten(1)],
+            dim=1))
+    return dx, st
+
+
+def dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu, isig, *,
+                  use_tanh: bool, dense_dtype: str = "bfloat16"):
+    """The hub block's share of the MoNet backward.
+
+    Args:
+      db: graph.structure.DenseBlock of the BACKWARD direction: rows are
+        sources (row_ids), columns destinations (col_ids).
+      g: [Nd, K, F] float32 gradient of the op's output; beta: [Nd, D],
+        dfeat: [Nd, Dd] float32 destination tables (as bins.bin_gmm_node_bwd).
+      alpha: [Ns, D], feat: [Ns, K, F] float32 source tables.
+    Returns (dx [R, K, F], st [R, 2KD + D + D*Dd]) per block row: the stat
+    row of ``bins.bin_gmm_node_bwd`` without its sfeat block (the caller
+    multiplies the dpre columns by the rows' own sfeat).
+    """
+    _check_gmm_params("dense_gmm_bwd", mu, isig)
+    if _on_cpu(g, beta, dfeat, alpha, feat, mu, isig, db.mask, db.row_ids,
+               db.col_ids, db.chunk_ptr):
+        return dense_gmm_bwd_plain(db, g, beta, dfeat, alpha, feat, mu, isig,
+                                   use_tanh=use_tanh, dense_dtype=dense_dtype)
+    _rounder(dense_dtype)
+    Nd, K, F = g.shape
+    Ns = feat.shape[0]
+    D = mu.shape[1]
+    if dfeat.dim() != 2:
+        raise ValueError(f"dense_gmm_bwd: dfeat {tuple(dfeat.shape)} must "
+                         "be 2-D")
+    Dd = dfeat.shape[1]
+    for key, t, shape in (("beta", beta, (Nd, D)), ("dfeat", dfeat, (Nd, Dd)),
+                          ("alpha", alpha, (Ns, D)),
+                          ("feat", feat, (Ns, K, F)), ("mu", mu, (K, D))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"dense_gmm_bwd: {key} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    _check_gmm("dense_gmm_bwd", K, D, F, Dd)
+    _check_cuda("dense_gmm_bwd",
+                dict(g=g, beta=beta, dfeat=dfeat, alpha=alpha, feat=feat,
+                     mu=mu, isig=isig), {})
+    _check_block("dense_gmm_bwd", db, K * F)
+    R = db.row_ids.shape[0]
+    dx = torch.empty((R, K, F), device=g.device, dtype=torch.float32)
+    st = torch.empty((R, gmm_stat_width(K, D, Dd)), device=g.device,
+                     dtype=torch.float32)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    err = lib.dgnn_dense_gmm_bwd(
+        _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
+        _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct),
+        _ptr(db.chunk_ptr), _ptr(mu), _ptr(isig), R, K, D, Dd, F,
+        int(use_tanh), int(dense_dtype == "bfloat16"), _ptr(dx), _ptr(st),
+        stream)
+    if err:
+        raise RuntimeError(f"dense_gmm_bwd kernel launch failed: CUDA error "
+                           f"{err} (R={R}, K={K}, D={D}, Dd={Dd}, F={F})")
+    LAUNCHES["dense_gmm_bwd"] += 1
+    return dx, st

@@ -26,29 +26,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import argparse
 
 import torch
-import torch.nn.functional as F
 
 from dgnn_tpu_torch.data import load_citation_dataset
 from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.models import GAT
-from dgnn_tpu_torch.utils import (append_csv_row, peak_memory_mb,
+from dgnn_tpu_torch.utils import (append_csv_row, make_optimizer,
+                                  masked_loss, peak_memory_mb,
                                   reset_peak_memory, time_calls)
 
 WARMUP_STEPS = 3
-
-
-def masked_loss(logits, labels, train_mask):
-    """Mean softmax cross-entropy over the rows where ``train_mask``."""
-    losses = F.cross_entropy(logits, labels, reduction="none")
-    mask = train_mask.to(losses.dtype)
-    return (losses * mask).sum() / mask.sum()
-
-
-def make_optimizer(model, lr: float, weight_decay: float):
-    # Adam's weight_decay adds wd * param to the gradient before the moment
-    # updates: optax.chain(add_decayed_weights(wd), adam(lr))
-    return torch.optim.Adam(model.parameters(), lr=lr,
-                            weight_decay=weight_decay)
+# The width of the JAX bench's gat_* configurations (bench.py): what the
+# card smoke run and scripts/profile_step_torch.py train at.
+BENCH_ARGV = ["--n-heads", "4", "--n-hidden", "64", "--dropout", "0.5",
+              "--attn-drop", "0.3", "--lr", "1e-3", "--weight-decay", "5e-4"]
 
 
 def train_step(model, opt, graph, feats, labels, train_mask, generator,
@@ -139,7 +129,8 @@ def run(args) -> dict:
                 peak_mb=max_mb, test_acc=acc, train_acc=train_acc,
                 train_steps=args.n_epochs,
                 infer_calls=args.n_epochs + WARMUP_STEPS + 1,
-                model=model, graph=graph, feats=feats, logits=logits)
+                model=model, graph=graph, feats=feats, labels=labels,
+                train_mask=train_mask, logits=logits)
 
 
 def parser():

@@ -131,6 +131,18 @@ def test_cora_hub_block_refused(dense):
     assert t.fwd.cmb.main.max() >= sum(x.shape[0] for x in t.fwd.nbr)
 
 
+@pytest.mark.parametrize("self_loops", [True, False])
+def test_degrees_match_jax(rng, self_loops):
+    src, dst = random_graph(rng, 120, 4, power_law=True)
+    t = structure.build_graph(src, dst, 120, self_loops=self_loops)
+    j = jstructure.build_graph(src, dst, 120, self_loops=self_loops)
+    deg = t.in_degrees()
+    assert deg.dtype == torch.int32 and deg.shape == (120,)
+    np.testing.assert_array_equal(deg.numpy(), np.asarray(j.in_degrees()))
+    assert int(deg.sum()) == t.num_edges
+    assert (int(deg.min()) == 0) == (not self_loops)
+
+
 def test_graph_to_moves_every_table(rng):
     src, dst = random_graph(rng, 50, 3)
     g = structure.build_graph(src, dst, 50).to("cpu")

@@ -207,7 +207,10 @@ def _imported_roots(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "dgnn_tpu_torch").rglob("*.py"))
-    files += [ROOT / "scripts" / "train_gat_torch.py", ROOT / "chip_smoke.py"]
+    files += [ROOT / "scripts" / "train_gat_torch.py",
+              ROOT / "scripts" / "train_gmm_torch.py",
+              ROOT / "scripts" / "profile_step_torch.py",
+              ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:
         bad = _FORBIDDEN & set(_imported_roots(path))
