@@ -33,6 +33,16 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                tolerances; the backward's stat rows are held per segment
                and per block row to BWD_TOL / BLOCK_TOL), and the bin
                kernels on the hub graphs' bins at (3, 64) and (3, 7).
+               EdgeConv: masked_max in both schedules ("step1", "step8"),
+               with and without the first-winner index, at DGCNN's four
+               layer shapes (B = 8, P = 1024, k = 40, a real knn_mask_neg
+               mask in bfloat16), on the study's float32 / -1e9 mask at
+               F = 256, and at P = 1000, F = 70 (no multiple of any tile)
+               with a row that admits nothing and a duplicated source row:
+               the max is exact, so tolerance 0 and the index equal.
+               gather_rows_sum at W in {32, 64, 256} x rows of 4 KB and 1 KB
+               (rtol 1e-5, atol 8 W 2^-23: sums of W terms in another order)
+               and gather_lanes at tables of 512 ... 4096 rows (exact).
   4. op      - gat_aggregate forward and (ar, ac, feat) gradients on the
                card against the same op on CPU copies (the plain path):
                pubmed at p 0 and 0.3; cora (hub block) at p 0 and 0.3 in
@@ -41,6 +51,10 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                the same way: pubmed; cora in both dense dtypes.  The
                parameter gradients are sums of signed terms over every
                edge, so they get PARAM_TOL, scaled to the edge count.
+               edge_conv_max_dense forward and (h_src, h_dst) gradients the
+               same way at B = 2, P = 256, F = 96, one mask built once and
+               copied: both backward modes, mul_dtype float32 (rtol 1e-5,
+               atol 1e-6) and bfloat16 (rtol 5e-3, atol 2e-2).
   5. train   - the trainers at the bench widths, 20 steps and an eval each,
                on cora (bin and dense kernels) and on pubmed (bin kernels):
                scripts/train_gat_torch.py with heads (4, 1), hidden 64,
@@ -52,16 +66,34 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                imply, and the other model's kernels must not launch; the
                trained model's logits on the card must match a CPU copy's;
                test accuracy must clear a margin above chance.
+               Then scripts/train_edgeconv_torch.py at full width (B = 64,
+               P = 1024, k = 40, DGCNN's default dims, 512 train and 128
+               test synthetic clouds): 2 epochs (16 steps) and the eval
+               batches in schedule "step1", 1 epoch in "step8".  The loss
+               must be finite and fall; masked_max must have launched
+               exactly (train steps + eval batches) x 4 layers times and no
+               other kernel at all; the trained model's logits on two test
+               clouds must match a CPU copy's (masks compared first).  Then
+               scripts/microbench_gather_torch.py, the only path of the two
+               gather kernels, with their launches counted.
   6. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at the hidden layer's width
                ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16.  Then one
                gat_aggregate and one gmm_aggregate_node forward + backward
                on cora with its hub block against the all-binned build of
-               the same graph, and a 1 GiB device-to-device copy.  Each
-               kernel's bound is the larger of its bytes (every input
-               tensor read once, of a hub block's node tables the rows its
-               ids name, every output written once) over 3.35 TB/s
+               the same graph, and a 1 GiB device-to-device copy.
+               masked_max in both schedules at F = 256 and F = 64 with the
+               model's bfloat16 mask at B = 64, P = 1024 (and equal to the
+               plain version there too), and the op around it forward +
+               backward in both backward modes; gather_rows_sum
+               and gather_lanes at the study's shapes, beside the one
+               library call that computes the same function
+               (embedding_bag, torch.gather; timed here, used nowhere).
+               Each kernel's bound is the larger of its bytes (every input
+               tensor read once, of a hub block's node tables and of
+               gather_rows_sum's table the distinct rows the ids name, every
+               output written once) over 3.35 TB/s
                and its operations (FLOPS_PER_EDGE) over 67 TFLOP/s float32,
                the H100's published peaks.
 
@@ -120,6 +152,22 @@ GMM_D = 2  # projected pseudo dimensions; Ds = Dd = 1 as the trainer's
 # order on the card than on the CPU: float32's 2^-23 per summed term is the
 # floor, so the absolute tolerance grows with the edge count.
 PARAM_TOL = dict(rtol=1e-4, atol_per_edge=2.0 ** -23)
+# DGCNN at the width of the JAX bench's edgeconv_modelnet_train
+EC_B, EC_P, EC_K = 64, 1024, 40
+EC_LAYERS = ((3, 64), (64, 64), (64, 128), (128, 256))  # (in, out) per layer
+EC_OP_SHAPE = (2, 256, 96)  # (B, P, F) of the op check: the CPU holds it
+EC_F32_TOL = dict(rtol=1e-5, atol=1e-6)
+EC_BF16_TOL = dict(rtol=5e-3, atol=2e-2)  # mul_dtype bfloat16
+# Card against CPU, the trained DGCNN in eval mode on two clouds, the CPU
+# copy given the card's masks: float32 matrix products in another order,
+# four layers and three dense layers deep (the other trainers' tolerance;
+# the H100 read 3e-6).
+EC_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# Share of mask entries that may differ between the card's and the CPU's
+# k-NN masks: a distance that differs by an ulp between the two matrix
+# products can cross the bfloat16 threshold (the H100 read at most 7 of
+# 2,097,152 a layer).
+EC_MASK_FLIPS = 1e-4
 # The H100's published peaks (SXM): HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -147,6 +195,18 @@ KERNELS = {
     "dense_gmm_bwd": dict(route="cuda",
                           source="dgnn_tpu_torch/csrc/dense_gmm.cu",
                           replaces="dgnn_tpu/ops/pallas_dense.py:648"),
+    "masked_max_step1": dict(route="cuda",
+                             source="dgnn_tpu_torch/csrc/ec_tiles.cu",
+                             replaces="scripts/exp_r5_ec_tiles.py:59"),
+    "masked_max_step8": dict(route="cuda",
+                             source="dgnn_tpu_torch/csrc/ec_tiles.cu",
+                             replaces="scripts/exp_r5_ec_tiles.py:97"),
+    "gather_rows_sum": dict(route="cuda",
+                            source="dgnn_tpu_torch/csrc/gather.cu",
+                            replaces="scripts/microbench_gather.py:99"),
+    "gather_lanes": dict(route="cuda",
+                         source="dgnn_tpu_torch/csrc/gather.cu",
+                         replaces="scripts/microbench_gather.py:148"),
 }
 # Float32 operations per edge that each function needs, by (C, G) = (feature
 # columns, heads or Gaussian kernels): a multiply-add per column and
@@ -158,6 +218,13 @@ FLOPS_PER_EDGE = {
     "bin_gmm_node_fwd": lambda C, G: 2 * C + 12 * G,
     "bin_gmm_node_bwd": lambda C, G: 4 * C + 30 * G,
 }
+# masked max: an add and a max per ADMITTED candidate and column (a kernel
+# need not touch a candidate the mask refuses); the gathers: an add per
+# gathered row and column, and none
+for _k in ("masked_max_step1", "masked_max_step8"):
+    FLOPS_PER_EDGE[_k] = lambda C, G: 2 * C
+FLOPS_PER_EDGE["gather_rows_sum"] = lambda C, G: C
+FLOPS_PER_EDGE["gather_lanes"] = lambda C, G: 0
 for _k in ("gat_fwd", "gat_bwd"):
     FLOPS_PER_EDGE["dense_" + _k] = FLOPS_PER_EDGE["bin_" + _k]
 for _k in ("fwd", "bwd"):
@@ -423,11 +490,192 @@ def power_law_graph(structure, rng, n=4000):
     return g
 
 
+def time_turns(fns, time_calls, dev, iters):
+    """ms per call of each function, measured in turns (there and back: a,
+    b, c, c, b, a), the lesser of a function's two readings.  ``iters``:
+    calls per reading, one number per function."""
+    order = list(range(len(fns)))
+    best = [float("inf")] * len(fns)
+    for i in order + order[::-1]:
+        t = time_calls(fns[i], dev, iters=iters[i], warmup=min(3, iters[i]))
+        best[i] = min(best[i], t * 1e3)
+    return best
+
+
 def time_pair(fn_kernel, fn_plain, time_calls, dev):
     """ms per call of each, measured in turns: plain, kernel, kernel, plain."""
-    t = [time_calls(f, dev, iters=20, warmup=3)
-         for f in (fn_plain, fn_kernel, fn_kernel, fn_plain)]
-    return min(t[1], t[2]) * 1e3, min(t[0], t[3]) * 1e3
+    plain_ms, ms = time_turns([fn_plain, fn_kernel], time_calls, dev, [20, 20])
+    return ms, plain_ms
+
+
+def check_masked_max(ec_tiles, make_inputs, dev, err):
+    """masked_max in both schedules, with and without the index, against its
+    plain version on the card: exactly equal, index included.  Returns the
+    cases as (description, comparisons)."""
+    from dgnn_tpu_torch.graph.knn import knn_mask_neg
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cases = []
+    # DGCNN's layers: the mask from features of the layer's input width
+    for c_in, f in EC_LAYERS:
+        x = torch.randn((8, EC_P, c_in), generator=gen, device=dev)
+        hs = torch.randn((8, EC_P, f), generator=gen, device=dev)
+        cases.append((f"B=8 P={EC_P} F={f} knn mask of {c_in}-d features "
+                      "bf16", knn_mask_neg(x, EC_K), hs))
+    mask, hs = make_inputs(dev, 8, EC_P, 256, EC_K, "f32", seed=3)
+    cases.append((f"B=8 P={EC_P} F=256 random mask f32 / -1e9", mask, hs))
+    # no multiple of any tile; a row that admits nothing; a duplicated
+    # source row that every row admits, so the first of the two must win
+    mask, hs = make_inputs(dev, 3, 1000, 70, EC_K, "knn", seed=4)
+    mask[0, 5] = -1e30
+    hs[1, 700] = hs[1, 3]
+    mask[1, :, 3] = 0
+    mask[1, :, 700] = 0
+    cases.append(("B=3 P=1000 F=70 knn mask bf16, an empty row, a "
+                  "duplicated source row", mask, hs))
+    done = []
+    for what, mask, hs in cases:
+        want, want_i = ec_tiles.masked_max_plain(mask, hs, with_index=True)
+        n_cmp = 0
+        for schedule in ec_tiles.SCHEDULES:
+            name = "masked_max_" + schedule
+            got = ec_tiles.masked_max(mask, hs, schedule=schedule)
+            got_m, got_i = ec_tiles.masked_max(mask, hs, schedule=schedule,
+                                               with_index=True)
+            for g in (got, got_m):
+                err[name] = max(err[name], float((g - want).abs().max()))
+                assert torch.equal(g, want), (what, schedule)
+            assert torch.equal(got_i, want_i), (what, schedule, "index")
+            n_cmp += 2
+        if "empty row" in what:
+            # about neg, finite: the mask is added, not selected on
+            assert bool(torch.isfinite(want[0, 5]).all()) \
+                and float(want[0, 5].max()) < -1e29
+            # both copies tie wherever one of them wins: the first is named
+            assert int((want_i[1] == 700).sum()) == 0 \
+                and int((want_i[1] == 3).sum()) > 0
+        done.append((what, n_cmp))
+    torch.cuda.synchronize()
+    return done
+
+
+def check_gathers(gather, study, dev, err):
+    """gather_rows_sum and gather_lanes against their plain versions at the
+    study's shapes; returns the cases as strings."""
+    done = []
+    for width in (32, 64, 256):
+        for sub in (8, 2):
+            feat, nbr = study.rows_inputs(dev, sub=sub, width=width, seed=5)
+            got = gather.gather_rows_sum(feat, nbr)
+            want = gather.gather_rows_sum_plain(feat, nbr)
+            torch.testing.assert_close(got, want, **study.rows_tol(width))
+            err["gather_rows_sum"] = max(err["gather_rows_sum"],
+                                         float((got - want).abs().max()))
+            done.append(f"W={width} row={sub * 128}")
+            del feat, nbr, got, want
+    for c in study.LANES_CASES:
+        tab, idx = study.lanes_inputs(dev, c, seed=6)
+        got = gather.gather_lanes(tab, idx)
+        want = gather.gather_lanes_plain(tab, idx)
+        assert torch.equal(got, want), c
+        done.append(f"c={c} slab={gather.lane_slab_width(c, tab.shape[1])}")
+    torch.cuda.synchronize()
+    return done
+
+
+def check_edgeconv_op(dev, rng):
+    """edge_conv_max_dense on the card against the same op on CPU copies:
+    forward and both gradients, both backward modes, both mul_dtypes.  The
+    mask is built once, on the CPU, and copied."""
+    from dgnn_tpu_torch.graph.knn import knn_mask_neg
+    from dgnn_tpu_torch.ops.edgeconv import edge_conv_max_dense
+
+    b, p, f = EC_OP_SHAPE
+    arrs = [rng.normal(size=s).astype(np.float32)
+            for s in ((b, p, 3), (b, p, f), (b, p, f), (b, p, f))]
+    # d h_src sums some twenty signed g per element, by atomics in another
+    # order on the card: at unit-scale g its float32 rounding floor reaches
+    # the stated atol where the terms cancel (as G_SCALE says of d ac)
+    arrs[3] *= G_SCALE
+    mask = knn_mask_neg(torch.from_numpy(arrs[0]), 20)
+    done = []
+    for bwd_mode in ("tie_sum", "argmax"):
+        for mul_dtype, tol in ((torch.float32, EC_F32_TOL),
+                               (torch.bfloat16, EC_BF16_TOL)):
+            res = {}
+            for where, to in (("card", dev), ("cpu", "cpu")):
+                hs, hd = (torch.from_numpy(a).to(to).requires_grad_(True)
+                          for a in arrs[1:3])
+                out = edge_conv_max_dense(mask.to(to), hs, hd, mul_dtype,
+                                          bwd_mode)
+                out.backward(torch.from_numpy(arrs[3]).to(to))
+                res[where] = [out.detach().cpu(), hs.grad.cpu(),
+                              hd.grad.cpu()]
+            assert torch.equal(res["card"][0], res["cpu"][0]), bwd_mode
+            worst = 0.0
+            for name, a, c in zip(("h_src", "h_dst"), res["card"][1:],
+                                  res["cpu"][1:]):
+                torch.testing.assert_close(
+                    a, c, **tol, msg=lambda m: f"d{name} {bwd_mode}: {m}")
+                worst = max(worst, float((a - c).abs().max()))
+            done.append(f"{bwd_mode} mul_dtype "
+                        f"{str(mul_dtype).split('.')[-1]} (max |diff| "
+                        f"{worst:.3g})")
+    return done
+
+
+def all_launches():
+    """Every wrapper's launch count, one dict."""
+    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, gather
+
+    return {**bins.LAUNCHES, **dense.LAUNCHES, **ec_tiles.LAUNCHES,
+            **gather.LAUNCHES}
+
+
+def reset_all_launches():
+    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, gather
+
+    for mod in (bins, dense, ec_tiles, gather):
+        mod.reset_launches()
+
+
+def run_edgeconv_trainer(trainer, schedule, epochs):
+    """DGCNN at full width through the trainer's entry point, with every
+    launch count set to 0 just before and read just after."""
+    args = trainer.parser().parse_args(
+        ["--num-epochs", str(epochs), "--schedule", schedule, "--device",
+         "cuda"])
+    assert (args.batch_size, args.num_points, args.k) == (EC_B, EC_P, EC_K)
+    reset_all_launches()
+    r = trainer.run(args)
+    launches = all_launches()
+    losses = r["losses"]
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    model = r["model"]
+    assert [(c.theta.in_features, c.theta.out_features)
+            for c in model.convs.values()] == list(EC_LAYERS)
+    want = dict.fromkeys(launches, 0)  # every other kernel: none
+    want["masked_max_" + schedule] = (
+        (r["train_steps"] + r["eval_batches"]) * len(model.convs))
+    assert launches == want, (launches, want)
+    # the trained model on two test clouds: the card against a CPU copy
+    x = r["x_test"][:2]
+    model.eval()
+    model_cpu = copy.deepcopy(model).to("cpu").eval()
+    masks, masks_cpu = [], []
+    with torch.no_grad():
+        got = model(x, masks_out=masks).cpu()
+        model_cpu(x.cpu(), masks_out=masks_cpu)
+        # the masks first, layer by layer, so that a failure says where
+        flips = [int((a.cpu() != c).sum()) for a, c in zip(masks, masks_cpu)]
+        for i, n in enumerate(flips):
+            assert n <= EC_MASK_FLIPS * masks[i].numel(), (i, flips)
+        want_logits = model_cpu(x.cpu(), masks=[m.cpu() for m in masks])
+    torch.testing.assert_close(got, want_logits, **EC_LOGIT_TOL)
+    r["logit_err"] = float((got - want_logits).abs().max())
+    r["mask_flips"] = flips
+    return r, launches
 
 
 # wrapper names per trainer: bin forward, bin backward, dense forward, dense
@@ -451,15 +699,12 @@ def run_trainer(trainer, model_kind, dataset):
     """20 steps at the bench width (the trainer's BENCH_ARGV) through its
     entry point, with every launch count set to 0 just before and read just
     after."""
-    from dgnn_tpu_torch.ops import bins, dense
-
     args = trainer.parser().parse_args(
         ["--dataset", dataset, *trainer.BENCH_ARGV, "--n-epochs", "20",
          "--device", "cuda"])
-    bins.reset_launches()
-    dense.reset_launches()
+    reset_all_launches()
     r = trainer.run(args)
-    launches = {**bins.LAUNCHES, **dense.LAUNCHES}
+    launches = all_launches()
     losses = r["losses"]
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
@@ -501,7 +746,8 @@ def main():
         return 1
     from dgnn_tpu_torch.data import synthetic_citation
     from dgnn_tpu_torch.graph import structure
-    from dgnn_tpu_torch.ops import _build, bins, dense
+    from dgnn_tpu_torch.ops import _build, bins, dense, ec_tiles, gather
+    from dgnn_tpu_torch.ops.edgeconv import edge_conv_max_dense
     from dgnn_tpu_torch.ops.gat import _gat_forward, gat_aggregate
     from dgnn_tpu_torch.ops.gmm import gmm_aggregate_node
     from dgnn_tpu_torch.utils import time_calls
@@ -597,6 +843,15 @@ def main():
             phase("kernels", f"{name} MoNet K={k} F={f}: fwd widths "
                   f"{g.fwd.widths} bwd widths {g.bwd.widths}: {n_cmp} "
                   "bin kernel/plain comparisons agree (tanh on and off)")
+    ec_study = load_script("exp_ec_tiles_torch")
+    gather_study = load_script("microbench_gather_torch")
+    for what, n_cmp in check_masked_max(ec_tiles, ec_study.make_inputs, dev,
+                                        err):
+        phase("kernels", f"masked_max {what}: {n_cmp} kernel/plain "
+              "comparisons equal, both schedules, index included")
+    done = check_gathers(gather, gather_study, dev, err)
+    phase("kernels", "gather_rows_sum (rtol 1e-5, atol 8 W 2^-23) and "
+          f"gather_lanes (exact) agree with their plain versions: {done}")
     phase("kernels", f"max |kernel - plain|: {json.dumps(err)}")
 
     # 4. the op on the card against the op on CPU copies
@@ -666,6 +921,11 @@ def main():
               f"{param_tol['rtol']}, atol {param_tol['atol']:.3g}; largest "
               f"relative difference {worst:.3g})")
 
+    for what in check_edgeconv_op(dev, np.random.default_rng(7)):
+        b, p, f = EC_OP_SHAPE
+        phase("op", f"edge_conv_max_dense B={b} P={p} F={f} {what}: output "
+              "equal, d(h_src, h_dst) on the card match the CPU")
+
     # 5. train through the trainers' entry points: cora (bin and dense
     #    kernels), then pubmed (the bin kernels), GAT then MoNet
     trainers = {"gat": load_script("train_gat_torch"),
@@ -692,6 +952,42 @@ def main():
               "logits match "
               f"a CPU copy (max |diff| {r['logit_err']:.3g}, "
               f"{r['logit_off']} of {r['logits'].numel()} outside 1e-4)")
+
+    ec_trainer = load_script("train_edgeconv_torch")
+    for schedule, epochs in (("step1", 2), ("step8", 1)):
+        r, launches[("edgeconv", schedule)] = run_edgeconv_trainer(
+            ec_trainer, schedule, epochs)
+        losses = r["losses"]
+        used = {k: v for k, v in launches[("edgeconv", schedule)].items()
+                if v}
+        phase("train", f"modelnet (synthetic) DGCNN B={EC_B} P={EC_P} "
+              f"k={EC_K} dims {[f for _, f in EC_LAYERS]} schedule "
+              f"{schedule}: {r['train_steps']} steps + {r['eval_batches']} "
+              f"eval batches, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"train {r['step_s'] * 1e3:.3f} ms/step, inference "
+              f"{r['infer_s'] * 1e3:.3f} ms a pass over the test batches, "
+              f"peak {r['peak_mb']:.0f} MB, test acc {r['test_acc']:.4f}, "
+              f"launches {used} (every other kernel 0); card logits on two "
+              f"clouds match a CPU copy given the card's masks (max |diff| "
+              f"{r['logit_err']:.3g}; mask entries that differ per layer "
+              f"{r['mask_flips']}) | {smi}")
+        del r
+    # the gather kernels' only path: the study script
+    study_iters = 5
+    reset_all_launches()
+    gather_cases = gather_study.study(dev, iters=study_iters)
+    launches["gather"] = all_launches()
+    per_case = 1 + 2 + study_iters  # a check, the warmup, the timed calls
+    want = dict.fromkeys(launches["gather"], 0)
+    want.update(gather_rows_sum=per_case * len(gather_study.ROWS_CASES),
+                gather_lanes=per_case * len(gather_study.LANES_CASES))
+    assert launches["gather"] == want, (launches["gather"], want)
+    for case in gather_cases:
+        phase("train", f"gather study {case['case']}: " + ", ".join(
+            f"{row['variant']} {row['ms']:.4f} ms "
+            f"({row['useful_gb_per_s']:.0f} GB/s useful)"
+            for row in case["rows"]) + f" | {smi}")
+    torch.cuda.empty_cache()
 
     # 6. times: kernel and plain, in turns.  One job per (kernel, shape):
     #    (what it ran on, kernel call, plain call, input tensors, edges,
@@ -803,6 +1099,104 @@ def main():
               f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
               f"({edges} edges), no single library call | {smi}")
 
+    # the EdgeConv and gather kernels, one job at a time (their inputs are
+    # large): F = 256 first, the width the kernels' line reports
+    for f in (256, 64):
+        mask, hs = ec_study.make_inputs(dev, EC_B, EC_P, f, EC_K, "knn",
+                                        seed=8)
+        admitted = int((mask == 0).sum())
+        fns = [lambda: ec_tiles.masked_max_plain(mask, hs)] + [
+            lambda s_=s_: ec_tiles.masked_max(mask, hs, schedule=s_)
+            for s_ in ec_tiles.SCHEDULES]
+        plain_ms, *kernel_ms = time_turns(fns, time_calls, dev, [2, 20, 20])
+        want = fns[0]()
+        for i, (schedule, ms) in enumerate(zip(ec_tiles.SCHEDULES,
+                                               kernel_ms)):
+            name = "masked_max_" + schedule
+            # at the main path's own batch too: exactly the plain version
+            assert torch.equal(fns[1 + i](), want), (name, f)
+            bound_ms, bound_by = bound(name, [mask, hs], [want], admitted,
+                                       f, 1)
+            times[(name, f)] = dict(ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    library_ms=None)
+            phase("times", f"{name} B={EC_B} P={EC_P} F={f} knn mask bf16 "
+                  f"({admitted / (EC_B * EC_P):.1f} admitted a row): kernel "
+                  f"{ms:.4f} ms ({EC_B * EC_P * EC_P * f / ms / 1e6:.0f} G "
+                  f"dense candidate-channels/s), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms by {bound_by} (operations: "
+                  f"{2 * admitted * f / 1e9:.3f} G admitted of "
+                  f"{2 * EC_B * EC_P * EC_P * f / 1e9:.1f} G dense), no "
+                  f"single library call | {smi}")
+        # the op around the kernel, forward + backward, in both backward
+        # modes: "tie_sum" (the default, as the JAX op's) walks the admitted
+        # pairs in torch ops; "argmax" has the kernel save the first winner
+        # and scatters g to it
+        a, b = (t.requires_grad_(True) for t in (hs, torch.zeros_like(hs)))
+        g_out = torch.ones_like(hs)
+
+        def ec_step(bwd_mode):
+            edge_conv_max_dense(mask, a, b, bwd_mode=bwd_mode).backward(g_out)
+
+        tie_ms, arg_ms = time_turns(
+            [lambda: ec_step("tie_sum"), lambda: ec_step("argmax")],
+            time_calls, dev, [10, 10])
+        phase("times", f"edge_conv_max_dense fwd+bwd B={EC_B} P={EC_P} F={f} "
+              f"mul_dtype bfloat16: tie_sum {tie_ms:.4f} ms, argmax "
+              f"{arg_ms:.4f} ms | {smi}")
+        del mask, hs, fns, want, a, b, g_out
+    for width, sub in ((64, 8), (32, 8), (256, 8), (64, 2)):
+        feat, nbr = gather_study.rows_inputs(dev, sub=sub, width=width,
+                                             seed=9)
+        nbr_long = nbr.long()
+        fns = [lambda: gather.gather_rows_sum_plain(feat, nbr),
+               lambda: gather_study.rows_library(feat, nbr_long),
+               lambda: gather.gather_rows_sum(feat, nbr)]
+        plain_ms, library_ms, ms = time_turns(fns, time_calls, dev,
+                                              [10, 10, 20])
+        # what the function must move: each distinct named row of the table
+        # once (a row named again need not be fetched again), the ids, the
+        # output.  Beside it the all-miss traffic: every named row fetched
+        # from device memory, repeats included, as the kernel's copies ask.
+        distinct = int(torch.unique(nbr).numel())
+        bound_ms, bound_by = bound("gather_rows_sum",
+                                   [(feat, distinct), nbr], [fns[2]()],
+                                   nbr.numel(), sub * 128, 1)
+        all_miss_ms, _ = bound("gather_rows_sum", [(feat, nbr.numel()), nbr],
+                               [fns[2]()], nbr.numel(), sub * 128, 1)
+        times[("gather_rows_sum", width, sub)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms)
+        phase("times", f"gather_rows_sum {nbr.numel()} rows of "
+              f"{sub * 128 * 4} bytes in segments of {width}: kernel "
+              f"{ms:.4f} ms ({nbr.numel() * sub * 512 / ms / 1e6:.0f} GB/s "
+              f"useful), plain {plain_ms:.4f} ms, embedding_bag "
+              f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"({distinct} distinct rows; kernel {ms / bound_ms:.1f} times "
+              f"above it; all-miss traffic {all_miss_ms:.5f} ms) | {smi}")
+        del feat, nbr, nbr_long, fns
+    for c in (2048, 512, 1024, 4096):
+        tab, idx = gather_study.lanes_inputs(dev, c, seed=10)
+        idx_wide = idx.repeat(1, tab.shape[1] // idx.shape[1]).long()
+        fns = [lambda: gather.gather_lanes_plain(tab, idx),
+               lambda: gather_study.lanes_library(tab, idx_wide),
+               lambda: gather.gather_lanes(tab, idx)]
+        plain_ms, library_ms, ms = time_turns(fns, time_calls, dev,
+                                              [20, 20, 20])
+        bound_ms, bound_by = bound("gather_lanes", [tab, idx], [fns[2]()],
+                                   idx.numel(), 1, 1)
+        times[("gather_lanes", c)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms)
+        phase("times", f"gather_lanes table {c} x {tab.shape[1]} (slab "
+              f"{gather.lane_slab_width(c, tab.shape[1])} columns), "
+              f"{idx.shape[0]} rows of {idx.shape[1]} lanes: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
+              f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"| {smi}")
+        del tab, idx, idx_wide, fns
+    torch.cuda.empty_cache()
+
     dc = synthetic_citation("cora")
     cora_binned = structure.build_graph(dc.src, dc.dst, dc.num_nodes,
                                         dense=None, edge_tables=False).to(dev)
@@ -856,14 +1250,20 @@ def main():
 
     report = []
     for name, meta in KERNELS.items():
-        # the kernel's first job: the hidden layer's width
-        shape = next(key[1:] for key in jobs if key[0] == name)
+        # the kernel's first job: the hidden layer's width (GAT, MoNet), the
+        # widest layer (masked max), the study's default shape (gathers)
+        first = next(key for key in times if key[0] == name)
         # launches: the cora run of the kernel's model, the path that runs
-        # its bin and its dense kernels
-        kind = "gat" if "gat" in name else "gmm"
-        report.append(dict(name=name, **meta,
-                           launches=launches[(kind, "cora")][name],
-                           max_abs_err=err[name], **times[(name, *shape)]))
+        # its bin and its dense kernels; the DGCNN run in the kernel's
+        # schedule; the gather study
+        if name.startswith("masked_max"):
+            run = ("edgeconv", name.rsplit("_", 1)[1])
+        elif name.startswith("gather"):
+            run = "gather"
+        else:
+            run = ("gat" if "gat" in name else "gmm", "cora")
+        report.append(dict(name=name, **meta, launches=launches[run][name],
+                           max_abs_err=err[name], **times[first]))
         assert report[-1]["launches"] > 0, name
     print(json.dumps({"kernels": report}))
     print(nvidia_smi())

@@ -1,15 +1,18 @@
-from .loaders import load_citation_dataset
+from .loaders import load_citation_dataset, load_modelnet
 from .synthetic import (
     CITATION_SHAPES,
     CitationData,
     rmat_edges,
     synthetic_citation,
+    synthetic_point_clouds,
 )
 
 __all__ = [
     "CITATION_SHAPES",
     "CitationData",
     "load_citation_dataset",
+    "load_modelnet",
     "rmat_edges",
     "synthetic_citation",
+    "synthetic_point_clouds",
 ]

@@ -1,9 +1,12 @@
-"""Synthetic citation datasets (numpy), a copy of ``dgnn_tpu/data/synthetic.py``.
+"""Synthetic citation datasets and point clouds (numpy), a copy of
+``dgnn_tpu/data/synthetic.py``.
 
 Deterministic generators at each dataset's scale and statistics (node,
 edge, feature and class counts, label homophily, power-law degrees for the
-large graphs).  The output is identical, array for array, to the JAX
-package's for the same seed (tests/test_torch_graph.py holds them equal).
+large graphs; ModelNet-style clouds of gaussian blobs).  The output is
+identical, array for array, to the JAX package's for the same seed
+(tests/test_torch_graph.py and tests/test_torch_edgeconv.py hold them
+equal).
 """
 
 from __future__ import annotations
@@ -12,8 +15,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["CitationData", "synthetic_citation", "rmat_edges",
-           "CITATION_SHAPES"]
+__all__ = ["CitationData", "synthetic_citation", "synthetic_point_clouds",
+           "rmat_edges", "CITATION_SHAPES"]
 
 # name: (num_nodes, num_edges(directed, pre-self-loop), n_feats, n_classes)
 CITATION_SHAPES = {
@@ -109,3 +112,35 @@ def synthetic_citation(name: str = "cora", seed: int = 0,
     return CitationData(src=src, dst=dst, num_nodes=n, features=feats,
                         labels=labels, train_mask=train_mask, val_mask=val_mask,
                         test_mask=test_mask, n_classes=c)
+
+
+def synthetic_point_clouds(num_samples: int, num_points: int = 1024,
+                           num_classes: int = 40, seed: int = 0,
+                           template_seed: int | None = None):
+    """ModelNet-style point clouds: each class is a random gaussian-blob shape
+    template; samples are rotated/jittered instances.  Returns (x [S,P,3]
+    float32, y [S] int32).  Same seeds, same arrays as
+    ``dgnn_tpu/data/synthetic.py:synthetic_point_clouds``.
+
+    ``template_seed`` fixes the class shapes independently of ``seed`` so a
+    train and a test split (different ``seed``) share the SAME classes."""
+    trng = np.random.default_rng(seed if template_seed is None
+                                 else template_seed)
+    rng = np.random.default_rng(seed)
+    templates = []
+    for _ in range(num_classes):
+        k = trng.integers(3, 8)
+        centers = trng.normal(0, 1, (k, 3))
+        scales = trng.uniform(0.1, 0.4, (k, 1))
+        templates.append((centers, scales))
+    y = rng.integers(0, num_classes, num_samples).astype(np.int32)
+    x = np.zeros((num_samples, num_points, 3), np.float32)
+    for i in range(num_samples):
+        centers, scales = templates[y[i]]
+        comp = rng.integers(0, len(centers), num_points)
+        pts = centers[comp] + rng.normal(0, 1, (num_points, 3)) * scales[comp]
+        theta = rng.uniform(0, 2 * np.pi)
+        rot = np.array([[np.cos(theta), -np.sin(theta), 0],
+                        [np.sin(theta), np.cos(theta), 0], [0, 0, 1]])
+        x[i] = (pts @ rot.T).astype(np.float32)
+    return x, y

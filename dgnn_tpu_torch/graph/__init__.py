@@ -1,3 +1,4 @@
+from .knn import knn_graph, knn_mask_neg
 from .structure import (
     BinnedAdj,
     CombineTable,
@@ -9,4 +10,4 @@ from .structure import (
 )
 
 __all__ = ["BinnedAdj", "CombineTable", "DenseBlock", "Graph", "build_graph",
-           "build_graph_from_csr", "from_binned"]
+           "build_graph_from_csr", "from_binned", "knn_graph", "knn_mask_neg"]

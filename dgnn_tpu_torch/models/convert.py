@@ -1,4 +1,5 @@
-"""Flax GAT and MoNet parameters (as numpy) -> the port's state dicts.
+"""Flax GAT, MoNet and DGCNN parameters (as numpy) -> the port's state
+dicts.
 
 GAT: maps ``params["gat_<l>"]`` / ``params["gat_out"]`` of a
 ``dgnn_tpu.models.GAT`` onto ``convs.gat_<l>`` / ``convs.gat_out``:
@@ -11,6 +12,13 @@ node-pseudo mode onto ``convs.gmm_<i>``: ``fc/kernel`` [in, K*F] and
 ``inv_sigma`` [K, D], ``pseudo_w`` [Ds+Dd, D], ``pseudo_b`` [D] and ``bias``
 [F] keep their shapes.
 
+DGCNN: maps ``params`` and ``batch_stats`` of a ``dgnn_tpu.models.DGCNN``
+onto ``convs.conv_<i>.{theta,phi}``, ``proj``, ``embs.emb_<i>``,
+``bns.bn_<i>`` and ``head``: every Dense ``kernel`` [in, out] is transposed,
+batch norm ``scale`` / ``bias`` (params) and ``mean`` / ``var``
+(batch_stats) keep their names; an EdgeConv's own ``BatchNorm_0`` becomes
+``convs.conv_<i>.bn``.
+
 With the result loaded, both packages compute the same function.  Reads
 arrays through ``numpy.asarray`` only, so it needs no JAX import.
 """
@@ -21,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["flax_gat_state_dict", "load_flax_gat", "flax_monet_state_dict",
-           "load_flax_monet"]
+           "load_flax_monet", "flax_dgcnn_state_dict", "load_flax_dgcnn"]
 
 
 def flax_gat_state_dict(params) -> dict:
@@ -83,4 +91,65 @@ def load_flax_monet(model: torch.nn.Module, params) -> torch.nn.Module:
     """Load flax MoNet params into ``model`` (strict: every key must
     match)."""
     model.load_state_dict(flax_monet_state_dict(params), strict=True)
+    return model
+
+
+def _array(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _dense_entries(pre: str, layer) -> dict:
+    sd = {pre + "weight": torch.from_numpy(np.ascontiguousarray(
+        np.asarray(layer["kernel"], np.float32).T))}
+    if "bias" in layer:
+        sd[pre + "bias"] = _array(layer["bias"])
+    return sd
+
+
+def _bn_entries(pre: str, params, stats) -> dict:
+    return {pre + "scale": _array(params["scale"]),
+            pre + "bias": _array(params["bias"]),
+            pre + "mean": _array(stats["mean"]),
+            pre + "var": _array(stats["var"])}
+
+
+def flax_dgcnn_state_dict(params, batch_stats=None) -> dict:
+    """State dict for ``models.DGCNN`` given flax DGCNN variables: either
+    ``params`` and ``batch_stats``, or the one dict holding both that
+    ``model.init`` returns."""
+    if "params" in params:
+        batch_stats = params.get("batch_stats", batch_stats)
+        params = params["params"]
+    batch_stats = batch_stats or {}
+    sd = {}
+    for name, layer in params.items():
+        if name.startswith("conv_"):
+            unknown = set(layer) - {"theta", "phi", "BatchNorm_0"}
+            if unknown:
+                raise ValueError(f"{name}: parameters {sorted(unknown)} have "
+                                 "no counterpart in dgnn_tpu_torch's EdgeConv")
+            pre = f"convs.{name}."
+            for key in ("theta", "phi"):
+                sd.update(_dense_entries(pre + key + ".", layer[key]))
+            if "BatchNorm_0" in layer:
+                sd.update(_bn_entries(pre + "bn.", layer["BatchNorm_0"],
+                                      batch_stats[name]["BatchNorm_0"]))
+        elif name.startswith("emb_"):
+            sd.update(_dense_entries(f"embs.{name}.", layer))
+        elif name.startswith("bn_"):
+            sd.update(_bn_entries(f"bns.{name}.", layer, batch_stats[name]))
+        elif name in ("proj", "head"):
+            sd.update(_dense_entries(name + ".", layer))
+        else:
+            raise ValueError(f"{name}: no counterpart in dgnn_tpu_torch's "
+                             "DGCNN")
+    return sd
+
+
+def load_flax_dgcnn(model: torch.nn.Module, params,
+                    batch_stats=None) -> torch.nn.Module:
+    """Load flax DGCNN params and batch stats into ``model`` (strict: every
+    key must match)."""
+    model.load_state_dict(flax_dgcnn_state_dict(params, batch_stats),
+                          strict=True)
     return model

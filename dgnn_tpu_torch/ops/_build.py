@@ -26,7 +26,8 @@ from pathlib import Path
 __all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("bin_gat.cu", "dense_gat.cu", "bin_gmm.cu", "dense_gmm.cu")
+_SOURCES = ("bin_gat.cu", "dense_gat.cu", "bin_gmm.cu", "dense_gmm.cu",
+            "ec_tiles.cu", "gather.cu")
 _HEADERS = ("gat_common.cuh", "dense_common.cuh", "gmm_common.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dgnn_tpu_torch"
 _LIB_NAME = "libdgnn_torch.so"
@@ -169,5 +170,23 @@ def load() -> ctypes.CDLL:
             vp, vp,                             # dx st
             vp]                                 # stream
         lib.dgnn_dense_gmm_bwd.restype = ci
+        lib.dgnn_ec_masked_max.argtypes = [
+            vp, ci, vp,                         # mask mask_bf16 hs
+            ci, ci, ci, ci,                     # B P F step
+            vp, vp,                             # out idx
+            vp]                                 # stream
+        lib.dgnn_ec_masked_max.restype = ci
+        lib.dgnn_gather_rows_sum.argtypes = [
+            vp, vp,                             # feat nbr
+            ci, ci, ci, ci,                     # N S W row
+            vp,                                 # out
+            vp]                                 # stream
+        lib.dgnn_gather_rows_sum.restype = ci
+        lib.dgnn_gather_lanes.argtypes = [
+            vp, vp,                             # tab idx
+            ci, ci, ci, ci, ci,                 # c width R L w
+            vp,                                 # out
+            vp]                                 # stream
+        lib.dgnn_gather_lanes.restype = ci
         _lib = lib
         return lib

@@ -1,0 +1,211 @@
+"""Fused EdgeConv: per-channel neighbour max (port of
+``dgnn_tpu/ops/edgeconv.py``).
+
+    out[i, f] = max_j (h_dst[i, f] + h_src[nbr[i, j], f])
+
+``edge_conv_max_dense`` is the path the DGCNN model takes: point clouds make
+the k-NN graph block-diagonal with small blocks, so the neighbour max is
+taken densely per cloud under an additive mask (graph/knn.py
+``knn_mask_neg``) by the hand-written kernel of ops/ec_tiles.py.  Its
+backward has no kernel in the JAX package either and is torch ops here, but
+not the JAX formulation carried over: that one broadcasts a
+[B, Pj, Pi, Fc] indicator, which no card holds at ModelNet width.  Instead:
+
+- ``bwd_mode="argmax"`` scatters g to the saved first-winner index with one
+  ``scatter_add_`` over [B, P, F];
+- ``bwd_mode="tie_sum"`` (the default, as in the JAX op) walks the admitted
+  (i, j) pairs only (about B * P * k of them, from ``torch.nonzero`` of the
+  mask: one host sync per call), in slices whose [pairs, F] float32
+  intermediates stay under ``PAIR_BYTES`` each, recomputes ``h_src[j] +
+  mask[i, j]`` with the float32 add the forward used, and ``index_add_``s g
+  to every source whose candidate equals the saved max.  A candidate that
+  the mask does not admit can equal the max only in a row that admits
+  nothing, so such rows contribute all their P pairs and the function is
+  the JAX op's on every {0, neg} mask with |h_src| < |neg| / 4 (checked:
+  ``_dsrc_ties``).
+
+``mul_dtype`` follows the JAX op: bfloat16 (the default) rounds g to
+bfloat16, sums in float32 and rounds the sum once; float32 is exact.
+
+``edge_conv_max`` is the gather path over an explicit [N, k] neighbour
+table, in torch ops in both directions (the JAX package has no kernel for
+it either).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .ec_tiles import masked_max
+
+__all__ = ["edge_conv_max", "edge_conv_max_dense", "MUL_DTYPES", "BWD_MODES",
+           "PAIR_BYTES"]
+
+MUL_DTYPES = (torch.bfloat16, torch.float32)
+BWD_MODES = ("tie_sum", "argmax")
+# Each [pairs, F] float32 intermediate of the tie_sum backward, and each
+# [rows, k, F] one of the gather path, holds at most this many bytes; about
+# five are alive at once.
+PAIR_BYTES = 256 << 20
+
+
+def _round(t: torch.Tensor, mul_dtype: torch.dtype) -> torch.Tensor:
+    if mul_dtype == torch.float32:
+        return t
+    return t.to(mul_dtype).to(torch.float32)
+
+
+def _dsrc_argmax(kstar, g, mul_dtype):
+    """d_src[b, j, f] = sum_i g[b, i, f] [kstar[b, i, f] == j]."""
+    d_src = torch.zeros_like(g)
+    d_src.scatter_add_(1, kstar.long(), _round(g, mul_dtype))
+    return _round(d_src, mul_dtype)
+
+
+def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
+    """d_src[b, j, f] = sum_i g[b, i, f]
+                        [h_src[b, j, f] + mask[b, i, j] == m[b, i, f]]
+    over the pairs that can satisfy it (module docstring).
+
+    Precondition: the mask holds two values, 0 and one ``neg`` < 0, and
+    |h_src| < |neg| / 4 everywhere, so that a candidate the mask does not
+    admit (below 3 neg / 4) never reaches one it admits (above neg / 4) and
+    can only win a row that admits nothing.  The second half is checked
+    here (the ``nonzero`` below waits for the card anyway); activations
+    that large beside the mask's ``neg`` raise instead of silently losing
+    tied sources."""
+    B, P, F = h_src.shape
+    neg = mask_neg.amin().to(torch.float32)
+    if bool(h_src.abs().amax() * 4 >= -neg) and bool(neg < 0):
+        raise ValueError(
+            f"edge_conv_max_dense(bwd_mode='tie_sum'): |h_src| reaches "
+            f"{float(h_src.abs().amax()):.3g}, not below a quarter of the "
+            f"mask's neg {float(neg):.3g}: admitted and masked candidates "
+            "cannot be told apart; use a larger neg")
+    # half of the mask's most negative entry separates {0, neg} whatever neg
+    # is; an all-zero mask admits nothing by this test, and so every pair
+    # by the next line
+    adm = mask_neg > neg * 0.5
+    adm = adm | ~adm.any(dim=-1, keepdim=True)
+    b, i, j = torch.nonzero(adm, as_tuple=True)
+    mval = mask_neg[b, i, j].to(torch.float32)
+    dst = b * P + i
+    src = b * P + j
+    hs = h_src.reshape(B * P, F)
+    mm = m.reshape(B * P, F)
+    gq = _round(g, mul_dtype).reshape(B * P, F)
+    d_src = torch.zeros_like(hs)
+    step = max(1, PAIR_BYTES // (4 * F))
+    for s in range(0, dst.shape[0], step):
+        d, sr = dst[s:s + step], src[s:s + step]
+        hit = (hs[sr] + mval[s:s + step, None]) == mm[d]
+        d_src.index_add_(0, sr, torch.where(hit, gq[d], 0.0))
+    return _round(d_src, mul_dtype).reshape(B, P, F)
+
+
+class _EdgeConvMaxDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mask_neg, h_src, h_dst, mul_dtype, bwd_mode, schedule):
+        ctx.mul_dtype = mul_dtype
+        ctx.bwd_mode = bwd_mode
+        if bwd_mode == "argmax":
+            m, kstar = masked_max(mask_neg, h_src, schedule=schedule,
+                                  with_index=True)
+            ctx.save_for_backward(kstar)
+        else:
+            # save only the max VALUE: the forward stays a plain max and the
+            # backward matches sources by exact value equality
+            m = masked_max(mask_neg, h_src, schedule=schedule)
+            ctx.save_for_backward(m, mask_neg, h_src)
+        return h_dst + m
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.bwd_mode == "argmax":
+            (kstar,) = ctx.saved_tensors
+            d_src = _dsrc_argmax(kstar, g, ctx.mul_dtype)
+        else:
+            m, mask_neg, h_src = ctx.saved_tensors
+            d_src = _dsrc_ties(m, mask_neg, h_src, g, ctx.mul_dtype)
+        # d/d h_dst is the identity (h_dst[i, f] is in every candidate); the
+        # mask is not differentiated
+        return None, d_src, g, None, None, None
+
+
+def edge_conv_max_dense(mask_neg, h_src, h_dst,
+                        mul_dtype: torch.dtype = torch.bfloat16,
+                        bwd_mode: str = "tie_sum", *,
+                        schedule: str = "step1"):
+    """out[b, i, f] = max over the j that ``mask_neg[b, i]`` admits of
+    (h_dst[b, i, f] + h_src[b, j, f]).
+
+    Args:
+      mask_neg: [B, P, P] bfloat16 / float32 additive mask (0 = edge, a
+        large negative number = no edge), from graph/knn.py knn_mask_neg.
+      h_src, h_dst: [B, P, F] float32.
+      mul_dtype: torch.bfloat16 (default) or torch.float32 (exact
+        gradients), see the module docstring.
+      bwd_mode: "tie_sum" (default) saves only the max value and sums the
+        gradient over every exactly tied source; "argmax" saves the
+        first-winner index and gives it the whole gradient.
+      schedule: the kernel schedule of ``ops.ec_tiles.masked_max``.
+    Returns [B, P, F].
+    """
+    if mul_dtype not in MUL_DTYPES:
+        raise ValueError(f"mul_dtype must be one of {MUL_DTYPES}, got "
+                         f"{mul_dtype}")
+    if bwd_mode not in BWD_MODES:
+        raise ValueError(f"bwd_mode must be one of {BWD_MODES}, got "
+                         f"{bwd_mode!r}")
+    return _EdgeConvMaxDense.apply(mask_neg, h_src, h_dst, mul_dtype,
+                                   bwd_mode, schedule)
+
+
+def _gather_max(nbr, h_src, h_dst):
+    """(out [N, F], kstar [N, F] int64: the first maximal slot), in row
+    chunks whose [rows, k, F] candidates stay under PAIR_BYTES."""
+    n, k = nbr.shape
+    F = h_src.shape[-1]
+    out = torch.empty((n, F), device=h_src.device, dtype=h_src.dtype)
+    kstar = torch.empty((n, F), device=h_src.device, dtype=torch.int64)
+    slot = torch.arange(k, device=h_src.device)[None, :, None]
+    step = max(1, PAIR_BYTES // (4 * k * F))
+    for s in range(0, n, step):
+        vals = h_dst[s:s + step, None, :] + h_src[nbr[s:s + step].long()]
+        m = vals.amax(dim=1)
+        out[s:s + step] = m
+        kstar[s:s + step] = torch.where(vals >= m[:, None, :], slot,
+                                        k).amin(dim=1)
+    return out, kstar
+
+
+class _EdgeConvMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, nbr, h_src, h_dst):
+        out, kstar = _gather_max(nbr, h_src, h_dst)
+        # residual: the winning source id per (node, channel)
+        ctx.save_for_backward(torch.gather(nbr.long(), 1, kstar))
+        ctx.num_src = h_src.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (node_star,) = ctx.saved_tensors
+        n, F = g.shape
+        cols = torch.arange(F, device=g.device)
+        d_src = torch.zeros(ctx.num_src * F, device=g.device, dtype=g.dtype)
+        d_src.index_add_(0, (node_star * F + cols).reshape(-1),
+                         g.reshape(-1))
+        return None, d_src.reshape(ctx.num_src, F), g
+
+
+def edge_conv_max(nbr, h_src, h_dst):
+    """out[i, f] = max over j in nbr[i] of (h_dst[i, f] + h_src[j, f]).
+
+    Args:
+      nbr: [N, k] int32 neighbour ids (a k-NN list; typically includes i).
+      h_src: [M, F] source-side features; h_dst: [N, F] destination-side.
+    The gradient of h_src goes to the first maximal neighbour slot.
+    """
+    return _EdgeConvMax.apply(nbr, h_src, h_dst)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python
 """Where one training step of the PyTorch port spends its time on the card.
 
-    python scripts/profile_step_torch.py gat:cora gmm:cora gat:pubmed gmm:pubmed
+    python scripts/profile_step_torch.py gat:cora gmm:cora gat:pubmed \
+        gmm:pubmed edgeconv:modelnet
 
 For each ``model:dataset`` cell it sets the trainer up at the bench width
 (the trainer's ``BENCH_ARGV``: scripts/train_gat_torch.py with heads (4, 1),
 hidden 64, attn_drop 0.3; scripts/train_gmm_torch.py with hidden 64, 3
-kernels, pseudo dim 2), runs a
+kernels, pseudo dim 2; scripts/train_edgeconv_torch.py at its defaults:
+DGCNN on 64 synthetic clouds of 1024 points, k = 40), runs a
 few warmup steps, times ``--steps`` unprofiled steps on the host clock
 (ending in a synchronize), then traces the same number of steps with
 ``torch.profiler`` and sums the trace's device events by kernel name (the
@@ -14,8 +16,12 @@ profiler's own device total counts annotation spans twice).  Per step it
 prints: host ms, kernels launched, device kernel ms, the device's idle
 share (1 - kernel ms / host ms), and for each hand-written kernel its
 launches and its own time per launch; then the matrix products and the
-rest (elementwise, reductions, gathers, ``cat``, Adam).  The last line is
-one JSON object with every number.  Needs a CUDA device.
+rest (elementwise, reductions, gathers, ``cat``, the optimizer).  The
+``edgeconv`` cell then takes the same number of steps once more with CUDA
+events around every k-NN mask build (``knn_mask_neg``) and every tie-sum
+backward (``_dsrc_ties``), and prints each span's calls and device-stream
+ms per step (idle gaps inside a span included).  The last line is one JSON
+object with every number.  Needs a CUDA device.
 """
 
 import os
@@ -31,11 +37,12 @@ import time
 
 import torch
 
-from dgnn_tpu_torch.utils import make_optimizer
+from dgnn_tpu_torch.utils import make_optimizer, make_sgd_cosine
 
 # substrings of the hand-written kernels' names in a trace
 OWN = ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd",
-       "bin_gmm_fwd", "bin_gmm_bwd", "dense_gmm_fwd", "dense_gmm_bwd")
+       "bin_gmm_fwd", "bin_gmm_bwd", "dense_gmm_fwd", "dense_gmm_bwd",
+       "ec_masked_max")
 GEMM = ("gemm", "cutlass", "cublas")
 
 
@@ -69,13 +76,85 @@ def make_step(kind, trainer, r, lr, weight_decay):
     return step
 
 
-def profile_cell(kind, dataset, steps, warmup):
+def make_edgeconv_step(trainer, r, total_steps, bs):
+    """A closure that takes one DGCNN training step on the trainer's own
+    model, walking the (augmented) training clouds batch by batch."""
+    model, xs, ys = r["model"], r["x_train"], r["y_train"]
+    opt, sched = make_sgd_cosine(model, total_steps)
+    gen = torch.Generator(device=xs.device).manual_seed(0)
+    state = dict(i=0)
+
+    def step():
+        i = state["i"] % (xs.shape[0] // bs)
+        state["i"] += 1
+        x = trainer.augment(xs[i * bs:(i + 1) * bs], gen)
+        trainer.train_step(model, opt, sched, x, ys[i * bs:(i + 1) * bs], gen)
+
+    return step
+
+
+class Spans:
+    """CUDA events around every call of the functions it wraps: calls and
+    device-stream ms between a call's first and last kernel."""
+
+    def __init__(self):
+        self.events = {}
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.setdefault(name, []).append((start, end))
+            return out
+
+        return timed
+
+    def per_step(self, steps):
+        torch.cuda.synchronize()
+        return {name: dict(calls_per_step=len(ev) / steps,
+                           ms_per_step=sum(a.elapsed_time(b) for a, b in ev)
+                           / steps)
+                for name, ev in self.events.items()}
+
+
+def edgeconv_spans(step, steps):
+    """``steps`` more steps with the k-NN mask builds and the tie-sum
+    backwards bracketed by CUDA events."""
+    from dgnn_tpu_torch.models import dgcnn
+    from dgnn_tpu_torch.ops import edgeconv
+
+    spans = Spans()
+    saved = dgcnn.knn_mask_neg, edgeconv._dsrc_ties
+    dgcnn.knn_mask_neg = spans.wrap("knn_mask_neg", saved[0])
+    edgeconv._dsrc_ties = spans.wrap("tie_sum_backward", saved[1])
+    try:
+        for _ in range(steps):
+            step()
+        return spans.per_step(steps)
+    finally:
+        dgcnn.knn_mask_neg, edgeconv._dsrc_ties = saved
+
+
+def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
     trainer = load_trainer(kind)
-    args = trainer.parser().parse_args(
-        ["--dataset", dataset, *trainer.BENCH_ARGV, "--n-epochs", "4", "--device",
-         "cuda"])
-    r = trainer.run(args)  # set-up (and 4 steps of its own)
-    step = make_step(kind, trainer, r, args.lr, args.weight_decay)
+    if kind == "edgeconv":
+        if dataset != "modelnet":
+            raise ValueError(f"edgeconv:{dataset}: the cell is "
+                             "edgeconv:modelnet")
+        args = trainer.parser().parse_args(
+            ["--num-epochs", "1", "--schedule", schedule, "--device", "cuda"])
+        r = trainer.run(args)  # set-up (and an epoch of its own)
+        step = make_edgeconv_step(trainer, r, warmup + 3 * steps,
+                                  args.batch_size)
+    else:
+        args = trainer.parser().parse_args(
+            ["--dataset", dataset, *trainer.BENCH_ARGV, "--n-epochs", "4",
+             "--device", "cuda"])
+        r = trainer.run(args)  # set-up (and 4 steps of its own)
+        step = make_step(kind, trainer, r, args.lr, args.weight_decay)
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
@@ -107,6 +186,8 @@ def profile_cell(kind, dataset, steps, warmup):
         return sum(n for n, _ in hit), sum(us for _, us in hit)
 
     out = dict(cell=f"{kind}:{dataset}", steps=steps, host_ms_per_step=host_ms)
+    if kind == "edgeconv":
+        out["schedule"] = schedule
     n_all, us_all = group(lambda name: True)
     out["kernels_per_step"] = n_all / steps
     out["kernel_ms_per_step"] = us_all / 1e3 / steps
@@ -122,12 +203,17 @@ def profile_cell(kind, dataset, steps, warmup):
     _, gemm_us = group(lambda name: any(g in name.lower() for g in GEMM))
     out["gemm_ms_per_step"] = gemm_us / 1e3 / steps
     out["rest_ms_per_step"] = (us_all - own_us - gemm_us) / 1e3 / steps
+    if kind == "edgeconv":
+        out["spans"] = edgeconv_spans(step, steps)
     return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cells", nargs="+", help="model:dataset, model gat or gmm")
+    ap.add_argument("cells", nargs="+", help="model:dataset: gat or gmm on cora, citeseer "
+                    "or pubmed; edgeconv:modelnet, or "
+                    "edgeconv:modelnet:step8 for the masked-max kernel's "
+                    "second schedule")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=5)
     args = ap.parse_args()
@@ -141,8 +227,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     results = []
     for cell in args.cells:
-        kind, dataset = cell.split(":")
-        res = profile_cell(kind, dataset, args.steps, args.warmup)
+        kind, dataset, *rest = cell.split(":")
+        res = profile_cell(kind, dataset, args.steps, args.warmup, *rest)
         results.append(res)
         print(f"[profile] {cell} | {smi}")
         for key, val in res.items():
