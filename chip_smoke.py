@@ -37,12 +37,20 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                with and without the first-winner index, at DGCNN's four
                layer shapes (B = 8, P = 1024, k = 40, a real knn_mask_neg
                mask in bfloat16), on the study's float32 / -1e9 mask at
-               F = 256, and at P = 1000, F = 70 (no multiple of any tile)
-               with a row that admits nothing and a duplicated source row:
-               the max is exact, so tolerance 0 and the index equal.
+               F = 256, at P = 1000, F = 70 (no multiple of any tile) with
+               a row that admits nothing and a duplicated source row, and
+               on the masks that make the kernels' list pass walk rows
+               densely or keep columns a {0, neg} mask would drop (all
+               zero, any floats in both dtypes, neg = -1 beside h_src of
+               scale 10, a row one over the list's cap beside one at it):
+               the max is exact, so tolerance 0 and the index equal; the
+               list pass alone (live_counts) must count exactly the
+               columns its plain rule (live_candidates) keeps.
                gather_rows_sum at W in {32, 64, 256} x rows of 4 KB and 1 KB
                (rtol 1e-5, atol 8 W 2^-23: sums of W terms in another order)
-               and gather_lanes at tables of 512 ... 4096 rows (exact).
+               and gather_lanes at tables of 512 ... 4096 rows, and at
+               lane counts and widths that are no multiple of 4 or of the
+               slab (exact).
   4. op      - gat_aggregate forward and (ar, ac, feat) gradients on the
                card against the same op on CPU copies (the plain path):
                pubmed at p 0 and 0.3; cora (hub block) at p 0 and 0.3 in
@@ -73,7 +81,8 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                must be finite and fall; masked_max must have launched
                exactly (train steps + eval batches) x 4 layers times and no
                other kernel at all; the trained model's logits on two test
-               clouds must match a CPU copy's (masks compared first).  Then
+               clouds must match a CPU copy's (masks compared first); the
+               list pass launches once per masked_max call.  Then
                scripts/microbench_gather_torch.py, the only path of the two
                gather kernels, with their launches counted.
   6. times   - each kernel and its plain version, CUDA events, in turns:
@@ -83,13 +92,17 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                gat_aggregate and one gmm_aggregate_node forward + backward
                on cora with its hub block against the all-binned build of
                the same graph, and a 1 GiB device-to-device copy.
-               masked_max in both schedules at F = 256 and F = 64 with the
-               model's bfloat16 mask at B = 64, P = 1024 (and equal to the
-               plain version there too), and the op around it forward +
-               backward in both backward modes; gather_rows_sum
-               and gather_lanes at the study's shapes, beside the one
-               library call that computes the same function
-               (embedding_bag, torch.gather; timed here, used nowhere).
+               masked_max in both schedules, and its list pass alone, at
+               the model's widths F = 256, 128 and 64 with the model's
+               bfloat16 mask at B = 64, P = 1024 (and equal to the plain
+               version there too), each beside its own bound, and the op
+               around it forward + backward in both backward modes;
+               gather_rows_sum and gather_lanes at the study's shapes,
+               beside the one library call that computes the same function
+               (embedding_bag, torch.gather; timed here, used nowhere);
+               gather_lanes and torch.gather from a replayed CUDA graph of
+               20 calls, since one call is shorter on the card than the
+               host takes to launch it.
                Each kernel's bound is the larger of its bytes (every input
                tensor read once, of a hub block's node tables and of
                gather_rows_sum's table the distinct rows the ids name, every
@@ -201,6 +214,11 @@ KERNELS = {
     "masked_max_step8": dict(route="cuda",
                              source="dgnn_tpu_torch/csrc/ec_tiles.cu",
                              replaces="scripts/exp_r5_ec_tiles.py:97"),
+    # the list pass both schedules start with (no kernel of its own on the
+    # TPU, where both kernels walk the whole mask)
+    "masked_max_live_lists": dict(route="cuda",
+                                  source="dgnn_tpu_torch/csrc/ec_tiles.cu",
+                                  replaces="scripts/exp_r5_ec_tiles.py:59"),
     "gather_rows_sum": dict(route="cuda",
                             source="dgnn_tpu_torch/csrc/gather.cu",
                             replaces="scripts/microbench_gather.py:99"),
@@ -223,6 +241,8 @@ FLOPS_PER_EDGE = {
 # gathered row and column, and none
 for _k in ("masked_max_step1", "masked_max_step8"):
     FLOPS_PER_EDGE[_k] = lambda C, G: 2 * C
+# the list pass: an add and a compare per mask entry
+FLOPS_PER_EDGE["masked_max_live_lists"] = lambda C, G: 2
 FLOPS_PER_EDGE["gather_rows_sum"] = lambda C, G: C
 FLOPS_PER_EDGE["gather_lanes"] = lambda C, G: 0
 for _k in ("gat_fwd", "gat_bwd"):
@@ -533,10 +553,50 @@ def check_masked_max(ec_tiles, make_inputs, dev, err):
     mask[1, :, 700] = 0
     cases.append(("B=3 P=1000 F=70 knn mask bf16, an empty row, a "
                   "duplicated source row", mask, hs))
+    # what the list pass must not prune by, P = 1000 and F = 70 throughout:
+    # no admitted column at all to tell from the rest, any float values, a
+    # neg that is small beside h_src, and the list's cap
+    b, p, f = 2, 1000, 70
+    hs = torch.randn((b, p, f), generator=gen, device=dev)
+    cases.append((f"B={b} P={p} F={f} all-zero mask f32",
+                  torch.zeros((b, p, p), device=dev), hs))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((f"B={b} P={p} F={f} random normal mask x 3 "
+                      f"{str(dtype).split('.')[-1]}",
+                      (torch.randn((b, p, p), generator=gen, device=dev)
+                       * 3).to(dtype), hs))
+    admit = torch.rand((b, p, p), generator=gen, device=dev) < EC_K / p
+    cases.append((f"B={b} P={p} F={f} mask {{0, -1}} f32, h_src of scale 10",
+                  torch.where(admit, 0.0, -1.0), hs * 10))
+    mask = torch.where(admit, 0.0, -1e30).to(torch.bfloat16)
+    mask[0, 7] = -1e30
+    mask[0, 7, 5:5 + ec_tiles.LIVE_CAP + 1] = 0   # one over the list's cap
+    mask[0, 8] = -1e30
+    mask[0, 8, 5:5 + ec_tiles.LIVE_CAP] = 0       # at the cap: still a list
+    cases.append((f"B={b} P={p} F={f} mask bf16, rows of "
+                  f"{ec_tiles.LIVE_CAP + 1} and {ec_tiles.LIVE_CAP} "
+                  "admitted columns (list overflow)", mask, hs))
     done = []
     for what, mask, hs in cases:
         want, want_i = ec_tiles.masked_max_plain(mask, hs, with_index=True)
-        n_cmp = 0
+        # the list pass alone against the rule in plain PyTorch
+        n_live = ec_tiles.live_candidates(mask, hs).sum(
+            dim=-1, dtype=torch.int32)
+        want_n = torch.where(n_live > ec_tiles.LIVE_CAP, -1, n_live).to(
+            torch.int32)
+        got_n = ec_tiles.live_counts(mask, hs)
+        err["masked_max_live_lists"] = max(
+            err["masked_max_live_lists"],
+            float((got_n - want_n).abs().max()))
+        assert torch.equal(got_n, want_n), (what, "live counts")
+        if "overflow" in what:
+            assert int(got_n[0, 7]) == -1 \
+                and int(got_n[0, 8]) == ec_tiles.LIVE_CAP
+        if "knn" in what and "empty row" not in what:
+            # the model's masks: live = admitted, no row walked densely
+            assert torch.equal(got_n, (mask == 0).sum(
+                dim=-1, dtype=torch.int32)), what
+        n_cmp = 1
         for schedule in ec_tiles.SCHEDULES:
             name = "masked_max_" + schedule
             got = ec_tiles.masked_max(mask, hs, schedule=schedule)
@@ -579,6 +639,21 @@ def check_gathers(gather, study, dev, err):
         want = gather.gather_lanes_plain(tab, idx)
         assert torch.equal(got, want), c
         done.append(f"c={c} slab={gather.lane_slab_width(c, tab.shape[1])}")
+    # lane counts and widths off the kernel's grain: L no multiple of 4, a
+    # width that is no multiple of the slab (the last slab overhangs), one
+    # id a row, a slab of one column
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for c, lanes, groups, rows in ((300, 6, 3, 1001), (300, 8, 3, 1001),
+                                   (3000, 10, 5, 4099), (300, 1, 5, 77),
+                                   (51200, 8, 1, 513)):
+        tab = torch.randn((c, lanes * groups), generator=gen, device=dev)
+        idx = torch.randint(0, c, (rows, lanes), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = gather.gather_lanes(tab, idx)
+        assert torch.equal(got, gather.gather_lanes_plain(tab, idx)), \
+            (c, lanes, groups)
+        done.append(f"c={c} L={lanes} width={lanes * groups} "
+                    f"slab={gather.lane_slab_width(c, lanes * groups)}")
     torch.cuda.synchronize()
     return done
 
@@ -656,7 +731,7 @@ def run_edgeconv_trainer(trainer, schedule, epochs):
     assert [(c.theta.in_features, c.theta.out_features)
             for c in model.convs.values()] == list(EC_LAYERS)
     want = dict.fromkeys(launches, 0)  # every other kernel: none
-    want["masked_max_" + schedule] = (
+    want["masked_max_" + schedule] = want["masked_max_live_lists"] = (
         (r["train_steps"] + r["eval_batches"]) * len(model.convs))
     assert launches == want, (launches, want)
     # the trained model on two test clouds: the card against a CPU copy
@@ -848,7 +923,8 @@ def main():
     for what, n_cmp in check_masked_max(ec_tiles, ec_study.make_inputs, dev,
                                         err):
         phase("kernels", f"masked_max {what}: {n_cmp} kernel/plain "
-              "comparisons equal, both schedules, index included")
+              "comparisons equal, both schedules, index included, and the "
+              "list pass's live counts")
     done = check_gathers(gather, gather_study, dev, err)
     phase("kernels", "gather_rows_sum (rtol 1e-5, atol 8 W 2^-23) and "
           f"gather_lanes (exact) agree with their plain versions: {done}")
@@ -978,14 +1054,19 @@ def main():
     gather_cases = gather_study.study(dev, iters=study_iters)
     launches["gather"] = all_launches()
     per_case = 1 + 2 + study_iters  # a check, the warmup, the timed calls
+    # a lanes case also warms up and records a CUDA graph of its calls
+    per_graph = 1 + gather_study.GRAPH_CALLS
     want = dict.fromkeys(launches["gather"], 0)
     want.update(gather_rows_sum=per_case * len(gather_study.ROWS_CASES),
-                gather_lanes=per_case * len(gather_study.LANES_CASES))
+                gather_lanes=(per_case + per_graph)
+                * len(gather_study.LANES_CASES))
     assert launches["gather"] == want, (launches["gather"], want)
     for case in gather_cases:
         phase("train", f"gather study {case['case']}: " + ", ".join(
             f"{row['variant']} {row['ms']:.4f} ms "
-            f"({row['useful_gb_per_s']:.0f} GB/s useful)"
+            f"({row['useful_gb_per_s']:.0f} GB/s useful"
+            + (f", {row['graph_ms']:.4f} ms in a CUDA graph"
+               if "graph_ms" in row else "") + ")"
             for row in case["rows"]) + f" | {smi}")
     torch.cuda.empty_cache()
 
@@ -1101,29 +1182,53 @@ def main():
 
     # the EdgeConv and gather kernels, one job at a time (their inputs are
     # large): F = 256 first, the width the kernels' line reports
-    for f in (256, 64):
+    for f in (256, 128, 64):
         mask, hs = ec_study.make_inputs(dev, EC_B, EC_P, f, EC_K, "knn",
                                         seed=8)
         admitted = int((mask == 0).sum())
-        fns = [lambda: ec_tiles.masked_max_plain(mask, hs)] + [
+
+        def live_plain():
+            return ec_tiles.live_candidates(mask, hs).sum(
+                dim=-1, dtype=torch.int32)
+
+        fns = [lambda: ec_tiles.masked_max_plain(mask, hs), live_plain,
+               lambda: ec_tiles.live_counts(mask, hs)] + [
             lambda s_=s_: ec_tiles.masked_max(mask, hs, schedule=s_)
             for s_ in ec_tiles.SCHEDULES]
-        plain_ms, *kernel_ms = time_turns(fns, time_calls, dev, [2, 20, 20])
+        plain_ms, live_plain_ms, live_ms, *kernel_ms = time_turns(
+            fns, time_calls, dev, [2, 5, 20, 20, 20])
         want = fns[0]()
+        counts = fns[2]()
+        assert torch.equal(counts, live_plain()), ("live counts", f)
+        # the list pass writes a count a row and 8 bytes a live candidate
+        listed = torch.empty((admitted, 2), dtype=torch.int32, device=dev)
+        bound_ms, bound_by = bound("masked_max_live_lists", [mask, hs],
+                                   [counts, listed], mask.numel(), 1, 1)
+        times[("masked_max_live_lists", f)] = dict(
+            ms=live_ms, plain_ms=live_plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, library_ms=None)
+        phase("times", f"masked_max_live_lists B={EC_B} P={EC_P} F={f} knn "
+              f"mask bf16: kernels (hs ranges + lists) {live_ms:.4f} ms, "
+              f"plain {live_plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+              f"{bound_by}; {float(counts.float().mean()):.2f} live a row, "
+              f"{int((counts < 0).sum())} rows over the cap of "
+              f"{ec_tiles.LIVE_CAP}, no single library call | {smi}")
+        del listed
         for i, (schedule, ms) in enumerate(zip(ec_tiles.SCHEDULES,
                                                kernel_ms)):
             name = "masked_max_" + schedule
             # at the main path's own batch too: exactly the plain version
-            assert torch.equal(fns[1 + i](), want), (name, f)
+            assert torch.equal(fns[3 + i](), want), (name, f)
             bound_ms, bound_by = bound(name, [mask, hs], [want], admitted,
                                        f, 1)
             times[(name, f)] = dict(ms=ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     library_ms=None)
             phase("times", f"{name} B={EC_B} P={EC_P} F={f} knn mask bf16 "
-                  f"({admitted / (EC_B * EC_P):.1f} admitted a row): kernel "
-                  f"{ms:.4f} ms ({EC_B * EC_P * EC_P * f / ms / 1e6:.0f} G "
-                  f"dense candidate-channels/s), plain {plain_ms:.4f} ms, "
+                  f"({admitted / (EC_B * EC_P):.1f} admitted a row): kernels "
+                  f"{ms:.4f} ms, the list pass {live_ms:.4f} ms of it "
+                  f"({admitted * f / ms / 1e6:.0f} G admitted "
+                  f"candidate-channels/s), plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.5f} ms by {bound_by} (operations: "
                   f"{2 * admitted * f / 1e9:.3f} G admitted of "
                   f"{2 * EC_B * EC_P * EC_P * f / 1e9:.1f} G dense), no "
@@ -1144,7 +1249,7 @@ def main():
         phase("times", f"edge_conv_max_dense fwd+bwd B={EC_B} P={EC_P} F={f} "
               f"mul_dtype bfloat16: tie_sum {tie_ms:.4f} ms, argmax "
               f"{arg_ms:.4f} ms | {smi}")
-        del mask, hs, fns, want, a, b, g_out
+        del mask, hs, fns, want, counts, a, b, g_out
     for width, sub in ((64, 8), (32, 8), (256, 8), (64, 2)):
         feat, nbr = gather_study.rows_inputs(dev, sub=sub, width=width,
                                              seed=9)
@@ -1181,8 +1286,13 @@ def main():
         fns = [lambda: gather.gather_lanes_plain(tab, idx),
                lambda: gather_study.lanes_library(tab, idx_wide),
                lambda: gather.gather_lanes(tab, idx)]
-        plain_ms, library_ms, ms = time_turns(fns, time_calls, dev,
-                                              [20, 20, 20])
+        plain_ms, library_host_ms, host_ms = time_turns(
+            fns, time_calls, dev, [20, 20, 20])
+        # at these sizes a call is shorter on the card than the host takes
+        # to launch it: the kernel's and the library call's time are read
+        # from a replayed CUDA graph of 20 calls, the host's beside them
+        library_ms = gather_study.graph_ms(fns[1], dev, 10)
+        ms = gather_study.graph_ms(fns[2], dev, 10)
         bound_ms, bound_by = bound("gather_lanes", [tab, idx], [fns[2]()],
                                    idx.numel(), 1, 1)
         times[("gather_lanes", c)] = dict(
@@ -1191,9 +1301,11 @@ def main():
         phase("times", f"gather_lanes table {c} x {tab.shape[1]} (slab "
               f"{gather.lane_slab_width(c, tab.shape[1])} columns), "
               f"{idx.shape[0]} rows of {idx.shape[1]} lanes: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.gather "
-              f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-              f"| {smi}")
+              f"{ms:.4f} ms ({bound_ms * PEAK_BYTES_S / 1e9 / ms:.0f} GB/s of "
+              f"what must move; {host_ms:.4f} ms a call launched from the "
+              f"host), plain {plain_ms:.4f} ms, torch.gather "
+              f"{library_ms:.4f} ms ({library_host_ms:.4f} ms from the "
+              f"host), bound {bound_ms:.5f} ms by {bound_by} | {smi}")
         del tab, idx, idx_wide, fns
     torch.cuda.empty_cache()
 
@@ -1256,7 +1368,9 @@ def main():
         # launches: the cora run of the kernel's model, the path that runs
         # its bin and its dense kernels; the DGCNN run in the kernel's
         # schedule; the gather study
-        if name.startswith("masked_max"):
+        if name == "masked_max_live_lists":
+            run = ("edgeconv", "step1")
+        elif name.startswith("masked_max"):
             run = ("edgeconv", name.rsplit("_", 1)[1])
         elif name.startswith("gather"):
             run = "gather"

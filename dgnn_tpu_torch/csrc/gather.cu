@@ -27,24 +27,37 @@
 //   gather_lanes_kernel  replaces microbench_gather.py:bench_vmem_dynamic_gather
 //     (kernel _dg_kernel; wrapper gather_lanes):
 //       out[r, q] = tab[idx[r, q % L], q]
-//     The TPU kernel kept the whole table in fast memory.  The tables here
-//     (512 KB to 4 MB) do not fit a block's shared memory, so residency is
-//     by column slab: a block loads tab[:, slab] (w columns, c * w * 4
-//     bytes <= kLaneSlabBytes) once, then walks its share of the rows of
-//     idx, each thread reading its own idx[r, q % L] and gathering from
-//     the slab.  Bound: bytes of idx, out and the table.  Shared-memory
-//     banks: a slab row is w floats, so at w >= 32 the threads of a warp
-//     read distinct banks whatever their rows; at w = 16 (8) a warp covers
-//     2 (4) rows of idx whose table rows collide on a bank when their ids
-//     agree mod 2 (4): up to 2-way (4-way) conflicts, left as they are.
+//     Bound on the H100: the bytes of idx, out and the table.  What holds a
+//     kernel back is the table read: every lane of a warp names its own
+//     table row, and a load that touches 32 cache lines is taken a line at
+//     a time, so a gather straight from the L2-resident table (measured on
+//     an H100: no faster than torch.gather) delivers a third of what the
+//     same gather from shared memory does, where 32 lanes on distinct banks
+//     are one access.  So, like the TPU kernel, the table is resident in
+//     fast memory, by column slab since a block has 227 KB: a block of 1024
+//     threads (one per SM) copies tab[:, slab] (w <= 32 columns, c * w * 4
+//     bytes <= kLaneSlabBytes) by 16-byte asynchronous copies, all in flight
+//     together, and loads its first ids meanwhile; then each thread walks
+//     its rows of idx eight at a time: eight gathers from the slab, the next
+//     eight ids requested, eight streaming stores (the output is not read
+//     again, so it does not displace idx or the table in L2).  Banks: a slab
+//     row is w floats, so at w = 32 the lanes of a warp read distinct banks
+//     whatever their rows; at w = 16 (8) a warp covers 2 (4) rows of idx
+//     whose table rows collide when their ids agree mod 2 (4): 2-way (up to
+//     4-way) conflicts, still an order above the L2 gather.  A slab of 8
+//     columns moves idx and out in 32-byte pieces.  Any L and width: a last
+//     slab that overhangs the table is bounded in the kernel; a width that
+//     is no multiple of 4 (or an unaligned table) loads its slab by 4-byte
+//     reads.
 //
-// Both kernels read their ids unchecked, so each launcher first runs
+// gather_rows_sum reads its ids unchecked, so its launcher first runs
 // check_ids_kernel over them on the same stream: an id outside the table
 // traps there (a CUDA error at the next synchronisation) and the gather
-// behind it never runs, so nothing outside the table is read.  The check is
-// a pass of its own because inside the gathers' loops it cost gather_lanes
-// up to 2.6 times its time (a trap in the loop) or 1.8 times (a flag tested
-// behind the loop) on an H100 at a 4096-row table.
+// behind it never runs.  gather_lanes checks each id where it has loaded it
+// (measured cheaper than the pass of its own, which the gather waits for):
+// an id outside the table reads row 0 of the slab instead and the thread
+// traps behind its loop.  Either way the launch fails and nothing outside
+// the table is read.
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
@@ -58,7 +71,8 @@ constexpr int kStageBytes = 32 * 1024;  // of one stage; two are resident
 constexpr int kMaxStageRows = 32;
 constexpr int kSegsPerBlock = 8;
 constexpr int kLaneSlabBytes = 200 * 1024;
-constexpr int kLaneThreads = 256;
+constexpr int kLaneThreads = 1024;
+constexpr int kLaneRows = 8;  // rows of one thread in flight together
 constexpr int kCheckThreads = 256;
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
@@ -155,8 +169,10 @@ __global__ void __launch_bounds__(kMaxThreads) gather_rows_sum_kernel(
   }
 }
 
-// grid: (column slabs, row chunks).  Threads: kLaneThreads / w rows x w
-// columns at a time.
+// grid: (column slabs of w, row chunks).  Threads: kLaneThreads / w rows x w
+// columns at a time.  Dynamic shared memory: the [c, w] slab.  kVec: w and
+// width multiples of 4 and tab 16-byte aligned.
+template <bool kVec>
 __global__ void __launch_bounds__(kLaneThreads) gather_lanes_kernel(
     const float* __restrict__ tab,  // [c, width]
     const int* __restrict__ idx,    // [R, L]
@@ -167,22 +183,78 @@ __global__ void __launch_bounds__(kLaneThreads) gather_lanes_kernel(
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * w;
-  for (int e = tid; e < c * w; e += kLaneThreads) {
-    const int row = e / w;
-    const int x = e - row * w;
-    slab[e] = tab[static_cast<size_t>(row) * width + q0 + x];
+  if constexpr (kVec) {
+    const int w4 = w / 4;
+    for (int e = tid; e < c * w4; e += kLaneThreads) {
+      const int row = e / w4;
+      const int x = (e - row * w4) * 4;
+      if (q0 + x < width)
+        cp_async_16(slab + row * w + x,
+                    tab + static_cast<size_t>(row) * width + q0 + x);
+    }
+    cp_async_commit();
+  } else {
+    for (int e = tid; e < c * w; e += kLaneThreads) {
+      const int row = e / w;
+      const int x = e - row * w;
+      if (q0 + x < width)
+        slab[e] = __ldg(tab + static_cast<size_t>(row) * width + q0 + x);
+    }
   }
-  __syncthreads();
-
   const int x = tid % w;
   const int q = q0 + x;
+  const bool col_ok = q < width;
   const int lane = q % L;
+  const int step = kLaneThreads / w;
   const int r_end = min(R, (blockIdx.y + 1) * rows_per_block);
-  for (int r = blockIdx.y * rows_per_block + tid / w; r < r_end;
-       r += kLaneThreads / w) {
-    const int id = idx[static_cast<size_t>(r) * L + lane];
-    out[static_cast<size_t>(r) * width + q] = slab[id * w + x];
+  int r = blockIdx.y * rows_per_block + tid / w;
+  bool bad = false;
+  int id[kLaneRows];
+  // the first ids travel while the slab does
+#pragma unroll
+  for (int u = 0; u < kLaneRows; ++u) {
+    const int ru = r + u * step;
+    id[u] = (col_ok && ru < r_end)
+                ? __ldg(idx + static_cast<size_t>(ru) * L + lane) : 0;
   }
+  if constexpr (kVec) cp_async_wait<0>();
+  __syncthreads();
+  for (; r < r_end; r += kLaneRows * step) {
+    float val[kLaneRows];
+#pragma unroll
+    for (int u = 0; u < kLaneRows; ++u) {
+      const bool ok = static_cast<unsigned>(id[u]) < static_cast<unsigned>(c);
+      bad |= !ok;
+      val[u] = slab[(ok ? id[u] : 0) * w + x];
+    }
+    // the next ids before this step's stores
+    int nid[kLaneRows];
+#pragma unroll
+    for (int u = 0; u < kLaneRows; ++u) {
+      const int ru = r + (kLaneRows + u) * step;
+      nid[u] = (col_ok && ru < r_end)
+                   ? __ldg(idx + static_cast<size_t>(ru) * L + lane) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kLaneRows; ++u) {
+      const int ru = r + u * step;
+      if (col_ok && ru < r_end)
+        __stcs(out + static_cast<size_t>(ru) * width + q, val[u]);
+      id[u] = nid[u];
+    }
+  }
+  if (bad) __trap();
+}
+
+// SMs of the current device, asked once.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, sms = 132;
+    if (cudaGetDevice(&dev) == cudaSuccess)
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    return sms;
+  }();
+  return n;
 }
 
 }  // namespace
@@ -215,35 +287,36 @@ int dgnn_gather_rows_sum(const float* feat, const int* nbr, int N, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// w: slab columns, a power of two <= kLaneThreads that divides width, with
-// c * w * 4 <= kLaneSlabBytes (ops/gather.py lane_slab_width).
+// w: slab columns, a power of two <= 32 with c * w * 4 <= kLaneSlabBytes
+// (ops/gather.py lane_slab_width).
 int dgnn_gather_lanes(const float* tab, const int* idx, int c, int width,
                       int R, int L, int w, float* out, void* stream) {
-  if (c < 1 || L < 1 || width < 1 || width % L || w < 1 ||
-      w > kLaneThreads || (w & (w - 1)) || width % w || R < 0 ||
+  if (c < 1 || L < 1 || width < 1 || width % L || w < 1 || w > 32 ||
+      (w & (w - 1)) || R < 0 ||
       static_cast<size_t>(c) * w * 4 > kLaneSlabBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaGetLastError());
   const size_t smem = static_cast<size_t>(c) * w * 4;
+  const bool vec = w % 4 == 0 && width % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(tab) & 15u) == 0;
   cudaError_t e = cudaFuncSetAttribute(
-      gather_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      vec ? gather_lanes_kernel<true> : gather_lanes_kernel<false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  // about one block per SM: each block re-reads its slab of the table, so
-  // more blocks buy parallelism with table traffic
-  const int slabs = width / w;
-  const int chunks = max(1, min((sms + slabs - 1) / slabs, R));
+  // one block per SM: each block re-reads its slab of the table, so more
+  // blocks buy parallelism with table traffic
+  const int sms = sm_count();
+  const int slabs = (width + w - 1) / w;
+  const int chunks = max(1, min(sms / slabs, R));
   const int rows_per_block = (R + chunks - 1) / chunks;
   const dim3 grid(slabs, (R + rows_per_block - 1) / rows_per_block);
-  check_ids(idx, static_cast<size_t>(R) * L, c,
-            static_cast<cudaStream_t>(stream));
-  gather_lanes_kernel<<<grid, kLaneThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      tab, idx, c, width, R, L, w, rows_per_block, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    gather_lanes_kernel<true><<<grid, kLaneThreads, smem, s>>>(
+        tab, idx, c, width, R, L, w, rows_per_block, out);
+  else
+    gather_lanes_kernel<false><<<grid, kLaneThreads, smem, s>>>(
+        tab, idx, c, width, R, L, w, rows_per_block, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -170,10 +170,16 @@ def load() -> ctypes.CDLL:
             vp, vp,                             # dx st
             vp]                                 # stream
         lib.dgnn_dense_gmm_bwd.restype = ci
+        lib.dgnn_ec_live_lists.argtypes = [
+            vp, ci, vp,                         # mask mask_bf16 hs
+            ci, ci, ci, ci,                     # B P F cap
+            vp, vp, vp,                         # range entries count
+            vp]                                 # stream
+        lib.dgnn_ec_live_lists.restype = ci
         lib.dgnn_ec_masked_max.argtypes = [
             vp, ci, vp,                         # mask mask_bf16 hs
-            ci, ci, ci, ci,                     # B P F step
-            vp, vp,                             # out idx
+            ci, ci, ci, ci, ci,                 # B P F step cap
+            vp, vp, vp, vp,                     # entries count out idx
             vp]                                 # stream
         lib.dgnn_ec_masked_max.restype = ci
         lib.dgnn_gather_rows_sum.argtypes = [

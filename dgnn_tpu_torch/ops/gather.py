@@ -8,7 +8,9 @@ memory, the next stage in flight while the current one is summed:
     out[s, :] = sum_j feat[nbr[s, j], :]
 
 ``gather_lanes`` (``bench_vmem_dynamic_gather``): a per-lane gather from a
-table held in shared memory, one column slab at a time:
+table held in shared memory, one column slab per 1024-thread block (32
+lanes that each name their own table row are one shared-memory access, but
+32 cache lines for a read of the table where it lies in L2):
 
     out[r, q] = tab[idx[r, q % L], q]        (L = idx.shape[1])
 
@@ -16,9 +18,11 @@ Both launch the kernels of csrc/gather.cu for CUDA tensors and raise on
 anything those do not take; the ``*_plain`` versions run for CPU tensors
 only.  No model of the package calls them: scripts/microbench_gather_torch.py
 is their path.  An id outside the table raises an IndexError in the plain
-versions; on the card a checking pass over the ids runs before each gather
-and traps on such an id: the launch fails with a CUDA error at the next
-synchronisation, and nothing outside the table is read.
+versions; on the card such an id traps (``gather_rows_sum``: in a checking
+pass over the ids before the gather; ``gather_lanes``: where the id is
+loaded, and row 0 of the slab is read in its place): the launch fails with
+a CUDA error at the next synchronisation, and nothing outside the table is
+read.
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
 only where the kernel is launched).
@@ -98,10 +102,12 @@ def gather_rows_sum(feat, nbr):
 
 def lane_slab_width(c: int, width: int) -> int:
     """Columns of the table one block keeps in shared memory: the largest
-    power of two, at most 64 and at most ``width``, whose [c, w] float32
-    slab fits ``LANE_SLAB_BYTES``; 0 if not even one column does."""
-    w = 64
-    while w and (c * w * 4 > LANE_SLAB_BYTES or w > width):
+    power of two, at most 32 (a warp's lanes then read distinct banks) and
+    under twice ``width``, whose [c, w] float32 slab fits
+    ``LANE_SLAB_BYTES``; 0 if not even one column does.  ``width`` need not
+    be a multiple of it: the last slab may overhang the table."""
+    w = 32
+    while w and (c * w * 4 > LANE_SLAB_BYTES or w >= 2 * width):
         w //= 2
     return w
 
@@ -140,10 +146,10 @@ def gather_lanes(tab, idx):
     c, width = tab.shape
     R, L = idx.shape
     w = lane_slab_width(c, width)
-    if w == 0 or width % w:
-        raise ValueError(f"gather_lanes: a table of {c} x {width}: no column "
-                         f"slab of it fits {LANE_SLAB_BYTES} bytes of shared "
-                         "memory, or its width is not a multiple of the slab")
+    if w == 0:
+        raise ValueError(f"gather_lanes: a table of {c} rows: not one column "
+                         f"of it fits {LANE_SLAB_BYTES} bytes of shared "
+                         "memory")
     out = torch.empty((R, width), device=tab.device, dtype=torch.float32)
     lib = _build.load()
     stream = torch.cuda.current_stream(tab.device).cuda_stream

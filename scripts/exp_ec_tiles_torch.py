@@ -10,10 +10,17 @@ version (cloud by cloud, so that its broadcast fits) and the hand-written
 kernel of dgnn_tpu_torch/csrc/ec_tiles.cu in both schedules ("step1": one
 candidate column per inner step; "step8": eight mask values and eight hs
 rows held in registers per step), with and without the first-winner index,
-by CUDA events in turns.  Per variant it prints ms, dense candidate-channels
-per second (B * P * P * F / s, what the kernel walks), admitted
-candidate-channels per second (what the mask lets through), and the largest
-difference from the plain version, which must be 0: the max is exact.
+by CUDA events in turns.  Both schedules walk the lists of live candidates
+that the kernels' list pass makes of the mask first (ops/ec_tiles.py
+``live_candidates``); the script times that pass alone too
+(``live_counts``) and prints the mean number of live candidates a row and
+the rows that overflow a list and are walked densely, and the share of the
+mask's 64 x 64 tiles that hold an admitted entry (what skipping empty column
+tiles, instead of listing, would leave to walk).  Per variant it prints
+ms, dense candidate-channels per second (B * P * P * F / s, what the dense
+form walks), admitted candidate-channels per second (what the mask lets
+through), and the largest difference from the plain version, which must be
+0: the max is exact.
 ``--mask knn`` takes the model's mask instead: ``knn_mask_neg`` of random
 points, bfloat16 with -1e30.  The last line is one JSON object with every
 number.  ``--device cpu`` runs the plain version only (a CPU tensor never
@@ -38,6 +45,7 @@ from dgnn_tpu_torch.ops import ec_tiles
 from dgnn_tpu_torch.utils import time_calls
 
 NEG = -1e9  # the float32 study mask, as the JAX script's
+TILE = 64   # side of the column tiles whose skipping touched_tiles weighs
 
 
 def make_inputs(device, b=64, p=1024, f=256, k=40, mask="f32", seed=0):
@@ -57,12 +65,37 @@ def make_inputs(device, b=64, p=1024, f=256, k=40, mask="f32", seed=0):
     return torch.where(admit, zero, zero + NEG), hs
 
 
+def touched_tiles(mask_neg):
+    """Share of a mask's TILE x TILE tiles (rows x candidate columns) that
+    hold at least one admitted (zero) entry: what a kernel that skips empty
+    column tiles would still have to walk.  None unless P is a multiple of
+    TILE."""
+    b, p, _ = mask_neg.shape
+    if p % TILE:
+        return None
+    t = p // TILE
+    hit = (mask_neg == 0).view(b, t, TILE, t, TILE).any(dim=4).any(dim=2)
+    return float(hit.float().mean())
+
+
 def study(device, b=64, p=1024, f=256, k=40, mask="f32", iters=10, seed=0):
     """Rows of (variant, ms, rates, max error), plain first."""
     device = torch.device(device)
     mask_neg, hs = make_inputs(device, b, p, f, k, mask, seed)
     admitted = int((mask_neg == 0).sum())
     want, want_i = ec_tiles.masked_max_plain(mask_neg, hs, with_index=True)
+    counts = ec_tiles.live_counts(mask_neg, hs)
+    listed = counts >= 0
+    list_pass_ms = None
+    if device.type == "cuda":
+        # the list pass against the rule's plain statement, then its time
+        n_live = ec_tiles.live_candidates(mask_neg, hs).sum(
+            dim=-1, dtype=torch.int32)
+        assert torch.equal(counts, torch.where(
+            n_live > ec_tiles.LIVE_CAP, -1, n_live).to(torch.int32))
+        list_pass_ms = time_calls(
+            lambda: ec_tiles.live_counts(mask_neg, hs), device, iters=iters,
+            warmup=2) * 1e3
     variants = [("plain", False, lambda: ec_tiles.masked_max_plain(
         mask_neg, hs))]
     if device.type == "cuda":
@@ -89,7 +122,14 @@ def study(device, b=64, p=1024, f=256, k=40, mask="f32", iters=10, seed=0):
                          max_abs_err=err))
     return dict(shape=dict(B=b, P=p, F=f, k=k, mask=mask,
                            mask_dtype=str(mask_neg.dtype),
-                           admitted_per_row=admitted / (b * p)), rows=rows)
+                           admitted_per_row=admitted / (b * p),
+                           touched_tile_share=touched_tiles(mask_neg),
+                           live_per_listed_row=float(
+                               counts[listed].float().mean()) if bool(
+                                   listed.any()) else None,
+                           dense_rows=int((~listed).sum()),
+                           live_cap=ec_tiles.LIVE_CAP),
+                list_pass_ms=list_pass_ms, rows=rows)
 
 
 def card(device):
@@ -121,6 +161,9 @@ def main():
                 args.mask, args.iters, args.seed)
     res["card"] = card(args.device)
     print(f"[ec_tiles] {res['shape']} | {res['card']}")
+    if res["list_pass_ms"] is not None:
+        print(f"[ec_tiles] list pass      : {res['list_pass_ms']:9.3f} ms  "
+              "(hs ranges + live lists; inside every kernel variant's time)")
     for r in res["rows"]:
         print(f"[ec_tiles] {r['variant']:14s}: {r['ms']:9.3f} ms  "
               f"{r['dense_cand_per_s'] / 1e9:8.1f} G dense cand-ch/s  "

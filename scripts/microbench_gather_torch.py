@@ -14,7 +14,11 @@
 3. ``gather_lanes``: the hand-written per-lane gather from a table held in
    shared memory one column slab at a time; beside it its plain version and
    ``torch.gather`` (given the widened int64 index, made outside the timed
-   region).
+   region).  For these two it also prints the GB/s of the bytes the function
+   must move (table, int32 ids and output once each; ``torch.gather`` is
+   given an int64 index of the output's shape and moves 2.4 times as much),
+   and the time of one call inside a replayed CUDA graph of 20: at the small
+   tables a call is shorter than the host takes to launch it.
 
 At the JAX study's shapes: a [65536, sub, 128] float32 table and 2^20
 gathered rows in segments of W, (W, sub) = (32, 8), (64, 8), (256, 8),
@@ -94,6 +98,22 @@ def _rates(name, s, rows, row_bytes, err=None):
                 / s / 1e9, rows_per_s=rows / s, max_abs_err=err)
 
 
+GRAPH_CALLS = 20
+
+
+def graph_ms(fn, device, iters):
+    """ms per call of ``fn()`` replayed from a CUDA graph that holds
+    GRAPH_CALLS of them: the device's time, free of the host's."""
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    s = time_calls(graph.replay, device, iters=iters, warmup=2)
+    return s * 1e3 / GRAPH_CALLS
+
+
 def bench_index(device, n=65536, d=256, e=1 << 22, iters=10, seed=0):
     gen = torch.Generator(device=device).manual_seed(seed)
     feat = torch.randn((n, d), generator=gen, device=device)
@@ -141,14 +161,21 @@ def bench_lanes(device, c, nlane=2, iters_inner=16, iters=10, seed=0):
     if device.type == "cuda":
         variants.insert(0, ("kernel gather_lanes",
                             lambda: gather.gather_lanes(tab, idx)))
+    # what the function must move: the table, the ids and the output once
+    must = (tab.numel() + idx.numel() + want.numel()) * 4
     rows = []
     for name, fn in variants:
         got = fn()
         assert torch.equal(got, want), f"{name}: differs at c={c}"
         s = time_calls(fn, device, iters=iters, warmup=2)
-        rows.append(_rates(name, s, idx.shape[0], nlane * 128 * 4, 0.0))
+        row = _rates(name, s, idx.shape[0], nlane * 128 * 4, 0.0)
+        row["must_move_gb_per_s"] = must / s / 1e9
+        if device.type == "cuda" and not name.startswith("plain"):
+            row["graph_ms"] = graph_ms(fn, device, iters)
+        rows.append(row)
     return dict(case=dict(kind="lanes", E=idx.shape[0], D=nlane * 128, C=c,
-                          slab=gather.lane_slab_width(c, nlane * 128)),
+                          slab=gather.lane_slab_width(c, nlane * 128),
+                          must_move_bytes=must),
                 rows=rows)
 
 
@@ -192,6 +219,10 @@ def main():
         for r in case["rows"]:
             err = ("" if r["max_abs_err"] is None
                    else f"  max err {r['max_abs_err']:.1e}")
+            if "must_move_gb_per_s" in r:
+                err += f"  {r['must_move_gb_per_s']:8.1f} GB/s of what must move"
+            if "graph_ms" in r:
+                err += f"  {r['graph_ms']:.4f} ms in a CUDA graph"
             print(f"[gather]   {r['variant']:24s}: {r['ms']:9.4f} ms  "
                   f"{r['useful_gb_per_s']:8.1f} GB/s useful  "
                   f"{r['rows_per_s'] / 1e6:8.1f} M rows/s{err}")

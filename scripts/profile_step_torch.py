@@ -20,7 +20,9 @@ rest (elementwise, reductions, gathers, ``cat``, the optimizer).  The
 ``edgeconv`` cell then takes the same number of steps once more with CUDA
 events around every k-NN mask build (``knn_mask_neg``) and every tie-sum
 backward (``_dsrc_ties``), and prints each span's calls and device-stream
-ms per step (idle gaps inside a span included).  The last line is one JSON
+ms per step (idle gaps inside a span included), and counts the admitted
+columns a row of each layer's mask on one batch (mean, most, rows over the
+masked-max lists' cap and over half of it).  The last line is one JSON
 object with every number.  Needs a CUDA device.
 """
 
@@ -42,7 +44,7 @@ from dgnn_tpu_torch.utils import make_optimizer, make_sgd_cosine
 # substrings of the hand-written kernels' names in a trace
 OWN = ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd",
        "bin_gmm_fwd", "bin_gmm_bwd", "dense_gmm_fwd", "dense_gmm_bwd",
-       "ec_masked_max")
+       "ec_masked_max", "ec_live_list", "ec_hs_range")
 GEMM = ("gemm", "cutlass", "cublas")
 
 
@@ -138,6 +140,28 @@ def edgeconv_spans(step, steps):
         dgcnn.knn_mask_neg, edgeconv._dsrc_ties = saved
 
 
+def edgeconv_mask_stats(model, x):
+    """Admitted columns a row of each layer's k-NN mask on one batch (an
+    eval forward): what the masked-max kernels' lists have to hold."""
+    from dgnn_tpu_torch.ops.ec_tiles import LIVE_CAP
+
+    was_training = model.training
+    model.eval()
+    masks = []
+    with torch.no_grad():
+        model(x, masks_out=masks)
+    model.train(was_training)
+    stats = []
+    for m in masks:
+        n = (m == 0).sum(dim=-1)
+        stats.append(dict(admitted_mean=float(n.float().mean()),
+                          admitted_max=int(n.max()), rows=n.numel(),
+                          rows_over_half_cap=int((n > LIVE_CAP // 2).sum()),
+                          rows_over_cap=int((n > LIVE_CAP).sum()),
+                          live_cap=LIVE_CAP))
+    return stats
+
+
 def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
     trainer = load_trainer(kind)
     if kind == "edgeconv":
@@ -205,6 +229,8 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
     out["rest_ms_per_step"] = (us_all - own_us - gemm_us) / 1e3 / steps
     if kind == "edgeconv":
         out["spans"] = edgeconv_spans(step, steps)
+        out["masks"] = edgeconv_mask_stats(r["model"],
+                                           r["x_train"][:args.batch_size])
     return out
 
 

@@ -11,6 +11,8 @@ tests/test_torch_edgeconv.py
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from dgnn_tpu_torch.data import load_modelnet, synthetic_point_clouds
 from dgnn_tpu_torch.graph.knn import knn_graph, knn_mask_neg
@@ -187,6 +189,134 @@ def test_masked_max_refuses_bad_arguments(rng):
         ec_tiles.masked_max(mask.to(torch.float16), hs)
     with pytest.raises(TypeError):
         ec_tiles.masked_max(mask, hs.to(torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# the pruning rule of the kernels' list pass, stated in plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _max_over_live(mask, hs):
+    """masked_max_plain's two outputs taken over ``live_candidates`` alone:
+    every other candidate is left out of the max and of the first-winner
+    search."""
+    live = ec_tiles.live_candidates(mask, hs)
+    vals = mask.to(torch.float32)[:, :, :, None] + hs[:, None, :, :]
+    vals = torch.where(live[..., None], vals, float("-inf"))
+    m = vals.amax(dim=2)
+    j = torch.arange(mask.shape[1], dtype=torch.int32)[None, None, :, None]
+    first = torch.where(vals >= m[:, :, None, :], j, 1 << 20).amin(dim=2)
+    return m, first.to(torch.int32), live
+
+
+def _rule_case(rng, kind):
+    """(mask, hs) for one named case of the pruning rule's tests."""
+    b, p, f, k = 2, 24, 10, 5
+    hs = _f32(rng, b, p, f)
+    if kind in ("knn-bf16", "knn-f32"):
+        dtype = torch.bfloat16 if kind == "knn-bf16" else torch.float32
+        mask = knn_mask_neg(torch.from_numpy(_f32(rng, b, p, 3)), k,
+                            dtype=dtype)
+    elif kind == "empty-row":
+        mask = _mask(rng, b, p, k, -1e30, torch.bfloat16)
+        mask[0, 3] = -1e30
+        mask[1, 0] = -1e30
+    elif kind == "all-zero":
+        mask = torch.zeros((b, p, p), dtype=torch.float32)
+    elif kind == "general":
+        mask = torch.from_numpy(_f32(rng, b, p, p) * 3)
+    elif kind == "general-bf16":
+        mask = torch.from_numpy(_f32(rng, b, p, p) * 3).to(torch.bfloat16)
+    elif kind == "small-neg":         # neg = -1 beside hs of scale 10
+        mask = _mask(rng, b, p, k, -1.0, torch.float32)
+        hs = hs * 10
+    elif kind == "large-hs":          # extremes near 1e30 / 4, no inf
+        mask = _mask(rng, b, p, k, -1e30, torch.bfloat16)
+        hs = hs * 1e29
+        hs[0, 2, 1], hs[1, 5, 0] = 2.5e29, -2.5e29
+    else:
+        raise ValueError(kind)
+    # a duplicated source row among the admitted ones: exact ties
+    hs[1, 7] = hs[1, 1]
+    mask[1, :, 1] = 0
+    mask[1, :, 7] = 0
+    return mask, torch.from_numpy(hs)
+
+
+@pytest.mark.parametrize("kind", ["knn-bf16", "knn-f32", "empty-row",
+                                  "all-zero", "general", "general-bf16",
+                                  "small-neg", "large-hs"])
+def test_max_over_live_candidates_equals_plain(rng, kind):
+    """Tolerance: none.  The max and the first winner over the live set are
+    masked_max_plain's bit for bit, whatever the mask holds."""
+    mask, hs = _rule_case(rng, kind)
+    want, want_i = ec_tiles.masked_max_plain(mask, hs, with_index=True)
+    got, got_i, live = _max_over_live(mask, hs)
+    assert torch.equal(got, want) and torch.equal(got_i, want_i)
+    assert bool(torch.isfinite(want).all())
+    n = live.sum(-1)
+    assert int(n.min()) >= 1
+    if kind.startswith("knn"):
+        # on the model's masks the live set IS the admitted set
+        assert torch.equal(live, mask == 0)
+    elif kind == "empty-row":
+        assert int(n[0, 3]) == mask.shape[1] and int(n[0, 4]) < 10
+    elif kind in ("all-zero", "small-neg"):
+        assert int(n.min()) == mask.shape[1]
+
+
+@settings(max_examples=40, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 32 - 1),
+       values=st.sampled_from(["two", "three", "float", "rows"]),
+       neg=st.sampled_from([-1e30, -1e9, -100.0, -1.0, -0.01, 0.5]),
+       scale=st.sampled_from([1e-3, 1.0, 10.0, 1e29]),
+       bf16=st.booleans())
+def test_max_over_live_candidates_equals_plain_any_mask(seed, values, neg,
+                                                        scale, bf16):
+    """Masks drawn by hypothesis (two or three values, any floats, constant
+    rows; any neg, any scale of h_src): exact, as above."""
+    rng = np.random.default_rng(seed)
+    b, p, f = 2, 12, 6
+    pick = rng.random((b, p, p))
+    if values == "two":
+        m = np.where(pick < 0.3, 0.0, neg)
+    elif values == "three":
+        m = np.where(pick < 0.3, 0.0, np.where(pick < 0.6, neg, 2 * neg))
+    elif values == "float":
+        m = rng.normal(size=(b, p, p)) * abs(neg)
+    else:
+        m = np.broadcast_to(rng.normal(size=(b, p, 1)) * abs(neg), (b, p, p))
+    mask = torch.from_numpy(np.ascontiguousarray(m, np.float32))
+    if bf16:
+        mask = mask.to(torch.bfloat16)
+    hs = rng.normal(size=(b, p, f)).astype(np.float32) * np.float32(scale)
+    hs[0, 4] = hs[0, 2]
+    hs = torch.from_numpy(hs)
+    want, want_i = ec_tiles.masked_max_plain(mask, hs, with_index=True)
+    got, got_i, _ = _max_over_live(mask, hs)
+    assert torch.equal(got, want) and torch.equal(got_i, want_i)
+
+
+def test_live_counts_follow_the_rule_and_the_cap(rng):
+    """On the CPU live_counts counts live_candidates; a row with more than
+    LIVE_CAP of them is marked -1 (the kernel walks it densely)."""
+    cap = ec_tiles.LIVE_CAP
+    p = cap + 12
+    mask = _mask(rng, 2, p, 6, -1e30, torch.bfloat16)
+    mask[0, 2] = -1e30                       # admits nothing: all p are live
+    mask[1, 5] = -1e30
+    mask[1, 5, :cap] = 0                     # exactly the cap: still a list
+    mask[1, 6] = -1e30
+    mask[1, 6, 3:cap + 4] = 0                # one more
+    hs = torch.from_numpy(_f32(rng, 2, p, 4))
+    ec_tiles.reset_launches()
+    got = ec_tiles.live_counts(mask, hs)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (2, p)
+    want = (mask == 0).sum(-1).to(torch.int32)
+    want[0, 2] = want[1, 6] = -1
+    assert torch.equal(got, want)
+    assert int(got[1, 5]) == cap and int(got.max()) == cap
+    assert ec_tiles.LAUNCHES == dict.fromkeys(ec_tiles.LAUNCHES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -721,16 +851,42 @@ def test_ec_tiles_study_runs_on_cpu(mask, dtype, neg):
 # ---------------------------------------------------------------------------
 
 
+def _adversarial_mask(rng, kind, b, p, k, dtype, neg):
+    """The masks the list pass must get right beside the k-NN ones."""
+    if kind == "knn":
+        mask = _mask(rng, b, p, min(k, p), neg, dtype)
+        mask[0, 1] = neg                     # a row that admits nothing
+    elif kind == "all-zero":
+        mask = torch.zeros((b, p, p), dtype=dtype)
+    elif kind == "general":
+        mask = torch.from_numpy(_f32(rng, b, p, p) * 3).to(dtype)
+    elif kind == "small-neg":
+        mask = _mask(rng, b, p, min(k, p), -1.0, dtype)
+    elif kind == "overflow":
+        # one row just over the list's cap (where P allows), one at it
+        mask = _mask(rng, b, p, min(k, p), neg, dtype)
+        mask[0, 2] = mask[0, 4] = neg
+        mask[0, 2, :ec_tiles.LIVE_CAP + 1] = 0
+        mask[0, 4, 1:ec_tiles.LIVE_CAP + 1] = 0
+    else:
+        raise ValueError(kind)
+    return mask
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ec_tiles.SCHEDULES)
-@pytest.mark.parametrize("shape", [(2, 256, 64), (1, 100, 70), (3, 12, 5)],
-                         ids=["tiles", "ragged", "tiny"])
-def test_cuda_masked_max_matches_plain(rng, cuda_device, schedule, shape):
+@pytest.mark.parametrize("kind", ["knn", "all-zero", "general", "small-neg",
+                                  "overflow"])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (1, 100, 70), (3, 12, 5),
+                                   (2, 1000, 70)],
+                         ids=["tiles", "ragged", "tiny", "p1000-f70"])
+def test_cuda_masked_max_matches_plain(rng, cuda_device, schedule, shape,
+                                       kind):
+    """Tolerance: none, value and first-winner index, both mask dtypes."""
     b, p, f = shape
     for dtype, neg in ((torch.bfloat16, -1e30), (torch.float32, -1e9)):
-        mask = _mask(rng, b, p, min(5, p), neg, dtype)
-        mask[0, 1] = neg
-        hs = _f32(rng, b, p, f)
+        mask = _adversarial_mask(rng, kind, b, p, 5, dtype, neg)
+        hs = _f32(rng, b, p, f) * (10 if kind == "small-neg" else 1)
         hs[0, 3] = hs[0, 0]
         mask[0, :, 0] = 0
         mask[0, :, 3] = 0
@@ -741,9 +897,34 @@ def test_cuda_masked_max_matches_plain(rng, cuda_device, schedule, shape):
                                            with_index=True)
         torch.cuda.synchronize()
         assert ec_tiles.LAUNCHES["masked_max_" + schedule] == 2
+        assert ec_tiles.LAUNCHES["masked_max_live_lists"] == 2
         want_m, want_i = ec_tiles.masked_max_plain(mask, hs, with_index=True)
         assert torch.equal(got, want_m) and torch.equal(got_m, want_m)
         assert torch.equal(got_i, want_i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["knn", "all-zero", "general", "small-neg",
+                                  "overflow"])
+@pytest.mark.parametrize("shape", [(2, 256, 64), (2, 1000, 70), (3, 12, 5)],
+                         ids=["tiles", "p1000-f70", "tiny"])
+def test_cuda_live_counts_match_the_rule(rng, cuda_device, shape, kind):
+    """The list pass on the card counts exactly live_candidates' columns."""
+    b, p, f = shape
+    for dtype, neg in ((torch.bfloat16, -1e30), (torch.float32, -1e9)):
+        mask = _adversarial_mask(rng, kind, b, p, 5, dtype, neg).to(
+            cuda_device)
+        hs = torch.from_numpy(_f32(rng, b, p, f)).to(cuda_device)
+        ec_tiles.reset_launches()
+        got = ec_tiles.live_counts(mask, hs)
+        torch.cuda.synchronize()
+        assert ec_tiles.LAUNCHES == {**dict.fromkeys(ec_tiles.LAUNCHES, 0),
+                                     "masked_max_live_lists": 1}
+        n = ec_tiles.live_candidates(mask, hs).sum(-1, dtype=torch.int32)
+        want = torch.where(n > ec_tiles.LIVE_CAP, -1, n).to(torch.int32)
+        assert torch.equal(got, want)
+        if kind == "overflow" and p > ec_tiles.LIVE_CAP:
+            assert int(got[0, 2]) == -1 and int(got[0, 4]) >= 0
 
 
 @pytest.mark.cuda

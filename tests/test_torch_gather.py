@@ -104,19 +104,24 @@ def test_gather_lanes_plain_matches_numpy(rng, c, lanes, groups):
     assert gather.LAUNCHES == dict.fromkeys(gather.LAUNCHES, 0)
 
 
-@pytest.mark.parametrize("c,want", [(512, 64), (1024, 32), (2048, 16),
+@pytest.mark.parametrize("c,want", [(512, 32), (1024, 32), (2048, 16),
                                     (4096, 8), (51200, 1), (51201, 0)])
 def test_lane_slab_width_fits_shared_memory(c, want):
     w = gather.lane_slab_width(c, 256)
     assert w == want
     assert c * w * 4 <= gather.LANE_SLAB_BYTES
-    if 0 < w < 64:  # the next wider slab would not fit
+    if 0 < w < 32:  # the next wider slab would not fit
         assert c * 2 * w * 4 > gather.LANE_SLAB_BYTES
 
 
 def test_lane_slab_width_stays_inside_the_table():
+    """At most a warp's 32 banks wide, and never twice the table's width:
+    the last slab may overhang a width that is no multiple of it."""
     assert gather.lane_slab_width(4, 8) == 8
-    assert gather.lane_slab_width(4, 256) == 64
+    assert gather.lane_slab_width(4, 256) == 32
+    assert gather.lane_slab_width(4, 18) == 32      # one slab, 14 columns over
+    assert gather.lane_slab_width(4, 3) == 4
+    assert gather.lane_slab_width(4, 1) == 1
 
 
 def test_gather_wrappers_refuse_bad_shapes(rng):
@@ -202,9 +207,18 @@ def test_cuda_gather_rows_sum_matches_plain(rng, cuda_device, shape, s, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [7, 512, 1024, 2048, 4096])
-def test_cuda_gather_lanes_matches_plain(rng, cuda_device, c):
-    tab, idx = _lanes(rng, c, 128, 2, 3 * c + 1)
+@pytest.mark.parametrize("c,lanes,groups", [
+    (7, 128, 2), (512, 128, 2), (1024, 128, 2), (2048, 128, 2),
+    (4096, 128, 2),
+    (300, 6, 3),      # L no multiple of 4; width 18: one overhanging slab
+    (300, 8, 3),      # width 24 is no multiple of the slab's 32 columns
+    (3000, 10, 5),    # width 50 over slabs of 16: the last one overhangs
+    (300, 1, 5),      # one id a row
+    (51200, 8, 1)],   # a slab of one column
+    ids=["c7", "c512", "c1024", "c2048", "c4096", "lanes6", "width24",
+         "width50", "lanes1", "slab1"])
+def test_cuda_gather_lanes_matches_plain(rng, cuda_device, c, lanes, groups):
+    tab, idx = _lanes(rng, c, lanes, groups, min(3 * c + 1, 6145))
     t = torch.from_numpy(tab).to(cuda_device)
     i = torch.from_numpy(idx).to(cuda_device)
     gather.reset_launches()
