@@ -14,8 +14,12 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                backward graphs, at (H, F) = (4, 64) and (1, 3), attention
                dropout p 0 and 0.3, with and without the sign-split
                partials, plus a power-law graph with a bin wider than 64 and
-               an empty segment (forward rtol 1e-5 / atol 1e-5; backward
-               rtol 1e-4 / atol 1e-5, the summation order differs).
+               an empty segment in each direction (forward rtol 1e-5 / atol
+               1e-5; backward rtol 1e-4 / atol 1e-5, the summation order
+               differs).  bin_gat_fwd and bin_gmm_node_bwd also in their
+               list form, every bin of the direction in one launch, on
+               every graph checked (atol at least 8 W 2^-23 for the
+               widest bin's W).
                Dense kernels: the hub blocks of cora and citeseer (the
                planner's, both directions) and a forced (1000, 5000) block
                of pubmed (4 row chunks x 3 column tiles, padded rows and
@@ -71,7 +75,9 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                pseudo dim 2, dropout 0.5, Adam lr 1e-2, weight decay 5e-4.
                The loss must be finite and fall; the launch counts must be
                exactly what the steps, evals, layers, bins and hub blocks
-               imply, and the other model's kernels must not launch; the
+               imply (bin_gat_fwd and bin_gmm_node_bwd: one launch a call
+               over every bin of the direction; the other two bin kernels
+               one a bin), and the other model's kernels must not launch; the
                trained model's logits on the card must match a CPU copy's;
                test accuracy must clear a margin above chance.
                Then scripts/train_edgeconv_torch.py at full width (B = 64,
@@ -88,7 +94,11 @@ Phases, one line each (a failure raises; nothing is caught and continued):
   6. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at the hidden layer's width
-               ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16.  Then one
+               ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16;
+               bin_gat_fwd and bin_gmm_node_bwd in their list form at both
+               layers' widths, read from a replayed CUDA graph, summed to a
+               pubmed training step beside the step's bound, and beside
+               one launch a bin.  Then one
                gat_aggregate and one gmm_aggregate_node forward + backward
                on cora with its hub block against the all-binned build of
                the same graph, and a 1 GiB device-to-device copy.
@@ -298,6 +308,22 @@ def assert_close(got, want, tol, dense_dtype="float32", what=""):
     return float((got - want).abs().max()), off
 
 
+def bin_segs(adj):
+    """A direction's bins as the list wrappers take them."""
+    return [(nbr, row, count) for _w, nbr, _e, row, count in adj.bins()]
+
+
+def sum_tol(adj, tol):
+    """``tol`` with atol at least 8 W 2^-23 for W the direction's widest bin:
+    a segment sums up to W terms, in another order in the kernel."""
+    return dict(tol, atol=max(tol["atol"], 8 * max(adj.widths) * 2.0 ** -23))
+
+
+def list_launches(bins, adj):
+    """Launches of one list-wrapper call over a direction's bins."""
+    return -(-adj.num_bins // bins.MAX_BINS_PER_LAUNCH)
+
+
 def check_bins(bins, adj_fwd, adj_bwd, tb, err):
     """Every bin of one graph, kernel against plain; returns comparisons."""
     n_cmp = 0
@@ -316,6 +342,22 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
                     err["bin_gat_fwd"] = max(err["bin_gat_fwd"],
                                              float((g - w).abs().max()))
                 n_cmp += 1
+    # every bin in one launch (the op's path)
+    segs = bin_segs(adj_fwd)
+    for p in (0.0, 0.3):
+        for with_pos in (True, False):
+            args = (tb["feat"], tb["ac"], tb["ar"], segs)
+            kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED)
+            got = bins.bin_gat_fwd_list(*args, **kw)
+            want = bins.bin_gat_fwd_list_plain(*args, **kw)
+            for g, w in zip(got, want):
+                if w is None:
+                    assert g is None
+                    continue
+                torch.testing.assert_close(g, w, **sum_tol(adj_fwd, FWD_TOL))
+                err["bin_gat_fwd"] = max(err["bin_gat_fwd"],
+                                         float((g - w).abs().max()))
+            n_cmp += 1
     for _w, nbr, _e, row, count in adj_bwd.bins():
         for p in (0.0, 0.3):
             args = (tb["g"], tb["ar"], tb["M"], tb["Linv"], tb["ws"],
@@ -392,6 +434,12 @@ def gmm_bin_args(tb, nbr, row, count):
              tb["sfeat"], *seg))
 
 
+def gmm_list_bwd_args(tb, segs):
+    """Backward arguments of bin_gmm_node_bwd_list over ``segs``."""
+    return (tb["g"], tb["beta"], tb["dfeat"], tb["alpha"], tb["feat"],
+            tb["sfeat"], segs, tb["mu"], tb["isig"])
+
+
 def gmm_dense_args(graph, tb):
     """(forward, backward) argument tuples of one graph's hub blocks."""
     par = (tb["mu"], tb["isig"])
@@ -424,6 +472,18 @@ def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err):
                 err["bin_gmm_node_bwd"] = max(err["bin_gmm_node_bwd"],
                                               float((g - w).abs().max()))
             n_cmp += 1
+        # every bin in one launch (the op's path)
+        args = gmm_list_bwd_args(tb, bin_segs(adj_bwd))
+        got = bins.bin_gmm_node_bwd_list(*args, use_tanh=use_tanh)
+        want = bins.bin_gmm_node_bwd_list_plain(*args, use_tanh=use_tanh)
+        for name, g, w, tol in zip(("dx", "stat rows"), got, want,
+                                   (FWD_TOL, BWD_TOL)):
+            torch.testing.assert_close(
+                g, w, **sum_tol(adj_bwd, tol),
+                msg=lambda m: f"bin_gmm_node_bwd_list {name}: {m}")
+            err["bin_gmm_node_bwd"] = max(err["bin_gmm_node_bwd"],
+                                          float((g - w).abs().max()))
+        n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
 
@@ -770,7 +830,7 @@ def load_script(name):
     return mod
 
 
-def run_trainer(trainer, model_kind, dataset):
+def run_trainer(bins, trainer, model_kind, dataset):
     """20 steps at the bench width (the trainer's BENCH_ARGV) through its
     entry point, with every launch count set to 0 just before and read just
     after."""
@@ -788,8 +848,14 @@ def run_trainer(trainer, model_kind, dataset):
     bwd_calls = r["train_steps"] * len(r["model"].convs)
     bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
     want = dict.fromkeys(launches, 0)  # the other model's kernels: none
-    want.update({bin_fwd: fwd_calls * g.fwd.num_bins,
-                 bin_bwd: bwd_calls * g.bwd.num_bins,
+    # one launch a call for every bin of the direction (the list wrappers),
+    # one a bin for the other two
+    want.update({bin_fwd: fwd_calls * (
+                     list_launches(bins, g.fwd) if model_kind == "gat"
+                     else g.fwd.num_bins),
+                 bin_bwd: bwd_calls * (
+                     list_launches(bins, g.bwd) if model_kind == "gmm"
+                     else g.bwd.num_bins),
                  dense_fwd: fwd_calls * (g.fwd.dense is not None),
                  dense_bwd: bwd_calls * (g.bwd.dense is not None)})
     assert launches == want, (launches, want)
@@ -860,6 +926,7 @@ def main():
     pl = power_law_graph(structure, rng).to(dev)
     pl_tabs = [tables(_gat_forward, pl, h, f, rng, dev) for h, f in SHAPES]
     pl.fwd.count[-1][0] = 0  # an empty segment in the widest bin
+    pl.bwd.count[-1][0] = 0  # and in the backward's
     for (h, f), tb in zip(SHAPES, pl_tabs):
         n_cmp = check_bins(bins, pl.fwd, pl.bwd, tb, err)
         phase("kernels", f"power-law H={h} F={f}: fwd widths "
@@ -1014,8 +1081,8 @@ def main():
                                    ("gat", "pubmed", 0.5),
                                    ("gmm", "cora", CORA_MIN_ACC),
                                    ("gmm", "pubmed", 0.5)):
-        r, launches[(kind, dataset)] = run_trainer(trainers[kind], kind,
-                                                   dataset)
+        r, launches[(kind, dataset)] = run_trainer(bins, trainers[kind],
+                                                   kind, dataset)
         losses = r["losses"]
         assert r["test_acc"] > min_acc, (kind, dataset, r["test_acc"])
         used = {k: v for k, v in launches[(kind, dataset)].items() if v}
@@ -1077,6 +1144,9 @@ def main():
         return sum(int(c.sum()) for c in adj.count)
 
     jobs = {}
+    # K1 and K4 one launch a bin, the way they ran before the list kernels,
+    # beside one launch for every bin: (per-bin loop, list call)
+    per_bin = {}
     for h, f in SHAPES:
         tb = tabs[(h, f)]
         fwd_args = [(tb["feat"], tb["ac"], tb["ar"], nbr, row, count)
@@ -1087,39 +1157,46 @@ def main():
         fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
         bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
         what = f"pubmed all bins H={h} F={f} p=0.3"
+        la = (tb["feat"], tb["ac"], tb["ar"], bin_segs(pub.fwd))
         jobs[("bin_gat_fwd", h, f)] = (
-            what,
+            what + " (one launch)",
+            lambda a=la, kw=fkw: bins.bin_gat_fwd_list(*a, **kw),
+            lambda a=la, kw=fkw: bins.bin_gat_fwd_list_plain(*a, **kw),
+            [*la[:3], *flat(la[3])], edges_of(pub.fwd), h * f, h)
+        per_bin[("bin_gat_fwd", h, f)] = (
             lambda a=fwd_args, kw=fkw: [bins.bin_gat_fwd(*x, **kw) for x in a],
-            lambda a=fwd_args, kw=fkw: [bins.bin_gat_fwd_plain(*x, **kw)
-                                        for x in a],
-            flat(fwd_args), edges_of(pub.fwd), h * f, h)
+            jobs[("bin_gat_fwd", h, f)][1])
         jobs[("bin_gat_bwd", h, f)] = (
             what,
             lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd(*x, **kw) for x in a],
             lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd_plain(*x, **kw)
                                         for x in a],
             flat(bwd_args), edges_of(pub.bwd), h * f, h)
-    k, f = GMM_SHAPES[0]
-    tb = gmm_tabs[(k, f)]
-    fwd_args = [gmm_bin_args(tb, nbr, row, count)[0]
-                for _w, nbr, _e, row, count in pub.fwd.bins()]
-    bwd_args = [gmm_bin_args(tb, nbr, row, count)[1]
-                for _w, nbr, _e, row, count in pub.bwd.bins()]
-    what = f"pubmed all bins K={k} F={f} D={GMM_D} tanh"
-    jobs[("bin_gmm_node_fwd", k, f)] = (
-        what,
-        lambda a=fwd_args: [bins.bin_gmm_node_fwd(*x, use_tanh=True)
-                            for x in a],
-        lambda a=fwd_args: [bins.bin_gmm_node_fwd_plain(*x, use_tanh=True)
-                            for x in a],
-        flat(fwd_args), edges_of(pub.fwd), k * f, k)
-    jobs[("bin_gmm_node_bwd", k, f)] = (
-        what,
-        lambda a=bwd_args: [bins.bin_gmm_node_bwd(*x, use_tanh=True)
-                            for x in a],
-        lambda a=bwd_args: [bins.bin_gmm_node_bwd_plain(*x, use_tanh=True)
-                            for x in a],
-        flat(bwd_args), edges_of(pub.bwd), k * f, k)
+    for k, f in GMM_SHAPES:
+        tb = gmm_tabs[(k, f)]
+        fwd_args = [gmm_bin_args(tb, nbr, row, count)[0]
+                    for _w, nbr, _e, row, count in pub.fwd.bins()]
+        bwd_args = [gmm_bin_args(tb, nbr, row, count)[1]
+                    for _w, nbr, _e, row, count in pub.bwd.bins()]
+        what = f"pubmed all bins K={k} F={f} D={GMM_D} tanh"
+        if (k, f) == GMM_SHAPES[0]:
+            jobs[("bin_gmm_node_fwd", k, f)] = (
+                what,
+                lambda a=fwd_args: [bins.bin_gmm_node_fwd(*x, use_tanh=True)
+                                    for x in a],
+                lambda a=fwd_args: [bins.bin_gmm_node_fwd_plain(
+                    *x, use_tanh=True) for x in a],
+                flat(fwd_args), edges_of(pub.fwd), k * f, k)
+        la = gmm_list_bwd_args(tb, bin_segs(pub.bwd))
+        jobs[("bin_gmm_node_bwd", k, f)] = (
+            what + " (one launch)",
+            lambda a=la: bins.bin_gmm_node_bwd_list(*a, use_tanh=True),
+            lambda a=la: bins.bin_gmm_node_bwd_list_plain(*a, use_tanh=True),
+            [*la[:6], *flat(la[6]), *la[7:]], edges_of(pub.bwd), k * f, k)
+        per_bin[("bin_gmm_node_bwd", k, f)] = (
+            lambda a=bwd_args: [bins.bin_gmm_node_bwd(*x, use_tanh=True)
+                                for x in a],
+            jobs[("bin_gmm_node_bwd", k, f)][1])
 
     def block_inputs(db, by_row, by_col, whole=()):
         """A hub block's inputs: its ids, mask and schedule in full, and of
@@ -1172,13 +1249,36 @@ def main():
     for key, (what, fn_kernel, fn_plain, inputs, edges, cols, groups) in \
             jobs.items():
         ms, plain_ms = time_pair(fn_kernel, fn_plain, time_calls, dev)
+        host = ""
+        if key in per_bin:
+            # a list call is shorter on the card than the host takes to
+            # launch it: its time is read from a replayed CUDA graph
+            host = f" ({ms:.4f} ms a call from the host)"
+            ms = gather_study.graph_ms(fn_kernel, dev, 10)
         bound_ms, bound_by = bound(key[0], inputs, flat(fn_kernel()), edges,
                                    cols, groups)
         times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=None)
-        phase("times", f"{key[0]} {what}: kernel {ms:.4f} ms, plain "
+        phase("times", f"{key[0]} {what}: kernel {ms:.4f} ms{host}, plain "
               f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
               f"({edges} edges), no single library call | {smi}")
+
+    # K1 and K4 a pubmed training step: one call a layer, beside the sum of
+    # the layers' bounds; and one launch a bin against one for every bin
+    for name, shapes in (("bin_gat_fwd", SHAPES),
+                         ("bin_gmm_node_bwd", GMM_SHAPES)):
+        step_ms = sum(times[(name, *sh)]["ms"] for sh in shapes)
+        step_bound = sum(times[(name, *sh)]["bound_ms"] for sh in shapes)
+        loop_ms = [[gather_study.graph_ms(fn, dev, 10)
+                    for fn in per_bin[(name, *sh)]] for sh in shapes]
+        phase("times", f"{name} a pubmed training step, layers {shapes}, "
+              f"on the card (a replayed CUDA graph): {step_ms:.4f} ms "
+              f"against a bound of {step_bound:.5f} ms "
+              f"({step_ms / step_bound:.1f} times it); one launch a bin "
+              f"against one for every bin: "
+              + ", ".join(f"{sh} {a:.4f} / {b:.4f} ms"
+                          for sh, (a, b) in zip(shapes, loop_ms))
+              + f" | {smi}")
 
     # the EdgeConv and gather kernels, one job at a time (their inputs are
     # large): F = 256 first, the width the kernels' line reports

@@ -1,15 +1,12 @@
 // Degree-binned GAT passes for NVIDIA Hopper (sm_90a), float32.
 //
-// Two kernels, one thread block per segment (one row's <= W neighbour
-// slots, `count` of them valid), threads over the H*F feature columns:
-//
 //   bin_gat_fwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gat_fwd_kernel
-//     (wrapper bin_gat_fwd).  Over the CSR bins (rows = destinations): the
-//     exact per-head maximum m of s = LeakyReLU(ar[row] + ac[src]), then
-//     l = sum exp(s - m) and acc = sum p^ * x[src]; with_pos adds lpos and
-//     accpos restricted to raw score ar + ac >= 0.  Attention dropout drops
-//     the weight in acc / accpos only, never in l / lpos.  An empty segment
-//     gives m = -1e30 and zero partials.
+//     (wrappers bin_gat_fwd, bin_gat_fwd_list).  Over the CSR bins (rows =
+//     destinations): the exact per-head maximum m of s = LeakyReLU(ar[row] +
+//     ac[src]), then l = sum exp(s - m) and acc = sum p^ * x[src]; with_pos
+//     adds lpos and accpos restricted to raw score ar + ac >= 0.  Attention
+//     dropout drops the weight in acc / accpos only, never in l / lpos.  An
+//     empty segment gives m = -1e30 and zero partials.
 //
 //   bin_gat_bwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gat_bwd_kernel
 //     (wrapper bin_gat_bwd).  Over the CSC bins (rows = sources j, slots =
@@ -25,12 +22,31 @@
 // Bound on the H100: the bytes gathered per slot.  Each valid slot reads
 // one feature row of H*F floats (1 KB at H=4, F=64) plus H scalars per
 // table, from rows scattered over the node table; the arithmetic per byte
-// is a few flops.  A block's threads read one row with consecutive threads
-// on consecutive columns, so each row read is coalesced.
+// is a few flops.  What held the kernels back was not bytes but latency:
+// a segment of pubmed's bins holds 3 to 10 slots, and a block per segment
+// spent its time on barriers and dependent loads.
 //
-// Left for later PRs: warp-per-segment blocks for narrow bins (a W=4 bin
-// leaves most of a 256-thread block idle in the score phase), cp.async /
-// TMA prefetch of the next slots' rows, bf16 feature rows, and fusing the
+// The forward is a group of lanes per segment (bin_common.cuh): a full warp
+// at H*F >= 32 (the models' hidden layer, 256 columns), 4 or 16 lanes for
+// the output layer's 3 to 9 columns, several segments to a block, no block
+// barrier.  One launch takes every bin of a direction (BinList).  Lanes
+// work over slots for the per-slot scalars: each lane loads one slot's id
+// and its H coefficients, the group takes the exact max by shuffles (two
+// walks over the slots when a segment holds more than G), and each lane
+// writes its slot's dropped weights to a warp-private slab behind
+// __syncwarp; the first slots' ids are requested with the segment's row
+// and count.  Then lanes work over columns, up to eight a lane
+// (dgnn::cols_per_lane; 16-byte loads where F % 4 = 0 and x is aligned,
+// else scalar loads): every slot of the chunk in ascending order, reading
+// the weights from the slab and the row x[nbr] coalesced.  l / lpos are
+// per-lane sums over the lane's slots and a shuffle reduction.  Rows wider
+// than 8 G columns are walked in column tiles.
+//
+// The backward gives each segment one thread block, threads over the H*F
+// columns, slots staged kChunk at a time in shared memory.
+//
+// Left for later PRs: the backward in the forward's design, cp.async / TMA
+// prefetch of the next slots' rows, bf16 feature rows, and fusing the
 // segment merge (ops/common.py combine_lse / combine_sum) into the kernel.
 //
 // Dropout re-derives dgnn_tpu/ops/common.py:pair_keep bit for bit
@@ -42,146 +58,263 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bin_common.cuh"
 #include "gat_common.cuh"
 
 namespace {
 
+using dgnn::BinList;
+using dgnn::find_seg;
+using dgnn::group_mask;
 using dgnn::leaky;
+using dgnn::pair_base;
 using dgnn::pair_u;
+using dgnn::pair_u_head;
+using dgnn::Seg;
 
 constexpr int kMaxHeads = 16;    // the wrapper refuses H > kMaxHeads
-constexpr int kChunk = 32;       // slots staged in shared memory at a time
+constexpr int kChunk = 32;       // backward: slots staged in shared memory at a time
 constexpr int kMaxThreads = 1024;
 constexpr float kNegB = -1e30f;  // finite "-inf": max of an empty segment
 
-__global__ void bin_gat_fwd_kernel(
+// HMAX: heads held in registers (4 or kMaxHeads); VEC: 16-byte loads of x;
+// CPL: feature columns a lane per tile of CPL * G (dgnn::cols_per_lane).
+// Dynamic shared memory: per group G slot ids, then per group 2 G H floats.
+// Blocks of dgnn::kGroupThreads an SM keeps by the launch bounds: three
+// (at most 85 registers a thread) where 4 heads sit in registers; one for
+// 16 heads, whose row state would spill under a cap.
+constexpr int gat_fwd_min_blocks(int hmax) { return hmax <= 4 ? 3 : 1; }
+
+template <int HMAX, bool VEC, int CPL>
+__global__ void __launch_bounds__(dgnn::kGroupThreads,
+                                  gat_fwd_min_blocks(HMAX))
+bin_gat_fwd_kernel(
     const float* __restrict__ x,      // [N, H*F] source features
     const float* __restrict__ ac,     // [N, H]   source coefficients
     const float* __restrict__ ar,     // [Nr, H]  destination coefficients
-    const int* __restrict__ nbr,      // [S, W]
-    const int* __restrict__ row,      // [S]
-    const int* __restrict__ count,    // [S]
-    int W, int H, int F, float slope, int with_pos, float p, float inv_keep,
-    uint32_t seed,
-    float* __restrict__ m_out,        // [S, H]
-    float* __restrict__ l_out,        // [S, H]
-    float* __restrict__ lpos_out,     // [S, H]    (with_pos)
-    float* __restrict__ acc_out,      // [S, H*F]
-    float* __restrict__ accpos_out) { // [S, H*F]  (with_pos)
-  __shared__ float ar_sh[kMaxHeads];
-  __shared__ float m_sh[kMaxHeads];
-  __shared__ float l_sh[kMaxHeads];
-  __shared__ float lpos_sh[kMaxHeads];
-  __shared__ float red[kMaxHeads][kMaxThreads / 32];
-  __shared__ int nbr_sh[kChunk];
-  __shared__ float p_sh[kChunk * kMaxHeads];    // softmax numerator
-  __shared__ float pd_sh[kChunk * kMaxHeads];   // after dropout
-  __shared__ unsigned char pos_sh[kChunk * kMaxHeads];
-
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+    const BinList bl, int G, int H, int F, float slope, int with_pos,
+    float p, float inv_keep, uint32_t seed,
+    float* __restrict__ m_out,        // [total, H]
+    float* __restrict__ l_out,        // [total, H]
+    float* __restrict__ lpos_out,     // [total, H]    (with_pos)
+    float* __restrict__ acc_out,      // [total, H*F]
+    float* __restrict__ accpos_out) { // [total, H*F]  (with_pos)
+  extern __shared__ float smem[];
+  const int gpb = blockDim.x / G;
+  const int grp = threadIdx.x / G;
+  const int gl = threadIdx.x - grp * G;  // lane within the group
+  const int s = blockIdx.x * gpb + grp;
+  if (s >= bl.total) return;  // the whole group leaves together
+  const unsigned gmask = group_mask(G);
+  const Seg sg = find_seg(bl, s);
+  // the first slot ids are requested with row and count
+  int j0 = gl < sg.W ? __ldg(sg.nbr + gl) : 0;
+  const int cnt = sg.count;
+  const int r = sg.row;
   const int HF = H * F;
-  const int cnt = count[s];
-  const int r = row[s];
-  const int* nb = nbr + static_cast<size_t>(s) * W;
   const bool drop = p > 0.f;
+  int* sj = reinterpret_cast<int*>(smem) + grp * G;  // the chunk's slot ids
+  float* spd = smem + gpb * G + grp * 2 * G * H;     // [G][H] dropped weight
+  float* spp = spd + G * H;                          // the same where sr >= 0
 
-  if (tid < H) {
-    ar_sh[tid] = ar[static_cast<size_t>(r) * H + tid];
-    l_sh[tid] = 0.f;
-    lpos_sh[tid] = 0.f;
+  float arr[HMAX];
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h)
+    arr[h] = h < H ? __ldg(ar + static_cast<size_t>(r) * H + h) : 0.f;
+
+  // Phase 1: the exact per-head maximum, lanes over slots.  The first
+  // chunk's ids and raw scores stay in registers for phase 2.
+  float mx[HMAX], sr0[HMAX];
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h) {
+    mx[h] = kNegB;
+    sr0[h] = 0.f;
   }
-  __syncthreads();
-
-  // Phase 1: exact per-head maximum, threads over slots.
-  float mloc[kMaxHeads];
+  if (gl < cnt) {
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) mloc[h] = kNegB;
-  for (int w = tid; w < cnt; w += nthreads) {
-    const float* acj = ac + static_cast<size_t>(nb[w]) * H;
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h < H) mloc[h] = fmaxf(mloc[h], leaky(ar_sh[h] + acj[h], slope));
+    for (int h = 0; h < HMAX; ++h) {
+      if (h < H) {
+        sr0[h] = arr[h] + __ldg(ac + static_cast<size_t>(j0) * H + h);
+        mx[h] = leaky(sr0[h], slope);
+      }
     }
   }
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = (nthreads + 31) >> 5;
+  for (int w0 = G; w0 < cnt; w0 += G) {  // slots past the first G
+    if (w0 + gl < cnt) {
+      const int j = __ldg(sg.nbr + w0 + gl);
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    if (h < H) {
-      float v = mloc[h];
-      for (int o = 16; o > 0; o >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-      if (lane == 0) red[h][warp] = v;
-    }
-  }
-  __syncthreads();
-  if (tid < H) {
-    float v = kNegB;
-    for (int i = 0; i < nwarps; ++i) v = fmaxf(v, red[tid][i]);
-    m_sh[tid] = v;
-  }
-  __syncthreads();
-
-  // Phase 2: sums and weighted accumulation, threads over columns; slots
-  // are staged kChunk at a time with their per-head weights.
-  for (int c0 = 0; c0 < HF; c0 += nthreads) {
-    const int c = c0 + tid;
-    const bool active = c < HF;
-    const int hc = active ? c / F : 0;
-    float acc = 0.f, accpos = 0.f;
-    for (int w0 = 0; w0 < cnt; w0 += kChunk) {
-      const int nch = min(kChunk, cnt - w0);
-      __syncthreads();  // the previous chunk's readers are done
-      if (tid < nch) nbr_sh[tid] = nb[w0 + tid];
-      __syncthreads();
-      for (int idx = tid; idx < nch * H; idx += nthreads) {
-        const int wl = idx / H;
-        const int h = idx - wl * H;
-        const int j = nbr_sh[wl];
-        const float sr = ar_sh[h] + ac[static_cast<size_t>(j) * H + h];
-        const float pw = expf(leaky(sr, slope) - m_sh[h]);
-        float pd = pw;
-        if (drop) {
-          const float u = pair_u(seed, static_cast<uint32_t>(r),
-                                 static_cast<uint32_t>(j), H, h);
-          pd = u > p ? pw * inv_keep : 0.f;
-        }
-        p_sh[idx] = pw;
-        pd_sh[idx] = pd;
-        pos_sh[idx] = sr >= 0.f;
-      }
-      __syncthreads();
-      if (c0 == 0 && tid < H) {
-        for (int wl = 0; wl < nch; ++wl) {
-          const float pw = p_sh[wl * H + tid];
-          l_sh[tid] += pw;
-          if (pos_sh[wl * H + tid]) lpos_sh[tid] += pw;
-        }
-      }
-      if (active) {
-        for (int wl = 0; wl < nch; ++wl) {
-          const float xv = x[static_cast<size_t>(nbr_sh[wl]) * HF + c];
-          const float t = pd_sh[wl * H + hc] * xv;
-          acc += t;
-          if (pos_sh[wl * H + hc]) accpos += t;
+      for (int h = 0; h < HMAX; ++h) {
+        if (h < H) {
+          mx[h] = fmaxf(mx[h], leaky(arr[h] + __ldg(ac + static_cast<size_t>(
+                                                        j) * H + h), slope));
         }
       }
     }
-    if (active) {
-      acc_out[static_cast<size_t>(s) * HF + c] = acc;
-      if (with_pos) accpos_out[static_cast<size_t>(s) * HF + c] = accpos;
+  }
+  for (int o = G >> 1; o > 0; o >>= 1) {  // every head in one butterfly
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h)
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(gmask, mx[h], o));
+  }
+
+  // Phase 2: weights by lanes over slots into the slab, then the weighted
+  // sums by lanes over columns, CPL a lane per tile of CPL * G.
+  constexpr int NQ = VEC ? CPL / 4 : CPL;  // loads a lane per slot
+  float lsum[HMAX], lpsum[HMAX];
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h) {
+    lsum[h] = 0.f;
+    lpsum[h] = 0.f;
+  }
+  for (int c0 = 0; c0 < HF; c0 += CPL * G) {
+    int col[NQ], hc[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      col[q] = c0 + (VEC ? 4 * (gl + G * q) : gl + G * q);
+      hc[q] = col[q] < HF ? col[q] / F : 0;
+    }
+    float acc[CPL], accp[CPL];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      acc[i] = 0.f;
+      accp[i] = 0.f;
+    }
+    for (int w0 = 0; w0 < cnt; w0 += G) {
+      const int nch = min(G, cnt - w0);
+      if (gl < nch) {
+        int j = j0;
+        float sr[HMAX];
+#pragma unroll
+        for (int h = 0; h < HMAX; ++h) sr[h] = sr0[h];
+        if (w0 > 0) {
+          j = __ldg(sg.nbr + w0 + gl);
+#pragma unroll
+          for (int h = 0; h < HMAX; ++h) {
+            if (h < H) sr[h] = arr[h] + __ldg(ac + static_cast<size_t>(j) * H + h);
+          }
+        }
+        const uint32_t base = drop ? pair_base(seed, static_cast<uint32_t>(r),
+                                               static_cast<uint32_t>(j))
+                                   : 0u;
+#pragma unroll
+        for (int h = 0; h < HMAX; ++h) {
+          if (h < H) {
+            const float pw = expf(leaky(sr[h], slope) - mx[h]);
+            float pd = pw;
+            if (drop) pd = pair_u_head(base, H, h) > p ? pw * inv_keep : 0.f;
+            const bool pos = sr[h] >= 0.f;
+            if (c0 == 0) {
+              lsum[h] += pw;
+              if (pos) lpsum[h] += pw;
+            }
+            spd[gl * H + h] = pd;
+            spp[gl * H + h] = pos ? pd : 0.f;
+          }
+        }
+        sj[gl] = j;
+      }
+      __syncwarp(gmask);
+#pragma unroll 2
+      for (int wl = 0; wl < nch; ++wl) {
+        const float* xr = x + static_cast<size_t>(sj[wl]) * HF;
+        const float* wd = spd + wl * H;
+        const float* wp = spp + wl * H;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (col[q] < HF) {
+            const float a = wd[hc[q]];
+            const float b = wp[hc[q]];
+            if constexpr (VEC) {
+              const float4 v = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+              acc[4 * q] += a * v.x;
+              acc[4 * q + 1] += a * v.y;
+              acc[4 * q + 2] += a * v.z;
+              acc[4 * q + 3] += a * v.w;
+              accp[4 * q] += b * v.x;
+              accp[4 * q + 1] += b * v.y;
+              accp[4 * q + 2] += b * v.z;
+              accp[4 * q + 3] += b * v.w;
+            } else {
+              const float v = __ldg(xr + col[q]);
+              acc[q] += a * v;
+              accp[q] += b * v;
+            }
+          }
+        }
+      }
+      __syncwarp(gmask);  // the slab is rewritten by the next chunk
+    }
+    float* ao = acc_out + static_cast<size_t>(s) * HF;
+    float* po = with_pos ? accpos_out + static_cast<size_t>(s) * HF : nullptr;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (col[q] < HF) {
+        if constexpr (VEC) {
+          *reinterpret_cast<float4*>(ao + col[q]) = make_float4(
+              acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+          if (with_pos) {
+            *reinterpret_cast<float4*>(po + col[q]) = make_float4(
+                accp[4 * q], accp[4 * q + 1], accp[4 * q + 2], accp[4 * q + 3]);
+          }
+        } else {
+          ao[col[q]] = acc[q];
+          if (with_pos) po[col[q]] = accp[q];
+        }
+      }
     }
   }
-  __syncthreads();
-  if (tid < H) {
-    const size_t o = static_cast<size_t>(s) * H + tid;
-    m_out[o] = m_sh[tid];
-    l_out[o] = l_sh[tid];
-    if (with_pos) lpos_out[o] = lpos_sh[tid];
+  for (int o = G >> 1; o > 0; o >>= 1) {
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) {
+      lsum[h] += __shfl_xor_sync(gmask, lsum[h], o);
+      lpsum[h] += __shfl_xor_sync(gmask, lpsum[h], o);
+    }
   }
+  if (gl == 0) {
+    const size_t o = static_cast<size_t>(s) * H;
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) {
+      if (h < H) {
+        m_out[o + h] = mx[h];
+        l_out[o + h] = lsum[h];
+        if (with_pos) lpos_out[o + h] = lpsum[h];
+      }
+    }
+  }
+}
+
+template <int HMAX, bool VEC, int CPL>
+void launch_gat_fwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
+                    const float* x, const float* ac, const float* ar, int H,
+                    int F, float slope, int with_pos, float p, float inv_keep,
+                    uint32_t seed, float* m, float* l, float* lpos, float* acc,
+                    float* accpos) {
+  const int gpb = dgnn::kGroupThreads / G;
+  const int blocks = (bl.total + gpb - 1) / gpb;
+  bin_gat_fwd_kernel<HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
+      x, ac, ar, bl, G, H, F, slope, with_pos, p, inv_keep, seed, m, l, lpos,
+      acc, accpos);
+}
+
+// The instance for (vec, cpl): 16-byte loads at 4 or 8 columns a lane.
+template <int HMAX>
+void dispatch_gat_fwd(bool vec, int cpl, const BinList& bl, int G,
+                      size_t shm, cudaStream_t st, const float* x,
+                      const float* ac, const float* ar, int H, int F,
+                      float slope, int with_pos, float p, float inv_keep,
+                      uint32_t seed, float* m, float* l, float* lpos,
+                      float* acc, float* accpos) {
+#define DGNN_GAT_FWD(V, C)                                                  \
+  launch_gat_fwd<HMAX, V, C>(bl, G, shm, st, x, ac, ar, H, F, slope,        \
+                             with_pos, p, inv_keep, seed, m, l, lpos, acc,  \
+                             accpos)
+  if (vec && cpl == 8) DGNN_GAT_FWD(true, 8);
+  else if (vec) DGNN_GAT_FWD(true, 4);
+  else if (cpl == 8) DGNN_GAT_FWD(false, 8);
+  else if (cpl == 4) DGNN_GAT_FWD(false, 4);
+  else if (cpl == 2) DGNN_GAT_FWD(false, 2);
+  else DGNN_GAT_FWD(false, 1);
+#undef DGNN_GAT_FWD
 }
 
 __global__ void bin_gat_bwd_kernel(
@@ -289,16 +422,37 @@ int block_threads(int HF) {
 
 extern "C" {
 
+// Every bin of one direction in one launch: nbins <= dgnn::kMaxBins bins,
+// bin b with S[b] segments of W[b] slots (nbr[b], row[b], count[b] device
+// pointers); the outputs hold sum S[b] rows in bin order.
 int dgnn_bin_gat_fwd(const float* x, const float* ac, const float* ar,
-                     const int* nbr, const int* row, const int* count, int S,
-                     int W, int H, int F, float slope, int with_pos, float p,
+                     int nbins, void* const* nbr, void* const* row,
+                     void* const* count, const int* S, const int* W, int H,
+                     int F, float slope, int with_pos, float p,
                      float inv_keep, uint32_t seed, float* m, float* l,
                      float* lpos, float* acc, float* accpos, void* stream) {
-  if (S > 0) {
-    bin_gat_fwd_kernel<<<S, block_threads(H * F), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        x, ac, ar, nbr, row, count, W, H, F, slope, with_pos, p, inv_keep,
-        seed, m, l, lpos, acc, accpos);
+  BinList bl;
+  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
+      H > kMaxHeads || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bl.total > 0) {
+    const int G = dgnn::group_lanes(H * F);
+    const int gpb = dgnn::kGroupThreads / G;
+    // at most 8 groups of 32 lanes x 16 heads: 33 KB, under the default 48
+    const size_t shm = static_cast<size_t>(gpb) * G *
+                       (sizeof(int) + 2 * H * sizeof(float));
+    const int cpl = dgnn::cols_per_lane(H * F, G);
+    const bool vec = cpl >= 4 && F % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (H <= 4)
+      dispatch_gat_fwd<4>(vec, cpl, bl, G, shm, st, x, ac, ar, H, F, slope,
+                          with_pos, p, inv_keep, seed, m, l, lpos, acc,
+                          accpos);
+    else
+      dispatch_gat_fwd<kMaxHeads>(vec, cpl, bl, G, shm, st, x, ac, ar, H, F,
+                                  slope, with_pos, p, inv_keep, seed, m, l,
+                                  lpos, acc, accpos);
   }
   return static_cast<int>(cudaGetLastError());
 }

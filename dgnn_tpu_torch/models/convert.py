@@ -3,8 +3,9 @@ dicts.
 
 GAT: maps ``params["gat_<l>"]`` / ``params["gat_out"]`` of a
 ``dgnn_tpu.models.GAT`` onto ``convs.gat_<l>`` / ``convs.gat_out``:
-``W/kernel`` [in, out] is transposed into ``nn.Linear``'s [out, in] weight,
-``attn_l``, ``attn_r`` and ``bias`` keep their (1, H, F) shape.
+``W/kernel`` and ``res_fc/kernel`` [in, out] are transposed into
+``nn.Linear``'s [out, in] weight, ``attn_l``, ``attn_r`` and ``bias`` keep
+their (1, H, F) shape.
 
 MoNet: maps ``params["gmm_<i>"]`` of a ``dgnn_tpu.models.MoNet`` in
 node-pseudo mode onto ``convs.gmm_<i>``: ``fc/kernel`` [in, K*F] and
@@ -39,13 +40,16 @@ def flax_gat_state_dict(params) -> dict:
         params = params["params"]
     sd = {}
     for name, layer in params.items():
-        unknown = set(layer) - {"W", "attn_l", "attn_r", "bias"}
+        unknown = set(layer) - {"W", "res_fc", "attn_l", "attn_r", "bias"}
         if unknown:
             raise ValueError(f"{name}: parameters {sorted(unknown)} have no "
                              "counterpart in dgnn_tpu_torch's GATConv")
         pre = f"convs.{name}."
-        kernel = np.asarray(layer["W"]["kernel"], np.float32)
-        sd[pre + "W.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.T))
+        for key in ("W", "res_fc"):
+            if key in layer:
+                kernel = np.asarray(layer[key]["kernel"], np.float32)
+                sd[pre + key + ".weight"] = torch.from_numpy(
+                    np.ascontiguousarray(kernel.T))
         for key in ("attn_l", "attn_r", "bias"):
             if key in layer:
                 sd[pre + key] = torch.from_numpy(

@@ -4,7 +4,10 @@ Dense projection and attention-coefficient reductions are plain torch
 (``nn.Linear``, elementwise products); everything sparse is the fused
 ``gat_aggregate`` op.  Semantics match the flax modules: bias only on
 hidden layers after the first and on the output layer, the output layer
-averaged over its heads, feature dropout on the projected features.
+averaged over its heads, feature dropout on the projected features, and
+on hidden layers only the optional residual (the input itself, or a
+bias-free ``res_fc`` projection when the widths differ) and activation,
+added and applied after the aggregation as flax adds them.
 
 Init follows flax's ``variance_scaling(gain**2, "fan_avg", "normal")`` with
 the ReLU gain.  For ``attn_l`` / ``attn_r`` of shape (1, H, F) flax takes
@@ -17,7 +20,7 @@ attention dropout takes one uint32 seed per layer.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 from torch import nn
@@ -52,7 +55,8 @@ class GATConv(nn.Module):
 
     def __init__(self, in_feats: int, out_feats: int, num_heads: int, *,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
-                 negative_slope: float = 0.2, use_bias: bool = True,
+                 negative_slope: float = 0.2, residual: bool = False,
+                 activation: Callable | None = None, use_bias: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.out_feats = out_feats
@@ -60,6 +64,8 @@ class GATConv(nn.Module):
         self.feat_drop = feat_drop
         self.attn_drop = attn_drop
         self.negative_slope = negative_slope
+        self.residual = residual
+        self.activation = activation
         hf = num_heads * out_feats
         self.W = nn.Linear(in_feats, hf, bias=False)
         _fan_avg_normal_(self.W.weight, in_feats, hf, generator)
@@ -67,6 +73,10 @@ class GATConv(nn.Module):
         self.attn_r = nn.Parameter(torch.empty(1, num_heads, out_feats))
         _fan_avg_normal_(self.attn_l, num_heads, out_feats, generator)
         _fan_avg_normal_(self.attn_r, num_heads, out_feats, generator)
+        self.res_fc = None
+        if residual and in_feats != hf:
+            self.res_fc = nn.Linear(in_feats, hf, bias=False)
+            _fan_avg_normal_(self.res_fc.weight, in_feats, hf, generator)
         self.bias = (nn.Parameter(torch.zeros(1, num_heads, out_feats))
                      if use_bias else None)
 
@@ -82,21 +92,28 @@ class GATConv(nn.Module):
                             negative_slope=self.negative_slope,
                             attn_drop=self.attn_drop, seed=seed,
                             training=self.training)
+        if self.residual:
+            res = feat if self.res_fc is None else self.res_fc(feat)
+            rst = rst + res.reshape(-1, self.num_heads, self.out_feats)
         if self.bias is not None:
             rst = rst + self.bias
+        if self.activation is not None:
+            rst = self.activation(rst)
         return rst
 
 
 class GAT(nn.Module):
     """Multi-layer GAT: ``num_layers`` hidden layers with ``heads[l]`` heads
     whose outputs are flattened, then an output layer averaged over its
-    heads.  Layers are ``convs["gat_0"] ... convs["gat_out"]``, the flax
-    module names."""
+    heads.  ``residual`` and ``activation`` apply to the hidden layers
+    only, as in the flax model.  Layers are ``convs["gat_0"] ...
+    convs["gat_out"]``, the flax module names."""
 
     def __init__(self, in_feats: int, num_layers: int, n_hidden: int,
                  n_classes: int, heads: Sequence[int], *,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
-                 negative_slope: float = 0.2,
+                 negative_slope: float = 0.2, residual: bool = False,
+                 activation: Callable | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.attn_drop = attn_drop
@@ -106,6 +123,7 @@ class GAT(nn.Module):
             convs[f"gat_{layer}"] = GATConv(
                 dim, n_hidden, heads[layer], feat_drop=feat_drop,
                 attn_drop=attn_drop, negative_slope=negative_slope,
+                residual=residual, activation=activation,
                 use_bias=layer > 0,  # the input projection has no bias
                 generator=generator)
             dim = n_hidden * heads[layer]

@@ -28,7 +28,8 @@ __all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("bin_gat.cu", "dense_gat.cu", "bin_gmm.cu", "dense_gmm.cu",
             "ec_tiles.cu", "gather.cu")
-_HEADERS = ("gat_common.cuh", "dense_common.cuh", "gmm_common.cuh")
+_HEADERS = ("bin_common.cuh", "gat_common.cuh", "dense_common.cuh",
+            "gmm_common.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dgnn_tpu_torch"
 _LIB_NAME = "libdgnn_torch.so"
 
@@ -108,9 +109,13 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # a list of bins: nbins, then per bin the nbr / row / count
+        # pointers and S, W (host arrays)
+        pa, ia = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.dgnn_bin_gat_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp,             # x ac ar nbr row count
-            ci, ci, ci, ci,                     # S W H F
+            vp, vp, vp,                         # x ac ar
+            ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
+            ci, ci,                             # H F
             cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
             vp]                                 # stream
@@ -149,8 +154,9 @@ def load() -> ctypes.CDLL:
         lib.dgnn_bin_gmm_fwd.restype = ci
         lib.dgnn_bin_gmm_bwd.argtypes = [
             vp, vp, vp, vp, vp, vp,             # g beta dfeat alpha x sfeat
-            vp, vp, vp, vp, vp,                 # nbr row count mu isig
-            ci, ci, ci, ci, ci, ci, ci, ci,     # S W K D Dd Ds F use_tanh
+            ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
+            vp, vp,                             # mu isig
+            ci, ci, ci, ci, ci, ci,             # K D Dd Ds F use_tanh
             vp, vp,                             # dx st
             vp]                                 # stream
         lib.dgnn_bin_gmm_bwd.restype = ci

@@ -14,12 +14,22 @@ The kernels gather for themselves from the node tables, given the bin's
 slot table ``nbr [S, W]`` and the per-segment ``row [S]`` and
 ``count [S]``; every bin width runs the kernel.
 
+``bin_gat_fwd_list`` and ``bin_gmm_node_bwd_list`` take every bin of one
+adjacency direction (a sequence of ``(nbr, row, count)``) in one launch of
+the same kernel as their per-bin wrappers, and return the bins' outputs in
+one tensor each, bin after bin: the rows that ``torch.cat`` of the per-bin
+outputs would give, and so their plain versions.  A direction with more than
+``MAX_BINS_PER_LAUNCH`` bins takes one launch per that many.  ``tail`` /
+``dx_tail`` rows (the hub block's partials) are copied in after the bins'.
+
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
 only where the kernel is launched), so a run can show that its main path
 went through the kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -28,16 +38,21 @@ from . import _build
 from .common import (gaussian_terms, lane_mask, leaky_relu, leaky_relu_grad,
                      pair_keep)
 
-__all__ = ["bin_gat_fwd", "bin_gat_fwd_plain", "bin_gat_bwd",
-           "bin_gat_bwd_plain", "bin_gmm_node_fwd", "bin_gmm_node_fwd_plain",
-           "bin_gmm_node_bwd", "bin_gmm_node_bwd_plain", "gmm_stat_width",
-           "LAUNCHES", "reset_launches", "MAX_HEADS", "GMM_MAX_K",
+__all__ = ["bin_gat_fwd", "bin_gat_fwd_plain", "bin_gat_fwd_list",
+           "bin_gat_fwd_list_plain", "bin_gat_bwd", "bin_gat_bwd_plain",
+           "bin_gmm_node_fwd", "bin_gmm_node_fwd_plain", "bin_gmm_node_bwd",
+           "bin_gmm_node_bwd_plain", "bin_gmm_node_bwd_list",
+           "bin_gmm_node_bwd_list_plain", "gmm_stat_width", "LAUNCHES",
+           "reset_launches", "MAX_HEADS", "MAX_BINS_PER_LAUNCH", "GMM_MAX_K",
            "GMM_MAX_D", "GMM_MAX_KF", "GMM_MAX_COEF"]
 
 # Finite "-inf" the kernels emit as the maximum of an empty segment.
 NEG_B = -1e30
 # Heads per kernel block's shared staging (csrc/bin_gat.cu kMaxHeads).
 MAX_HEADS = 16
+# Bins one launch of the list kernels takes (csrc/bin_common.cuh kMaxBins,
+# graph.binning's largest bin count).
+MAX_BINS_PER_LAUNCH = 8
 # What the MoNet kernels take (csrc/gmm_common.cuh, csrc/bin_gmm.cu): Gaussian
 # kernels, projected pseudo dimensions (also the bound on the raw source- and
 # destination-side scalars Ds, Dd), and K*F feature columns.
@@ -97,6 +112,61 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _seg_tensors(segs):
+    return [t for seg in segs for t in seg]
+
+
+def _check_segs(segs):
+    for seg in segs:
+        if len(seg) != 3:
+            raise ValueError("a bin is (nbr, row, count)")
+        _check_seg(*seg)
+
+
+def _launches(segs):
+    """Cut a direction's bins into launches: (first output row, bins) for
+    each run of at most MAX_BINS_PER_LAUNCH bins that holds a segment."""
+    base = 0
+    for i in range(0, len(segs), MAX_BINS_PER_LAUNCH):
+        part = segs[i:i + MAX_BINS_PER_LAUNCH]
+        rows = sum(nbr.shape[0] for nbr, _, _ in part)
+        if rows:
+            yield base, part
+        base += rows
+
+
+def _bin_arrays(part):
+    """One launch's bins as the C launchers take them: host arrays of the
+    nbr, row and count pointers, of S and of W."""
+    ptrs, ints = ctypes.c_void_p * len(part), ctypes.c_int * len(part)
+    return (ptrs(*(nbr.data_ptr() for nbr, _, _ in part)),
+            ptrs(*(row.data_ptr() for _, row, _ in part)),
+            ptrs(*(count.data_ptr() for _, _, count in part)),
+            ints(*(nbr.shape[0] for nbr, _, _ in part)),
+            ints(*(nbr.shape[1] for nbr, _, _ in part)))
+
+
+def _row_ptr(t, row):
+    """Address of row ``row`` of a contiguous output (None stays None)."""
+    return None if t is None else (t.data_ptr()
+                                   + row * t.stride(0) * t.element_size())
+
+
+def _cat_rows(parts, shape, like):
+    """Rows of ``parts`` one after the other; [0, *shape] if there are
+    none."""
+    if not parts:
+        return torch.zeros((0, *shape), dtype=like.dtype, device=like.device)
+    return torch.cat(parts)
+
+
+def _copy_tail(outs, rows, tail):
+    """The tail's rows into outs[i][rows:], where both are given."""
+    for o, t in zip(outs, tail):
+        if o is not None:
+            o[rows:].copy_(t)
+
+
 # ---------------------------------------------------------------------------
 # Forward (pass A over the CSR bins)
 # ---------------------------------------------------------------------------
@@ -145,31 +215,79 @@ def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
     if _on_cpu(feat, ac, ar, nbr, row, count):
         return bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, slope=slope,
                                  with_pos=with_pos, p=p, seed=seed)
+    return _gat_fwd_cuda(feat, ac, ar, [(nbr, row, count)], slope, with_pos,
+                         p, seed, None)
+
+
+def bin_gat_fwd_list_plain(feat, ac, ar, segs, *, slope: float,
+                           with_pos: bool, p: float = 0.0, seed: int = 0,
+                           tail=None):
+    """Plain PyTorch list forward: the per-bin plain versions, then
+    ``torch.cat``; same arguments and outputs as ``bin_gat_fwd_list``."""
+    parts = [bin_gat_fwd_plain(feat, ac, ar, *seg, slope=slope,
+                               with_pos=with_pos, p=p, seed=seed)
+             for seg in segs]
+    if tail is not None:
+        parts.append(tuple(tail))
+    H, F = feat.shape[1:]
+    shapes = ((H,), (H,), (H,), (H, F), (H, F))
+    return tuple(None if not with_pos and i in (2, 4)
+                 else _cat_rows([pt[i] for pt in parts], shapes[i], feat)
+                 for i in range(5))
+
+
+def bin_gat_fwd_list(feat, ac, ar, segs, *, slope: float, with_pos: bool,
+                     p: float = 0.0, seed: int = 0, tail=None):
+    """Every degree bin of a CSR adjacency in one launch of the
+    ``bin_gat_fwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
+
+    Args as ``bin_gat_fwd``, with ``segs`` a sequence of ``(nbr, row,
+    count)``, one per bin, and ``tail``: None, or (m, l, lpos, acc, accpos)
+    rows to follow the bins' (lpos / accpos None unless ``with_pos``).
+    Returns (m, l, lpos, acc, accpos) with sum S_b (+ the tail's) rows, bin
+    after bin: ``torch.cat`` of the per-bin outputs and the tail.
+    """
+    _check_segs(segs)
+    tail_t = [] if tail is None else [t for t in tail if t is not None]
+    if _on_cpu(feat, ac, ar, *_seg_tensors(segs), *tail_t):
+        return bin_gat_fwd_list_plain(feat, ac, ar, segs, slope=slope,
+                                      with_pos=with_pos, p=p, seed=seed,
+                                      tail=tail)
+    return _gat_fwd_cuda(feat, ac, ar, list(segs), slope, with_pos, p, seed,
+                         tail)
+
+
+def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
     N, H, F = feat.shape
     if ac.shape != (N, H) or ar.dim() != 2 or ar.shape[1] != H:
         raise ValueError(f"bin_gat_fwd: feat {tuple(feat.shape)}, ac "
                          f"{tuple(ac.shape)}, ar {tuple(ar.shape)}")
     _check_cuda("bin_gat_fwd", dict(feat=feat, ac=ac, ar=ar),
-                dict(nbr=nbr, row=row, count=count), H)
-    S, W = nbr.shape
+                {f"{k}[{b}]": t for b, seg in enumerate(segs)
+                 for k, t in zip(("nbr", "row", "count"), seg)}, H)
+    S = sum(nbr.shape[0] for nbr, _, _ in segs)
+    rows = S + (0 if tail is None else tail[0].shape[0])
     new = dict(device=feat.device, dtype=torch.float32)
-    m = torch.empty((S, H), **new)
-    l = torch.empty((S, H), **new)
-    acc = torch.empty((S, H, F), **new)
-    lpos = torch.empty((S, H), **new) if with_pos else None
-    accpos = torch.empty((S, H, F), **new) if with_pos else None
+    outs = (torch.empty((rows, H), **new), torch.empty((rows, H), **new),
+            torch.empty((rows, H), **new) if with_pos else None,
+            torch.empty((rows, H, F), **new),
+            torch.empty((rows, H, F), **new) if with_pos else None)
     lib = _build.load()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = lib.dgnn_bin_gat_fwd(
-        _ptr(feat), _ptr(ac), _ptr(ar), _ptr(nbr), _ptr(row), _ptr(count),
-        S, W, H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
-        int(seed) & 0xFFFFFFFF, _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc),
-        _ptr(accpos), stream)
-    if err:
-        raise RuntimeError(f"bin_gat_fwd kernel launch failed: CUDA error "
-                           f"{err} (S={S}, W={W}, H={H}, F={F})")
-    LAUNCHES["bin_gat_fwd"] += 1
-    return m, l, lpos, acc, accpos
+    for base, part in _launches(segs):
+        err = lib.dgnn_bin_gat_fwd(
+            _ptr(feat), _ptr(ac), _ptr(ar), len(part), *_bin_arrays(part),
+            H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
+            int(seed) & 0xFFFFFFFF, *(_row_ptr(t, base) for t in outs),
+            stream)
+        if err:
+            raise RuntimeError(
+                f"bin_gat_fwd kernel launch failed: CUDA error {err} (bins "
+                f"{[tuple(nbr.shape) for nbr, _, _ in part]}, H={H}, F={F})")
+        LAUNCHES["bin_gat_fwd"] += 1
+    if tail is not None:
+        _copy_tail(outs, S, tail)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +511,50 @@ def bin_gmm_node_bwd(g, beta, dfeat, alpha, feat, sfeat, nbr, row, count, mu,
     if _on_cpu(g, beta, dfeat, alpha, feat, sfeat, nbr, row, count, mu, isig):
         return bin_gmm_node_bwd_plain(g, beta, dfeat, alpha, feat, sfeat, nbr,
                                       row, count, mu, isig, use_tanh=use_tanh)
+    return _gmm_bwd_cuda(g, beta, dfeat, alpha, feat, sfeat,
+                         [(nbr, row, count)], mu, isig, use_tanh, None)
+
+
+def bin_gmm_node_bwd_list_plain(g, beta, dfeat, alpha, feat, sfeat, segs, mu,
+                                isig, *, use_tanh: bool, dx_tail=None):
+    """Plain PyTorch list backward: the per-bin plain versions, then
+    ``torch.cat``; same arguments and outputs as
+    ``bin_gmm_node_bwd_list``."""
+    parts = [bin_gmm_node_bwd_plain(g, beta, dfeat, alpha, feat, sfeat, *seg,
+                                    mu, isig, use_tanh=use_tanh)
+             for seg in segs]
+    dxs = [dx for dx, _ in parts] + ([] if dx_tail is None else [dx_tail])
+    ns = gmm_stat_width(mu.shape[0], mu.shape[1], dfeat.shape[1],
+                        sfeat.shape[1])
+    return (_cat_rows(dxs, g.shape[1:], g),
+            _cat_rows([st for _, st in parts], (ns,), g))
+
+
+def bin_gmm_node_bwd_list(g, beta, dfeat, alpha, feat, sfeat, segs, mu, isig,
+                          *, use_tanh: bool, dx_tail=None):
+    """Every degree bin of a CSC adjacency in one launch of the
+    ``bin_gmm_node_bwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
+
+    Args as ``bin_gmm_node_bwd``, with ``segs`` a sequence of ``(nbr, row,
+    count)``, one per bin, and ``dx_tail``: None, or [T, K, F] dx rows to
+    follow the bins' (the hub block's).
+    Returns (dx [sum S_b + T, K, F], st [sum S_b, NS]), bin after bin:
+    ``torch.cat`` of the per-bin outputs (and the tail).
+    """
+    _check_segs(segs)
+    _check_gmm_params("bin_gmm_node_bwd", mu, isig)
+    tail_t = [] if dx_tail is None else [dx_tail]
+    if _on_cpu(g, beta, dfeat, alpha, feat, sfeat, *_seg_tensors(segs), mu,
+               isig, *tail_t):
+        return bin_gmm_node_bwd_list_plain(g, beta, dfeat, alpha, feat, sfeat,
+                                           segs, mu, isig, use_tanh=use_tanh,
+                                           dx_tail=dx_tail)
+    return _gmm_bwd_cuda(g, beta, dfeat, alpha, feat, sfeat, list(segs), mu,
+                         isig, use_tanh, dx_tail)
+
+
+def _gmm_bwd_cuda(g, beta, dfeat, alpha, feat, sfeat, segs, mu, isig,
+                  use_tanh, dx_tail):
     Nd, K, F = g.shape
     Ns = feat.shape[0]
     D = mu.shape[1]
@@ -414,20 +576,27 @@ def bin_gmm_node_bwd(g, beta, dfeat, alpha, feat, sfeat, nbr, row, count, mu,
     _check_cuda("bin_gmm_node_bwd",
                 dict(g=g, beta=beta, dfeat=dfeat, alpha=alpha, feat=feat,
                      sfeat=sfeat, mu=mu, isig=isig),
-                dict(nbr=nbr, row=row, count=count))
-    S, W = nbr.shape
-    dx = torch.empty((S, K, F), device=g.device, dtype=torch.float32)
+                {f"{k}[{b}]": t for b, seg in enumerate(segs)
+                 for k, t in zip(("nbr", "row", "count"), seg)})
+    S = sum(nbr.shape[0] for nbr, _, _ in segs)
+    rows = S + (0 if dx_tail is None else dx_tail.shape[0])
+    dx = torch.empty((rows, K, F), device=g.device, dtype=torch.float32)
     st = torch.empty((S, gmm_stat_width(K, D, Dd, Ds)), device=g.device,
                      dtype=torch.float32)
     lib = _build.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.dgnn_bin_gmm_bwd(
-        _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
-        _ptr(sfeat), _ptr(nbr), _ptr(row), _ptr(count), _ptr(mu), _ptr(isig),
-        S, W, K, D, Dd, Ds, F, int(use_tanh), _ptr(dx), _ptr(st), stream)
-    if err:
-        raise RuntimeError(f"bin_gmm_node_bwd kernel launch failed: CUDA "
-                           f"error {err} (S={S}, W={W}, K={K}, D={D}, "
-                           f"Dd={Dd}, Ds={Ds}, F={F})")
-    LAUNCHES["bin_gmm_node_bwd"] += 1
+    for base, part in _launches(segs):
+        err = lib.dgnn_bin_gmm_bwd(
+            _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
+            _ptr(sfeat), len(part), *_bin_arrays(part), _ptr(mu), _ptr(isig),
+            K, D, Dd, Ds, F, int(use_tanh), _row_ptr(dx, base),
+            _row_ptr(st, base), stream)
+        if err:
+            raise RuntimeError(
+                f"bin_gmm_node_bwd kernel launch failed: CUDA error {err} "
+                f"(bins {[tuple(nbr.shape) for nbr, _, _ in part]}, K={K}, "
+                f"D={D}, Dd={Dd}, Ds={Ds}, F={F})")
+        LAUNCHES["bin_gmm_node_bwd"] += 1
+    if dx_tail is not None:
+        _copy_tail((dx,), S, (dx_tail,))
     return dx, st

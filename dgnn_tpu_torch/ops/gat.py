@@ -21,10 +21,11 @@ The backward saves only M, L, out, out_pos, r (and the inputs) and
 recomputes per-edge attention in pass B.  Attention dropout is re-derived
 from (seed, dst, src, head) by ops/common.pair_keep's hash in both passes.
 
-The per-bin passes are ops/bins.bin_gat_fwd / bin_gat_bwd, and a graph's
-tile-sparse hub block (graph.structure.DenseBlock) runs through
-ops/dense.dense_gat_fwd / dense_gat_bwd, whose per-row partials are appended
-after the bins' and merged through the same combine tables.  Each is a CUDA
+Pass A runs every bin of the CSR direction in one launch
+(ops/bins.bin_gat_fwd_list), pass B one launch per bin (bin_gat_bwd), and a
+graph's tile-sparse hub block (graph.structure.DenseBlock) runs through
+ops/dense.dense_gat_fwd / dense_gat_bwd, whose per-row partials follow the
+bins' and are merged through the same combine tables.  Each is a CUDA
 kernel for CUDA tensors and its plain version for CPU tensors.
 """
 
@@ -33,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from ..graph.structure import BinnedAdj, Graph
-from .bins import bin_gat_bwd, bin_gat_fwd
+from .bins import bin_gat_bwd, bin_gat_fwd_list
 from .common import combine_lse, combine_sum
 from .dense import DENSE_DTYPES, dense_gat_bwd, dense_gat_fwd
 
@@ -45,27 +46,19 @@ def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed, dense_dtype,
     """Pass A over ``adj``'s bins and hub block, merged through its combine
     table.  Returns (out, M, L, out_pos, r); out_pos and r are None unless
     ``with_pos``."""
-    ms, ls, lps, accs, accps = [], [], [], [], []
-    for _width, nbr, _edge, row, count in adj.bins():
-        m, l, lpos, acc, accpos = bin_gat_fwd(
-            feat, ac, ar, nbr, row, count, slope=slope, with_pos=with_pos,
-            p=p, seed=seed)
-        ms.append(m)
-        ls.append(l)
-        lps.append(lpos)
-        accs.append(acc)
-        accps.append(accpos)
+    tail = None
     if adj.dense is not None:
         # the block's partials follow every bin's: m is the rows' score
         # bound, which the log-sum-exp combine takes like an exact max
-        for lst, x in zip((ms, ls, lps, accs, accps), dense_gat_fwd(
-                adj.dense, ar, ac, feat, slope=slope, with_pos=with_pos,
-                p=p, seed=seed, dense_dtype=dense_dtype)):
-            lst.append(x)
-    parts = [torch.cat(ls), torch.cat(accs)]
-    if with_pos:
-        parts += [torch.cat(lps), torch.cat(accps)]
-    M, merged = combine_lse(adj.cmb, torch.cat(ms), parts)
+        tail = dense_gat_fwd(adj.dense, ar, ac, feat, slope=slope,
+                             with_pos=with_pos, p=p, seed=seed,
+                             dense_dtype=dense_dtype)
+    m, l, lpos, acc, accpos = bin_gat_fwd_list(
+        feat, ac, ar, [(nbr, row, count) for _w, nbr, _e, row, count
+                       in adj.bins()],
+        slope=slope, with_pos=with_pos, p=p, seed=seed, tail=tail)
+    parts = [l, acc] + ([lpos, accpos] if with_pos else [])
+    M, merged = combine_lse(adj.cmb, m, parts)
     L = merged[0]
     Linv = 1.0 / torch.clamp(L, min=1e-20)
     out = merged[1] * Linv[..., None]

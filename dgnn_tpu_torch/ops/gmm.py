@@ -21,10 +21,11 @@ one training step makes exactly two edge-sized passes:
       over segments gives the gradients of mu, inv_sigma, proj_bias and both
       halves of proj_weight.
 
-The per-bin passes are ops/bins.bin_gmm_node_fwd / bin_gmm_node_bwd, and a
-graph's tile-sparse hub block (graph.structure.DenseBlock) runs through
-ops/dense.dense_gmm_fwd / dense_gmm_bwd, whose per-row partials are appended
-after the bins'.  Each is a CUDA kernel for CUDA tensors and its plain
+The forward runs one launch per bin (ops/bins.bin_gmm_node_fwd), the
+backward every bin of the CSC direction in one launch
+(bin_gmm_node_bwd_list), and a graph's tile-sparse hub block
+(graph.structure.DenseBlock) runs through ops/dense.dense_gmm_fwd /
+dense_gmm_bwd, whose per-row partials follow the bins'.  Each is a CUDA kernel for CUDA tensors and its plain
 version for CPU tensors.  The backward saves only its inputs and recomputes
 alpha, beta and the edge weights.
 
@@ -39,7 +40,7 @@ import typing
 import torch
 
 from ..graph.structure import BinnedAdj, Graph
-from .bins import bin_gmm_node_bwd, bin_gmm_node_fwd
+from .bins import bin_gmm_node_bwd_list, bin_gmm_node_fwd
 from .common import combine_sum, gaussian_terms
 from .dense import DENSE_DTYPES, dense_gmm_bwd, dense_gmm_fwd
 
@@ -89,29 +90,29 @@ def _node_backward(adj_bwd: BinnedAdj, alpha, beta, sfeat, dfeat, feat, mu,
     KD = K * D
     Dd, Ds = dfeat.shape[1], sfeat.shape[1]
     cut = 2 * KD + D + D * Dd  # where the bins' sfeat block starts
-    dxs, sts = [], []
-    for _width, nbr, _edge, row, count in adj_bwd.bins():
-        dx_p, st = bin_gmm_node_bwd(g, beta, dfeat, alpha, feat, sfeat, nbr,
-                                    row, count, mu, isig, use_tanh=use_tanh)
-        dxs.append(dx_p)
-        sts.append(st)
-    tot = torch.cat(sts).sum(dim=0)
+    db = adj_bwd.dense
+    dx_tail = None
+    if db is not None:
+        dx_tail, st_db = dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu,
+                                       isig, use_tanh=use_tanh,
+                                       dense_dtype=dense_dtype)
+    dx, st = bin_gmm_node_bwd_list(
+        g, beta, dfeat, alpha, feat, sfeat,
+        [(nbr, row, count) for _w, nbr, _e, row, count in adj_bwd.bins()],
+        mu, isig, use_tanh=use_tanh, dx_tail=dx_tail)
+    tot = st.sum(dim=0)
     st_sum, d_pws = tot[:cut], tot[cut:].reshape(D, Ds).T
-    if adj_bwd.dense is not None:
-        db = adj_bwd.dense
-        dx_p, st = dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu, isig,
-                                 use_tanh=use_tanh, dense_dtype=dense_dtype)
-        dxs.append(dx_p)
+    if db is not None:
         # padded block rows carry no edge; their stats are zeroed all the same
         valid = torch.arange(db.row_ids.shape[0],
                              device=g.device) < db.num_rows
-        st = torch.where(valid[:, None], st, 0.0)
-        st_sum = st_sum + st.sum(dim=0)
+        st_db = torch.where(valid[:, None], st_db, 0.0)
+        st_sum = st_sum + st_db.sum(dim=0)
         # the block's stat row has no sfeat block: the rows' sum of dpre
         # times their own raw source scalars
-        rs = st[:, 2 * KD:2 * KD + D]
+        rs = st_db[:, 2 * KD:2 * KD + D]
         d_pws = d_pws + sfeat[db.row_ids.long()].T @ rs
-    d_feat = combine_sum(adj_bwd.cmb, torch.cat(dxs))
+    d_feat = combine_sum(adj_bwd.cmb, dx)
     d_mu = st_sum[:KD].reshape(K, D) * isig
     d_isig = -st_sum[KD:2 * KD].reshape(K, D)
     d_pb = st_sum[2 * KD:2 * KD + D]

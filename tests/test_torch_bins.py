@@ -11,12 +11,20 @@ import numpy as np
 import pytest
 import torch
 
+from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.ops import bins
 
 SLOPE = 0.2
 SEED = 2 ** 31 + 12345  # a uint32 seed above the int32 range
 TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-5)  # summation order differs
+
+
+def _sum_tol(segs):
+    """Kernel against plain over bins up to W slots: sums of W terms in
+    another order, rtol 1e-5 and atol 8 W 2^-23."""
+    return dict(rtol=1e-5, atol=8 * max(nbr.shape[1] for nbr, _, _ in segs)
+                * 2.0 ** -23)
 
 
 @pytest.fixture
@@ -122,6 +130,103 @@ def test_bwd_plain_matches_jax_kernel(rng, p, h, f):
     assert np.all(dx[[0, 5]].numpy() == 0) and np.all(dac[[0, 5]].numpy() == 0)
 
 
+def _graph_bins(rng, kind, widths=None):
+    """The CSR and CSC bins of a small graph as lists of (nbr, row, count)
+    int32 tensors, with the widest forward bin's first segment emptied.
+    "pubmed_like": uniform degrees, bins (4, 8, 12) as synthetic pubmed's;
+    "power_law": Zipf in-degrees, bins (8, 128), hub rows split into
+    several 128-slot segments."""
+    if kind == "pubmed_like":
+        n, w = 300, (4, 8, 12)
+        src, dst = rng.integers(0, n, 1500), rng.integers(0, n, 1500)
+    else:
+        n, w = 400, (8, 128)
+        src = rng.integers(0, n, 6 * n)
+        dst = np.minimum(rng.zipf(1.6, 6 * n) - 1, n - 1)
+    uniq = np.unique(np.stack([src, dst], 1), axis=0)
+    g = build_graph(uniq[:, 0], uniq[:, 1], n, widths=widths or w,
+                    edge_tables=False)
+    fwd = [(nbr, row, count.clone()) for _w, nbr, _e, row, count
+           in g.fwd.bins()]
+    fwd[-1][2][0] = 0  # an empty segment in the widest bin
+    bwd = [(nbr, row, count) for _w, nbr, _e, row, count in g.bwd.bins()]
+    return n, fwd, bwd
+
+
+def _node_tables(rng, n, h, f):
+    a = {k: rng.normal(size=s).astype(np.float32)
+         for k, s in (("feat", (n, h, f)), ("ac", (n, h)), ("ar", (n, h)))}
+    return {k: torch.from_numpy(v) for k, v in a.items()}
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_fwd_list_plain_is_per_bin_then_cat_and_matches_jax(rng, kind, p):
+    """The list wrapper's plain path: the per-bin plain versions followed by
+    torch.cat, and the JAX per-bin kernels (interpret mode) concatenated."""
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_bins import bin_gat_fwd as jax_fwd
+
+    h, f = 2, 5
+    n, segs, _ = _graph_bins(rng, kind)
+    t = _node_tables(rng, n, h, f)
+    kw = dict(slope=SLOPE, with_pos=True, p=p, seed=SEED)
+    got = bins.bin_gat_fwd_list(t["feat"], t["ac"], t["ar"], segs, **kw)
+    per_bin = [bins.bin_gat_fwd(t["feat"], t["ac"], t["ar"], *seg, **kw)
+               for seg in segs]
+    xcat = np.concatenate([t["feat"].numpy().reshape(n, -1),
+                           t["ac"].numpy()], axis=1)
+    want = []
+    for nbr, row, count in segs:
+        nb, rw = nbr.numpy(), row.numpy()
+        drop = (p, jnp.uint32(SEED), jnp.asarray(rw),
+                jnp.asarray(nb.T)) if p > 0 else None
+        want.append(jax_fwd(jnp.asarray(xcat[nb.T]),
+                            jnp.asarray(t["ar"].numpy()[rw]),
+                            jnp.asarray(count.numpy()), H=h, F=f,
+                            slope=SLOPE, with_pos=True, drop=drop,
+                            interpret=True))
+    names = ("m", "l", "lpos", "acc", "accpos")
+    for i, name in enumerate(names):
+        torch.testing.assert_close(
+            got[i], torch.cat([pb[i] for pb in per_bin]), rtol=0, atol=0)
+        w = np.concatenate([np.asarray(wb[i]) for wb in want])
+        np.testing.assert_allclose(
+            got[i].reshape(got[i].shape[0], -1).numpy(), w, err_msg=name,
+            **TOL)
+    # the empty segment: the first of the widest bin
+    first = sum(nbr.shape[0] for nbr, _, _ in segs[:-1])
+    assert np.all(got[0][first].numpy() == np.float32(-1e30))
+    assert np.all(got[3][first].numpy() == 0)
+
+
+@pytest.mark.parametrize("with_pos", [True, False])
+def test_fwd_list_appends_the_tail(rng, with_pos):
+    """A tail (the hub block's partials) follows the bins' rows; without
+    sign-split partials lpos / accpos stay None; no bins at all leave the
+    tail alone."""
+    n, segs, _ = _graph_bins(rng, "pubmed_like")
+    t = _node_tables(rng, n, 2, 3)
+    kw = dict(slope=SLOPE, with_pos=with_pos)
+    tail = tuple(None if not with_pos and i in (2, 4) else
+                 torch.randn((7, 2) if i < 3 else (7, 2, 3))
+                 for i in range(5))
+    got = bins.bin_gat_fwd_list(t["feat"], t["ac"], t["ar"], segs,
+                                tail=tail, **kw)
+    bare = bins.bin_gat_fwd_list(t["feat"], t["ac"], t["ar"], segs, **kw)
+    only = bins.bin_gat_fwd_list(t["feat"], t["ac"], t["ar"], [], tail=tail,
+                                 **kw)
+    none = bins.bin_gat_fwd_list(t["feat"], t["ac"], t["ar"], [], **kw)
+    for i in range(5):
+        if tail[i] is None:
+            assert got[i] is None and only[i] is None and none[i] is None
+            continue
+        assert torch.equal(got[i], torch.cat([bare[i], tail[i]]))
+        assert torch.equal(only[i], tail[i])
+        assert none[i].shape[0] == 0
+
+
 def test_wrappers_refuse_mixed_devices(rng):
     t = _torch(_bin(rng))
     bad = dict(t, ar=t["ar"].to("meta"))
@@ -164,6 +269,55 @@ def test_cuda_kernels_match_plain(rng, cuda_device, p, w, h, f):
     torch.cuda.synchronize()
     for g, wv in zip(got, want):
         torch.testing.assert_close(g, wv, **BWD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(4, 64), (1, 3), (2, 5), (3, 12)])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_cuda_fwd_list_matches_plain(rng, cuda_device, kind, h, f, p):
+    """Every bin in one launch against the plain version, W up to 128 with
+    an empty segment, and against the per-bin launches bit for bit (the
+    same kernel); a hub-block tail is copied in after the bins."""
+    n, segs, _ = _graph_bins(rng, kind)
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    t = {k: v.to(cuda_device) for k, v in _node_tables(rng, n, h, f).items()}
+    args = (t["feat"], t["ac"], t["ar"])
+    for with_pos in (True, False):
+        kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED)
+        tail = bins.bin_gat_fwd_plain(*args, *segs[0], **kw)
+        before = bins.LAUNCHES["bin_gat_fwd"]
+        got = bins.bin_gat_fwd_list(*args, segs, tail=tail, **kw)
+        assert bins.LAUNCHES["bin_gat_fwd"] == before + 1
+        want = bins.bin_gat_fwd_list_plain(*args, segs, tail=tail, **kw)
+        per_bin = [bins.bin_gat_fwd(*args, *seg, **kw) for seg in segs]
+        torch.cuda.synchronize()
+        for i, (g, wv) in enumerate(zip(got, want)):
+            if wv is None:
+                assert g is None
+                continue
+            torch.testing.assert_close(g, wv, **_sum_tol(segs))
+            assert torch.equal(g, torch.cat([pb[i] for pb in per_bin]
+                                            + [tail[i]]))
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
+    """Nine bins: two launches, the second's rows after the first's."""
+    n, segs, _ = _graph_bins(rng, "pubmed_like",
+                             widths=(1, 2, 3, 4, 5, 6, 7, 8, 16))
+    assert len(segs) > bins.MAX_BINS_PER_LAUNCH
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    t = {k: v.to(cuda_device) for k, v in _node_tables(rng, n, 4, 8).items()}
+    args = (t["feat"], t["ac"], t["ar"])
+    kw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
+    before = bins.LAUNCHES["bin_gat_fwd"]
+    got = bins.bin_gat_fwd_list(*args, segs, **kw)
+    assert bins.LAUNCHES["bin_gat_fwd"] == before + 2
+    want = bins.bin_gat_fwd_list_plain(*args, segs, **kw)
+    torch.cuda.synchronize()
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, **_sum_tol(segs))
 
 
 @pytest.mark.cuda

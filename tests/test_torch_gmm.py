@@ -176,6 +176,93 @@ def test_bin_bwd_plain_matches_jax_kernel(rng, use_tanh, k, f, dd, ds):
     assert np.all(dx[[0, 5]].numpy() == 0) and np.all(st[[0, 5]].numpy() == 0)
 
 
+def _graph_bins(rng, kind, widths=None):
+    """The CSC (backward) bins of a small graph as a list of (nbr, row,
+    count) int32 tensors, with the widest bin's first segment emptied.
+    "pubmed_like": uniform degrees, bins (4, 8, 12) as synthetic pubmed's;
+    "power_law": Zipf degrees, bins (8, 128)."""
+    if kind == "pubmed_like":
+        n, w = 300, (4, 8, 12)
+        src, dst = rng.integers(0, n, 1500), rng.integers(0, n, 1500)
+    else:
+        n, w = 400, (8, 128)
+        src = np.minimum(rng.zipf(1.6, 6 * n) - 1, n - 1)
+        dst = rng.integers(0, n, 6 * n)
+    uniq = np.unique(np.stack([src, dst], 1), axis=0)
+    g = build_graph(uniq[:, 0], uniq[:, 1], n, widths=widths or w,
+                    edge_tables=False)
+    segs = [(nbr, row, count.clone()) for _w, nbr, _e, row, count
+            in g.bwd.bins()]
+    segs[-1][2][0] = 0  # an empty segment in the widest bin
+    return n, segs
+
+
+def _list_bwd_args(t, segs):
+    return (t["g"], t["beta"], t["dfeat"], t["alpha"], t["feat"], t["sfeat"],
+            segs, t["mu"], t["isig"])
+
+
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_bin_bwd_list_plain_is_per_bin_then_cat_and_matches_jax(rng, kind,
+                                                               use_tanh):
+    """The list wrapper's plain path: the per-bin plain versions followed by
+    torch.cat, and the JAX per-bin kernels (interpret mode) concatenated."""
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_bins import bin_gmm_node_bwd as jax_bwd
+
+    k, f = 3, 5
+    n, segs = _graph_bins(rng, kind)
+    t = _torch(_node_tables(rng, n, k, f))
+    dx, st = bins.bin_gmm_node_bwd_list(*_list_bwd_args(t, segs),
+                                        use_tanh=use_tanh)
+    per_bin = [bins.bin_gmm_node_bwd(t["g"], t["beta"], t["dfeat"],
+                                     t["alpha"], t["feat"], t["sfeat"], *seg,
+                                     t["mu"], t["isig"], use_tanh=use_tanh)
+               for seg in segs]
+    assert torch.equal(dx, torch.cat([d for d, _ in per_bin]))
+    assert torch.equal(st, torch.cat([s_ for _, s_ in per_bin]))
+    a = {key: v.numpy() for key, v in t.items()}
+    zcat = np.concatenate([a["g"].reshape(n, -1), a["beta"], a["dfeat"]],
+                          axis=1)
+    want_dx, want_st = [], []
+    for nbr, row, count in segs:
+        nb, rw = nbr.numpy(), row.numpy()
+        wdx, wst = jax_bwd(
+            jnp.asarray(zcat[nb.T]), jnp.asarray(a["alpha"][rw]),
+            jnp.asarray(a["feat"].reshape(n, -1)[rw]),
+            jnp.asarray(a["sfeat"][rw]), jnp.asarray(count.numpy()),
+            jnp.asarray(a["mu"]), jnp.asarray(a["isig"]), K=k, D=2, Dd=1,
+            use_tanh=use_tanh, interpret=True)
+        want_dx.append(np.asarray(wdx))
+        want_st.append(np.asarray(wst))
+    np.testing.assert_allclose(dx.reshape(dx.shape[0], -1).numpy(),
+                               np.concatenate(want_dx), **ACC_TOL)
+    np.testing.assert_allclose(st.numpy(), np.concatenate(want_st),
+                               **STAT_TOL)
+    first = sum(nbr.shape[0] for nbr, _, _ in segs[:-1])  # the empty one
+    assert np.all(dx[first].numpy() == 0) and np.all(st[first].numpy() == 0)
+
+
+def test_bin_bwd_list_appends_the_dx_tail(rng):
+    """dx_tail rows (the hub block's) follow the bins' dx rows; the stat
+    rows are the bins' only."""
+    n, segs = _graph_bins(rng, "pubmed_like")
+    t = _torch(_node_tables(rng, n, 3, 4))
+    tail = torch.randn((6, 3, 4))
+    dx, st = bins.bin_gmm_node_bwd_list(*_list_bwd_args(t, segs),
+                                        use_tanh=True, dx_tail=tail)
+    bare_dx, bare_st = bins.bin_gmm_node_bwd_list(*_list_bwd_args(t, segs),
+                                                  use_tanh=True)
+    assert torch.equal(dx, torch.cat([bare_dx, tail]))
+    assert torch.equal(st, bare_st)
+    dx, st = bins.bin_gmm_node_bwd_list(*_list_bwd_args(t, []),
+                                        use_tanh=True, dx_tail=tail)
+    assert torch.equal(dx, tail)
+    assert st.shape == (0, bins.gmm_stat_width(3, 2, 1, 1))
+
+
 def test_padded_slots_are_not_relied_on(rng):
     """Slots at or past ``count`` contribute exactly 0 whatever id they
     hold."""
@@ -724,6 +811,60 @@ def test_cuda_dense_kernels_match_plain(rng, cuda_device, dense_dtype,
         _assert_close(x.cpu(), y.cpu(), dense_dtype, tol, name)
     assert dense.LAUNCHES["dense_gmm_fwd"] == before["dense_gmm_fwd"] + 1
     assert dense.LAUNCHES["dense_gmm_bwd"] == before["dense_gmm_bwd"] + 1
+
+
+def _sum_tol(segs, tol):
+    """``tol`` with atol at least 8 W 2^-23 for sums over bins up to W slots
+    (the kernel sums in another order than the plain version)."""
+    w = max(nbr.shape[1] for nbr, _, _ in segs)
+    return dict(tol, atol=max(tol["atol"], 8 * w * 2.0 ** -23))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("k,f", [(3, 64), (3, 3), (2, 5), (8, 128)])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_cuda_bin_bwd_list_matches_plain(rng, cuda_device, kind, k, f,
+                                         use_tanh):
+    """Every bin in one launch against the plain version, W up to 128 with
+    an empty segment, F % 4 != 0, K*F = 1024 (column tiles), and against
+    the per-bin launches bit for bit (the same kernel); a dx tail follows
+    the bins' rows."""
+    n, segs = _graph_bins(rng, kind)
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    t = _scaled_g(_torch(_node_tables(rng, n, k, f), cuda_device))
+    tail = torch.randn((5, k, f), device=cuda_device)
+    args = _list_bwd_args(t, segs)
+    before = bins.LAUNCHES["bin_gmm_node_bwd"]
+    got = bins.bin_gmm_node_bwd_list(*args, use_tanh=use_tanh, dx_tail=tail)
+    assert bins.LAUNCHES["bin_gmm_node_bwd"] == before + 1
+    want = bins.bin_gmm_node_bwd_list_plain(*args, use_tanh=use_tanh,
+                                            dx_tail=tail)
+    per_bin = [bins.bin_gmm_node_bwd(*args[:6], *seg, *args[7:],
+                                     use_tanh=use_tanh) for seg in segs]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **_sum_tol(segs, ACC_TOL))
+    torch.testing.assert_close(got[1], want[1], **_sum_tol(segs, STAT_TOL))
+    assert torch.equal(got[0], torch.cat([d for d, _ in per_bin] + [tail]))
+    assert torch.equal(got[1], torch.cat([s_ for _, s_ in per_bin]))
+
+
+@pytest.mark.cuda
+def test_cuda_bin_bwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
+    """Nine bins: two launches, the second's rows after the first's."""
+    n, segs = _graph_bins(rng, "pubmed_like",
+                          widths=(1, 2, 3, 4, 5, 6, 7, 8, 16))
+    assert len(segs) > bins.MAX_BINS_PER_LAUNCH
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    t = _scaled_g(_torch(_node_tables(rng, n, 3, 64), cuda_device))
+    before = bins.LAUNCHES["bin_gmm_node_bwd"]
+    got = bins.bin_gmm_node_bwd_list(*_list_bwd_args(t, segs), use_tanh=True)
+    assert bins.LAUNCHES["bin_gmm_node_bwd"] == before + 2
+    want = bins.bin_gmm_node_bwd_list_plain(*_list_bwd_args(t, segs),
+                                            use_tanh=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], **_sum_tol(segs, ACC_TOL))
+    torch.testing.assert_close(got[1], want[1], **_sum_tol(segs, STAT_TOL))
 
 
 @pytest.mark.cuda

@@ -113,6 +113,38 @@ def test_converted_logits_equal_on_hub_graph(rng, monkeypatch, training):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
 
 
+@pytest.mark.parametrize("in_feats", [16, 32])
+def test_converted_residual_and_activation_equal(rng, in_feats):
+    """GAT(residual=True, activation=elu), two hidden layers of 4 heads x 8:
+    at in_feats 16 the first layer's residual is a res_fc projection, at 32
+    (= 4 x 8) the input itself; the second hidden layer's is always the
+    input itself, and the output layer has neither.  Eval logits and the
+    gradient of their sum with respect to the input features."""
+    jg, tg, feat, _, _ = _problem(rng, in_feats=in_feats)
+    jm = JaxGAT(num_layers=2, n_hidden=8, n_classes=3, heads=(4, 4, 1),
+                residual=True, activation=jax.nn.elu)
+    params = jm.init(jax.random.PRNGKey(1), jg, jnp.asarray(feat))
+    layers = params["params"]
+    assert ("res_fc" in layers["gat_0"]) == (in_feats != 32)
+    assert "res_fc" not in layers["gat_1"] and "res_fc" not in layers["gat_out"]
+    tm = GAT(in_feats, 2, 8, 3, (4, 4, 1), residual=True,
+             activation=torch.nn.functional.elu,
+             generator=torch.Generator().manual_seed(0))
+    assert (tm.convs["gat_0"].res_fc is not None) == (in_feats != 32)
+    assert tm.convs["gat_out"].residual is False
+    load_flax_gat(tm, params)
+    want_logits = jm.apply(params, jg, jnp.asarray(feat))
+    want_dx = jax.grad(lambda x: jnp.sum(jm.apply(params, jg, x)))(
+        jnp.asarray(feat))
+    x = torch.from_numpy(feat).requires_grad_(True)
+    got = tm.eval()(tg, x)
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want_logits),
+                               **LOGIT_TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(want_dx),
+                               rtol=1e-4, atol=1e-5)
+
+
 def test_init_std_follows_flax_fan_avg():
     tm = GAT(500, 1, 64, 3, (4, 1), generator=torch.Generator().manual_seed(0))
     conv = tm.convs["gat_0"]
@@ -210,6 +242,7 @@ def test_port_imports_no_jax():
     files += [ROOT / "scripts" / "train_gat_torch.py",
               ROOT / "scripts" / "train_gmm_torch.py",
               ROOT / "scripts" / "profile_step_torch.py",
+              ROOT / "scripts" / "bin_kernel_times_torch.py",
               ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:
