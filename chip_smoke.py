@@ -16,10 +16,10 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                partials, plus a power-law graph with a bin wider than 64 and
                an empty segment in each direction (forward rtol 1e-5 / atol
                1e-5; backward rtol 1e-4 / atol 1e-5, the summation order
-               differs).  bin_gat_fwd and bin_gmm_node_bwd also in their
-               list form, every bin of the direction in one launch, on
-               every graph checked (atol at least 8 W 2^-23 for the
-               widest bin's W).
+               differs).  All four bin kernels also in their list form,
+               every bin of the direction in one launch (the form the ops
+               call), on every graph checked (atol at least 8 W 2^-23 for
+               the widest bin's W).
                Dense kernels: the hub blocks of cora and citeseer (the
                planner's, both directions) and a forced (1000, 5000) block
                of pubmed (4 row chunks x 3 column tiles, padded rows and
@@ -75,9 +75,9 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                pseudo dim 2, dropout 0.5, Adam lr 1e-2, weight decay 5e-4.
                The loss must be finite and fall; the launch counts must be
                exactly what the steps, evals, layers, bins and hub blocks
-               imply (bin_gat_fwd and bin_gmm_node_bwd: one launch a call
-               over every bin of the direction; the other two bin kernels
-               one a bin), and the other model's kernels must not launch; the
+               imply (each bin kernel one launch a call over every bin of
+               the direction), and the other model's kernels must not
+               launch; the
                trained model's logits on the card must match a CPU copy's;
                test accuracy must clear a margin above chance.
                Then scripts/train_edgeconv_torch.py at full width (B = 64,
@@ -94,11 +94,11 @@ Phases, one line each (a failure raises; nothing is caught and continued):
   6. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at the hidden layer's width
-               ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16;
-               bin_gat_fwd and bin_gmm_node_bwd in their list form at both
-               layers' widths, read from a replayed CUDA graph, summed to a
-               pubmed training step beside the step's bound, and beside
-               one launch a bin.  Then one
+               ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16; the four
+               bin kernels in their list form at both layers' widths, read
+               from a replayed CUDA graph, summed to a pubmed training step
+               beside the step's bound, and beside one launch a bin.  Then
+               one
                gat_aggregate and one gmm_aggregate_node forward + backward
                on cora with its hub block against the all-binned build of
                the same graph, and a 1 GiB device-to-device copy.
@@ -308,11 +308,6 @@ def assert_close(got, want, tol, dense_dtype="float32", what=""):
     return float((got - want).abs().max()), off
 
 
-def bin_segs(adj):
-    """A direction's bins as the list wrappers take them."""
-    return [(nbr, row, count) for _w, nbr, _e, row, count in adj.bins()]
-
-
 def sum_tol(adj, tol):
     """``tol`` with atol at least 8 W 2^-23 for W the direction's widest bin:
     a segment sums up to W terms, in another order in the kernel."""
@@ -343,7 +338,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
                                              float((g - w).abs().max()))
                 n_cmp += 1
     # every bin in one launch (the op's path)
-    segs = bin_segs(adj_fwd)
+    segs = adj_fwd.segs()
     for p in (0.0, 0.3):
         for with_pos in (True, False):
             args = (tb["feat"], tb["ac"], tb["ar"], segs)
@@ -358,10 +353,10 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
                 err["bin_gat_fwd"] = max(err["bin_gat_fwd"],
                                          float((g - w).abs().max()))
             n_cmp += 1
+    dst = tuple(tb[k] for k in ("g", "ar", "M", "Linv", "ws", "ac", "feat"))
     for _w, nbr, _e, row, count in adj_bwd.bins():
         for p in (0.0, 0.3):
-            args = (tb["g"], tb["ar"], tb["M"], tb["Linv"], tb["ws"],
-                    tb["ac"], tb["feat"], nbr, row, count)
+            args = (*dst, nbr, row, count)
             kw = dict(slope=SLOPE, p=p, seed=SEED)
             got = bins.bin_gat_bwd(*args, **kw)
             want = bins.bin_gat_bwd_plain(*args, **kw)
@@ -370,6 +365,16 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
                 err["bin_gat_bwd"] = max(err["bin_gat_bwd"],
                                          float((g - w).abs().max()))
             n_cmp += 1
+    # the backward's every bin in one launch (the op's path)
+    for p in (0.0, 0.3):
+        kw = dict(slope=SLOPE, p=p, seed=SEED)
+        got = bins.bin_gat_bwd_list(*dst, adj_bwd.segs(), **kw)
+        want = bins.bin_gat_bwd_list_plain(*dst, adj_bwd.segs(), **kw)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **sum_tol(adj_bwd, BWD_TOL))
+            err["bin_gat_bwd"] = max(err["bin_gat_bwd"],
+                                     float((g - w).abs().max()))
+        n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
 
@@ -434,6 +439,11 @@ def gmm_bin_args(tb, nbr, row, count):
              tb["sfeat"], *seg))
 
 
+def gmm_list_fwd_args(tb, segs):
+    """Forward arguments of bin_gmm_node_fwd_list over ``segs``."""
+    return (tb["feat"], tb["alpha"], tb["beta"], segs, tb["mu"], tb["isig"])
+
+
 def gmm_list_bwd_args(tb, segs):
     """Backward arguments of bin_gmm_node_bwd_list over ``segs``."""
     return (tb["g"], tb["beta"], tb["dfeat"], tb["alpha"], tb["feat"],
@@ -461,6 +471,16 @@ def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err):
             err["bin_gmm_node_fwd"] = max(err["bin_gmm_node_fwd"],
                                           float((got - want).abs().max()))
             n_cmp += 1
+        # every bin of each direction in one launch (the op's path)
+        args = gmm_list_fwd_args(tb, adj_fwd.segs())
+        got = bins.bin_gmm_node_fwd_list(*args, use_tanh=use_tanh)
+        want = bins.bin_gmm_node_fwd_list_plain(*args, use_tanh=use_tanh)
+        torch.testing.assert_close(
+            got, want, **sum_tol(adj_fwd, FWD_TOL),
+            msg=lambda m: f"bin_gmm_node_fwd_list: {m}")
+        err["bin_gmm_node_fwd"] = max(err["bin_gmm_node_fwd"],
+                                      float((got - want).abs().max()))
+        n_cmp += 1
         for _w, nbr, _e, row, count in adj_bwd.bins():
             args = gmm_bin_args(tb, nbr, row, count)[1]
             got = bins.bin_gmm_node_bwd(*args, use_tanh=use_tanh)
@@ -472,8 +492,7 @@ def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err):
                 err["bin_gmm_node_bwd"] = max(err["bin_gmm_node_bwd"],
                                               float((g - w).abs().max()))
             n_cmp += 1
-        # every bin in one launch (the op's path)
-        args = gmm_list_bwd_args(tb, bin_segs(adj_bwd))
+        args = gmm_list_bwd_args(tb, adj_bwd.segs())
         got = bins.bin_gmm_node_bwd_list(*args, use_tanh=use_tanh)
         want = bins.bin_gmm_node_bwd_list_plain(*args, use_tanh=use_tanh)
         for name, g, w, tol in zip(("dx", "stat rows"), got, want,
@@ -848,14 +867,9 @@ def run_trainer(bins, trainer, model_kind, dataset):
     bwd_calls = r["train_steps"] * len(r["model"].convs)
     bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
     want = dict.fromkeys(launches, 0)  # the other model's kernels: none
-    # one launch a call for every bin of the direction (the list wrappers),
-    # one a bin for the other two
-    want.update({bin_fwd: fwd_calls * (
-                     list_launches(bins, g.fwd) if model_kind == "gat"
-                     else g.fwd.num_bins),
-                 bin_bwd: bwd_calls * (
-                     list_launches(bins, g.bwd) if model_kind == "gmm"
-                     else g.bwd.num_bins),
+    # one launch a call for every bin of the direction (the list wrappers)
+    want.update({bin_fwd: fwd_calls * list_launches(bins, g.fwd),
+                 bin_bwd: bwd_calls * list_launches(bins, g.bwd),
                  dense_fwd: fwd_calls * (g.fwd.dense is not None),
                  dense_bwd: bwd_calls * (g.bwd.dense is not None)})
     assert launches == want, (launches, want)
@@ -1144,8 +1158,8 @@ def main():
         return sum(int(c.sum()) for c in adj.count)
 
     jobs = {}
-    # K1 and K4 one launch a bin, the way they ran before the list kernels,
-    # beside one launch for every bin: (per-bin loop, list call)
+    # the bin kernels one launch a bin, the way they ran before the list
+    # kernels, beside one launch for every bin: (per-bin loop, list call)
     per_bin = {}
     for h, f in SHAPES:
         tb = tabs[(h, f)]
@@ -1157,7 +1171,7 @@ def main():
         fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
         bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
         what = f"pubmed all bins H={h} F={f} p=0.3"
-        la = (tb["feat"], tb["ac"], tb["ar"], bin_segs(pub.fwd))
+        la = (tb["feat"], tb["ac"], tb["ar"], pub.fwd.segs())
         jobs[("bin_gat_fwd", h, f)] = (
             what + " (one launch)",
             lambda a=la, kw=fkw: bins.bin_gat_fwd_list(*a, **kw),
@@ -1166,12 +1180,15 @@ def main():
         per_bin[("bin_gat_fwd", h, f)] = (
             lambda a=fwd_args, kw=fkw: [bins.bin_gat_fwd(*x, **kw) for x in a],
             jobs[("bin_gat_fwd", h, f)][1])
+        lb = (*bwd_args[0][:7], pub.bwd.segs())
         jobs[("bin_gat_bwd", h, f)] = (
-            what,
+            what + " (one launch)",
+            lambda a=lb, kw=bkw: bins.bin_gat_bwd_list(*a, **kw),
+            lambda a=lb, kw=bkw: bins.bin_gat_bwd_list_plain(*a, **kw),
+            [*lb[:7], *flat(lb[7])], edges_of(pub.bwd), h * f, h)
+        per_bin[("bin_gat_bwd", h, f)] = (
             lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd(*x, **kw) for x in a],
-            lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd_plain(*x, **kw)
-                                        for x in a],
-            flat(bwd_args), edges_of(pub.bwd), h * f, h)
+            jobs[("bin_gat_bwd", h, f)][1])
     for k, f in GMM_SHAPES:
         tb = gmm_tabs[(k, f)]
         fwd_args = [gmm_bin_args(tb, nbr, row, count)[0]
@@ -1179,15 +1196,17 @@ def main():
         bwd_args = [gmm_bin_args(tb, nbr, row, count)[1]
                     for _w, nbr, _e, row, count in pub.bwd.bins()]
         what = f"pubmed all bins K={k} F={f} D={GMM_D} tanh"
-        if (k, f) == GMM_SHAPES[0]:
-            jobs[("bin_gmm_node_fwd", k, f)] = (
-                what,
-                lambda a=fwd_args: [bins.bin_gmm_node_fwd(*x, use_tanh=True)
-                                    for x in a],
-                lambda a=fwd_args: [bins.bin_gmm_node_fwd_plain(
-                    *x, use_tanh=True) for x in a],
-                flat(fwd_args), edges_of(pub.fwd), k * f, k)
-        la = gmm_list_bwd_args(tb, bin_segs(pub.bwd))
+        la = gmm_list_fwd_args(tb, pub.fwd.segs())
+        jobs[("bin_gmm_node_fwd", k, f)] = (
+            what + " (one launch)",
+            lambda a=la: bins.bin_gmm_node_fwd_list(*a, use_tanh=True),
+            lambda a=la: bins.bin_gmm_node_fwd_list_plain(*a, use_tanh=True),
+            [*la[:3], *flat(la[3]), *la[4:]], edges_of(pub.fwd), k * f, k)
+        per_bin[("bin_gmm_node_fwd", k, f)] = (
+            lambda a=fwd_args: [bins.bin_gmm_node_fwd(*x, use_tanh=True)
+                                for x in a],
+            jobs[("bin_gmm_node_fwd", k, f)][1])
+        la = gmm_list_bwd_args(tb, pub.bwd.segs())
         jobs[("bin_gmm_node_bwd", k, f)] = (
             what + " (one launch)",
             lambda a=la: bins.bin_gmm_node_bwd_list(*a, use_tanh=True),
@@ -1263,9 +1282,11 @@ def main():
               f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
               f"({edges} edges), no single library call | {smi}")
 
-    # K1 and K4 a pubmed training step: one call a layer, beside the sum of
-    # the layers' bounds; and one launch a bin against one for every bin
-    for name, shapes in (("bin_gat_fwd", SHAPES),
+    # the bin kernels a pubmed training step: one call a layer, beside the
+    # sum of the layers' bounds; and one launch a bin against one for every
+    # bin
+    for name, shapes in (("bin_gat_fwd", SHAPES), ("bin_gat_bwd", SHAPES),
+                         ("bin_gmm_node_fwd", GMM_SHAPES),
                          ("bin_gmm_node_bwd", GMM_SHAPES)):
         step_ms = sum(times[(name, *sh)]["ms"] for sh in shapes)
         step_bound = sum(times[(name, *sh)]["bound_ms"] for sh in shapes)

@@ -1,5 +1,6 @@
-// Device helpers shared by the warp-per-segment bin kernels (bin_gat.cu
-// bin_gat_fwd_kernel, bin_gmm.cu bin_gmm_bwd_kernel).
+// Device helpers shared by the lane-group-per-segment bin kernels
+// (bin_gat.cu bin_gat_fwd_kernel / bin_gat_bwd_kernel, bin_gmm.cu
+// bin_gmm_fwd_kernel / bin_gmm_bwd_kernel).
 //
 // BinList: every bin of one adjacency direction, passed by value as a
 // kernel parameter (no host-to-device copy per call).  Bin b holds S_b

@@ -9,10 +9,12 @@
 //     empty segment gives m = -1e30 and zero partials.
 //
 //   bin_gat_bwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gat_bwd_kernel
-//     (wrapper bin_gat_bwd).  Over the CSC bins (rows = sources j, slots =
-//     destinations i): a = exp(s - M[i]) * Linv[i], a^ = dropout(a),
+//     (wrappers bin_gat_bwd, bin_gat_bwd_list).  Over the CSC bins (rows =
+//     sources j, slots = destinations i): a = exp(s - M[i]) * Linv[i],
+//     a^ = dropout(a),
 //       dx[j]  = sum a^ * g[i]
 //       dac[j] = <x[j], sum a^ d' g[i]> - sum a d' ws[i]     (d' = LeakyReLU')
+//     An empty segment gives zeros.
 //
 // Unlike the TPU kernels, these gather for themselves: they read x[nbr],
 // ac[nbr] (forward) and g / ar / M / Linv / ws [nbr] (backward) straight
@@ -26,28 +28,34 @@
 // a segment of pubmed's bins holds 3 to 10 slots, and a block per segment
 // spent its time on barriers and dependent loads.
 //
-// The forward is a group of lanes per segment (bin_common.cuh): a full warp
-// at H*F >= 32 (the models' hidden layer, 256 columns), 4 or 16 lanes for
-// the output layer's 3 to 9 columns, several segments to a block, no block
-// barrier.  One launch takes every bin of a direction (BinList).  Lanes
-// work over slots for the per-slot scalars: each lane loads one slot's id
-// and its H coefficients, the group takes the exact max by shuffles (two
-// walks over the slots when a segment holds more than G), and each lane
-// writes its slot's dropped weights to a warp-private slab behind
-// __syncwarp; the first slots' ids are requested with the segment's row
-// and count.  Then lanes work over columns, up to eight a lane
-// (dgnn::cols_per_lane; 16-byte loads where F % 4 = 0 and x is aligned,
-// else scalar loads): every slot of the chunk in ascending order, reading
-// the weights from the slab and the row x[nbr] coalesced.  l / lpos are
-// per-lane sums over the lane's slots and a shuffle reduction.  Rows wider
-// than 8 G columns are walked in column tiles.
+// Both passes are a group of lanes per segment (bin_common.cuh): a full
+// warp at H*F >= 32 (the models' hidden layer, 256 columns), 4 or 16 lanes
+// for the output layer's 3 to 9 columns, several segments to a block, no
+// block barrier.  One launch takes every bin of a direction (BinList).
+// Lanes work over slots for the per-slot scalars: each lane loads one
+// slot's id and its H coefficients and writes the slot's weights to a
+// warp-private slab behind __syncwarp; the first slots' ids are requested
+// with the segment's row and count.  Then lanes work over columns, up to
+// eight a lane (dgnn::cols_per_lane; 16-byte loads where F % 4 = 0 and the
+// feature tables are aligned, else scalar loads): every slot of the chunk
+// in ascending order, reading the weights from the slab and the row
+// x[nbr] / g[nbr] coalesced.  Rows wider than 8 G columns are walked in
+// column tiles.
 //
-// The backward gives each segment one thread block, threads over the H*F
-// columns, slots staged kChunk at a time in shared memory.
+//   Forward: the group takes the exact max by shuffles first (two walks
+//   over the slots when a segment holds more than G); the slab holds the
+//   dropped weight and its sign-split copy a head; l / lpos are per-lane
+//   sums over the lane's slots and a shuffle reduction.
+//   Backward: the slab holds a^ and a^ d' a head; column lanes keep dx[c]
+//   and t[c] = sum a^ d' g[i, c] in registers; sum a d' ws is a per-lane
+//   sum over the lane's slots.  After the walk the segment's own row x[j]
+//   is read (its registers are free then), each lane forms a per-head
+//   partial of x[j, c] t[c] over its columns, less its slots' a d' ws, and
+//   one interleaved shuffle butterfly over every head gives dac.
 //
-// Left for later PRs: the backward in the forward's design, cp.async / TMA
-// prefetch of the next slots' rows, bf16 feature rows, and fusing the
-// segment merge (ops/common.py combine_lse / combine_sum) into the kernel.
+// Left for later PRs: cp.async / TMA prefetch of the next slots' rows, bf16
+// feature rows, and fusing the segment merge (ops/common.py combine_lse /
+// combine_sum) into the kernel.
 //
 // Dropout re-derives dgnn_tpu/ops/common.py:pair_keep bit for bit
 // (gat_common.cuh).  Forward: dst = segment row, src = slot; backward:
@@ -68,13 +76,10 @@ using dgnn::find_seg;
 using dgnn::group_mask;
 using dgnn::leaky;
 using dgnn::pair_base;
-using dgnn::pair_u;
 using dgnn::pair_u_head;
 using dgnn::Seg;
 
 constexpr int kMaxHeads = 16;    // the wrapper refuses H > kMaxHeads
-constexpr int kChunk = 32;       // backward: slots staged in shared memory at a time
-constexpr int kMaxThreads = 1024;
 constexpr float kNegB = -1e30f;  // finite "-inf": max of an empty segment
 
 // HMAX: heads held in registers (4 or kMaxHeads); VEC: 16-byte loads of x;
@@ -317,7 +322,17 @@ void dispatch_gat_fwd(bool vec, int cpl, const BinList& bl, int G,
 #undef DGNN_GAT_FWD
 }
 
-__global__ void bin_gat_bwd_kernel(
+// Backward, by the forward's design.  Dynamic shared memory: per group G
+// slot ids, then per group 2 G H floats (a^ and a^ d' a head).  Blocks of
+// dgnn::kGroupThreads an SM kept by the launch bounds: four (at most 64
+// registers a thread) where 4 heads sit in registers, which paid more than
+// requesting x[j] before the walk with three; one for 16 heads.
+constexpr int gat_bwd_min_blocks(int hmax) { return hmax <= 4 ? 4 : 1; }
+
+template <int HMAX, bool VEC, int CPL>
+__global__ void __launch_bounds__(dgnn::kGroupThreads,
+                                  gat_bwd_min_blocks(HMAX))
+bin_gat_bwd_kernel(
     const float* __restrict__ g,      // [Nd, H*F] grad of the output
     const float* __restrict__ ar,     // [Nd, H]
     const float* __restrict__ Mx,     // [Nd, H]   merged softmax maximum
@@ -325,97 +340,185 @@ __global__ void bin_gat_bwd_kernel(
     const float* __restrict__ ws,     // [Nd, H]   <g, out> per destination
     const float* __restrict__ ac,     // [Ns, H]   source coefficients
     const float* __restrict__ x,      // [Ns, H*F] source features
-    const int* __restrict__ nbr,      // [S, W]    destination ids
-    const int* __restrict__ row,      // [S]       source id
-    const int* __restrict__ count,    // [S]
-    int W, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
-    float* __restrict__ dx_out,       // [S, H*F]
-    float* __restrict__ dac_out) {    // [S, H]
-  __shared__ float ac_sh[kMaxHeads];
-  __shared__ float u2_sh[kMaxHeads];
-  __shared__ float dac_sh[kMaxHeads];
-  __shared__ int nbr_sh[kChunk];
-  __shared__ float ah_sh[kChunk * kMaxHeads];    // a^
-  __shared__ float ahd_sh[kChunk * kMaxHeads];   // a^ d'
-  __shared__ float u_sh[kChunk * kMaxHeads];     // a d' ws
-  __shared__ float xt_sh[kMaxThreads];
-
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+    const BinList bl,                 // nbr: destination ids; row: source id
+    int G, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
+    float* __restrict__ dx_out,       // [total, H*F]
+    float* __restrict__ dac_out) {    // [total, H]
+  extern __shared__ float smem[];
+  const int gpb = blockDim.x / G;
+  const int grp = threadIdx.x / G;
+  const int gl = threadIdx.x - grp * G;  // lane within the group
+  const int s = blockIdx.x * gpb + grp;
+  if (s >= bl.total) return;  // the whole group leaves together
+  const unsigned gmask = group_mask(G);
+  const Seg sg = find_seg(bl, s);
+  // the first slot ids are requested with row and count
+  const int i0 = gl < sg.W ? __ldg(sg.nbr + gl) : 0;
+  const int cnt = sg.count;
+  const int r = sg.row;
   const int HF = H * F;
-  const int cnt = count[s];
-  const int r = row[s];
-  const int* nb = nbr + static_cast<size_t>(s) * W;
   const bool drop = p > 0.f;
+  int* si = reinterpret_cast<int*>(smem) + grp * G;  // the chunk's slot ids
+  float* sah = smem + gpb * G + grp * 2 * G * H;     // [G][H] a^
+  float* sahd = sah + G * H;                         // [G][H] a^ d'
 
-  if (tid < H) {
-    ac_sh[tid] = ac[static_cast<size_t>(r) * H + tid];
-    u2_sh[tid] = 0.f;
-    dac_sh[tid] = 0.f;
-  }
-  __syncthreads();
+  // this lane's share of dac: x[j, c] t[c] over its columns, less a d' ws
+  // over its slots
+  float dac[HMAX];
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h) dac[h] = 0.f;
 
-  for (int c0 = 0; c0 < HF; c0 += nthreads) {
-    const int c = c0 + tid;
-    const bool active = c < HF;
-    const int hc = active ? c / F : 0;
-    float dx = 0.f, t = 0.f;
-    for (int w0 = 0; w0 < cnt; w0 += kChunk) {
-      const int nch = min(kChunk, cnt - w0);
-      __syncthreads();
-      if (tid < nch) nbr_sh[tid] = nb[w0 + tid];
-      __syncthreads();
-      for (int idx = tid; idx < nch * H; idx += nthreads) {
-        const int wl = idx / H;
-        const int h = idx - wl * H;
-        const size_t ih = static_cast<size_t>(nbr_sh[wl]) * H + h;
-        const float sr = ar[ih] + ac_sh[h];
-        const float a = expf(leaky(sr, slope) - Mx[ih]) * Linv[ih];
-        float ah = a;
-        if (drop) {
-          const float u = pair_u(seed, static_cast<uint32_t>(nbr_sh[wl]),
-                                 static_cast<uint32_t>(r), H, h);
-          ah = u > p ? a * inv_keep : 0.f;
+  constexpr int NQ = VEC ? CPL / 4 : CPL;  // loads a lane per slot
+  for (int c0 = 0; c0 < HF; c0 += CPL * G) {
+    int col[NQ], hc[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      col[q] = c0 + (VEC ? 4 * (gl + G * q) : gl + G * q);
+      hc[q] = col[q] < HF ? col[q] / F : 0;
+    }
+    float dx[CPL], t[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      dx[c] = 0.f;
+      t[c] = 0.f;
+    }
+    for (int w0 = 0; w0 < cnt; w0 += G) {
+      const int nch = min(G, cnt - w0);
+      if (gl < nch) {
+        // one lane a slot: its H weights into the slab
+        const int i = w0 == 0 ? i0 : __ldg(sg.nbr + w0 + gl);
+        const size_t ih = static_cast<size_t>(i) * H;
+        const uint32_t base = drop ? pair_base(seed, static_cast<uint32_t>(i),
+                                               static_cast<uint32_t>(r))
+                                   : 0u;
+#pragma unroll
+        for (int h = 0; h < HMAX; ++h) {
+          if (h < H) {
+            // ac[j] is read here, not kept: an L1 hit beside the registers
+            // the column sums need
+            const float sr = __ldg(ar + ih + h) +
+                             __ldg(ac + static_cast<size_t>(r) * H + h);
+            const float a = expf(leaky(sr, slope) - __ldg(Mx + ih + h)) *
+                            __ldg(Linv + ih + h);
+            float ah = a;
+            if (drop) ah = pair_u_head(base, H, h) > p ? a * inv_keep : 0.f;
+            const float dp = sr >= 0.f ? 1.f : slope;
+            sah[gl * H + h] = ah;
+            sahd[gl * H + h] = ah * dp;
+            if (c0 == 0) dac[h] -= a * dp * __ldg(ws + ih + h);
+          }
         }
-        const float dp = sr >= 0.f ? 1.f : slope;
-        ah_sh[idx] = ah;
-        ahd_sh[idx] = ah * dp;
-        u_sh[idx] = a * dp * ws[ih];
+        si[gl] = i;
       }
-      __syncthreads();
-      if (c0 == 0 && tid < H) {
-        for (int wl = 0; wl < nch; ++wl) u2_sh[tid] += u_sh[wl * H + tid];
+      __syncwarp(gmask);
+      // lanes over columns: every slot of the chunk in ascending order
+#pragma unroll 2
+      for (int wl = 0; wl < nch; ++wl) {
+        const float* gr = g + static_cast<size_t>(si[wl]) * HF;
+        const float* wa = sah + wl * H;
+        const float* wb = sahd + wl * H;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (col[q] < HF) {
+            const float a = wa[hc[q]];
+            const float b = wb[hc[q]];
+            if constexpr (VEC) {
+              const float4 v = __ldg(reinterpret_cast<const float4*>(gr + col[q]));
+              dx[4 * q] += a * v.x;
+              dx[4 * q + 1] += a * v.y;
+              dx[4 * q + 2] += a * v.z;
+              dx[4 * q + 3] += a * v.w;
+              t[4 * q] += b * v.x;
+              t[4 * q + 1] += b * v.y;
+              t[4 * q + 2] += b * v.z;
+              t[4 * q + 3] += b * v.w;
+            } else {
+              const float v = __ldg(gr + col[q]);
+              dx[q] += a * v;
+              t[q] += b * v;
+            }
+          }
+        }
       }
-      if (active) {
-        for (int wl = 0; wl < nch; ++wl) {
-          const float gv = g[static_cast<size_t>(nbr_sh[wl]) * HF + c];
-          dx += ah_sh[wl * H + hc] * gv;
-          t += ahd_sh[wl * H + hc] * gv;
+      __syncwarp(gmask);  // the slab is rewritten by the next chunk
+    }
+    float* dxo = dx_out + static_cast<size_t>(s) * HF;
+    const float* xr = x + static_cast<size_t>(r) * HF;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (col[q] < HF) {
+        // the segment's own row, read after the walk
+        float v;
+        if constexpr (VEC) {
+          *reinterpret_cast<float4*>(dxo + col[q]) = make_float4(
+              dx[4 * q], dx[4 * q + 1], dx[4 * q + 2], dx[4 * q + 3]);
+          const float4 xv = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+          v = xv.x * t[4 * q] + xv.y * t[4 * q + 1] + xv.z * t[4 * q + 2] +
+              xv.w * t[4 * q + 3];
+        } else {
+          dxo[col[q]] = dx[q];
+          v = __ldg(xr + col[q]) * t[q];
+        }
+        // a load's columns lie in one head (F % 4 = 0 where VEC)
+#pragma unroll
+        for (int h = 0; h < HMAX; ++h) {
+          if (h == hc[q]) dac[h] += v;
         }
       }
     }
-    if (active) {
-      dx_out[static_cast<size_t>(s) * HF + c] = dx;
-      xt_sh[tid] = x[static_cast<size_t>(r) * HF + c] * t;
-    }
-    __syncthreads();
-    // per-head sum of x * t over this tile's columns of head `tid`
-    if (tid < H) {
-      const int lo = max(c0, tid * F);
-      const int hi = min(min(c0 + nthreads, HF), (tid + 1) * F);
-      float acc = 0.f;
-      for (int cc = lo; cc < hi; ++cc) acc += xt_sh[cc - c0];
-      dac_sh[tid] += acc;
-    }
-    __syncthreads();
   }
-  if (tid < H) dac_out[static_cast<size_t>(s) * H + tid] = dac_sh[tid] - u2_sh[tid];
+  for (int o = G >> 1; o > 0; o >>= 1) {  // every head in one butterfly
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h)
+      dac[h] += __shfl_xor_sync(gmask, dac[h], o);
+  }
+  if (gl == 0) {
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) {
+      if (h < H) dac_out[static_cast<size_t>(s) * H + h] = dac[h];
+    }
+  }
 }
 
-int block_threads(int HF) {
-  const int t = ((HF + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
+template <int HMAX, bool VEC, int CPL>
+void launch_gat_bwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
+                    const float* g, const float* ar, const float* M,
+                    const float* Linv, const float* ws, const float* ac,
+                    const float* x, int H, int F, float slope, float p,
+                    float inv_keep, uint32_t seed, float* dx, float* dac) {
+  const int gpb = dgnn::kGroupThreads / G;
+  const int blocks = (bl.total + gpb - 1) / gpb;
+  bin_gat_bwd_kernel<HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
+      g, ar, M, Linv, ws, ac, x, bl, G, H, F, slope, p, inv_keep, seed, dx,
+      dac);
+}
+
+// The instance for (vec, cpl), as dispatch_gat_fwd.
+template <int HMAX>
+void dispatch_gat_bwd(bool vec, int cpl, const BinList& bl, int G,
+                      size_t shm, cudaStream_t st, const float* g,
+                      const float* ar, const float* M, const float* Linv,
+                      const float* ws, const float* ac, const float* x, int H,
+                      int F, float slope, float p, float inv_keep,
+                      uint32_t seed, float* dx, float* dac) {
+#define DGNN_GAT_BWD(V, C)                                                  \
+  launch_gat_bwd<HMAX, V, C>(bl, G, shm, st, g, ar, M, Linv, ws, ac, x, H,  \
+                             F, slope, p, inv_keep, seed, dx, dac)
+  if (vec && cpl == 8) DGNN_GAT_BWD(true, 8);
+  else if (vec) DGNN_GAT_BWD(true, 4);
+  else if (cpl == 8) DGNN_GAT_BWD(false, 8);
+  else if (cpl == 4) DGNN_GAT_BWD(false, 4);
+  else if (cpl == 2) DGNN_GAT_BWD(false, 2);
+  else DGNN_GAT_BWD(false, 1);
+#undef DGNN_GAT_BWD
+}
+
+// Dynamic shared memory of a block of groups of G lanes: per group G slot
+// ids and 2 G H floats.  At most 8 groups of 32 lanes x 16 heads: 33 KB,
+// under the default 48.
+size_t gat_shm(int G, int H) {
+  return static_cast<size_t>(dgnn::kGroupThreads / G) * G *
+         (sizeof(int) + 2 * H * sizeof(float));
 }
 
 }  // namespace
@@ -437,10 +540,7 @@ int dgnn_bin_gat_fwd(const float* x, const float* ac, const float* ar,
     return static_cast<int>(cudaErrorInvalidValue);
   if (bl.total > 0) {
     const int G = dgnn::group_lanes(H * F);
-    const int gpb = dgnn::kGroupThreads / G;
-    // at most 8 groups of 32 lanes x 16 heads: 33 KB, under the default 48
-    const size_t shm = static_cast<size_t>(gpb) * G *
-                       (sizeof(int) + 2 * H * sizeof(float));
+    const size_t shm = gat_shm(G, H);
     const int cpl = dgnn::cols_per_lane(H * F, G);
     const bool vec = cpl >= 4 && F % 4 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -457,17 +557,33 @@ int dgnn_bin_gat_fwd(const float* x, const float* ac, const float* ar,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The backward over every bin of one direction, as dgnn_bin_gat_fwd.
 int dgnn_bin_gat_bwd(const float* g, const float* ar, const float* M,
                      const float* Linv, const float* ws, const float* ac,
-                     const float* x, const int* nbr, const int* row,
-                     const int* count, int S, int W, int H, int F, float slope,
-                     float p, float inv_keep, uint32_t seed, float* dx,
-                     float* dac, void* stream) {
-  if (S > 0) {
-    bin_gat_bwd_kernel<<<S, block_threads(H * F), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        g, ar, M, Linv, ws, ac, x, nbr, row, count, W, H, F, slope, p,
-        inv_keep, seed, dx, dac);
+                     const float* x, int nbins, void* const* nbr,
+                     void* const* row, void* const* count, const int* S,
+                     const int* W, int H, int F, float slope, float p,
+                     float inv_keep, uint32_t seed, float* dx, float* dac,
+                     void* stream) {
+  BinList bl;
+  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
+      H > kMaxHeads || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bl.total > 0) {
+    const int G = dgnn::group_lanes(H * F);
+    const size_t shm = gat_shm(G, H);
+    const int cpl = dgnn::cols_per_lane(H * F, G);
+    const bool vec = cpl >= 4 && F % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (H <= 4)
+      dispatch_gat_bwd<4>(vec, cpl, bl, G, shm, st, g, ar, M, Linv, ws, ac,
+                          x, H, F, slope, p, inv_keep, seed, dx, dac);
+    else
+      dispatch_gat_bwd<kMaxHeads>(vec, cpl, bl, G, shm, st, g, ar, M, Linv,
+                                  ws, ac, x, H, F, slope, p, inv_keep, seed,
+                                  dx, dac);
   }
   return static_cast<int>(cudaGetLastError());
 }

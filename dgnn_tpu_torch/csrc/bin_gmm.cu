@@ -2,12 +2,11 @@
 // NVIDIA Hopper (sm_90a), float32.
 //
 //   bin_gmm_fwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gmm_fwd_kernel
-//     (wrapper bin_gmm_node_fwd).  Over the CSR bins (rows = destinations v,
-//     slots = sources u): p_d = [tanh](beta_d[v] + alpha_d[u]), the K
-//     Gaussian weights w_k of gmm_common.cuh, and
+//     (wrappers bin_gmm_node_fwd, bin_gmm_node_fwd_list).  Over the CSR bins
+//     (rows = destinations v, slots = sources u): p_d = [tanh](beta_d[v] +
+//     alpha_d[u]), the K Gaussian weights w_k of gmm_common.cuh, and
 //       acc[v, k, :] = sum_u w_k x[u, k, :].
-//     Plain sums: an empty segment gives zeros.  One thread block per
-//     segment, threads over the K*F feature columns.
+//     Plain sums: an empty segment gives zeros.
 //
 //   bin_gmm_bwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gmm_bwd_kernel
 //     (wrappers bin_gmm_node_bwd, bin_gmm_node_bwd_list).  Over the CSC bins
@@ -41,28 +40,32 @@
 // Bound on the H100: the bytes gathered per slot, one row of K*F floats
 // (768 B at K=3, F=64) from rows scattered over the node table; the
 // backward adds NA multiply-adds per gathered float.  Latency, not bytes,
-// held the backward back as a block per segment (pubmed's segments hold 3
-// to 10 slots; 16 block barriers a segment in the stat tail alone), so it
-// is a group of lanes per segment (bin_common.cuh): a full warp at K*F >=
-// 32 (the hidden layer's 192 columns), 16 lanes at the output layer's 9,
-// several segments a block, no block barrier, one launch over every bin of
-// the direction (BinList).  One lane per slot loads the slot's id, beta and
-// dfeat and computes its K weights and K x NA coefficients into a
+// held both back as a block per segment (pubmed's segments hold 3 to 10
+// slots; barriers around every chunk, and 16 in the backward's stat tail
+// alone), so each is a group of lanes per segment (bin_common.cuh): a full
+// warp at K*F >= 32 (the hidden layer's 192 columns), 16 lanes at the
+// output layer's 9, several segments a block, no block barrier, one launch
+// over every bin of the direction (BinList).  One lane per slot loads the
+// slot's id and its pseudo halves and computes the slot's scalars into a
 // warp-private slab (__syncwarp); the first slots' ids are requested with
 // the segment's row and count.  Then lanes work over columns, up to eight
 // a lane (dgnn::cols_per_lane; 16-byte loads where F % 4 = 0 and the
-// tables are aligned): each slot of the chunk in ascending order adds into
-// dx and the NA accumulators, all in registers, and the segment's own row
-// x[u] is read after the walk, when its registers are free.  The stat
-// tail is, for each kernel k, a per-lane partial of x[u, c] A_a[c] over
-// the lane's columns of k for every set a, reduced by one interleaved
-// shuffle butterfly; lane 0 keeps the sums in the slab across column tiles
-// (rows wider than 8 G columns), and the group writes the stat row (the
-// dpre sets summed over k).
+// tables are aligned): each slot of the chunk in ascending order, all sums
+// in registers.  Rows wider than 8 G columns are walked in column tiles.
 //
-// Left for later PRs: the forward in the backward's design, prefetch of
-// the next slots' rows, and fusing the segment merge (ops/common.py
-// combine_sum).
+//   Forward: the segment's beta[v] sits in registers; the slot lane
+//   computes the K weights, with gmm_common.cuh's roundings, into a [G][K]
+//   slab, and each column lane adds w[k(c)] x[u, c].
+//   Backward: the slot lane computes K weights and K x NA coefficients;
+//   column lanes keep dx and the NA accumulators, and the segment's own
+//   row x[u] is read after the walk, when its registers are free.  The stat
+//   tail is, for each kernel k, a per-lane partial of x[u, c] A_a[c] over
+//   the lane's columns of k for every set a, reduced by one interleaved
+//   shuffle butterfly; lane 0 keeps the sums in the slab across column
+//   tiles, and the group writes the stat row (the dpre sets summed over k).
+//
+// Left for later PRs: prefetch of the next slots' rows, and fusing the
+// segment merge (ops/common.py combine_sum).
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
@@ -82,73 +85,117 @@ using dgnn::group_mask;
 using dgnn::kGmmMaxD;
 using dgnn::kGmmMaxDd;
 using dgnn::kGmmMaxK;
-using dgnn::kGmmMaxKD;
 using dgnn::Seg;
 
-constexpr int kChunk = 32;       // forward: slots staged in shared memory at a time
-constexpr int kMaxThreads = 1024;  // the wrapper refuses K*F > kMaxThreads
+constexpr int kMaxKF = 1024;  // feature columns; the wrappers refuse more
 // Coefficient sets per column, NA = 3D + D*Dd: 8 at the models' D = 2,
 // Dd = 1.  The wrapper refuses more.
 constexpr int kMaxCoef = 8;
 constexpr int kStat = kMaxCoef * kGmmMaxK;  // a group's stat sums [a][k]
 
-__global__ void __launch_bounds__(kMaxThreads) bin_gmm_fwd_kernel(
+// VEC: 16-byte loads of x; CPL: feature columns a lane per tile of CPL * G
+// (dgnn::cols_per_lane).  Dynamic shared memory, per group
+// (gmm_fwd_group_floats): G slot ids, [G][K] weights.  Blocks of
+// dgnn::kGroupThreads an SM kept by the launch bounds: four (at most 64
+// registers a thread; a lane holds at most eight sums).
+constexpr int kGmmFwdMinBlocks = 4;
+
+__host__ __device__ inline int gmm_fwd_group_floats(int G, int K) {
+  return G + G * K;
+}
+
+template <bool VEC, int CPL>
+__global__ void __launch_bounds__(dgnn::kGroupThreads, kGmmFwdMinBlocks)
+bin_gmm_fwd_kernel(
     const float* __restrict__ x,      // [N, K*F] source features
     const float* __restrict__ alpha,  // [N, D]   source-side projection
     const float* __restrict__ beta,   // [Nr, D]  destination-side projection
-    const int* __restrict__ nbr,      // [S, W]
-    const int* __restrict__ row,      // [S]
-    const int* __restrict__ count,    // [S]
+    const BinList bl,                 // nbr: source ids; row: destination id
     const float* __restrict__ mu,     // [K, D]
     const float* __restrict__ isig,   // [K, D]
-    int W, int K, int D, int F, int use_tanh,
-    float* __restrict__ acc_out) {    // [S, K*F]
-  __shared__ float mu_sh[kGmmMaxKD];
-  __shared__ float isig_sh[kGmmMaxKD];
-  __shared__ float beta_sh[kGmmMaxD];
-  __shared__ int nbr_sh[kChunk];
-  __shared__ float w_sh[kChunk * kGmmMaxK];
-
-  const int s = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+    int G, int K, int D, int F, int use_tanh,
+    float* __restrict__ acc_out) {    // [total, K*F]
+  extern __shared__ float smem[];
+  const int gpb = blockDim.x / G;
+  const int grp = threadIdx.x / G;
+  const int gl = threadIdx.x - grp * G;  // lane within the group
+  const int s = blockIdx.x * gpb + grp;
+  if (s >= bl.total) return;  // the whole group leaves together
+  const unsigned gmask = group_mask(G);
+  const Seg sg = find_seg(bl, s);
+  // the first slot ids are requested with row and count
+  const int j0 = gl < sg.W ? __ldg(sg.nbr + gl) : 0;
+  const int cnt = sg.count;
+  const int r = sg.row;
   const int KF = K * F;
-  const int cnt = count[s];
-  const int r = row[s];
-  const int* nb = nbr + static_cast<size_t>(s) * W;
-  const bool active = tid < KF;
-  const int kc = active ? tid / F : 0;
+  const bool tanh_on = use_tanh != 0;
+  float* slab = smem + grp * gmm_fwd_group_floats(G, K);
+  int* sj = reinterpret_cast<int*>(slab);  // the chunk's slot ids
+  float* sw = slab + G;                    // [G][K] weights
 
-  if (tid < K * D) {
-    mu_sh[tid] = mu[tid];
-    isig_sh[tid] = isig[tid];
-  }
-  if (tid < D) beta_sh[tid] = beta[static_cast<size_t>(r) * D + tid];
+  float bv[kGmmMaxD];  // the segment's beta[v]
+#pragma unroll
+  for (int d = 0; d < kGmmMaxD; ++d)
+    bv[d] = d < D ? __ldg(beta + static_cast<size_t>(r) * D + d) : 0.f;
 
-  float acc = 0.f;
-  for (int w0 = 0; w0 < cnt; w0 += kChunk) {
-    const int nch = min(kChunk, cnt - w0);
-    __syncthreads();  // the previous chunk's readers are done
-    if (tid < nch) nbr_sh[tid] = nb[w0 + tid];
-    __syncthreads();
-    // one (slot, kernel) pair per thread: the Gaussian weight
-    for (int idx = tid; idx < nch * K; idx += nthreads) {
-      const int wl = idx / K;
-      const int k = idx - wl * K;
-      float p[kGmmMaxD], diff[kGmmMaxD], t[kGmmMaxD];
-      gmm_coords(beta_sh, alpha + static_cast<size_t>(nbr_sh[wl]) * D, D,
-                 use_tanh != 0, p);
-      w_sh[idx] = gmm_weight(p, mu_sh + k * D, isig_sh + k * D, D, diff, t);
+  constexpr int NQ = VEC ? CPL / 4 : CPL;  // loads a lane per slot
+  for (int c0 = 0; c0 < KF; c0 += CPL * G) {
+    int col[NQ], kc[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      col[q] = c0 + (VEC ? 4 * (gl + G * q) : gl + G * q);
+      kc[q] = col[q] < KF ? col[q] / F : 0;
     }
-    __syncthreads();
-    if (active) {
+    float acc[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[c] = 0.f;
+    for (int w0 = 0; w0 < cnt; w0 += G) {
+      const int nch = min(G, cnt - w0);
+      if (gl < nch) {
+        // one lane a slot: its K weights, with gmm_common.cuh's roundings
+        const int j = w0 == 0 ? j0 : __ldg(sg.nbr + w0 + gl);
+        float pj[kGmmMaxD], diff[kGmmMaxD], tk[kGmmMaxD];
+        gmm_coords(bv, alpha + static_cast<size_t>(j) * D, D, tanh_on, pj);
+        for (int k = 0; k < K; ++k)
+          sw[gl * K + k] = gmm_weight(pj, mu + k * D, isig + k * D, D, diff, tk);
+        sj[gl] = j;
+      }
+      __syncwarp(gmask);
+      // lanes over columns: every slot of the chunk in ascending order
+#pragma unroll 2
       for (int wl = 0; wl < nch; ++wl) {
-        acc += w_sh[wl * K + kc] *
-               x[static_cast<size_t>(nbr_sh[wl]) * KF + tid];
+        const float* xr = x + static_cast<size_t>(sj[wl]) * KF;
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (col[q] < KF) {
+            const float w = sw[wl * K + kc[q]];
+            if constexpr (VEC) {
+              const float4 v = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+              acc[4 * q] += w * v.x;
+              acc[4 * q + 1] += w * v.y;
+              acc[4 * q + 2] += w * v.z;
+              acc[4 * q + 3] += w * v.w;
+            } else {
+              acc[q] += w * __ldg(xr + col[q]);
+            }
+          }
+        }
+      }
+      __syncwarp(gmask);  // the slab is rewritten by the next chunk
+    }
+    float* ao = acc_out + static_cast<size_t>(s) * KF;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      if (col[q] < KF) {
+        if constexpr (VEC) {
+          *reinterpret_cast<float4*>(ao + col[q]) = make_float4(
+              acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+        } else {
+          ao[col[q]] = acc[q];
+        }
       }
     }
   }
-  if (active) acc_out[static_cast<size_t>(s) * KF + tid] = acc;
 }
 
 // Floats of dynamic shared memory a group of G lanes needs.
@@ -400,33 +447,55 @@ bin_gmm_bwd_kernel(
   }
 }
 
-int block_threads(int KF) {
-  const int t = ((KF + 31) / 32) * 32;
-  return t < 32 ? 32 : t;
+// Groups a block: kGroupThreads / G, fewer where a block's dynamic shared
+// memory would pass the default 48 KB.
+int groups_per_block(int G, size_t per) {
+  int gpb = dgnn::kGroupThreads / G;
+  while (gpb > 1 && gpb * per > 48 * 1024) --gpb;
+  return gpb;
 }
 
 }  // namespace
 
 extern "C" {
 
+// Every bin of one direction in one launch: nbins <= dgnn::kMaxBins bins,
+// bin b with S[b] segments of W[b] slots (nbr[b], row[b], count[b] device
+// pointers); the outputs hold sum S[b] rows in bin order.
 int dgnn_bin_gmm_fwd(const float* x, const float* alpha, const float* beta,
-                     const int* nbr, const int* row, const int* count,
-                     const float* mu, const float* isig, int S, int W, int K,
-                     int D, int F, int use_tanh, float* acc, void* stream) {
-  if (K < 1 || K > kGmmMaxK || D < 1 || D > kGmmMaxD || F < 1 ||
-      K * F > kMaxThreads)
+                     int nbins, void* const* nbr, void* const* row,
+                     void* const* count, const int* S, const int* W,
+                     const float* mu, const float* isig, int K, int D, int F,
+                     int use_tanh, float* acc, void* stream) {
+  BinList bl;
+  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || K < 1 ||
+      K > kGmmMaxK || D < 1 || D > kGmmMaxD || F < 1 || K * F > kMaxKF)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (S > 0) {
-    bin_gmm_fwd_kernel<<<S, block_threads(K * F), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        x, alpha, beta, nbr, row, count, mu, isig, W, K, D, F, use_tanh, acc);
+  if (bl.total > 0) {
+    const int G = dgnn::group_lanes(K * F);
+    const size_t per =
+        static_cast<size_t>(gmm_fwd_group_floats(G, K)) * sizeof(float);
+    const int gpb = groups_per_block(G, per);  // at most 9.2 KB: all 8 groups
+    const int blocks = (bl.total + gpb - 1) / gpb;
+    const int cpl = dgnn::cols_per_lane(K * F, G);
+    const bool vec = cpl >= 4 && F % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    cudaStream_t stm = static_cast<cudaStream_t>(stream);
+#define DGNN_GMM_FWD(V, C)                                                  \
+  bin_gmm_fwd_kernel<V, C><<<blocks, gpb * G, gpb * per, stm>>>(            \
+      x, alpha, beta, bl, mu, isig, G, K, D, F, use_tanh, acc)
+    if (vec && cpl == 8) DGNN_GMM_FWD(true, 8);
+    else if (vec) DGNN_GMM_FWD(true, 4);
+    else if (cpl == 8) DGNN_GMM_FWD(false, 8);
+    else if (cpl == 4) DGNN_GMM_FWD(false, 4);
+    else if (cpl == 2) DGNN_GMM_FWD(false, 2);
+    else DGNN_GMM_FWD(false, 1);
+#undef DGNN_GMM_FWD
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Every bin of one direction in one launch: nbins <= dgnn::kMaxBins bins,
-// bin b with S[b] segments of W[b] slots (nbr[b], row[b], count[b] device
-// pointers); the outputs hold sum S[b] rows in bin order.
+// The backward over every bin of one direction, as dgnn_bin_gmm_fwd.
 int dgnn_bin_gmm_bwd(const float* g, const float* beta, const float* dfeat,
                      const float* alpha, const float* x, const float* sfeat,
                      int nbins, void* const* nbr, void* const* row,
@@ -437,16 +506,13 @@ int dgnn_bin_gmm_bwd(const float* g, const float* beta, const float* dfeat,
   BinList bl;
   if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || K < 1 ||
       K > kGmmMaxK || D < 1 || D > kGmmMaxD || Dd < 1 || Dd > kGmmMaxDd ||
-      3 * D + D * Dd > kMaxCoef || Ds < 1 || F < 1 || K * F > kMaxThreads)
+      3 * D + D * Dd > kMaxCoef || Ds < 1 || F < 1 || K * F > kMaxKF)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bl.total > 0) {
     const int G = dgnn::group_lanes(K * F);
     const size_t per =
         static_cast<size_t>(gmm_bwd_group_floats(G, K)) * sizeof(float);
-    // at most 9.4 KB a group (K = 8): keep a block under the
-    // default 48 KB of dynamic shared memory
-    int gpb = dgnn::kGroupThreads / G;
-    while (gpb > 1 && gpb * per > 48 * 1024) --gpb;
+    const int gpb = groups_per_block(G, per);  // at most 9.4 KB a group (K = 8)
     const int blocks = (bl.total + gpb - 1) / gpb;
     const int cpl = dgnn::cols_per_lane(K * F, G);
     const bool vec = cpl >= 4 && F % 4 == 0 &&

@@ -111,6 +111,11 @@ class BinnedAdj:
             yield (self.widths[b], self.nbr[b], self.edge[b], self.row[b],
                    self.count[b])
 
+    def segs(self):
+        """The bins as the list wrappers of ops/bins.py take them: one
+        (nbr, row, count) per bin."""
+        return list(zip(self.nbr, self.row, self.count))
+
     def to(self, device) -> "BinnedAdj":
         def mv(xs):
             return tuple(None if x is None else x.to(device) for x in xs)

@@ -122,8 +122,8 @@ def load() -> ctypes.CDLL:
         lib.dgnn_bin_gat_fwd.restype = ci
         lib.dgnn_bin_gat_bwd.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,         # g ar M Linv ws ac x
-            vp, vp, vp,                         # nbr row count
-            ci, ci, ci, ci,                     # S W H F
+            ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
+            ci, ci,                             # H F
             cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
             vp, vp,                             # dx dac
             vp]                                 # stream
@@ -147,8 +147,10 @@ def load() -> ctypes.CDLL:
             vp]                                 # stream
         lib.dgnn_dense_gat_bwd.restype = ci
         lib.dgnn_bin_gmm_fwd.argtypes = [
-            vp, vp, vp, vp, vp, vp, vp, vp,     # x alpha beta nbr row count mu isig
-            ci, ci, ci, ci, ci, ci,             # S W K D F use_tanh
+            vp, vp, vp,                         # x alpha beta
+            ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
+            vp, vp,                             # mu isig
+            ci, ci, ci, ci,                     # K D F use_tanh
             vp,                                 # acc
             vp]                                 # stream
         lib.dgnn_bin_gmm_fwd.restype = ci

@@ -14,11 +14,12 @@ The kernels gather for themselves from the node tables, given the bin's
 slot table ``nbr [S, W]`` and the per-segment ``row [S]`` and
 ``count [S]``; every bin width runs the kernel.
 
-``bin_gat_fwd_list`` and ``bin_gmm_node_bwd_list`` take every bin of one
-adjacency direction (a sequence of ``(nbr, row, count)``) in one launch of
-the same kernel as their per-bin wrappers, and return the bins' outputs in
-one tensor each, bin after bin: the rows that ``torch.cat`` of the per-bin
-outputs would give, and so their plain versions.  A direction with more than
+``bin_gat_fwd_list``, ``bin_gat_bwd_list``, ``bin_gmm_node_fwd_list`` and
+``bin_gmm_node_bwd_list`` take every bin of one adjacency direction (a
+sequence of ``(nbr, row, count)``) in one launch of the same kernel as
+their per-bin wrappers, and return the bins' outputs in one tensor each,
+bin after bin: the rows that ``torch.cat`` of the per-bin outputs would
+give, and so their plain versions.  A direction with more than
 ``MAX_BINS_PER_LAUNCH`` bins takes one launch per that many.  ``tail`` /
 ``dx_tail`` rows (the hub block's partials) are copied in after the bins'.
 
@@ -40,7 +41,9 @@ from .common import (gaussian_terms, lane_mask, leaky_relu, leaky_relu_grad,
 
 __all__ = ["bin_gat_fwd", "bin_gat_fwd_plain", "bin_gat_fwd_list",
            "bin_gat_fwd_list_plain", "bin_gat_bwd", "bin_gat_bwd_plain",
-           "bin_gmm_node_fwd", "bin_gmm_node_fwd_plain", "bin_gmm_node_bwd",
+           "bin_gat_bwd_list", "bin_gat_bwd_list_plain", "bin_gmm_node_fwd",
+           "bin_gmm_node_fwd_plain", "bin_gmm_node_fwd_list",
+           "bin_gmm_node_fwd_list_plain", "bin_gmm_node_bwd",
            "bin_gmm_node_bwd_plain", "bin_gmm_node_bwd_list",
            "bin_gmm_node_bwd_list_plain", "gmm_stat_width", "LAUNCHES",
            "reset_launches", "MAX_HEADS", "MAX_BINS_PER_LAUNCH", "GMM_MAX_K",
@@ -48,7 +51,7 @@ __all__ = ["bin_gat_fwd", "bin_gat_fwd_plain", "bin_gat_fwd_list",
 
 # Finite "-inf" the kernels emit as the maximum of an empty segment.
 NEG_B = -1e30
-# Heads per kernel block's shared staging (csrc/bin_gat.cu kMaxHeads).
+# Heads the GAT kernels hold (csrc/bin_gat.cu kMaxHeads).
 MAX_HEADS = 16
 # Bins one launch of the list kernels takes (csrc/bin_common.cuh kMaxBins,
 # graph.binning's largest bin count).
@@ -114,6 +117,12 @@ def _ptr(t):
 
 def _seg_tensors(segs):
     return [t for seg in segs for t in seg]
+
+
+def _seg_ints(segs):
+    """A list's slot tables by name, for _check_cuda."""
+    return {f"{k}[{b}]": t for b, seg in enumerate(segs)
+            for k, t in zip(("nbr", "row", "count"), seg)}
 
 
 def _check_segs(segs):
@@ -262,9 +271,8 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
     if ac.shape != (N, H) or ar.dim() != 2 or ar.shape[1] != H:
         raise ValueError(f"bin_gat_fwd: feat {tuple(feat.shape)}, ac "
                          f"{tuple(ac.shape)}, ar {tuple(ar.shape)}")
-    _check_cuda("bin_gat_fwd", dict(feat=feat, ac=ac, ar=ar),
-                {f"{k}[{b}]": t for b, seg in enumerate(segs)
-                 for k, t in zip(("nbr", "row", "count"), seg)}, H)
+    _check_cuda("bin_gat_fwd", dict(feat=feat, ac=ac, ar=ar), _seg_ints(segs),
+                H)
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if tail is None else tail[0].shape[0])
     new = dict(device=feat.device, dtype=torch.float32)
@@ -334,6 +342,45 @@ def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
     if _on_cpu(g, ar, M, Linv, ws, ac, feat, nbr, row, count):
         return bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row,
                                  count, slope=slope, p=p, seed=seed)
+    return _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, [(nbr, row, count)],
+                         slope, p, seed, None)
+
+
+def bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs, *,
+                           slope: float, p: float = 0.0, seed: int = 0,
+                           tail=None):
+    """Plain PyTorch list backward: the per-bin plain versions, then
+    ``torch.cat``; same arguments and outputs as ``bin_gat_bwd_list``."""
+    parts = [bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, *seg,
+                               slope=slope, p=p, seed=seed) for seg in segs]
+    if tail is not None:
+        parts.append(tuple(tail))
+    H, F = feat.shape[1:]
+    return (_cat_rows([dx for dx, _ in parts], (H, F), feat),
+            _cat_rows([dac for _, dac in parts], (H,), feat))
+
+
+def bin_gat_bwd_list(g, ar, M, Linv, ws, ac, feat, segs, *, slope: float,
+                     p: float = 0.0, seed: int = 0, tail=None):
+    """Every degree bin of a CSC adjacency in one launch of the
+    ``bin_gat_bwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
+
+    Args as ``bin_gat_bwd``, with ``segs`` a sequence of ``(nbr, row,
+    count)``, one per bin, and ``tail``: None, or (dx [T, H, F], dac [T, H])
+    rows to follow the bins' (the hub block's).
+    Returns (dx [sum S_b + T, H, F], dac [sum S_b + T, H]), bin after bin:
+    ``torch.cat`` of the per-bin outputs and the tail.
+    """
+    _check_segs(segs)
+    tail_t = [] if tail is None else list(tail)
+    if _on_cpu(g, ar, M, Linv, ws, ac, feat, *_seg_tensors(segs), *tail_t):
+        return bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs,
+                                      slope=slope, p=p, seed=seed, tail=tail)
+    return _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, list(segs), slope, p,
+                         seed, tail)
+
+
+def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail):
     Nd, H, F = g.shape
     Ns = feat.shape[0]
     for key, t, shape in (("ar", ar, (Nd, H)), ("M", M, (Nd, H)),
@@ -344,21 +391,26 @@ def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
                              f"{tuple(t.shape)}, expected {shape}")
     _check_cuda("bin_gat_bwd",
                 dict(g=g, ar=ar, M=M, Linv=Linv, ws=ws, ac=ac, feat=feat),
-                dict(nbr=nbr, row=row, count=count), H)
-    S, W = nbr.shape
-    dx = torch.empty((S, H, F), device=g.device, dtype=torch.float32)
-    dac = torch.empty((S, H), device=g.device, dtype=torch.float32)
+                _seg_ints(segs), H)
+    S = sum(nbr.shape[0] for nbr, _, _ in segs)
+    rows = S + (0 if tail is None else tail[0].shape[0])
+    dx = torch.empty((rows, H, F), device=g.device, dtype=torch.float32)
+    dac = torch.empty((rows, H), device=g.device, dtype=torch.float32)
     lib = _build.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    err = lib.dgnn_bin_gat_bwd(
-        _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
-        _ptr(feat), _ptr(nbr), _ptr(row), _ptr(count), S, W, H, F,
-        float(slope), float(p), _inv_keep(p), int(seed) & 0xFFFFFFFF,
-        _ptr(dx), _ptr(dac), stream)
-    if err:
-        raise RuntimeError(f"bin_gat_bwd kernel launch failed: CUDA error "
-                           f"{err} (S={S}, W={W}, H={H}, F={F})")
-    LAUNCHES["bin_gat_bwd"] += 1
+    for base, part in _launches(segs):
+        err = lib.dgnn_bin_gat_bwd(
+            _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
+            _ptr(feat), len(part), *_bin_arrays(part), H, F, float(slope),
+            float(p), _inv_keep(p), int(seed) & 0xFFFFFFFF,
+            _row_ptr(dx, base), _row_ptr(dac, base), stream)
+        if err:
+            raise RuntimeError(
+                f"bin_gat_bwd kernel launch failed: CUDA error {err} (bins "
+                f"{[tuple(nbr.shape) for nbr, _, _ in part]}, H={H}, F={F})")
+        LAUNCHES["bin_gat_bwd"] += 1
+    if tail is not None:
+        _copy_tail((dx, dac), S, tail)
     return dx, dac
 
 
@@ -430,6 +482,43 @@ def bin_gmm_node_fwd(feat, alpha, beta, nbr, row, count, mu, isig, *,
     if _on_cpu(feat, alpha, beta, nbr, row, count, mu, isig):
         return bin_gmm_node_fwd_plain(feat, alpha, beta, nbr, row, count, mu,
                                       isig, use_tanh=use_tanh)
+    return _gmm_fwd_cuda(feat, alpha, beta, [(nbr, row, count)], mu, isig,
+                         use_tanh, None)
+
+
+def bin_gmm_node_fwd_list_plain(feat, alpha, beta, segs, mu, isig, *,
+                                use_tanh: bool, tail=None):
+    """Plain PyTorch list forward: the per-bin plain versions, then
+    ``torch.cat``; same arguments and outputs as
+    ``bin_gmm_node_fwd_list``."""
+    parts = [bin_gmm_node_fwd_plain(feat, alpha, beta, *seg, mu, isig,
+                                    use_tanh=use_tanh) for seg in segs]
+    return _cat_rows(parts + ([] if tail is None else [tail]),
+                     feat.shape[1:], feat)
+
+
+def bin_gmm_node_fwd_list(feat, alpha, beta, segs, mu, isig, *,
+                          use_tanh: bool, tail=None):
+    """Every degree bin of a CSR adjacency in one launch of the
+    ``bin_gmm_node_fwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
+
+    Args as ``bin_gmm_node_fwd``, with ``segs`` a sequence of ``(nbr, row,
+    count)``, one per bin, and ``tail``: None, or [T, K, F] acc rows to
+    follow the bins' (the hub block's).
+    Returns acc [sum S_b + T, K, F], bin after bin: ``torch.cat`` of the
+    per-bin outputs and the tail.
+    """
+    _check_segs(segs)
+    _check_gmm_params("bin_gmm_node_fwd", mu, isig)
+    tail_t = [] if tail is None else [tail]
+    if _on_cpu(feat, alpha, beta, *_seg_tensors(segs), mu, isig, *tail_t):
+        return bin_gmm_node_fwd_list_plain(feat, alpha, beta, segs, mu, isig,
+                                           use_tanh=use_tanh, tail=tail)
+    return _gmm_fwd_cuda(feat, alpha, beta, list(segs), mu, isig, use_tanh,
+                         tail)
+
+
+def _gmm_fwd_cuda(feat, alpha, beta, segs, mu, isig, use_tanh, tail):
     N, K, F = feat.shape
     D = mu.shape[1]
     if (mu.shape[0] != K or alpha.shape != (N, D) or beta.dim() != 2
@@ -440,19 +529,25 @@ def bin_gmm_node_fwd(feat, alpha, beta, nbr, row, count, mu, isig, *,
     _check_gmm("bin_gmm_node_fwd", K, D, F)
     _check_cuda("bin_gmm_node_fwd",
                 dict(feat=feat, alpha=alpha, beta=beta, mu=mu, isig=isig),
-                dict(nbr=nbr, row=row, count=count))
-    S, W = nbr.shape
-    acc = torch.empty((S, K, F), device=feat.device, dtype=torch.float32)
+                _seg_ints(segs))
+    S = sum(nbr.shape[0] for nbr, _, _ in segs)
+    rows = S + (0 if tail is None else tail.shape[0])
+    acc = torch.empty((rows, K, F), device=feat.device, dtype=torch.float32)
     lib = _build.load()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = lib.dgnn_bin_gmm_fwd(
-        _ptr(feat), _ptr(alpha), _ptr(beta), _ptr(nbr), _ptr(row),
-        _ptr(count), _ptr(mu), _ptr(isig), S, W, K, D, F, int(use_tanh),
-        _ptr(acc), stream)
-    if err:
-        raise RuntimeError(f"bin_gmm_node_fwd kernel launch failed: CUDA "
-                           f"error {err} (S={S}, W={W}, K={K}, D={D}, F={F})")
-    LAUNCHES["bin_gmm_node_fwd"] += 1
+    for base, part in _launches(segs):
+        err = lib.dgnn_bin_gmm_fwd(
+            _ptr(feat), _ptr(alpha), _ptr(beta), len(part),
+            *_bin_arrays(part), _ptr(mu), _ptr(isig), K, D, F,
+            int(use_tanh), _row_ptr(acc, base), stream)
+        if err:
+            raise RuntimeError(
+                f"bin_gmm_node_fwd kernel launch failed: CUDA error {err} "
+                f"(bins {[tuple(nbr.shape) for nbr, _, _ in part]}, K={K}, "
+                f"D={D}, F={F})")
+        LAUNCHES["bin_gmm_node_fwd"] += 1
+    if tail is not None:
+        _copy_tail((acc,), S, (tail,))
     return acc
 
 
@@ -576,8 +671,7 @@ def _gmm_bwd_cuda(g, beta, dfeat, alpha, feat, sfeat, segs, mu, isig,
     _check_cuda("bin_gmm_node_bwd",
                 dict(g=g, beta=beta, dfeat=dfeat, alpha=alpha, feat=feat,
                      sfeat=sfeat, mu=mu, isig=isig),
-                {f"{k}[{b}]": t for b, seg in enumerate(segs)
-                 for k, t in zip(("nbr", "row", "count"), seg)})
+                _seg_ints(segs))
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if dx_tail is None else dx_tail.shape[0])
     dx = torch.empty((rows, K, F), device=g.device, dtype=torch.float32)

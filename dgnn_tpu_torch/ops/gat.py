@@ -22,11 +22,12 @@ recomputes per-edge attention in pass B.  Attention dropout is re-derived
 from (seed, dst, src, head) by ops/common.pair_keep's hash in both passes.
 
 Pass A runs every bin of the CSR direction in one launch
-(ops/bins.bin_gat_fwd_list), pass B one launch per bin (bin_gat_bwd), and a
-graph's tile-sparse hub block (graph.structure.DenseBlock) runs through
-ops/dense.dense_gat_fwd / dense_gat_bwd, whose per-row partials follow the
-bins' and are merged through the same combine tables.  Each is a CUDA
-kernel for CUDA tensors and its plain version for CPU tensors.
+(ops/bins.bin_gat_fwd_list), pass B every bin of the CSC direction in one
+launch (bin_gat_bwd_list), and a graph's tile-sparse hub block
+(graph.structure.DenseBlock) runs through ops/dense.dense_gat_fwd /
+dense_gat_bwd, whose per-row partials follow the bins' and are merged
+through the same combine tables.  Each is a CUDA kernel for CUDA tensors
+and its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from ..graph.structure import BinnedAdj, Graph
-from .bins import bin_gat_bwd, bin_gat_fwd_list
+from .bins import bin_gat_bwd_list, bin_gat_fwd_list
 from .common import combine_lse, combine_sum
 from .dense import DENSE_DTYPES, dense_gat_bwd, dense_gat_fwd
 
@@ -54,9 +55,8 @@ def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed, dense_dtype,
                              with_pos=with_pos, p=p, seed=seed,
                              dense_dtype=dense_dtype)
     m, l, lpos, acc, accpos = bin_gat_fwd_list(
-        feat, ac, ar, [(nbr, row, count) for _w, nbr, _e, row, count
-                       in adj.bins()],
-        slope=slope, with_pos=with_pos, p=p, seed=seed, tail=tail)
+        feat, ac, ar, adj.segs(), slope=slope, with_pos=with_pos, p=p,
+        seed=seed, tail=tail)
     parts = [l, acc] + ([lpos, accpos] if with_pos else [])
     M, merged = combine_lse(adj.cmb, m, parts)
     L = merged[0]
@@ -92,21 +92,17 @@ class _GATFused(torch.autograd.Function):
         d_ar = t1 - ws * t2
         # pass B over the CSC bins: dX and d attn_col, per-source sums
         Linv = 1.0 / torch.clamp(L, min=1e-20)
-        dx_parts, dac_parts = [], []
-        for _width, nbr, _edge, row, count in adj_bwd.bins():
-            dxp, dacp = bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row,
-                                    count, slope=slope, p=p, seed=seed)
-            dx_parts.append(dxp)
-            dac_parts.append(dacp)
+        tail = None
         if adj_bwd.dense is not None:
-            # transposed block: rows = sources, cols = destinations
-            dxp, dacp = dense_gat_bwd(adj_bwd.dense, g, ar, M, Linv, ws, ac,
-                                      feat, slope=slope, p=p, seed=seed,
-                                      dense_dtype=ctx.dense_dtype)
-            dx_parts.append(dxp)
-            dac_parts.append(dacp)
-        d_feat, d_ac = combine_sum(adj_bwd.cmb, [torch.cat(dx_parts),
-                                                 torch.cat(dac_parts)])
+            # transposed block: rows = sources, cols = destinations; its
+            # rows follow every bin's
+            tail = dense_gat_bwd(adj_bwd.dense, g, ar, M, Linv, ws, ac, feat,
+                                 slope=slope, p=p, seed=seed,
+                                 dense_dtype=ctx.dense_dtype)
+        dx, dac = bin_gat_bwd_list(g, ar, M, Linv, ws, ac, feat,
+                                   adj_bwd.segs(), slope=slope, p=p,
+                                   seed=seed, tail=tail)
+        d_feat, d_ac = combine_sum(adj_bwd.cmb, [dx, dac])
         need = ctx.needs_input_grad
         return (d_ar if need[0] else None, d_ac if need[1] else None,
                 d_feat if need[2] else None, None, None, None, None, None)

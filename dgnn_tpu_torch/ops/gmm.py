@@ -21,13 +21,14 @@ one training step makes exactly two edge-sized passes:
       over segments gives the gradients of mu, inv_sigma, proj_bias and both
       halves of proj_weight.
 
-The forward runs one launch per bin (ops/bins.bin_gmm_node_fwd), the
-backward every bin of the CSC direction in one launch
-(bin_gmm_node_bwd_list), and a graph's tile-sparse hub block
-(graph.structure.DenseBlock) runs through ops/dense.dense_gmm_fwd /
-dense_gmm_bwd, whose per-row partials follow the bins'.  Each is a CUDA kernel for CUDA tensors and its plain
-version for CPU tensors.  The backward saves only its inputs and recomputes
-alpha, beta and the edge weights.
+The forward runs every bin of the CSR direction in one launch
+(ops/bins.bin_gmm_node_fwd_list), the backward every bin of the CSC
+direction in one launch (bin_gmm_node_bwd_list), and a graph's tile-sparse
+hub block (graph.structure.DenseBlock) runs through ops/dense.dense_gmm_fwd
+/ dense_gmm_bwd, whose per-row partials follow the bins'.  Each is a CUDA
+kernel for CUDA tensors and its plain version for CPU tensors.  The
+backward saves only its inputs and recomputes alpha, beta and the edge
+weights.
 
 Not ported yet (they reach no hand-written kernel): ``gmm_aggregate_binned``
 (pre-binned per-edge pseudo tables) and the flat ``gmm_aggregate``.
@@ -40,7 +41,7 @@ import typing
 import torch
 
 from ..graph.structure import BinnedAdj, Graph
-from .bins import bin_gmm_node_bwd_list, bin_gmm_node_fwd
+from .bins import bin_gmm_node_bwd_list, bin_gmm_node_fwd_list
 from .common import combine_sum, gaussian_terms
 from .dense import DENSE_DTYPES, dense_gmm_bwd, dense_gmm_fwd
 
@@ -72,13 +73,14 @@ def _node_forward(adj: BinnedAdj, alpha, beta, feat, mu, isig, use_tanh,
                   dense_dtype):
     """CSR pass over ``adj``'s bins and hub block, merged through its
     combine table: out[v] = sum_u w(alpha[u], beta[v]) * feat[u]."""
-    accs = [bin_gmm_node_fwd(feat, alpha, beta, nbr, row, count, mu, isig,
-                             use_tanh=use_tanh)
-            for _width, nbr, _edge, row, count in adj.bins()]
+    tail = None
     if adj.dense is not None:
-        accs.append(dense_gmm_fwd(adj.dense, beta, alpha, feat, mu, isig,
-                                  use_tanh=use_tanh, dense_dtype=dense_dtype))
-    return combine_sum(adj.cmb, torch.cat(accs))
+        # the block's rows follow every bin's
+        tail = dense_gmm_fwd(adj.dense, beta, alpha, feat, mu, isig,
+                             use_tanh=use_tanh, dense_dtype=dense_dtype)
+    acc = bin_gmm_node_fwd_list(feat, alpha, beta, adj.segs(), mu, isig,
+                                use_tanh=use_tanh, tail=tail)
+    return combine_sum(adj.cmb, acc)
 
 
 def _node_backward(adj_bwd: BinnedAdj, alpha, beta, sfeat, dfeat, feat, mu,
@@ -96,10 +98,9 @@ def _node_backward(adj_bwd: BinnedAdj, alpha, beta, sfeat, dfeat, feat, mu,
         dx_tail, st_db = dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu,
                                        isig, use_tanh=use_tanh,
                                        dense_dtype=dense_dtype)
-    dx, st = bin_gmm_node_bwd_list(
-        g, beta, dfeat, alpha, feat, sfeat,
-        [(nbr, row, count) for _w, nbr, _e, row, count in adj_bwd.bins()],
-        mu, isig, use_tanh=use_tanh, dx_tail=dx_tail)
+    dx, st = bin_gmm_node_bwd_list(g, beta, dfeat, alpha, feat, sfeat,
+                                   adj_bwd.segs(), mu, isig,
+                                   use_tanh=use_tanh, dx_tail=dx_tail)
     tot = st.sum(dim=0)
     st_sum, d_pws = tot[:cut], tot[cut:].reshape(D, Ds).T
     if db is not None:

@@ -1,19 +1,21 @@
 #!/usr/bin/env python
-"""Own device time of the bin kernels K1 (``bin_gat_fwd``) and K4
-(``bin_gmm_node_bwd``) over every bin of synthetic pubmed, at both layers'
-widths of the bench models, from a torch.profiler trace.
+"""Own device time of the four bin kernels, K1 (``bin_gat_fwd``), K2
+(``bin_gat_bwd``), K3 (``bin_gmm_node_fwd``) and K4 (``bin_gmm_node_bwd``),
+over every bin of synthetic pubmed, at both layers' widths of the bench
+models, from a torch.profiler trace.
 
     python scripts/bin_kernel_times_torch.py [--tree DIR] [--calls 50]
 
 ``--tree`` names the checkout whose ``dgnn_tpu_torch`` is imported (the
 default: this one), so that two checkouts can be timed in turns in one
-process call each on the same card.  A tree that has the list wrappers
-(``bin_gat_fwd_list``, ``bin_gmm_node_bwd_list``) is timed through them,
-one launch for every bin; an older tree one launch a bin.  GAT: (H, F) =
-(4, 64) and (1, 3), attention dropout 0.3, with the sign-split partials;
-MoNet: (K, F) = (3, 64) and (3, 3), D = 2, tanh.  Prints the card and one
-JSON object: per case the kernels' device ms per call (summed over its
-launches) and the launches per call.  Needs a CUDA device.
+process call each on the same card.  A kernel whose list wrapper the tree
+has (``bin_gat_fwd_list``, ``bin_gat_bwd_list``, ``bin_gmm_node_fwd_list``,
+``bin_gmm_node_bwd_list``) is timed through it, one launch for every bin;
+otherwise one launch a bin.  GAT: (H, F) = (4, 64) and (1, 3), attention
+dropout 0.3, the forward with the sign-split partials; MoNet: (K, F) =
+(3, 64) and (3, 3), D = 2, tanh.  Prints the card and one JSON object: per
+case the kernel's device ms per call (summed over its launches), the
+launches per call and whether the list wrapper ran.  Needs a CUDA device.
 """
 
 import argparse
@@ -44,8 +46,8 @@ def main():
     _build.load()
     dev = torch.device("cuda")
     d = synthetic_citation("pubmed")
-    g = structure.build_graph(d.src, d.dst, d.num_nodes, dense="auto",
-                              edge_tables=False).to(dev)
+    graph = structure.build_graph(d.src, d.dst, d.num_nodes, dense="auto",
+                                  edge_tables=False).to(dev)
     rng = np.random.default_rng(0)
 
     def t(*shape, scale=1.0):
@@ -53,38 +55,56 @@ def main():
         return torch.from_numpy(a).to(dev)
 
     n = d.num_nodes
-    fsegs = [(nbr, row, count) for _w, nbr, _e, row, count in g.fwd.bins()]
-    bsegs = [(nbr, row, count) for _w, nbr, _e, row, count in g.bwd.bins()]
-    has_list = hasattr(bins, "bin_gat_fwd_list")
+    fsegs = [(nbr, row, count) for _w, nbr, _e, row, count
+             in graph.fwd.bins()]
+    bsegs = [(nbr, row, count) for _w, nbr, _e, row, count
+             in graph.bwd.bins()]
+
+    def case(name, trace_key, list_args, bin_args, kw):
+        """One kernel over every bin: through its list wrapper where the
+        tree has one, else one launch a bin.  ``trace_key``: the kernel's
+        name in a trace."""
+        fn_list = getattr(bins, name + "_list", None)
+        if fn_list is not None:
+            return (lambda: fn_list(*list_args, **kw)), trace_key, True
+        fn = getattr(bins, name)
+        return (lambda: [fn(*a, **kw) for a in bin_args]), trace_key, False
+
+    def per_bin(head, segs, tail=()):
+        return [(*head, *seg, *tail) for seg in segs]
+
     cases = {}
     for h, f in ((4, 64), (1, 3)):
-        a = (t(n, h, f), t(n, h), t(n, h))
-        kw = dict(slope=0.2, with_pos=True, p=0.3, seed=12345)
-        if has_list:
-            fn = (lambda a=a, kw=kw:
-                  bins.bin_gat_fwd_list(*a, fsegs, **kw))
-        else:
-            fn = (lambda a=a, kw=kw:
-                  [bins.bin_gat_fwd(*a, *s, **kw) for s in fsegs])
-        cases[f"bin_gat_fwd H={h} F={f}"] = (fn, "bin_gat_fwd")
+        x, ac, ar = t(n, h, f), t(n, h), t(n, h)
+        g, M, Linv, ws = t(n, h, f, scale=1 / 16), t(n, h), t(n, h), t(n, h)
+        head = (x, ac, ar)
+        cases[f"bin_gat_fwd H={h} F={f}"] = case(
+            "bin_gat_fwd", "bin_gat_fwd", (*head, fsegs),
+            per_bin(head, fsegs),
+            dict(slope=0.2, with_pos=True, p=0.3, seed=12345))
+        head = (g, ar, M, Linv, ws, ac, x)
+        cases[f"bin_gat_bwd H={h} F={f}"] = case(
+            "bin_gat_bwd", "bin_gat_bwd", (*head, bsegs),
+            per_bin(head, bsegs), dict(slope=0.2, p=0.3, seed=12345))
     for k, f in ((3, 64), (3, 3)):
-        a = (t(n, k, f, scale=1 / 16), t(n, 2), t(n, 1), t(n, 2),
-             t(n, k, f), t(n, 1))
+        g, beta, dfeat, alpha, x, sfeat = (
+            t(n, k, f, scale=1 / 16), t(n, 2), t(n, 1), t(n, 2), t(n, k, f),
+            t(n, 1))
         par = (t(k, 2), torch.from_numpy(
             (rng.random((k, 2)) + 0.5).astype(np.float32)).to(dev))
-        if has_list:
-            fn = (lambda a=a, par=par:
-                  bins.bin_gmm_node_bwd_list(*a, bsegs, *par, use_tanh=True))
-        else:
-            fn = (lambda a=a, par=par:
-                  [bins.bin_gmm_node_bwd(*a, *s, *par, use_tanh=True)
-                   for s in bsegs])
-        # the kernel's name in a trace: bin_gmm_bwd_kernel
-        cases[f"bin_gmm_node_bwd K={k} F={f}"] = (fn, "bin_gmm_bwd")
+        head = (x, alpha, beta)
+        # the kernels' names in a trace: bin_gmm_fwd_kernel, bin_gmm_bwd_kernel
+        cases[f"bin_gmm_node_fwd K={k} F={f}"] = case(
+            "bin_gmm_node_fwd", "bin_gmm_fwd", (*head, fsegs, *par),
+            per_bin(head, fsegs, par), dict(use_tanh=True))
+        head = (g, beta, dfeat, alpha, x, sfeat)
+        cases[f"bin_gmm_node_bwd K={k} F={f}"] = case(
+            "bin_gmm_node_bwd", "bin_gmm_bwd", (*head, bsegs, *par),
+            per_bin(head, bsegs, par), dict(use_tanh=True))
     out = {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for name, (fn, key) in cases.items():
+    for name, (fn, key, listed) in cases.items():
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
@@ -96,7 +116,7 @@ def main():
               if e.device_type == torch.autograd.DeviceType.CUDA
               and key in e.name]
         out[name] = dict(ms_per_call=sum(us) / 1e3 / args.calls,
-                         launches_per_call=len(us) / args.calls)
+                         launches_per_call=len(us) / args.calls, list=listed)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -20,11 +20,14 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 BWD_TOL = dict(rtol=1e-4, atol=1e-5)  # summation order differs
 
 
-def _sum_tol(segs):
+def _sum_tol(segs, tol=None):
     """Kernel against plain over bins up to W slots: sums of W terms in
-    another order, rtol 1e-5 and atol 8 W 2^-23."""
-    return dict(rtol=1e-5, atol=8 * max(nbr.shape[1] for nbr, _, _ in segs)
-                * 2.0 ** -23)
+    another order, rtol 1e-5 and atol 8 W 2^-23; with ``tol``, its rtol and
+    the larger of its atol and 8 W 2^-23."""
+    atol = 8 * max(nbr.shape[1] for nbr, _, _ in segs) * 2.0 ** -23
+    if tol is None:
+        return dict(rtol=1e-5, atol=atol)
+    return dict(tol, atol=max(tol["atol"], atol))
 
 
 @pytest.fixture
@@ -132,7 +135,7 @@ def test_bwd_plain_matches_jax_kernel(rng, p, h, f):
 
 def _graph_bins(rng, kind, widths=None):
     """The CSR and CSC bins of a small graph as lists of (nbr, row, count)
-    int32 tensors, with the widest forward bin's first segment emptied.
+    int32 tensors, with the widest bin's first segment emptied in each.
     "pubmed_like": uniform degrees, bins (4, 8, 12) as synthetic pubmed's;
     "power_law": Zipf in-degrees, bins (8, 128), hub rows split into
     several 128-slot segments."""
@@ -149,7 +152,9 @@ def _graph_bins(rng, kind, widths=None):
     fwd = [(nbr, row, count.clone()) for _w, nbr, _e, row, count
            in g.fwd.bins()]
     fwd[-1][2][0] = 0  # an empty segment in the widest bin
-    bwd = [(nbr, row, count) for _w, nbr, _e, row, count in g.bwd.bins()]
+    bwd = [(nbr, row, count.clone()) for _w, nbr, _e, row, count
+           in g.bwd.bins()]
+    bwd[-1][2][0] = 0
     return n, fwd, bwd
 
 
@@ -157,6 +162,23 @@ def _node_tables(rng, n, h, f):
     a = {k: rng.normal(size=s).astype(np.float32)
          for k, s in (("feat", (n, h, f)), ("ac", (n, h)), ("ar", (n, h)))}
     return {k: torch.from_numpy(v) for k, v in a.items()}
+
+
+def _bwd_tables(rng, n, h, f):
+    """The node tables and the backward's destination tables: g at 1/16
+    scale (chip_smoke.py's G_SCALE: d ac is a difference of sums whose
+    float32 rounding floor grows with |g|), M = N(3, 1) and 1 / L in
+    [0.1, 1], so that most attention weights lie in [0, 1] as on the main
+    path."""
+    t = _node_tables(rng, n, h, f)
+    a = dict(g=rng.normal(size=(n, h, f)) / 16, M=rng.normal(size=(n, h)) + 3,
+             Linv=rng.uniform(0.1, 1.0, (n, h)), ws=rng.normal(size=(n, h)))
+    t.update({k: torch.from_numpy(v.astype(np.float32)) for k, v in a.items()})
+    return t
+
+
+def _list_bwd_args(t):
+    return tuple(t[k] for k in ("g", "ar", "M", "Linv", "ws", "ac", "feat"))
 
 
 @pytest.mark.parametrize("p", [0.0, 0.3])
@@ -225,6 +247,65 @@ def test_fwd_list_appends_the_tail(rng, with_pos):
         assert torch.equal(got[i], torch.cat([bare[i], tail[i]]))
         assert torch.equal(only[i], tail[i])
         assert none[i].shape[0] == 0
+
+
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_bwd_list_plain_is_per_bin_then_cat_and_matches_jax(rng, kind, p):
+    """The backward list wrapper's plain path: the per-bin plain versions
+    followed by torch.cat, and the JAX per-bin kernels (interpret mode)
+    concatenated, to rtol 1e-4 and atol the larger of 1e-5 and 8 W 2^-23
+    (sums of up to W signed terms in another order)."""
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_bins import bin_gat_bwd as jax_bwd
+
+    h, f = 2, 5
+    n, _, segs = _graph_bins(rng, kind)
+    t = _bwd_tables(rng, n, h, f)
+    kw = dict(slope=SLOPE, p=p, seed=SEED)
+    got = bins.bin_gat_bwd_list(*_list_bwd_args(t), segs, **kw)
+    per_bin = [bins.bin_gat_bwd(*_list_bwd_args(t), *seg, **kw)
+               for seg in segs]
+    a = {k: v.numpy() for k, v in t.items()}
+    zcat = np.concatenate([a["g"].reshape(n, -1), a["ar"], a["M"], a["Linv"],
+                           a["ws"]], axis=1)
+    want = []
+    for nbr, row, count in segs:
+        nb, rw = nbr.numpy(), row.numpy()
+        drop = (p, jnp.uint32(SEED), jnp.asarray(rw),
+                jnp.asarray(nb.T)) if p > 0 else None
+        want.append(jax_bwd(jnp.asarray(zcat[nb.T]), jnp.asarray(a["ac"][rw]),
+                            jnp.asarray(a["feat"].reshape(n, -1)[rw]),
+                            jnp.asarray(count.numpy()), H=h, slope=SLOPE,
+                            drop=drop, interpret=True))
+    for i, name in enumerate(("dx", "dac")):
+        torch.testing.assert_close(
+            got[i], torch.cat([pb[i] for pb in per_bin]), rtol=0, atol=0)
+        w = np.concatenate([np.asarray(wb[i]) for wb in want])
+        np.testing.assert_allclose(
+            got[i].reshape(got[i].shape[0], -1).numpy(), w, err_msg=name,
+            **_sum_tol(segs, BWD_TOL))
+    # the empty segment: the first of the widest bin
+    first = sum(nbr.shape[0] for nbr, _, _ in segs[:-1])
+    assert np.all(got[0][first].numpy() == 0)
+    assert np.all(got[1][first].numpy() == 0)
+
+
+def test_bwd_list_appends_the_tail(rng):
+    """A tail (the hub block's dx, dac rows) follows the bins' rows; no
+    bins at all leave the tail alone."""
+    n, _, segs = _graph_bins(rng, "pubmed_like")
+    args = _list_bwd_args(_bwd_tables(rng, n, 2, 3))
+    tail = (torch.randn((7, 2, 3)), torch.randn((7, 2)))
+    got = bins.bin_gat_bwd_list(*args, segs, slope=SLOPE, tail=tail)
+    bare = bins.bin_gat_bwd_list(*args, segs, slope=SLOPE)
+    only = bins.bin_gat_bwd_list(*args, [], slope=SLOPE, tail=tail)
+    none = bins.bin_gat_bwd_list(*args, [], slope=SLOPE)
+    for i in range(2):
+        assert torch.equal(got[i], torch.cat([bare[i], tail[i]]))
+        assert torch.equal(only[i], tail[i])
+        assert none[i].shape == (0, *tail[i].shape[1:])
 
 
 def test_wrappers_refuse_mixed_devices(rng):
@@ -321,8 +402,59 @@ def test_cuda_fwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(4, 64), (1, 3), (2, 5), (3, 12)])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_cuda_bwd_list_matches_plain(rng, cuda_device, kind, h, f, p):
+    """The backward's every bin in one launch against the plain version, W
+    up to 128 with an empty segment, F % 4 != 0, and against the per-bin
+    launches bit for bit (the same kernel); a hub-block tail is copied in
+    after the bins."""
+    n, _, segs = _graph_bins(rng, kind)
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    args = tuple(x.to(cuda_device)
+                 for x in _list_bwd_args(_bwd_tables(rng, n, h, f)))
+    kw = dict(slope=SLOPE, p=p, seed=SEED)
+    tail = bins.bin_gat_bwd_plain(*args, *segs[0], **kw)
+    before = bins.LAUNCHES["bin_gat_bwd"]
+    got = bins.bin_gat_bwd_list(*args, segs, tail=tail, **kw)
+    assert bins.LAUNCHES["bin_gat_bwd"] == before + 1
+    want = bins.bin_gat_bwd_list_plain(*args, segs, tail=tail, **kw)
+    per_bin = [bins.bin_gat_bwd(*args, *seg, **kw) for seg in segs]
+    torch.cuda.synchronize()
+    for i in range(2):
+        torch.testing.assert_close(got[i], want[i], **_sum_tol(segs, BWD_TOL))
+        assert torch.equal(got[i], torch.cat([pb[i] for pb in per_bin]
+                                             + [tail[i]]))
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
+    """Nine backward bins: two launches, the second's rows after the
+    first's."""
+    n, _, segs = _graph_bins(rng, "pubmed_like",
+                             widths=(1, 2, 3, 4, 5, 6, 7, 8, 16))
+    assert len(segs) > bins.MAX_BINS_PER_LAUNCH
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    args = tuple(x.to(cuda_device)
+                 for x in _list_bwd_args(_bwd_tables(rng, n, 4, 8)))
+    kw = dict(slope=SLOPE, p=0.3, seed=SEED)
+    before = bins.LAUNCHES["bin_gat_bwd"]
+    got = bins.bin_gat_bwd_list(*args, segs, **kw)
+    assert bins.LAUNCHES["bin_gat_bwd"] == before + 2
+    want = bins.bin_gat_bwd_list_plain(*args, segs, **kw)
+    torch.cuda.synchronize()
+    for g, wv in zip(got, want):
+        torch.testing.assert_close(g, wv, **_sum_tol(segs, BWD_TOL))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_bf16(rng, cuda_device):
     t = _torch(_bin(rng), cuda_device)
     bad = dict(t, feat=t["feat"].to(torch.bfloat16))
     with pytest.raises(TypeError, match="float32"):
         bins.bin_gat_fwd(*_fwd_args(bad), slope=SLOPE, with_pos=True)
+    bad = dict(t, g=t["g"].to(torch.bfloat16))
+    with pytest.raises(TypeError, match="float32"):
+        bins.bin_gat_bwd_list(*_bwd_args(bad)[:7], [_bwd_args(bad)[7:]],
+                              slope=SLOPE)

@@ -176,11 +176,12 @@ def test_bin_bwd_plain_matches_jax_kernel(rng, use_tanh, k, f, dd, ds):
     assert np.all(dx[[0, 5]].numpy() == 0) and np.all(st[[0, 5]].numpy() == 0)
 
 
-def _graph_bins(rng, kind, widths=None):
-    """The CSC (backward) bins of a small graph as a list of (nbr, row,
-    count) int32 tensors, with the widest bin's first segment emptied.
-    "pubmed_like": uniform degrees, bins (4, 8, 12) as synthetic pubmed's;
-    "power_law": Zipf degrees, bins (8, 128)."""
+def _graph_bins(rng, kind, widths=None, direction="bwd"):
+    """The CSC (backward; ``direction="fwd"``: CSR) bins of a small graph as
+    a list of (nbr, row, count) int32 tensors, with the widest bin's first
+    segment emptied.  "pubmed_like": uniform degrees, bins (4, 8, 12) as
+    synthetic pubmed's; "power_law": Zipf degrees in the direction's rows,
+    bins (8, 128)."""
     if kind == "pubmed_like":
         n, w = 300, (4, 8, 12)
         src, dst = rng.integers(0, n, 1500), rng.integers(0, n, 1500)
@@ -188,11 +189,14 @@ def _graph_bins(rng, kind, widths=None):
         n, w = 400, (8, 128)
         src = np.minimum(rng.zipf(1.6, 6 * n) - 1, n - 1)
         dst = rng.integers(0, n, 6 * n)
+    if direction == "fwd":
+        src, dst = dst, src  # the skew in the CSR rows
     uniq = np.unique(np.stack([src, dst], 1), axis=0)
     g = build_graph(uniq[:, 0], uniq[:, 1], n, widths=widths or w,
                     edge_tables=False)
+    adj = g.fwd if direction == "fwd" else g.bwd
     segs = [(nbr, row, count.clone()) for _w, nbr, _e, row, count
-            in g.bwd.bins()]
+            in adj.bins()]
     segs[-1][2][0] = 0  # an empty segment in the widest bin
     return n, segs
 
@@ -200,6 +204,62 @@ def _graph_bins(rng, kind, widths=None):
 def _list_bwd_args(t, segs):
     return (t["g"], t["beta"], t["dfeat"], t["alpha"], t["feat"], t["sfeat"],
             segs, t["mu"], t["isig"])
+
+
+def _list_fwd_args(t, segs):
+    return (t["feat"], t["alpha"], t["beta"], segs, t["mu"], t["isig"])
+
+
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_bin_fwd_list_plain_is_per_bin_then_cat_and_matches_jax(rng, kind,
+                                                               use_tanh):
+    """The forward list wrapper's plain path: the per-bin plain versions
+    followed by torch.cat, and the JAX per-bin kernels (interpret mode)
+    concatenated, to rtol 1e-5 and atol the larger of 1e-5 and 8 W 2^-23
+    (sums of up to W terms in another order)."""
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_bins import bin_gmm_node_fwd as jax_fwd
+
+    k, f = 3, 5
+    n, segs = _graph_bins(rng, kind, direction="fwd")
+    t = _torch(_node_tables(rng, n, k, f))
+    acc = bins.bin_gmm_node_fwd_list(*_list_fwd_args(t, segs),
+                                     use_tanh=use_tanh)
+    per_bin = [bins.bin_gmm_node_fwd(t["feat"], t["alpha"], t["beta"], *seg,
+                                     t["mu"], t["isig"], use_tanh=use_tanh)
+               for seg in segs]
+    assert torch.equal(acc, torch.cat(per_bin))
+    a = {key: v.numpy() for key, v in t.items()}
+    xcat = np.concatenate([a["feat"].reshape(n, -1), a["alpha"]], axis=1)
+    want = [np.asarray(jax_fwd(
+        jnp.asarray(xcat[nbr.numpy().T]), jnp.asarray(a["beta"][row.numpy()]),
+        jnp.asarray(count.numpy()), jnp.asarray(a["mu"]),
+        jnp.asarray(a["isig"]), K=k, D=2, use_tanh=use_tanh, interpret=True))
+        for nbr, row, count in segs]
+    np.testing.assert_allclose(acc.reshape(acc.shape[0], -1).numpy(),
+                               np.concatenate(want),
+                               **_sum_tol(segs, ACC_TOL))
+    first = sum(nbr.shape[0] for nbr, _, _ in segs[:-1])  # the empty one
+    assert np.all(acc[first].numpy() == 0)
+
+
+def test_bin_fwd_list_appends_the_tail(rng):
+    """tail rows (the hub block's acc) follow the bins' rows; no bins at
+    all leave the tail alone."""
+    n, segs = _graph_bins(rng, "pubmed_like", direction="fwd")
+    t = _torch(_node_tables(rng, n, 3, 4))
+    tail = torch.randn((6, 3, 4))
+    acc = bins.bin_gmm_node_fwd_list(*_list_fwd_args(t, segs), use_tanh=True,
+                                     tail=tail)
+    bare = bins.bin_gmm_node_fwd_list(*_list_fwd_args(t, segs), use_tanh=True)
+    assert torch.equal(acc, torch.cat([bare, tail]))
+    only = bins.bin_gmm_node_fwd_list(*_list_fwd_args(t, []), use_tanh=True,
+                                      tail=tail)
+    assert torch.equal(only, tail)
+    none = bins.bin_gmm_node_fwd_list(*_list_fwd_args(t, []), use_tanh=True)
+    assert none.shape == (0, 3, 4)
 
 
 @pytest.mark.parametrize("use_tanh", [True, False])
@@ -868,11 +928,62 @@ def test_cuda_bin_bwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("k,f", [(3, 64), (3, 3), (2, 5), (8, 128)])
+@pytest.mark.parametrize("kind", ["pubmed_like", "power_law"])
+def test_cuda_bin_fwd_list_matches_plain(rng, cuda_device, kind, k, f,
+                                         use_tanh):
+    """The forward's every bin in one launch against the plain version, W
+    up to 128 with an empty segment, F % 4 != 0, K*F = 1024 (column tiles),
+    and against the per-bin launches bit for bit (the same kernel); a tail
+    follows the bins' rows."""
+    n, segs = _graph_bins(rng, kind, direction="fwd")
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    t = _torch(_node_tables(rng, n, k, f), cuda_device)
+    tail = torch.randn((5, k, f), device=cuda_device)
+    args = _list_fwd_args(t, segs)
+    before = bins.LAUNCHES["bin_gmm_node_fwd"]
+    got = bins.bin_gmm_node_fwd_list(*args, use_tanh=use_tanh, tail=tail)
+    assert bins.LAUNCHES["bin_gmm_node_fwd"] == before + 1
+    want = bins.bin_gmm_node_fwd_list_plain(*args, use_tanh=use_tanh,
+                                            tail=tail)
+    per_bin = [bins.bin_gmm_node_fwd(*args[:3], *seg, *args[4:],
+                                     use_tanh=use_tanh) for seg in segs]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_sum_tol(segs, ACC_TOL))
+    assert torch.equal(got, torch.cat(per_bin + [tail]))
+
+
+@pytest.mark.cuda
+def test_cuda_bin_fwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
+    """Nine forward bins: two launches, the second's rows after the
+    first's."""
+    n, segs = _graph_bins(rng, "pubmed_like",
+                          widths=(1, 2, 3, 4, 5, 6, 7, 8, 16),
+                          direction="fwd")
+    assert len(segs) > bins.MAX_BINS_PER_LAUNCH
+    segs = [tuple(x.to(cuda_device) for x in seg) for seg in segs]
+    t = _torch(_node_tables(rng, n, 3, 64), cuda_device)
+    before = bins.LAUNCHES["bin_gmm_node_fwd"]
+    got = bins.bin_gmm_node_fwd_list(*_list_fwd_args(t, segs), use_tanh=True)
+    assert bins.LAUNCHES["bin_gmm_node_fwd"] == before + 2
+    want = bins.bin_gmm_node_fwd_list_plain(*_list_fwd_args(t, segs),
+                                            use_tanh=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **_sum_tol(segs, ACC_TOL))
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
     t = _torch(_bin(rng, k=2, f=4), cuda_device)
     with pytest.raises(TypeError, match="float32"):
         bins.bin_gmm_node_fwd(*_bin_fwd_args(dict(
             t, feat=t["feat"].to(torch.bfloat16))), use_tanh=True)
+    with pytest.raises(TypeError, match="float32"):
+        bins.bin_gmm_node_fwd_list(
+            *_list_fwd_args(dict(t, feat=t["feat"].to(torch.bfloat16)),
+                            [(t["nbr"], t["row"], t["count"])]),
+            use_tanh=True)
     nine = _torch(_bin(rng, k=9, f=4), cuda_device)
     with pytest.raises(ValueError, match="kernels"):
         bins.bin_gmm_node_fwd(*_bin_fwd_args(nine), use_tanh=True)

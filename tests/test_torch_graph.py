@@ -148,3 +148,15 @@ def test_graph_to_moves_every_table(rng):
     g = structure.build_graph(src, dst, 50).to("cpu")
     assert g.fwd.cmb.main.device.type == "cpu"
     assert all(n.device.type == "cpu" for n in g.bwd.nbr)
+
+
+def test_segs_are_the_bins_slot_tables(rng):
+    """segs() gives each bin's (nbr, row, count), the tensors themselves,
+    in bin order, for both directions."""
+    src, dst = random_graph(rng, 80, 4)
+    g = structure.build_graph(src, dst, 80, widths=(4, 8, 16))
+    for adj in (g.fwd, g.bwd):
+        segs = adj.segs()
+        assert len(segs) == adj.num_bins > 1
+        for seg, (_w, nbr, _e, row, count) in zip(segs, adj.bins()):
+            assert seg[0] is nbr and seg[1] is row and seg[2] is count
