@@ -30,9 +30,13 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                flipped dropout bit would give an O(1) difference, so this
                also holds the dropout hash.  The bins that these three
                graphs keep beside their blocks go through the bin kernels
-               too, at the same shapes.
-               MoNet kernels, the same graphs: the bin kernels at (K, F) =
-               (3, 64) and (3, 3), the dense kernels at (3, 64) and (3, 7)
+               too, at the same shapes.  And a forced (512, 3000) block of
+               a graph skewed both ways (2 x 2 tiles, rows of about 1,700
+               edges in each direction: the kernels' row lists in many
+               batches), atol grown with the widest row.
+               MoNet kernels, the same graphs (the skewed block too): the
+               bin kernels at (K, F) = (3, 64) and (3, 3), the dense kernels
+               at (3, 64) and (3, 7)
                in both dense dtypes, D = 2, tanh on and off (same
                tolerances; the backward's stat rows are held per segment
                and per block row to BWD_TOL / BLOCK_TOL), and the bin
@@ -93,11 +97,13 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                gather kernels, with their launches counted.
   6. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
-               kernels over cora's hub block, at the hidden layer's width
-               ((H, F) = (4, 64), p 0.3; (K, F) = (3, 64)), bf16; the four
-               bin kernels in their list form at both layers' widths, read
-               from a replayed CUDA graph, summed to a pubmed training step
-               beside the step's bound, and beside one launch a bin.  Then
+               kernels over cora's hub block, at both layers' widths
+               ((H, F) = (4, 64) and (1, 7), p 0.3; (K, F) = (3, 64) and
+               (3, 7)), bf16; the four bin kernels in their list form and
+               the four dense kernels read from a replayed CUDA graph,
+               summed to a pubmed (bins) or cora (dense) training step
+               beside the step's bound; the bin kernels also beside one
+               launch a bin.  Then
                one
                gat_aggregate and one gmm_aggregate_node forward + backward
                on cora with its hub block against the all-binned build of
@@ -158,6 +164,7 @@ SHAPES = ((4, 64), (1, 3))  # (H, F) of pubmed's hidden and output layers
 DENSE_SHAPES = ((4, 64), (1, 7))  # (H, F) of cora's hidden and output layers
 DENSE_DTYPES = ("float32", "bfloat16")
 PUBMED_FORCED = (1000, 5000)  # a forced pubmed block: 4 x 3 tiles
+PL_FORCED = (512, 3000)  # a forced block of hub_graph: 2 x 2 tiles
 CORA_MIN_ACC = 0.4  # 7 classes: chance is 1/7; 20 CPU steps reach 0.72
 # Scale of the random output gradients.  d ac is a difference of sums of
 # terms up to |x| |g| F, so its float32 rounding floor grows with |g|: at
@@ -379,7 +386,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
     return n_cmp
 
 
-def check_dense(dense, graph, tb, err):
+def check_dense(dense, graph, tb, err, tol=BLOCK_TOL):
     """Both dense kernels against their plain versions on one graph's hub
     blocks; returns (comparisons, elements outside the float32 tolerance)."""
     n_cmp = n_off = 0
@@ -396,7 +403,7 @@ def check_dense(dense, graph, tb, err):
                     if w is None:
                         assert g is None
                         continue
-                    e, off = assert_close(g, w, BLOCK_TOL, dt,
+                    e, off = assert_close(g, w, tol, dt,
                                           f"dense_gat_fwd {name} {dt} p={p}: ")
                     err["dense_gat_fwd"] = max(err["dense_gat_fwd"], e)
                     n_off += off
@@ -407,7 +414,7 @@ def check_dense(dense, graph, tb, err):
             got = dense.dense_gat_bwd(*args, **kw)
             want = dense.dense_gat_bwd_plain(*args, **kw)
             for name, g, w in zip(("dx", "dac"), got, want):
-                e, off = assert_close(g, w, BLOCK_TOL, dt,
+                e, off = assert_close(g, w, tol, dt,
                                       f"dense_gat_bwd {name} {dt} p={p}: ")
                 err["dense_gat_bwd"] = max(err["dense_gat_bwd"], e)
                 n_off += off
@@ -507,7 +514,7 @@ def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err):
     return n_cmp
 
 
-def check_gmm_dense(dense, graph, tb, err):
+def check_gmm_dense(dense, graph, tb, err, tol=BLOCK_TOL):
     """Both dense MoNet kernels against their plain versions on one graph's
     hub blocks; returns (comparisons, elements outside the float32
     tolerance)."""
@@ -518,7 +525,7 @@ def check_gmm_dense(dense, graph, tb, err):
             kw = dict(use_tanh=use_tanh, dense_dtype=dt)
             got = dense.dense_gmm_fwd(*fwd_args, **kw)
             want = dense.dense_gmm_fwd_plain(*fwd_args, **kw)
-            e, off = assert_close(got, want, BLOCK_TOL, dt,
+            e, off = assert_close(got, want, tol, dt,
                                   f"dense_gmm_fwd acc {dt} tanh={use_tanh}: ")
             err["dense_gmm_fwd"] = max(err["dense_gmm_fwd"], e)
             n_off += off
@@ -526,7 +533,7 @@ def check_gmm_dense(dense, graph, tb, err):
             want = dense.dense_gmm_bwd_plain(*bwd_args, **kw)
             for name, g, w in zip(("dx", "stat rows"), got, want):
                 e, off = assert_close(
-                    g, w, BLOCK_TOL, dt,
+                    g, w, tol, dt,
                     f"dense_gmm_bwd {name} {dt} tanh={use_tanh}: ")
                 err["dense_gmm_bwd"] = max(err["dense_gmm_bwd"], e)
                 n_off += off
@@ -587,6 +594,39 @@ def power_law_graph(structure, rng, n=4000):
     g = structure.build_graph(uniq[:, 0], uniq[:, 1], n, widths=(8, 128))
     assert max(g.fwd.widths) > 64, g.fwd.widths
     return g
+
+
+def hub_graph(structure, rng, n=4000):
+    """Edges skewed both ways (Zipf destinations from uniform sources, Zipf
+    sources to uniform destinations) under the forced block PL_FORCED: in
+    each direction hub rows of thousands of set columns in one tile row,
+    two column tiles a row chunk."""
+    e = 3 * n
+    zipf = lambda: np.minimum(rng.zipf(1.6, e) - 1, n - 1)  # noqa: E731
+    into = np.stack([rng.integers(0, n, e), zipf()], 1)
+    out_of = np.stack([rng.permutation(n)[zipf()], rng.integers(0, n, e)], 1)
+    uniq = np.unique(np.concatenate([into, out_of]), axis=0)
+    g = structure.build_graph(uniq[:, 0], uniq[:, 1], n, dense=PL_FORCED,
+                              edge_tables=False)
+    for adj in (g.fwd, g.bwd):
+        assert widest_row(adj.dense) > 1000, widest_row(adj.dense)
+        assert (np.diff(adj.dense.chunk_ptr.numpy()) == 2).all()
+    return g
+
+
+def widest_row(db):
+    """Most set columns in one tile row of a hub block."""
+    bits = np.unpackbits(db.mask.cpu().numpy(), axis=-1)
+    return int(bits.sum(axis=-1).max())
+
+
+def hub_tol(graph, tol):
+    """``tol`` with its atol grown with the blocks' widest row in units of
+    128 terms (a bin segment's most): such a row sums thousands of terms in
+    another order in the kernel than in the plain version (the rule of
+    tests/test_torch_dense.py)."""
+    widest = max(widest_row(graph.fwd.dense), widest_row(graph.bwd.dense))
+    return dict(tol, atol=tol["atol"] * max(1.0, widest / 128))
 
 
 def time_turns(fns, time_calls, dev, iters):
@@ -999,6 +1039,29 @@ def main():
             phase("kernels", f"{name} MoNet K={k} F={f}: fwd widths "
                   f"{g.fwd.widths} bwd widths {g.bwd.widths}: {n_cmp} "
                   "bin kernel/plain comparisons agree (tanh on and off)")
+    # a forced block whose rows hold thousands of edges in both directions
+    # (the row lists' many batches, two column tiles a chunk), from a
+    # generator of its own so that the checks before and after see the
+    # same numbers
+    prng = np.random.default_rng(2)
+    plf = hub_graph(structure, prng).to(dev)
+    tol = hub_tol(plf, BLOCK_TOL)
+    for h, f in DENSE_SHAPES:
+        n_cmp, n_off = check_dense(dense, plf, tables(
+            _gat_forward, plf, h, f, prng, dev), err, tol)
+        phase("kernels", f"power-law forced block {PL_FORCED} H={h} F={f}: "
+              f"fwd block {block_stats(plf.fwd)}, widest row "
+              f"{widest_row(plf.fwd.dense)}; bwd block {block_stats(plf.bwd)}, "
+              f"widest row {widest_row(plf.bwd.dense)}: {n_cmp} kernel/plain "
+              f"comparisons agree (atol {tol['atol']:.3g}; {n_off} bf16 "
+              "elements outside it)")
+    for k, f in GMM_DENSE_SHAPES:
+        n_cmp, n_off = check_gmm_dense(dense, plf, gmm_tables(
+            plf.num_nodes, k, f, prng, dev), err, tol)
+        phase("kernels", f"power-law forced block {PL_FORCED} MoNet K={k} "
+              f"F={f} D={GMM_D}: {n_cmp} kernel/plain comparisons agree "
+              f"(atol {tol['atol']:.3g}; {n_off} bf16 elements outside "
+              "it)")
     ec_study = load_script("exp_ec_tiles_torch")
     gather_study = load_script("microbench_gather_torch")
     for what, n_cmp in check_masked_max(ec_tiles, ec_study.make_inputs, dev,
@@ -1226,52 +1289,55 @@ def main():
         return ([db.row_ids, db.col_ids, db.mask, db.ct, db.chunk_ptr, *whole]
                 + [(t, n_row) for t in by_row] + [(t, n_col) for t in by_col])
 
-    h, f = DENSE_SHAPES[0]
-    tb = cora_tabs[(h, f)]
-    fa = (cora.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
-    fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED,
-               dense_dtype="bfloat16")
-    ba = (cora.bwd.dense, *(tb[k_] for k_ in ("g", "ar", "M", "Linv", "ws",
-                                              "ac", "feat")))
-    bkw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype="bfloat16")
-    what = f"cora hub block H={h} F={f} p=0.3 bf16"
-    jobs[("dense_gat_fwd", h, f)] = (
-        what, lambda: [dense.dense_gat_fwd(*fa, **fkw)],
-        lambda: [dense.dense_gat_fwd_plain(*fa, **fkw)],
-        block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]]),
-        block_edges(fa[0]), h * f, h)
-    jobs[("dense_gat_bwd", h, f)] = (
-        what, lambda: [dense.dense_gat_bwd(*ba, **bkw)],
-        lambda: [dense.dense_gat_bwd_plain(*ba, **bkw)],
-        block_inputs(ba[0], [tb["ac"], tb["feat"]],
-                     [tb[k_] for k_ in ("g", "ar", "M", "Linv", "ws")]),
-        block_edges(ba[0]), h * f, h)
-    k, f = GMM_DENSE_SHAPES[0]
-    tb = cora_gmm_tabs[(k, f)]
-    gfa, gba = gmm_dense_args(cora, tb)
-    par = (tb["mu"], tb["isig"])
+    for h, f in DENSE_SHAPES:
+        tb = cora_tabs[(h, f)]
+        fa = (cora.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
+        fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED,
+                   dense_dtype="bfloat16")
+        ba = (cora.bwd.dense, *(tb[k_] for k_ in ("g", "ar", "M", "Linv",
+                                                  "ws", "ac", "feat")))
+        bkw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype="bfloat16")
+        what = f"cora hub block H={h} F={f} p=0.3 bf16"
+        jobs[("dense_gat_fwd", h, f)] = (
+            what, lambda a=fa, kw=fkw: [dense.dense_gat_fwd(*a, **kw)],
+            lambda a=fa, kw=fkw: [dense.dense_gat_fwd_plain(*a, **kw)],
+            block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]]),
+            block_edges(fa[0]), h * f, h)
+        jobs[("dense_gat_bwd", h, f)] = (
+            what, lambda a=ba, kw=bkw: [dense.dense_gat_bwd(*a, **kw)],
+            lambda a=ba, kw=bkw: [dense.dense_gat_bwd_plain(*a, **kw)],
+            block_inputs(ba[0], [tb["ac"], tb["feat"]],
+                         [tb[k_] for k_ in ("g", "ar", "M", "Linv", "ws")]),
+            block_edges(ba[0]), h * f, h)
     gkw = dict(use_tanh=True, dense_dtype="bfloat16")
-    what = f"cora hub block K={k} F={f} D={GMM_D} tanh bf16"
-    jobs[("dense_gmm_fwd", k, f)] = (
-        what, lambda: [dense.dense_gmm_fwd(*gfa, **gkw)],
-        lambda: [dense.dense_gmm_fwd_plain(*gfa, **gkw)],
-        block_inputs(gfa[0], [tb["beta"]], [tb["alpha"], tb["feat"]], par),
-        block_edges(gfa[0]), k * f, k)
-    jobs[("dense_gmm_bwd", k, f)] = (
-        what, lambda: [dense.dense_gmm_bwd(*gba, **gkw)],
-        lambda: [dense.dense_gmm_bwd_plain(*gba, **gkw)],
-        block_inputs(gba[0], [tb["alpha"], tb["feat"]],
-                     [tb["g"], tb["beta"], tb["dfeat"]], par),
-        block_edges(gba[0]), k * f, k)
+    for k, f in GMM_DENSE_SHAPES:
+        tb = cora_gmm_tabs[(k, f)]
+        gfa, gba = gmm_dense_args(cora, tb)
+        par = (tb["mu"], tb["isig"])
+        what = f"cora hub block K={k} F={f} D={GMM_D} tanh bf16"
+        jobs[("dense_gmm_fwd", k, f)] = (
+            what, lambda a=gfa: [dense.dense_gmm_fwd(*a, **gkw)],
+            lambda a=gfa: [dense.dense_gmm_fwd_plain(*a, **gkw)],
+            block_inputs(gfa[0], [tb["beta"]], [tb["alpha"], tb["feat"]],
+                         par),
+            block_edges(gfa[0]), k * f, k)
+        jobs[("dense_gmm_bwd", k, f)] = (
+            what, lambda a=gba: [dense.dense_gmm_bwd(*a, **gkw)],
+            lambda a=gba: [dense.dense_gmm_bwd_plain(*a, **gkw)],
+            block_inputs(gba[0], [tb["alpha"], tb["feat"]],
+                         [tb["g"], tb["beta"], tb["dfeat"]], par),
+            block_edges(gba[0]), k * f, k)
 
     times = {}
     for key, (what, fn_kernel, fn_plain, inputs, edges, cols, groups) in \
             jobs.items():
         ms, plain_ms = time_pair(fn_kernel, fn_plain, time_calls, dev)
         host = ""
-        if key in per_bin:
-            # a list call is shorter on the card than the host takes to
-            # launch it: its time is read from a replayed CUDA graph
+        if key in per_bin or key[0].startswith("dense"):
+            # a list call, or a call over cora's hub block, is shorter on the
+            # card than the host takes to launch it: its time is read from a
+            # replayed CUDA graph (dense_gat_fwd's holds the wrapper's two
+            # launches of the columns' max of ac too, timed alone below)
             host = f" ({ms:.4f} ms a call from the host)"
             ms = gather_study.graph_ms(fn_kernel, dev, 10)
         bound_ms, bound_by = bound(key[0], inputs, flat(fn_kernel()), edges,
@@ -1300,6 +1366,25 @@ def main():
               + ", ".join(f"{sh} {a:.4f} / {b:.4f} ms"
                           for sh, (a, b) in zip(shapes, loop_ms))
               + f" | {smi}")
+
+    # the dense kernels a cora training step, both layers at their widths,
+    # beside the sum of the layers' bounds
+    tb = cora_tabs[DENSE_SHAPES[0]]
+    colmax_ms = gather_study.graph_ms(
+        lambda: dense._col_max(tb["ac"], cora.fwd.dense), dev, 10)
+    for name, shapes in (("dense_gat_fwd", DENSE_SHAPES),
+                         ("dense_gat_bwd", DENSE_SHAPES),
+                         ("dense_gmm_fwd", GMM_DENSE_SHAPES),
+                         ("dense_gmm_bwd", GMM_DENSE_SHAPES)):
+        step_ms = sum(times[(name, *sh)]["ms"] for sh in shapes)
+        step_bound = sum(times[(name, *sh)]["bound_ms"] for sh in shapes)
+        extra = (f"; of it the columns' max of ac, {colmax_ms:.4f} ms a "
+                 "layer alone" if name == "dense_gat_fwd" else "")
+        phase("times", f"{name} a cora training step, layers {shapes}, on "
+              f"the card (a replayed CUDA graph): "
+              + " + ".join(f"{times[(name, *sh)]['ms']:.4f}" for sh in shapes)
+              + f" = {step_ms:.4f} ms against a bound of {step_bound:.5f} ms "
+              f"({step_ms / step_bound:.1f} times it){extra} | {smi}")
 
     # the EdgeConv and gather kernels, one job at a time (their inputs are
     # large): F = 256 first, the width the kernels' line reports

@@ -8,6 +8,12 @@
 // (the bit of tile column j of a row lives in byte j % 256 of the row's 256
 // bytes, bit j / 256).  The schedule is sorted by row chunk;
 // chunk_ptr[i]:chunk_ptr[i+1] are the entries of chunk i.
+//
+// Two ways for a warp to list a tile row's set columns: compact_pass (32
+// mask words a pass into a list of up to kListCap columns;
+// dense_gat_bwd_kernel and dense_gmm_fwd_kernel) and RowList (the row's 64
+// words in one pass, handed out 32 columns at a time; dense_gat_fwd_kernel
+// and dense_gmm_bwd_kernel).
 
 #pragma once
 
@@ -32,6 +38,12 @@ __device__ __forceinline__ float rnd(float v, bool bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// Tile column of bit b of mask word w of a tile row: bit b of the
+// (little-endian) word is byte 4 w + b / 8, plane b % 8.
+__device__ __forceinline__ unsigned short tile_column(int w, int b) {
+  return static_cast<unsigned short>((b & 7) * (kCT / 8) + 4 * w + (b >> 3));
+}
+
 // Compacts the set columns of mask words [w0, w0 + 32) of one tile row into
 // cols[0 .. kListCap), in increasing word order; returns how many there are.
 // Called by a whole warp; cols is the warp's own list in shared memory.
@@ -48,16 +60,84 @@ __device__ __forceinline__ int compact_pass(const uint32_t* mrow, int w0,
   const int total = __shfl_sync(kFull, incl, 31);
   int at = incl - cnt;
   uint32_t bits = word;
-  const int byte0 = (w0 + lane) * 4;
   while (bits) {
     const int b = __ffs(bits) - 1;
     bits &= bits - 1;
-    // bit b of the (little-endian) word: byte byte0 + b / 8, plane b % 8
-    cols[at++] = static_cast<unsigned short>((b & 7) * (kCT / 8) + byte0 +
-                                             (b >> 3));
+    cols[at++] = tile_column(w0 + lane, b);
   }
   __syncwarp();
   return total;
+}
+
+// The set columns of one tile row, listed in one pass over its kRowWords
+// mask words by a warp.  Each lane owns two consecutive words, fetched in
+// one 8-byte load, so the row's 256 bytes come in one coalesced request
+// (the mask must be 8-byte aligned); one popcount scan over the warp gives
+// each lane the list position of its first set bit and the row's total.
+// emit(e0, slot) then writes the columns at list positions [e0, e0 + 32)
+// to slot[0 .. 32): each lane walks its own bits in order and stops at the
+// window's end, so over the batches e0 = 0, 32, 64, ... of a tile row
+// every set bit is visited once, and the list needs 32 slots however many
+// columns the row sets.
+struct RowList {
+  uint32_t bits[2];  // this lane's words, the visited bits cleared
+  int word0;         // index of the first of them in the row
+  int pos;           // list position of this lane's next set bit
+  int total;         // set columns in the tile row
+
+  __device__ __forceinline__ void load(const uint32_t* mrow, int lane) {
+    word0 = 2 * lane;
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(mrow + word0));
+    bits[0] = v.x;
+    bits[1] = v.y;
+    const int cnt = __popc(bits[0]) + __popc(bits[1]);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += u;
+    }
+    total = __shfl_sync(kFull, incl, 31);
+    pos = incl - cnt;
+  }
+
+  // Batches must come in order; the caller syncs the warp before reading
+  // slot and before the next emit.
+  __device__ __forceinline__ void emit(int e0, unsigned short* slot) {
+    const int end = e0 + 32;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      while (bits[i] != 0u && pos < end) {
+        const int b = __ffs(bits[i]) - 1;
+        bits[i] &= bits[i] - 1u;
+        slot[pos - e0] = tile_column(word0 + i, b);
+        ++pos;
+      }
+    }
+  }
+};
+
+// Sums each of v[0 .. NV) over the 32 lanes of a warp in one interleaved
+// butterfly (a reduce-scatter: each of the first log2 NV steps sends half
+// of the values still held, then a plain butterfly on the one left):
+// NV - 1 + 5 - log2 NV shuffles instead of 5 NV.  Returns the sum of value
+// lane / (32 / NV); NV a power of two, at most 32; every lane takes part.
+template <int NV>
+__device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
+#pragma unroll
+  for (int n = NV, o = 16; n > 1; n >>= 1, o >>= 1) {
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? v[i] : v[i + n / 2];
+      const float keep = upper ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (int o = 16 / NV; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+  return s;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -37,23 +37,36 @@
 // Design.  One warp per block row, four rows per thread block; a warp
 // walks its row chunk's schedule entries, so each row's sums live in one
 // warp's registers and neither kernel needs atomics.  The block is sparse
-// (cora's hub block holds 11,350 edges in 5.2M (row, col) pairs, 0.22 %),
-// so the kernels skip empty pairs instead of computing every pair of a
-// tile: a warp reads its row's 256 mask bytes, compacts the set columns
-// into a list in shared memory (a ballot-free prefix sum of popcounts),
-// then takes the edges 32 at a time.  Each lane computes one edge's
-// per-head weights (the score, exp and dropout hash) into shared memory;
-// then the lanes, spread over the H*F feature columns, accumulate the 32
-// edges' feature rows.  A masked pair contributes exactly 0 in the TPU
-// kernel, so skipping it changes nothing but the summation order.
+// (cora's hub block holds 11,350 edges in 5.2M (row, col) pairs, 0.22 %,
+// 4.4 a row), so the kernels skip empty pairs instead of computing every
+// pair of a tile, and take a row's edges 32 at a time: each lane computes
+// one edge's per-head weights (the score, exp and dropout hash) into
+// shared memory; then the lanes, spread over the H*F feature columns,
+// accumulate the batch's feature rows.  A masked pair contributes exactly
+// 0 in the TPU kernel, so skipping it changes nothing but the summation
+// order.
+//
+//   Forward: the warp lists the row's set columns in one pass over the
+//   tile row's 64 mask words (dense_common.cuh RowList: one load a lane,
+//   one popcount scan), so a cora row's few edges form one batch and one
+//   chain of dependent loads (chunk_ptr -> mask -> col_ids -> ac ->
+//   feature rows).  The feature rows of several edges are requested before
+//   any is used, from addresses every lane can load (a load under a branch
+//   made each edge wait for its row in turn).  Heads are held to HMAX (4
+//   or 16); l and lpos are per-lane sums that a slab in shared memory
+//   gathers at the end over the lanes that held an edge.  Launch bounds
+//   keep a layer's rows resident at once (gat_fwd_min_blocks).  A group of
+//   8 lanes a row at the output layer (4 rows a warp) measured slower than
+//   a warp a row.
+//   Backward: a warp compacts 32 mask words at a time into a list in
+//   shared memory (compact_pass) and takes the edges 32 at a time.
 //
 // Bound on the H100: for cora-size blocks, the latency of the dependent
-// loads per edge (mask word -> col_ids -> ac / node tables -> feature
-// row); per edge the work is H exps and hashes and H*F multiply-adds, and
-// the bytes are one feature row (1 KB at H=4, F=64) mostly served from L2.
-// Taking 32 edges per step puts 32 independent row loads in flight per
-// warp.  Left for later PRs: balancing hub rows with thousands of edges
-// over several warps, and tensor-core tiles for dense hub tiles.
+// loads per edge; per edge the work is H exps and hashes and H*F
+// multiply-adds, and the bytes are one feature row (1 KB at H=4, F=64)
+// mostly served from L2.  Left for later PRs: balancing hub rows with
+// thousands of edges over several warps, and tensor-core tiles for dense
+// hub tiles.
 //
 // Dropout re-derives pair_keep bit for bit (gat_common.cuh) on the global
 // ids: forward dst = row_ids[r], src = col_ids[c]; backward dst =
@@ -84,22 +97,38 @@ using dgnn::leaky;
 using dgnn::pair_base;
 using dgnn::pair_u_head;
 using dgnn::rnd;
+using dgnn::RowList;
 using dgnn::warp_sum;
 
 constexpr int kMaxHeads = 16;          // the wrapper refuses H > kMaxHeads
 
-// Per-warp staging in shared memory.
+// The backward's per-warp staging in shared memory.
 struct WarpStage {
   unsigned short cols[kListCap];   // set tile columns of this pass
-  float w0[32][kMaxHeads];         // per edge and head: fwd p^, bwd a^
-  float w1[32][kMaxHeads];         // bwd: a^ d' (fwd: unused)
-  uint32_t pos[32];                // fwd: bit h set iff s_raw >= 0
-  float head0[kMaxHeads];          // fwd: ar of the row; bwd: ac of the row
-  float head1[kMaxHeads];          // fwd: the row's bound
+  float w0[32][kMaxHeads];         // per edge and head: a^
+  float w1[32][kMaxHeads];         // per edge and head: a^ d'
+  float head0[kMaxHeads];          // ac of the row
 };
 
-template <int NC>
-__global__ void __launch_bounds__(kWarps * 32) dense_gat_fwd_kernel(
+// The forward's instances: HMAX heads held (4 or kMaxHeads), NC columns a
+// lane (ops/dense.py dense_gat_fwd_instance picks one).  Those with 4 heads
+// and up to 8 columns a lane keep kGatFwdMinBlocks blocks of kWarps rows an
+// SM by their launch bounds (at most 102 registers a thread): cora's 2,560
+// block rows are then resident at once on 132 SMs.
+constexpr int kGatFwdMinBlocks = 5;
+constexpr int gat_fwd_min_blocks(int hmax, int nc) {
+  return hmax <= 4 && nc <= 8 ? kGatFwdMinBlocks : 1;
+}
+// Edges whose feature rows are requested together: as many as keep
+// kGatFwdPrefetch values a lane in flight, at most 8 edges.
+constexpr int kGatFwdPrefetch = 8;
+__host__ __device__ constexpr int gat_fwd_prefetch(int nc) {
+  return nc >= kGatFwdPrefetch ? 1 : kGatFwdPrefetch / nc;
+}
+
+template <int HMAX, int NC>
+__global__ void __launch_bounds__(kWarps * 32, gat_fwd_min_blocks(HMAX, NC))
+dense_gat_fwd_kernel(
     const float* __restrict__ x,         // [N, H*F] source features
     const float* __restrict__ ac,        // [N, H]   source coefficients
     const float* __restrict__ ar,        // [Nr, H]  destination coefficients
@@ -116,28 +145,34 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_fwd_kernel(
     float* __restrict__ lpos_out,        // [R, H]    (with_pos)
     float* __restrict__ acc_out,         // [R, H*F]
     float* __restrict__ accpos_out) {    // [R, H*F]  (with_pos)
-  __shared__ WarpStage stage[kWarps];
+  constexpr int kSlot = 2 * HMAX + 1;  // floats a lane; odd: no bank conflicts
+  constexpr int PF = gat_fwd_prefetch(NC);
+  __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
+  __shared__ uint32_t posb[kWarps][32];        // its edge's bit h: s_raw >= 0
+  // per lane: its edge's p^ a head; after the walk, its l and lpos sums
+  __shared__ float slot[kWarps][32 * kSlot];
+  __shared__ float head[kWarps][2 * HMAX];     // the row's ar and bound
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  WarpStage& st = stage[warp];
   const int HF = H * F;
   const bool drop = p > 0.f;
   const bool use_bf = bf16 != 0;
   const int chunk = r / kRT;
   const uint32_t rid = static_cast<uint32_t>(row_ids[r]);
-
+  const int t_end = chunk_ptr[chunk + 1];
+  float* hd = head[warp];
   if (lane < H) {
-    const float a = ar[static_cast<size_t>(rid) * H + lane];
-    st.head0[lane] = a;
-    st.head1[lane] = leaky(a + acmax[lane], slope);
+    const float a = __ldg(ar + static_cast<size_t>(rid) * H + lane);
+    hd[lane] = a;
+    hd[HMAX + lane] = leaky(a + __ldg(acmax + lane), slope);
   }
   __syncwarp();
 
-  float l[kMaxHeads], lp[kMaxHeads];  // this lane's edges' sums
+  float lsum[HMAX], lpsum[HMAX];  // this lane's edges' sums
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) l[h] = lp[h] = 0.f;
+  for (int h = 0; h < HMAX; ++h) lsum[h] = lpsum[h] = 0.f;
   float acc[NC], accp[NC];
   int hcol[NC];
 #pragma unroll
@@ -146,77 +181,84 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_fwd_kernel(
     acc[k] = accp[k] = 0.f;
     hcol[k] = c < HF ? c / F : 0;
   }
+  int held = 0;  // lanes that held an edge: min(32, the longest tile row)
 
-  for (int t = chunk_ptr[chunk]; t < chunk_ptr[chunk + 1]; ++t) {
+  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
     const uint32_t* mrow =
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
-    const int* cid_tile = col_ids + static_cast<size_t>(ct[t]) * kCT;
-    for (int w0 = 0; w0 < kRowWords; w0 += kPassWords) {
-      const int total = compact_pass(mrow, w0, lane, st.cols);
-      for (int e0 = 0; e0 < total; e0 += 32) {
-        const int n = min(32, total - e0);
-        // lane i: edge e0 + i's per-head weights
-        uint32_t cid = 0;
-        if (lane < n) {
-          cid = static_cast<uint32_t>(cid_tile[st.cols[e0 + lane]]);
-          const uint32_t base = drop ? pair_base(seed, rid, cid) : 0u;
-          const float* acj = ac + static_cast<size_t>(cid) * H;
-          uint32_t pos = 0;
+    const int* cid_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
+    RowList rl;
+    rl.load(mrow, lane);
+    held = max(held, min(32, rl.total));
+    for (int e0 = 0; e0 < rl.total; e0 += 32) {
+      const int n = min(32, rl.total - e0);
+      rl.emit(e0, cols[warp]);
+      __syncwarp();
+      // lane i: edge e0 + i's per-head weights
+      uint32_t cid = 0;
+      if (lane < n) {
+        cid = static_cast<uint32_t>(cid_tile[cols[warp][lane]]);
+        const float* acj = ac + static_cast<size_t>(cid) * H;
+        const uint32_t pb = drop ? pair_base(seed, rid, cid) : 0u;
+        float* sl = slot[warp] + lane * kSlot;
+        uint32_t pos = 0;
 #pragma unroll
-          for (int h = 0; h < kMaxHeads; ++h) {
-            if (h < H) {
-              const float sr = st.head0[h] + acj[h];
-              const float pw = expf(leaky(sr, slope) - st.head1[h]);
-              float pd = pw;
-              if (drop) pd = pair_u_head(base, H, h) > p ? pw * inv_keep : 0.f;
-              pd = rnd(pd, use_bf);
-              // l: bf16-rounded p without dropout, f32 p with it (header)
-              const float lw = drop ? pw : pd;
-              st.w0[lane][h] = pd;
-              l[h] += lw;
-              if (sr >= 0.f) {
-                pos |= 1u << h;
-                lp[h] += lw;
-              }
+        for (int h = 0; h < HMAX; ++h) {
+          if (h < H) {
+            const float sr = hd[h] + __ldg(acj + h);
+            const float pw = expf(leaky(sr, slope) - hd[HMAX + h]);
+            float pd = pw;
+            if (drop) pd = pair_u_head(pb, H, h) > p ? pw * inv_keep : 0.f;
+            pd = rnd(pd, use_bf);
+            // l: bf16-rounded p without dropout, f32 p with it (header)
+            const float lw = drop ? pw : pd;
+            sl[h] = pd;
+            lsum[h] += lw;
+            if (sr >= 0.f) {
+              pos |= 1u << h;
+              lpsum[h] += lw;
             }
           }
-          st.pos[lane] = pos;
         }
-        __syncwarp();
-        // lanes over feature columns: the n edges' weighted rows
-#pragma unroll 4
-        for (int i = 0; i < n; ++i) {
-          const uint32_t cj = __shfl_sync(kFull, cid, i);
+        posb[warp][lane] = pos;
+      }
+      __syncwarp();
+      // lanes over feature columns: the n edges' weighted rows, PF edges'
+      // rows requested before any of them is used (left to itself, the
+      // compiler waits on each edge's loads in turn); every lane loads an
+      // address in the row and zeroes what lies past H*F
+      for (int i0 = 0; i0 < n; i0 += PF) {
+        float xv[PF][NC];
+#pragma unroll
+        for (int u = 0; u < PF; ++u) {
+          const uint32_t cj = __shfl_sync(kFull, cid, min(i0 + u, n - 1));
           const float* xr = x + static_cast<size_t>(cj) * HF;
-          const uint32_t pos = st.pos[i];
 #pragma unroll
           for (int k = 0; k < NC; ++k) {
             const int c = lane + 32 * k;
-            if (c < HF) {
-              const float v = st.w0[i][hcol[k]] * rnd(xr[c], use_bf);
+            const float raw = __ldg(xr + min(c, HF - 1));
+            xv[u][k] = c < HF ? raw : 0.f;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < PF; ++u) {
+          if (i0 + u < n) {
+            const float* sl = slot[warp] + (i0 + u) * kSlot;
+            const uint32_t pos = posb[warp][i0 + u];
+#pragma unroll
+            for (int k = 0; k < NC; ++k) {
+              const float v = sl[hcol[k]] * rnd(xv[u][k], use_bf);
               acc[k] += v;
               if ((pos >> hcol[k]) & 1u) accp[k] += v;
             }
           }
         }
-        __syncwarp();  // before the next batch overwrites the staging
       }
+      __syncwarp();  // before the next batch overwrites the staging
     }
   }
 
   const size_t ro = static_cast<size_t>(r);
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    if (h < H) {
-      const float lh = warp_sum(l[h]);
-      const float lph = warp_sum(lp[h]);
-      if (lane == h) {
-        m_out[ro * H + h] = st.head1[h];
-        l_out[ro * H + h] = lh;
-        if (with_pos) lpos_out[ro * H + h] = lph;
-      }
-    }
-  }
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     const int c = lane + 32 * k;
@@ -224,6 +266,29 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_fwd_kernel(
       acc_out[ro * HF + c] = acc[k];
       if (with_pos) accpos_out[ro * HF + c] = accp[k];
     }
+  }
+  // l and lpos: each lane that held an edge puts its sums in its slot;
+  // lane h adds head h over those lanes only
+  if (lane < held) {
+    float* sl = slot[warp] + lane * kSlot;
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) {
+      if (h < H) {
+        sl[h] = lsum[h];
+        sl[HMAX + h] = lpsum[h];
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < H) {
+    float lh = 0.f, lph = 0.f;
+    for (int i = 0; i < held; ++i) {
+      lh += slot[warp][i * kSlot + lane];
+      lph += slot[warp][i * kSlot + HMAX + lane];
+    }
+    m_out[ro * H + lane] = hd[HMAX + lane];
+    l_out[ro * H + lane] = lh;
+    if (with_pos) lpos_out[ro * H + lane] = lph;
   }
 }
 
@@ -366,18 +431,35 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
                        const int* col_ids, const void* mask, const int* ct,
                        const int* chunk_ptr, int R, int H, int F, float slope,
                        int with_pos, float p, float inv_keep, uint32_t seed,
-                       int bf16, float* m, float* l, float* lpos, float* acc,
-                       float* accpos, void* stream) {
+                       int bf16, int hmax, int nc, float* m, float* l,
+                       float* lpos, float* acc, float* accpos, void* stream) {
+  // the instance ops/dense.py dense_gat_fwd_instance chose, checked
+  if (H < 1 || F < 1 || H > hmax || (hmax != 4 && hmax != kMaxHeads) ||
+      cols_per_lane(H * F) != nc || nc > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (R + kWarps - 1) / kWarps;
-  const int bad = dispatch_nc(H * F, [&](auto nc) {
-    dense_gat_fwd_kernel<decltype(nc)::value>
-        <<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-            x, ac, ar, acmax, row_ids, col_ids,
-            static_cast<const uint32_t*>(mask), ct, chunk_ptr, R, H, F, slope,
-            with_pos, p, inv_keep, seed, bf16, m, l, lpos, acc, accpos);
-  });
-  if (bad) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* msk = static_cast<const uint32_t*>(mask);
+#define DGNN_GAT_FWD(HM, NCC)                                               \
+  dense_gat_fwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(              \
+      x, ac, ar, acmax, row_ids, col_ids, msk, ct, chunk_ptr, R, H, F, slope, \
+      with_pos, p, inv_keep, seed, bf16, m, l, lpos, acc, accpos)
+#define DGNN_GAT_FWD_NC(HM)                   \
+  if (nc == 1) DGNN_GAT_FWD(HM, 1);           \
+  else if (nc == 2) DGNN_GAT_FWD(HM, 2);      \
+  else if (nc == 4) DGNN_GAT_FWD(HM, 4);      \
+  else if (nc == 8) DGNN_GAT_FWD(HM, 8);      \
+  else if (nc == 16) DGNN_GAT_FWD(HM, 16);    \
+  else DGNN_GAT_FWD(HM, 32)
+  if (hmax == 4) {
+    DGNN_GAT_FWD_NC(4);
+  } else {
+    DGNN_GAT_FWD_NC(kMaxHeads);
+  }
+#undef DGNN_GAT_FWD_NC
+#undef DGNN_GAT_FWD
   return static_cast<int>(cudaGetLastError());
 }
 

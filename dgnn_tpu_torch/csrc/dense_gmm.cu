@@ -33,22 +33,34 @@
 // and g for gw.  c_k = gw_k w_k and every stat use the unrounded w_k.
 //
 // Design, as dense_gat.cu: one warp per block row, four rows per thread
-// block; a warp walks its row chunk's schedule entries, compacts each tile
-// row's set columns from the mask words and takes the edges 32 at a time,
-// so the work is proportional to edges, not to (row, column) pairs.  A
-// masked pair contributes exactly 0 in the TPU kernel, so skipping it
-// changes only the summation order.  Per batch of 32 edges: lane i computes
-// edge i's coordinates and weights; then the lanes, spread over the K*F
-// columns, add the edges' weighted rows (and, in the backward, reduce
-// <x, g_v> per kernel with warp shuffles); then lane i adds edge i's terms
-// to its own stat accumulators, which are summed over the warp once at the
-// end of the row.  Neither kernel needs atomics.
+// block; a warp walks its row chunk's schedule entries and takes a tile
+// row's set columns a batch of 32 at a time, so the work is proportional
+// to edges, not to (row, column) pairs.  A masked pair contributes exactly
+// 0 in the TPU kernel, so skipping it changes only the summation order.
+// Per batch: lane i computes edge i's coordinates and weights; then the
+// lanes, spread over the K*F columns, add the edges' weighted rows.
+// Neither kernel needs atomics.
+//
+//   Forward: a warp compacts 32 mask words at a time into a list in shared
+//   memory (compact_pass).
+//   Backward: the warp lists a tile row's set columns in one pass over its
+//   64 mask words (dense_common.cuh RowList), so a cora row's 4.4 edges
+//   form one batch and one chain of dependent loads (chunk_ptr -> mask ->
+//   col_ids -> beta, dfeat -> g row); the row's own alpha and x are
+//   requested before its mask, and each edge's row of g from addresses
+//   every lane can load, so that no load waits behind a branch.  Per edge
+//   the K dot products <x, g_v> take one interleaved butterfly over the K
+//   values (reduce_scatter) instead of K warp sums.  Lane i keeps edge i's
+//   stat terms in registers sized to the instance (the models' K <= 4,
+//   D <= 2, Dd <= 2, or the general limits); after the walk each lane that
+//   held an edge writes its sums to a warp-private slab in shared memory
+//   and lane c adds column c over those lanes only, instead of a warp sum
+//   per stat column.  Launch bounds cap the registers (gmm_bwd_min_blocks).
 //
 // Bound on the H100: for cora-size blocks, the latency of the dependent
-// loads per edge (mask word -> col_ids -> alpha / beta -> feature row); the
-// bytes are one row of K*F floats per edge (768 B at K=3, F=64), mostly
-// served from L2.  Left for later PRs: splitting long hub rows over
-// several warps and tensor-core tiles for dense hub tiles.
+// loads per edge; the bytes are one row of K*F floats per edge (768 B at
+// K=3, F=64), mostly served from L2.  Left for later PRs: splitting long
+// hub rows over several warps and tensor-core tiles for dense hub tiles.
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
@@ -78,13 +90,12 @@ using dgnn::kRT;
 using dgnn::kRowWords;
 using dgnn::kWarps;
 using dgnn::rnd;
-using dgnn::warp_sum;
+using dgnn::RowList;
 
-// Per-warp staging in shared memory.
+// The forward's per-warp staging in shared memory.
 struct WarpStage {
   unsigned short cols[kListCap];   // set tile columns of this pass
   float w[32][kGmmMaxK];           // per edge and kernel: w_k (rounded)
-  float gw[32][kGmmMaxK];          // bwd: <x, g_v> per edge and kernel
 };
 
 template <int NC>
@@ -180,8 +191,38 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gmm_fwd_kernel(
   }
 }
 
-template <int NC>
-__global__ void __launch_bounds__(kWarps * 32) dense_gmm_bwd_kernel(
+// The backward's instances: stat sizes held in registers (KM kernels, DM
+// projected dimensions, DDM raw destination scalars), the models' (K <= 4,
+// D <= 2, Dd <= 2: 2 * 4 * 2 + 2 + 4 = 22 sums a lane) and the general
+// (kGmmMaxK, kGmmMaxD, kGmmMaxDd: 84), each at 1, 8 or 32 columns a lane
+// (ops/dense.py dense_gmm_bwd_instance picks one).  The models' instances
+// at up to 8 columns a lane keep kGmmBwdMinBlocks blocks of kWarps rows an
+// SM by their launch bounds (at most 128 registers a thread: 2,112 of
+// cora's 2,560 block rows resident at once on 132 SMs).  Of the caps
+// measured on cora's hidden layer this one was fastest with nothing
+// spilled: five blocks (102 registers) spilled and ran slower.
+constexpr int kGmmBwdMinBlocks = 4;
+constexpr int gmm_bwd_min_blocks(int km, int nc) {
+  return km <= 4 && nc <= 8 ? kGmmBwdMinBlocks : 1;
+}
+
+template <int KM, int DM, int DDM>
+struct BwdStage {
+  static constexpr int kStat = 2 * KM * DM + DM + DM * DDM;  // sums a lane
+  static constexpr int kSlab = kStat | 1;  // odd stride: no bank conflicts
+  unsigned short cols[32];  // the batch's tile columns
+  union {
+    struct {
+      float w[32][KM];   // per edge and kernel: w_k (rounded)
+      float gw[32][KM];  // per edge and kernel: <x, g_v>
+    } e;
+    float slab[32 * kSlab];  // after the walk: each lane's stat sums
+  } u;
+};
+
+template <int KM, int DM, int DDM, int NC>
+__global__ void __launch_bounds__(kWarps * 32, gmm_bwd_min_blocks(KM, NC))
+dense_gmm_bwd_kernel(
     const float* __restrict__ g,         // [Nd, K*F] grad of the output
     const float* __restrict__ beta,      // [Nd, D]   destination-side projection
     const float* __restrict__ dfeat,     // [Nd, Dd]  raw destination scalars
@@ -197,141 +238,154 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gmm_bwd_kernel(
     int R, int K, int D, int Dd, int F, int use_tanh, int bf16,
     float* __restrict__ dx_out,          // [R, K*F]
     float* __restrict__ st_out) {        // [R, 2KD + D + D*Dd]
-  __shared__ WarpStage stage[kWarps];
-  __shared__ float mu_sh[kGmmMaxKD];
-  __shared__ float isig_sh[kGmmMaxKD];
-  if (threadIdx.x < K * D) {
-    mu_sh[threadIdx.x] = mu[threadIdx.x];
-    isig_sh[threadIdx.x] = isig[threadIdx.x];
+  using Stage = BwdStage<KM, DM, DDM>;
+  __shared__ Stage stage[kWarps];
+  __shared__ float mu_sh[KM * DM];    // index k * DM + d
+  __shared__ float isig_sh[KM * DM];
+  for (int i = threadIdx.x; i < KM * DM; i += blockDim.x) {
+    const int k = i / DM, d = i % DM;
+    const bool on = k < K && d < D;
+    mu_sh[i] = on ? mu[k * D + d] : 0.f;
+    isig_sh[i] = on ? isig[k * D + d] : 0.f;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  WarpStage& st = stage[warp];
+  Stage& st = stage[warp];
   const int KF = K * F;
   const int KD = K * D;
   const bool use_bf = bf16 != 0;
   const bool tanh_on = use_tanh != 0;
   const int chunk = r / kRT;
+  // the row's own tables are requested before its mask
   const size_t sid = static_cast<size_t>(row_ids[r]);
-
-  float a[kGmmMaxD];
+  const int t_end = chunk_ptr[chunk + 1];
+  float a[DM];
 #pragma unroll
-  for (int d = 0; d < kGmmMaxD; ++d) a[d] = d < D ? alpha[sid * D + d] : 0.f;
-
-  // this lane's edges' stat sums
-  float s_ct[kGmmMaxKD], s_ctd[kGmmMaxKD];  // index k * kGmmMaxD + d
-  float s_dpre[kGmmMaxD], s_df[kGmmMaxD * kGmmMaxDd];
-#pragma unroll
-  for (int i = 0; i < kGmmMaxKD; ++i) s_ct[i] = s_ctd[i] = 0.f;
-#pragma unroll
-  for (int d = 0; d < kGmmMaxD; ++d) s_dpre[d] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kGmmMaxD * kGmmMaxDd; ++i) s_df[i] = 0.f;
-
+  for (int d = 0; d < DM; ++d) a[d] = d < D ? __ldg(alpha + sid * D + d) : 0.f;
   float dx[NC], xr[NC];  // sum w g per column; the row's own x (rounded)
-  int kcol[NC];
+  int kcol[NC];          // the column's kernel (0 past the row's end)
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int c = lane + 32 * j;
     dx[j] = 0.f;
-    kcol[j] = c < KF ? c / F : -1;
-    xr[j] = c < KF ? rnd(x[sid * KF + c], use_bf) : 0.f;
+    kcol[j] = c < KF ? c / F : 0;
+    xr[j] = c < KF ? rnd(__ldg(x + sid * KF + c), use_bf) : 0.f;
   }
 
-  for (int t = chunk_ptr[chunk]; t < chunk_ptr[chunk + 1]; ++t) {
+  // this lane's edges' stat sums
+  float s_ct[KM * DM], s_ctd[KM * DM];  // index k * DM + d
+  float s_dpre[DM], s_df[DM * DDM];     // index d * DDM + i
+#pragma unroll
+  for (int i = 0; i < KM * DM; ++i) s_ct[i] = s_ctd[i] = 0.f;
+#pragma unroll
+  for (int d = 0; d < DM; ++d) s_dpre[d] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DM * DDM; ++i) s_df[i] = 0.f;
+  int held = 0;  // lanes that held an edge: min(32, the longest tile row)
+
+  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
     const uint32_t* mrow =
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
-    const int* did_tile = col_ids + static_cast<size_t>(ct[t]) * kCT;
-    for (int w0 = 0; w0 < kRowWords; w0 += kPassWords) {
-      const int total = compact_pass(mrow, w0, lane, st.cols);
-      for (int e0 = 0; e0 < total; e0 += 32) {
-        const int n = min(32, total - e0);
-        // lane i: edge e0 + i's coordinates and weights
-        uint32_t did = 0;
-        float p[kGmmMaxD], wk[kGmmMaxK];
-        if (lane < n) {
-          did = static_cast<uint32_t>(did_tile[st.cols[e0 + lane]]);
-          float diff[kGmmMaxD], tt[kGmmMaxD];
-          gmm_coords(a, beta + static_cast<size_t>(did) * D, D, tanh_on, p);
+    const int* did_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
+    RowList rl;
+    rl.load(mrow, lane);
+    held = max(held, min(32, rl.total));
+    for (int e0 = 0; e0 < rl.total; e0 += 32) {
+      const int n = min(32, rl.total - e0);
+      rl.emit(e0, st.cols);
+      __syncwarp();
+      // lane i: edge e0 + i's tables, coordinates and weights
+      uint32_t did = 0;
+      float p[DM], wk[KM], dfe[DDM];
+      if (lane < n) {
+        did = static_cast<uint32_t>(did_tile[st.cols[lane]]);
+        float b[DM];
 #pragma unroll
-          for (int k = 0; k < kGmmMaxK; ++k) {
-            if (k < K) {
-              wk[k] =
-                  gmm_weight(p, mu_sh + k * D, isig_sh + k * D, D, diff, tt);
-              st.w[lane][k] = rnd(wk[k], use_bf);
-            }
+        for (int d = 0; d < DM; ++d)
+          b[d] = d < D ? __ldg(beta + static_cast<size_t>(did) * D + d) : 0.f;
+#pragma unroll
+        for (int i = 0; i < DDM; ++i)
+          dfe[i] = i < Dd ? __ldg(dfeat + static_cast<size_t>(did) * Dd + i)
+                          : 0.f;
+        float diff[DM], tt[DM];
+        gmm_coords<DM>(a, b, D, tanh_on, p);
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          if (k < K) {
+            wk[k] = gmm_weight<DM>(p, mu_sh + k * DM, isig_sh + k * DM, D,
+                                   diff, tt);
+            st.u.e.w[lane][k] = rnd(wk[k], use_bf);
           }
         }
-        __syncwarp();
-        // lanes over feature columns: dx and the per-kernel <x, g_v>
-#pragma unroll 2
-        for (int i = 0; i < n; ++i) {
-          const uint32_t di = __shfl_sync(kFull, did, i);
-          const float* gr = g + static_cast<size_t>(di) * KF;
-          float prod[NC];
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            const int c = lane + 32 * j;
-            const float gv = c < KF ? rnd(gr[c], use_bf) : 0.f;
-            if (c < KF) dx[j] += st.w[i][kcol[j]] * gv;
-            prod[j] = xr[j] * gv;
-          }
-#pragma unroll
-          for (int k = 0; k < kGmmMaxK; ++k) {
-            if (k < K) {
-              float v = 0.f;
-#pragma unroll
-              for (int j = 0; j < NC; ++j) {
-                if (kcol[j] == k) v += prod[j];
-              }
-              v = warp_sum(v);
-              if (lane == 0) st.gw[i][k] = v;
-            }
-          }
-        }
-        __syncwarp();
-        // lane i: edge i's terms of the stat row
-        if (lane < n) {
-          float dp[kGmmMaxD];
-#pragma unroll
-          for (int d = 0; d < kGmmMaxD; ++d) dp[d] = 0.f;
-#pragma unroll
-          for (int k = 0; k < kGmmMaxK; ++k) {
-            if (k < K) {
-              const float c = st.gw[lane][k] * wk[k];
-#pragma unroll
-              for (int d = 0; d < kGmmMaxD; ++d) {
-                if (d < D) {
-                  const float df = p[d] - mu_sh[k * D + d];
-                  const float is = isig_sh[k * D + d];
-                  const float ctd = c * (df * is);
-                  s_ct[k * kGmmMaxD + d] += ctd;
-                  s_ctd[k * kGmmMaxD + d] += ctd * df;
-                  dp[d] -= ctd * is;
-                }
-              }
-            }
-          }
-#pragma unroll
-          for (int d = 0; d < kGmmMaxD; ++d) {
-            if (d < D) {
-              const float dpre = tanh_on ? dp[d] * (1.f - p[d] * p[d]) : dp[d];
-              s_dpre[d] += dpre;
-#pragma unroll
-              for (int i = 0; i < kGmmMaxDd; ++i) {
-                if (i < Dd) {
-                  s_df[d * kGmmMaxDd + i] +=
-                      dpre * dfeat[static_cast<size_t>(did) * Dd + i];
-                }
-              }
-            }
-          }
-        }
-        __syncwarp();  // before the next batch overwrites the staging
       }
+      __syncwarp();
+      // lanes over feature columns: dx and, per edge, the K dot products
+      // <x, g_v> in one reduce-scatter.  Every lane loads an address in
+      // the row (a branch around a load and its use made each edge wait
+      // for its row in turn) and zeroes what lies past K*F.  Two edges at a time at one column a lane; at eight, one edge
+      // at a time fits the registers and measured faster.
+#pragma unroll(NC == 1 ? 2 : 1)
+      for (int i = 0; i < n; ++i) {
+        const uint32_t di = __shfl_sync(kFull, did, i);
+        const float* gr = g + static_cast<size_t>(di) * KF;
+        float gv[NC];
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
+          gv[j] = __ldg(gr + min(lane + 32 * j, KF - 1));
+        float v[KM];
+#pragma unroll
+        for (int k = 0; k < KM; ++k) v[k] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) {
+          const float gq = lane + 32 * j < KF ? rnd(gv[j], use_bf) : 0.f;
+          dx[j] += st.u.e.w[i][kcol[j]] * gq;
+          const float pr = xr[j] * gq;
+#pragma unroll
+          for (int k = 0; k < KM; ++k) v[k] += kcol[j] == k ? pr : 0.f;
+        }
+        const float s = dgnn::reduce_scatter<KM>(v, lane);
+        const int k = lane / (32 / KM);
+        if ((lane & (32 / KM - 1)) == 0 && k < K) st.u.e.gw[i][k] = s;
+      }
+      __syncwarp();
+      // lane i: edge i's terms of the stat row
+      if (lane < n) {
+        float dp[DM];
+#pragma unroll
+        for (int d = 0; d < DM; ++d) dp[d] = 0.f;
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          if (k < K) {
+            const float c = st.u.e.gw[lane][k] * wk[k];
+#pragma unroll
+            for (int d = 0; d < DM; ++d) {
+              if (d < D) {
+                const float df = p[d] - mu_sh[k * DM + d];
+                const float is = isig_sh[k * DM + d];
+                const float ctd = c * (df * is);
+                s_ct[k * DM + d] += ctd;
+                s_ctd[k * DM + d] += ctd * df;
+                dp[d] -= ctd * is;
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < DM; ++d) {
+          if (d < D) {
+            const float dpre = tanh_on ? dp[d] * (1.f - p[d] * p[d]) : dp[d];
+            s_dpre[d] += dpre;
+#pragma unroll
+            for (int i = 0; i < DDM; ++i) {
+              if (i < Dd) s_df[d * DDM + i] += dpre * dfe[i];
+            }
+          }
+        }
+      }
+      __syncwarp();  // before the next batch overwrites the staging
     }
   }
 
@@ -341,34 +395,37 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gmm_bwd_kernel(
     const int c = lane + 32 * j;
     if (c < KF) dx_out[ro * KF + c] = dx[j];
   }
-  float* srow = st_out + ro * (2 * KD + D + D * Dd);
+  // the stat row: each lane that held an edge puts its sums in its row of
+  // the slab; lane c adds column c over those lanes only
+  if (lane < held) {
+    float* slab = st.u.slab + lane * Stage::kSlab;
 #pragma unroll
-  for (int k = 0; k < kGmmMaxK; ++k) {
+    for (int k = 0; k < KM; ++k) {
 #pragma unroll
-    for (int d = 0; d < kGmmMaxD; ++d) {
-      if (k < K && d < D) {
-        const float v1 = warp_sum(s_ct[k * kGmmMaxD + d]);
-        const float v2 = warp_sum(s_ctd[k * kGmmMaxD + d]);
-        if (lane == 0) {
-          srow[k * D + d] = v1;
-          srow[KD + k * D + d] = v2;
+      for (int d = 0; d < DM; ++d) {
+        if (k < K && d < D) {
+          slab[k * D + d] = s_ct[k * DM + d];
+          slab[KD + k * D + d] = s_ctd[k * DM + d];
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < DM; ++d) {
+      if (d < D) {
+        slab[2 * KD + d] = s_dpre[d];
+#pragma unroll
+        for (int i = 0; i < DDM; ++i) {
+          if (i < Dd) slab[2 * KD + D + d * Dd + i] = s_df[d * DDM + i];
         }
       }
     }
   }
-#pragma unroll
-  for (int d = 0; d < kGmmMaxD; ++d) {
-    if (d < D) {
-      const float v = warp_sum(s_dpre[d]);
-      if (lane == 0) srow[2 * KD + d] = v;
-#pragma unroll
-      for (int i = 0; i < kGmmMaxDd; ++i) {
-        if (i < Dd) {
-          const float u = warp_sum(s_df[d * kGmmMaxDd + i]);
-          if (lane == 0) srow[2 * KD + D + d * Dd + i] = u;
-        }
-      }
-    }
+  __syncwarp();
+  const int ns = 2 * KD + D + D * Dd;
+  for (int c = lane; c < ns; c += 32) {
+    float v = 0.f;
+    for (int l = 0; l < held; ++l) v += st.u.slab[l * Stage::kSlab + c];
+    st_out[ro * ns + c] = v;
   }
 }
 
@@ -423,19 +480,32 @@ int dgnn_dense_gmm_bwd(const float* g, const float* beta, const float* dfeat,
                        const int* col_ids, const void* mask, const int* ct,
                        const int* chunk_ptr, const float* mu,
                        const float* isig, int R, int K, int D, int Dd, int F,
-                       int use_tanh, int bf16, float* dx, float* st,
-                       void* stream) {
-  if (bad_dims(K, D, Dd, F)) return static_cast<int>(cudaErrorInvalidValue);
+                       int use_tanh, int bf16, int general, int nc, float* dx,
+                       float* st, void* stream) {
+  // the instance ops/dense.py dense_gmm_bwd_instance chose, checked
+  const bool fits = general ? true : K <= 4 && D <= 2 && Dd <= 2;
+  if (bad_dims(K, D, Dd, F) || !fits || (nc != 1 && nc != 8 && nc != 32) ||
+      32 * nc < K * F) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (R + kWarps - 1) / kWarps;
-  const int bad = dispatch_nc(K * F, [&](auto nc) {
-    dense_gmm_bwd_kernel<decltype(nc)::value>
-        <<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-            g, beta, dfeat, alpha, x, row_ids, col_ids,
-            static_cast<const uint32_t*>(mask), ct, chunk_ptr, mu, isig, R, K,
-            D, Dd, F, use_tanh, bf16, dx, st);
-  });
-  if (bad) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* m = static_cast<const uint32_t*>(mask);
+#define DGNN_GMM_BWD(KM, DM, DDM, NC)                                        \
+  dense_gmm_bwd_kernel<KM, DM, DDM, NC><<<blocks, kWarps * 32, 0, s>>>(      \
+      g, beta, dfeat, alpha, x, row_ids, col_ids, m, ct, chunk_ptr, mu, isig, \
+      R, K, D, Dd, F, use_tanh, bf16, dx, st)
+  if (!general) {
+    if (nc == 1) DGNN_GMM_BWD(4, 2, 2, 1);
+    else if (nc == 8) DGNN_GMM_BWD(4, 2, 2, 8);
+    else DGNN_GMM_BWD(4, 2, 2, 32);
+  } else {
+    if (nc == 1) DGNN_GMM_BWD(kGmmMaxK, kGmmMaxD, kGmmMaxDd, 1);
+    else if (nc == 8) DGNN_GMM_BWD(kGmmMaxK, kGmmMaxD, kGmmMaxDd, 8);
+    else DGNN_GMM_BWD(kGmmMaxK, kGmmMaxD, kGmmMaxDd, 32);
+  }
+#undef DGNN_GMM_BWD
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,11 +21,13 @@ constexpr int kGmmMaxD = 4;    // projected pseudo dimensions
 constexpr int kGmmMaxDd = 4;   // raw destination-side pseudo scalars
 constexpr int kGmmMaxKD = kGmmMaxK * kGmmMaxD;
 
-// p[d] for d < D from the two endpoints' projections.
+// p[d] for d < D from the two endpoints' projections.  DMAX: the length of
+// the caller's arrays (D <= DMAX).
+template <int DMAX = kGmmMaxD>
 __device__ __forceinline__ void gmm_coords(const float* a, const float* b,
                                            int D, bool use_tanh, float* p) {
 #pragma unroll
-  for (int d = 0; d < kGmmMaxD; ++d) {
+  for (int d = 0; d < DMAX; ++d) {
     if (d < D) {
       const float pre = __fadd_rn(a[d], b[d]);
       p[d] = use_tanh ? tanhf(pre) : pre;
@@ -34,12 +36,13 @@ __device__ __forceinline__ void gmm_coords(const float* a, const float* b,
 }
 
 // w_k of one kernel; also leaves diff[d] = p_d - mu_kd and t[d] = t_kd.
+template <int DMAX = kGmmMaxD>
 __device__ __forceinline__ float gmm_weight(const float* p, const float* mu_k,
                                             const float* isig_k, int D,
                                             float* diff, float* t) {
   float q = 0.f;
 #pragma unroll
-  for (int d = 0; d < kGmmMaxD; ++d) {
+  for (int d = 0; d < DMAX; ++d) {
     if (d < D) {
       diff[d] = __fsub_rn(p[d], mu_k[d]);
       t[d] = __fmul_rn(diff[d], isig_k[d]);

@@ -128,14 +128,17 @@ class BinnedAdj:
             epos=None if self.epos is None else self.epos.to(device))
 
 
-def from_binned(b: _binning.BinnedCSR, with_edge: bool = True,
+def from_binned(b: _binning.BinnedCSR, with_cmb: bool = True,
+                with_edge: bool = True,
                 dense: _hub.DensePlan | None = None) -> BinnedAdj:
     """Host BinnedCSR (and hub.DensePlan) -> BinnedAdj of CPU tensors.
 
     ``dense`` rows' partials are indexed AFTER every bin's segments in the
     combine table; only its first ``num_rows`` rows are valid.
-    ``with_edge=False`` omits the per-slot global-edge-id tables and the
-    inverse slot-position table ``epos``, which is built only without a
+    ``with_cmb=False`` builds no combine table (``cmb`` is None), for
+    callers that stack tables of their own; the fused ops refuse such a
+    graph.  ``with_edge=False`` omits the per-slot global-edge-id tables and
+    the inverse slot-position table ``epos``, which is built only without a
     hub block."""
     epos = None
     if with_edge and dense is None:
@@ -155,16 +158,18 @@ def from_binned(b: _binning.BinnedCSR, with_edge: bool = True,
             raise ValueError(
                 f"padded slot count {off} overflows the int32 epos table")
         epos = _t(ep)
-    rows_concat = [np.asarray(r) for r in b.row]
-    valid = [np.asarray(c) > 0 for c in b.count]
-    if dense is not None:
-        rows_concat.append(np.asarray(dense.row_ids, np.int64))
-        v = np.zeros(len(dense.row_ids), bool)
-        v[:dense.num_rows] = True
-        valid.append(v)
-    main, ov_rows, ov = _binning.combine_tables(
-        np.concatenate(rows_concat), b.num_rows, np.concatenate(valid))
-    cmb = CombineTable(main=_t(main), ov_rows=_t(ov_rows), ov=_t(ov))
+    cmb = None
+    if with_cmb:
+        rows_concat = [np.asarray(r) for r in b.row]
+        valid = [np.asarray(c) > 0 for c in b.count]
+        if dense is not None:
+            rows_concat.append(np.asarray(dense.row_ids, np.int64))
+            v = np.zeros(len(dense.row_ids), bool)
+            v[:dense.num_rows] = True
+            valid.append(v)
+        main, ov_rows, ov = _binning.combine_tables(
+            np.concatenate(rows_concat), b.num_rows, np.concatenate(valid))
+        cmb = CombineTable(main=_t(main), ov_rows=_t(ov_rows), ov=_t(ov))
     return BinnedAdj(
         nbr=tuple(_t(x) for x in b.nbr),
         edge=(tuple(_t(x) for x in b.edge) if with_edge

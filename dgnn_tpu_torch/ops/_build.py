@@ -133,7 +133,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             ci, ci, ci,                         # R H F
             cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
-            ci,                                 # bf16
+            ci, ci, ci,                         # bf16 hmax nc
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
             vp]                                 # stream
         lib.dgnn_dense_gat_fwd.restype = ci
@@ -175,6 +175,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             vp, vp,                             # mu isig
             ci, ci, ci, ci, ci, ci, ci,         # R K D Dd F use_tanh bf16
+            ci, ci,                             # general nc
             vp, vp,                             # dx st
             vp]                                 # stream
         lib.dgnn_dense_gmm_bwd.restype = ci

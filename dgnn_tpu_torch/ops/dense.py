@@ -23,7 +23,9 @@ backward w_k and g for dx, x and g for <x, g>, while c_k = <x, g> w_k and
 the stat rows use the unrounded w_k); "float32" rounds nothing.
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
-only where the kernel is launched).
+only where the kernel is launched).  ``dense_gat_fwd_instance`` and
+``dense_gmm_bwd_instance`` pick the template instance of those two kernels
+that a call launches; the launchers refuse any other.
 """
 
 from __future__ import annotations
@@ -39,11 +41,16 @@ from .common import gaussian_terms, leaky_relu, leaky_relu_grad, pair_keep
 __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
            "dense_gat_bwd_plain", "dense_gmm_fwd", "dense_gmm_fwd_plain",
            "dense_gmm_bwd", "dense_gmm_bwd_plain", "unpack_mask", "LAUNCHES",
-           "reset_launches", "DENSE_DTYPES", "MAX_HF"]
+           "reset_launches", "DENSE_DTYPES", "MAX_HF", "dense_gat_fwd_instance",
+           "dense_gmm_bwd_instance", "GMM_BWD_MODEL"]
 
 DENSE_DTYPES = ("bfloat16", "float32")
 # Feature columns the kernels take: 32 lanes x at most 32 columns each.
 MAX_HF = 1024
+
+# (K, D, Dd) that dense_gmm_bwd's models' instance holds in registers
+# (csrc/dense_gmm.cu); larger sizes take the general instance.
+GMM_BWD_MODEL = (4, 2, 2)
 
 LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0,
             "dense_gmm_fwd": 0, "dense_gmm_bwd": 0}
@@ -52,6 +59,29 @@ LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def dense_gat_fwd_instance(H: int, F: int) -> tuple[int, int]:
+    """(heads held, feature columns a lane) of the csrc/dense_gat.cu
+    forward instance for H heads of F features: 4 heads held up to H = 4,
+    else 16; a warp a block row at every width (a group of 8 lanes a row at
+    the output layer's 7 columns measured slower), the fewest columns a
+    lane (a power of two) that cover H*F."""
+    cols = 1
+    while 32 * cols < H * F:
+        cols *= 2
+    return (4 if H <= 4 else 16), cols
+
+
+def dense_gmm_bwd_instance(K: int, D: int, Dd: int,
+                           F: int) -> tuple[str, int]:
+    """("model" or "general", feature columns a lane) of the
+    csrc/dense_gmm.cu backward instance: the models' stat sizes where K, D
+    and Dd fit GMM_BWD_MODEL, else the general limits; 1, 8 or 32 columns
+    a lane of a warp, the fewest that cover K*F."""
+    fits = all(v <= m for v, m in zip((K, D, Dd), GMM_BWD_MODEL))
+    cols = next(c for c in (1, 8, 32) if 32 * c >= K * F or c == 32)
+    return ("model" if fits else "general"), cols
 
 
 def unpack_mask(bits_u8: torch.Tensor) -> torch.Tensor:
@@ -131,9 +161,10 @@ def _check_block(name, db, HF, H=None):
         raise ValueError(f"{name}: mask must be uint8 [T, {DENSE_RT}, "
                          f"{DENSE_CT // 8}], got {db.mask.dtype} "
                          f"{tuple(db.mask.shape)}")
-    if not db.mask.is_contiguous() or db.mask.data_ptr() % 4:
-        raise ValueError(f"{name}: mask must be contiguous and 4-byte "
-                         "aligned (the kernels read it as 32-bit words)")
+    if not db.mask.is_contiguous() or db.mask.data_ptr() % 8:
+        raise ValueError(f"{name}: mask must be contiguous and 8-byte "
+                         "aligned (the kernels read a tile row's words two "
+                         "at a time)")
     if R % DENSE_RT or C % DENSE_CT:
         raise ValueError(f"{name}: block of {R} x {C}; rows must be a "
                          f"multiple of {DENSE_RT}, columns of {DENSE_CT}")
@@ -186,14 +217,15 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
     acc = torch.empty((R, H, F), **new)
     lpos = torch.empty((R, H), **new) if with_pos else None
     accpos = torch.empty((R, H, F), **new) if with_pos else None
+    hmax, cols = dense_gat_fwd_instance(H, F)
     lib = _build.load()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gat_fwd(
         _ptr(feat), _ptr(ac), _ptr(ar), _ptr(acmax), _ptr(db.row_ids),
         _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
         R, H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
-        int(seed) & 0xFFFFFFFF, int(dense_dtype == "bfloat16"), _ptr(m),
-        _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos), stream)
+        int(seed) & 0xFFFFFFFF, int(dense_dtype == "bfloat16"), hmax, cols,
+        _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos), stream)
     if err:
         raise RuntimeError(f"dense_gat_fwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")
@@ -429,14 +461,15 @@ def dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu, isig, *,
     dx = torch.empty((R, K, F), device=g.device, dtype=torch.float32)
     st = torch.empty((R, gmm_stat_width(K, D, Dd)), device=g.device,
                      dtype=torch.float32)
+    sizes, cols = dense_gmm_bwd_instance(K, D, Dd, F)
     lib = _build.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.dgnn_dense_gmm_bwd(
         _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
         _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct),
         _ptr(db.chunk_ptr), _ptr(mu), _ptr(isig), R, K, D, Dd, F,
-        int(use_tanh), int(dense_dtype == "bfloat16"), _ptr(dx), _ptr(st),
-        stream)
+        int(use_tanh), int(dense_dtype == "bfloat16"),
+        int(sizes == "general"), cols, _ptr(dx), _ptr(st), stream)
     if err:
         raise RuntimeError(f"dense_gmm_bwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, K={K}, D={D}, Dd={Dd}, F={F})")

@@ -13,16 +13,16 @@ not the JAX formulation carried over: that one broadcasts a
 
 - ``bwd_mode="argmax"`` scatters g to the saved first-winner index with one
   ``scatter_add_`` over [B, P, F];
-- ``bwd_mode="tie_sum"`` (the default, as in the JAX op) walks the admitted
-  (i, j) pairs only (about B * P * k of them, from ``torch.nonzero`` of the
-  mask: one host sync per call), in slices whose [pairs, F] float32
-  intermediates stay under ``PAIR_BYTES`` each, recomputes ``h_src[j] +
-  mask[i, j]`` with the float32 add the forward used, and ``index_add_``s g
-  to every source whose candidate equals the saved max.  A candidate that
-  the mask does not admit can equal the max only in a row that admits
-  nothing, so such rows contribute all their P pairs and the function is
-  the JAX op's on every {0, neg} mask with |h_src| < |neg| / 4 (checked:
-  ``_dsrc_ties``).
+- ``bwd_mode="tie_sum"`` (the default, as in the JAX op) walks only the
+  (i, j) pairs that can tie (``torch.nonzero`` of a filter: one host sync
+  per call), in slices whose [pairs, F] float32 intermediates stay under
+  ``PAIR_BYTES`` each, recomputes ``h_src[j] + mask[i, j]`` with the
+  float32 add the forward used, and ``index_add_``s g to every source
+  whose candidate equals the saved max.  The filter keeps every pair that
+  can hit, for any float mask: rounded addition is monotone, so a hit in
+  feature f needs fl(mask[i, j] + max_f h_src[j]) >= m[i, f] >= min_f
+  m[i].  On the model's k-NN masks it keeps about the admitted pairs
+  (``_dsrc_ties``).
 
 ``mul_dtype`` follows the JAX op: bfloat16 (the default) rounds g to
 bfloat16, sums in float32 and rounds the sum once; float32 is exact.
@@ -65,29 +65,28 @@ def _dsrc_argmax(kstar, g, mul_dtype):
 def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
     """d_src[b, j, f] = sum_i g[b, i, f]
                         [h_src[b, j, f] + mask[b, i, j] == m[b, i, f]]
-    over the pairs that can satisfy it (module docstring).
+    over the pairs that can satisfy it, for any float mask.
 
-    Precondition: the mask holds two values, 0 and one ``neg`` < 0, and
-    |h_src| < |neg| / 4 everywhere, so that a candidate the mask does not
-    admit (below 3 neg / 4) never reaches one it admits (above neg / 4) and
-    can only win a row that admits nothing.  The second half is checked
-    here (the ``nonzero`` below waits for the card anyway); activations
-    that large beside the mask's ``neg`` raise instead of silently losing
-    tied sources."""
+    A pair (i, j) hits in feature f only if fl(mask[i, j] + h_src[j, f])
+    == m[i, f]; rounded addition is monotone in each operand, so then
+    fl(mask[i, j] + hmax[j]) >= m[i, f] >= mmin[i], with hmax[j] the max
+    of h_src[j] over f and mmin[i] the min of m[i] over f.  The pairs that
+    pass that test are a superset of the hits, with no margin: on a
+    {0, neg} mask with neg far below the activations they are the admitted
+    pairs (and every pair of a row that admits nothing, whose max is about
+    neg)."""
     B, P, F = h_src.shape
-    neg = mask_neg.amin().to(torch.float32)
-    if bool(h_src.abs().amax() * 4 >= -neg) and bool(neg < 0):
-        raise ValueError(
-            f"edge_conv_max_dense(bwd_mode='tie_sum'): |h_src| reaches "
-            f"{float(h_src.abs().amax()):.3g}, not below a quarter of the "
-            f"mask's neg {float(neg):.3g}: admitted and masked candidates "
-            "cannot be told apart; use a larger neg")
-    # half of the mask's most negative entry separates {0, neg} whatever neg
-    # is; an all-zero mask admits nothing by this test, and so every pair
-    # by the next line
-    adm = mask_neg > neg * 0.5
-    adm = adm | ~adm.any(dim=-1, keepdim=True)
-    b, i, j = torch.nonzero(adm, as_tuple=True)
+    hmax = h_src.amax(dim=-1)                              # [B, P] over j
+    mmin = m.amin(dim=-1)                                  # [B, P] over i
+    # the sum in float32 as the forward's (a bfloat16 mask is promoted),
+    # in batch slices whose float32 sums stay under PAIR_BYTES
+    cand = torch.empty(mask_neg.shape, dtype=torch.bool,
+                       device=mask_neg.device)
+    bstep = max(1, PAIR_BYTES // (4 * P * P))
+    for s in range(0, B, bstep):
+        torch.ge(mask_neg[s:s + bstep] + hmax[s:s + bstep, None, :],
+                 mmin[s:s + bstep, :, None], out=cand[s:s + bstep])
+    b, i, j = torch.nonzero(cand, as_tuple=True)
     mval = mask_neg[b, i, j].to(torch.float32)
     dst = b * P + i
     src = b * P + j

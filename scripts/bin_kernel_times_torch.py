@@ -1,21 +1,26 @@
 #!/usr/bin/env python
 """Own device time of the four bin kernels, K1 (``bin_gat_fwd``), K2
 (``bin_gat_bwd``), K3 (``bin_gmm_node_fwd``) and K4 (``bin_gmm_node_bwd``),
-over every bin of synthetic pubmed, at both layers' widths of the bench
-models, from a torch.profiler trace.
+over every bin of synthetic pubmed, and of the four dense hub-block kernels,
+K5 (``dense_gat_fwd``), K6 (``dense_gat_bwd``), K7 (``dense_gmm_fwd``) and
+K8 (``dense_gmm_bwd``), over synthetic cora's blocks, at both layers'
+widths of the bench models, from a torch.profiler trace.
 
     python scripts/bin_kernel_times_torch.py [--tree DIR] [--calls 50]
 
 ``--tree`` names the checkout whose ``dgnn_tpu_torch`` is imported (the
 default: this one), so that two checkouts can be timed in turns in one
-process call each on the same card.  A kernel whose list wrapper the tree
-has (``bin_gat_fwd_list``, ``bin_gat_bwd_list``, ``bin_gmm_node_fwd_list``,
-``bin_gmm_node_bwd_list``) is timed through it, one launch for every bin;
-otherwise one launch a bin.  GAT: (H, F) = (4, 64) and (1, 3), attention
+process call each on the same card.  A bin kernel whose list wrapper the
+tree has (``bin_gat_fwd_list``, ``bin_gat_bwd_list``,
+``bin_gmm_node_fwd_list``, ``bin_gmm_node_bwd_list``) is timed through it,
+one launch for every bin; otherwise one launch a bin.  GAT: (H, F) =
+(4, 64) and (1, 3) on pubmed, (4, 64) and (1, 7) on cora, attention
 dropout 0.3, the forward with the sign-split partials; MoNet: (K, F) =
-(3, 64) and (3, 3), D = 2, tanh.  Prints the card and one JSON object: per
-case the kernel's device ms per call (summed over its launches), the
-launches per call and whether the list wrapper ran.  Needs a CUDA device.
+(3, 64) and (3, 3) on pubmed, (3, 64) and (3, 7) on cora, D = 2, tanh; the
+dense kernels in bfloat16 (the models' default).  Prints the card and one
+JSON object: per case the kernel's device ms per call (summed over its
+launches), the launches per call and whether a list wrapper ran.  Needs a
+CUDA device.
 """
 
 import argparse
@@ -37,7 +42,7 @@ def main():
 
     from dgnn_tpu_torch.data import synthetic_citation
     from dgnn_tpu_torch.graph import structure
-    from dgnn_tpu_torch.ops import _build, bins
+    from dgnn_tpu_torch.ops import _build, bins, dense
 
     if not torch.cuda.is_available():
         print("bin_kernel_times_torch: torch sees no CUDA device",
@@ -101,6 +106,33 @@ def main():
         cases[f"bin_gmm_node_bwd K={k} F={f}"] = case(
             "bin_gmm_node_bwd", "bin_gmm_bwd", (*head, bsegs, *par),
             per_bin(head, bsegs, par), dict(use_tanh=True))
+    dc = synthetic_citation("cora")
+    cora = structure.build_graph(dc.src, dc.dst, dc.num_nodes, dense="auto",
+                                 edge_tables=False).to(dev)
+    nc = dc.num_nodes
+    fdb, bdb = cora.fwd.dense, cora.bwd.dense
+    for h, f in ((4, 64), (1, 7)):
+        x, ac, ar = t(nc, h, f), t(nc, h), t(nc, h)
+        g, M, ws = t(nc, h, f, scale=1 / 16), t(nc, h) + 2.0, t(nc, h)
+        Linv = torch.rand((nc, h), device=dev) + 0.1
+        cases[f"dense_gat_fwd H={h} F={f}"] = (
+            lambda a=(fdb, ar, ac, x): dense.dense_gat_fwd(
+                *a, slope=0.2, with_pos=True, p=0.3, seed=12345),
+            "dense_gat_fwd", False)
+        cases[f"dense_gat_bwd H={h} F={f}"] = (
+            lambda a=(bdb, g, ar, M, Linv, ws, ac, x): dense.dense_gat_bwd(
+                *a, slope=0.2, p=0.3, seed=12345), "dense_gat_bwd", False)
+    for k, f in ((3, 64), (3, 7)):
+        g, beta, dfeat, alpha, x = (t(nc, k, f, scale=1 / 16), t(nc, 2),
+                                    t(nc, 1), t(nc, 2), t(nc, k, f))
+        par = (t(k, 2), torch.from_numpy(
+            (rng.random((k, 2)) + 0.5).astype(np.float32)).to(dev))
+        cases[f"dense_gmm_fwd K={k} F={f}"] = (
+            lambda a=(fdb, beta, alpha, x, *par): dense.dense_gmm_fwd(
+                *a, use_tanh=True), "dense_gmm_fwd", False)
+        cases[f"dense_gmm_bwd K={k} F={f}"] = (
+            lambda a=(bdb, g, beta, dfeat, alpha, x, *par):
+            dense.dense_gmm_bwd(*a, use_tanh=True), "dense_gmm_bwd", False)
     out = {}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]

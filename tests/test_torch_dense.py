@@ -8,6 +8,8 @@ machine without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_dense.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,12 @@ BF16_BOUND = dict(rtol=2e-2, atol=2e-2)
 # Multi-tile forced block: 2 row chunks x 2 column tiles, with padded rows
 # (300 of 512 real) and padded columns (2100 of 4096 real).
 MULTI = dict(n=2400, r=300, c=2100)
+# The same forced block over edges skewed on both sides (hub_edges), so
+# that both directions' blocks hold hub rows: up to about 1,400 set columns
+# in one tile row (many batches of a row list), rows with edges in both
+# column tiles of their chunk, and real row EMPTIED_ROW cleared.
+HUB = dict(n=2400, r=300, c=2100)
+EMPTIED_ROW = 7
 
 
 @pytest.fixture
@@ -216,6 +224,152 @@ def test_bwd_plain_matches_jax_kernel(multi_pair, p, dense_dtype):
 
 
 # ---------------------------------------------------------------------------
+# (c'): the plain versions against the Pallas kernels on the block shapes
+# the kernels' row lists must get right
+# ---------------------------------------------------------------------------
+
+
+def hub_edges(rng, n):
+    """Deduplicated COO edges skewed on both sides: Zipf destinations from
+    uniform sources, and Zipf sources (other nodes) to uniform
+    destinations."""
+    e = 2 * n
+    zipf = lambda: np.minimum(rng.zipf(1.6, e) - 1, n - 1)  # noqa: E731
+    into = np.stack([rng.integers(0, n, e), zipf()], 1)
+    out_of = np.stack([rng.permutation(n)[zipf()], rng.integers(0, n, e)], 1)
+    uniq = np.unique(np.concatenate([into, out_of]), axis=0)
+    return uniq[:, 0], uniq[:, 1]
+
+
+def tile_row_edges(db):
+    """[T, RT] set columns of each tile row of a port DenseBlock."""
+    return torch.stack([dense.unpack_mask(db.mask[t]).sum(dim=1)
+                        for t in range(db.mask.shape[0])])
+
+
+def hub_block(db):
+    """A port DenseBlock with real row EMPTIED_ROW cleared in every tile of
+    its chunk.  Checks that the block has the shapes a row list must get
+    right: two column tiles a row chunk, a tile row of more than 64 set
+    columns (more than two batches of 32), a row with edges in two tiles,
+    and a real row with none."""
+    mask = db.mask.numpy().copy()
+    rc = db.rc.numpy()
+    mask[rc == EMPTIED_ROW // hub.DENSE_RT, EMPTIED_ROW % hub.DENSE_RT] = 0
+    db = dataclasses.replace(db, mask=torch.from_numpy(mask))
+    per = tile_row_edges(db)
+    assert (torch.diff(db.chunk_ptr) >= 2).all()
+    assert int(per.max()) > 64
+    assert any(((per[a:b] > 0).sum(dim=0) >= 2).any()
+               for a, b in zip(db.chunk_ptr[:-1].tolist(),
+                               db.chunk_ptr[1:].tolist()))
+    rows = per[rc == EMPTIED_ROW // hub.DENSE_RT]
+    assert EMPTIED_ROW < db.num_rows and int(rows.sum()) > 0
+    assert int(rows[:, EMPTIED_ROW % hub.DENSE_RT].sum()) == 0
+    return db
+
+
+def hub_graph(rng):
+    """The port's graph over hub_edges with the forced HUB block."""
+    src, dst = hub_edges(rng, HUB["n"])
+    return build_graph(src, dst, HUB["n"], dense=(HUB["r"], HUB["c"]))
+
+
+def hub_tol(db, tol):
+    """``tol`` with its atol grown with the block's widest row, in units of
+    128 terms (a bin segment's most): a hub row sums up to about 1,400
+    unit-sized terms, in an order that the plain version's index_add_ does
+    not fix from run to run."""
+    widest = int(tile_row_edges(db).max())
+    return dict(tol, atol=tol["atol"] * max(1.0, widest / 128))
+
+
+@pytest.fixture(scope="module")
+def hub_pair():
+    """Both directions' hub blocks, built by both packages from one host
+    graph, EMPTIED_ROW cleared in both ({"fwd": (port, jax), "bwd": ...}),
+    and tables."""
+    import jax.numpy as jnp
+
+    from dgnn_tpu.graph.structure import build_graph as jax_build_graph
+
+    rng = np.random.default_rng(3)
+    src, dst = hub_edges(rng, HUB["n"])
+    block = (HUB["r"], HUB["c"])
+    tg = build_graph(src, dst, HUB["n"], dense=block)
+    jg = jax_build_graph(src, dst, HUB["n"], dense=block)
+    blocks = {}
+    for d in ("fwd", "bwd"):
+        t, j = getattr(tg, d).dense, getattr(jg, d).dense
+        np.testing.assert_array_equal(t.mask.numpy(), np.asarray(j.mask))
+        t = hub_block(t)
+        blocks[d] = (t, dataclasses.replace(j, mask=jnp.asarray(t.mask)))
+    return blocks, _tables(rng, HUB["n"], 2, 5)
+
+
+@pytest.mark.parametrize("with_pos", [True, False])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_fwd_plain_matches_jax_kernel_on_hub_rows(hub_pair, with_pos, p,
+                                                 dense_dtype):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_dense import dense_gat_fwd as jax_fwd
+
+    blocks, tb = hub_pair
+    db, jdb = blocks["fwd"]
+    n = tb["feat"].shape[0]
+    drop = (p, jnp.uint32(SEED), jdb.row_ids, jdb.col_ids) if p > 0 else None
+    want = jax_fwd(jdb, jnp.asarray(tb["ar"].numpy())[jdb.row_ids],
+                   jnp.asarray(tb["ac"].numpy())[jdb.col_ids],
+                   jnp.asarray(tb["feat"].numpy().reshape(n, -1))[jdb.col_ids],
+                   slope=SLOPE, with_pos=with_pos,
+                   mat_dtype=_jax_dt(dense_dtype), drop=drop, interpret=True)
+    got = dense.dense_gat_fwd(db, tb["ar"], tb["ac"], tb["feat"], slope=SLOPE,
+                              with_pos=with_pos, p=p, seed=SEED,
+                              dense_dtype=dense_dtype)
+    for name, w, g in zip(("m", "l", "lpos", "acc", "accpos"), want, got):
+        if w is None:
+            assert g is None, name
+            continue
+        _assert_close(g.reshape(g.shape[0], -1).numpy(), w, dense_dtype,
+                      BLOCK_TOL, name)
+    # the emptied row: no partials
+    for t in (got[1], got[3]) + ((got[2], got[4]) if with_pos else ()):
+        assert not t[EMPTIED_ROW].any()
+
+
+@pytest.mark.parametrize("hf,want", [
+    ((4, 64), (4, 8)),     # the hidden layer: 8 columns a lane
+    ((1, 7), (4, 1)),      # the output layer: a warp a row all the same
+    ((3, 5), (4, 1)),
+    ((4, 8), (4, 1)),      # 32 columns: one a lane
+    ((8, 16), (16, 4)),    # more than 4 heads: 16 held
+    ((16, 64), (16, 32)),  # the widest row a warp takes
+], ids=["4x64", "1x7", "3x5", "4x8", "8x16", "16x64"])
+def test_gat_fwd_instance_choice(hf, want):
+    """The forward's template instance (heads held, columns a lane) for the
+    shapes the models and the tests launch; every instance takes a warp a
+    block row."""
+    assert dense.dense_gat_fwd_instance(*hf) == want
+
+
+@pytest.mark.parametrize("kdf,want", [
+    ((3, 2, 1, 64), ("model", 8)),    # cora MoNet's hidden layer
+    ((3, 2, 1, 7), ("model", 1)),     # its output layer
+    ((4, 2, 2, 256), ("model", 32)),  # the models' limits, 1024 columns
+    ((8, 4, 4, 16), ("general", 8)),
+    ((5, 2, 1, 8), ("general", 8)),   # K over the models' instance
+    ((3, 3, 1, 8), ("general", 1)),   # D over it
+    ((3, 2, 3, 8), ("general", 1)),   # Dd over it
+], ids=["3x64", "3x7", "4x256", "8x16", "K5", "D3", "Dd3"])
+def test_gmm_bwd_instance_choice(kdf, want):
+    """The MoNet backward's template instance: the models' stat sizes
+    (GMM_BWD_MODEL) or the general ones, and columns a lane."""
+    assert dense.dense_gmm_bwd_instance(*kdf) == want
+
+
+# ---------------------------------------------------------------------------
 # (d): gat_aggregate on cora against the JAX op
 # ---------------------------------------------------------------------------
 
@@ -335,7 +489,7 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("p", [0.0, 0.3])
-@pytest.mark.parametrize("h,f", [(4, 64), (1, 7), (3, 5)])
+@pytest.mark.parametrize("h,f", [(4, 64), (1, 7), (3, 5), (8, 16)])
 def test_cuda_kernels_match_plain(rng, cuda_device, dense_dtype, p, h, f):
     _, _, g = _multi_graph(rng)
     g = g.to(cuda_device)
@@ -366,6 +520,37 @@ def test_cuda_kernels_match_plain(rng, cuda_device, dense_dtype, p, h, f):
     torch.cuda.synchronize()
     for x, w in zip(got, want):
         torch.testing.assert_close(x, w, **BLOCK_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(4, 64), (1, 7), (3, 5), (8, 16)])
+def test_cuda_fwd_matches_plain_on_hub_rows(rng, cuda_device, dense_dtype, p,
+                                            h, f):
+    """Rows over 32 edges (many batches of a row list), chunks of two column
+    tiles and an empty real row: the forward kernel against its plain
+    version, both heads-held instances, with and without the sign-split
+    partials."""
+    db = hub_block(hub_graph(rng).fwd.dense).to(cuda_device)
+    tb = {k: v.to(cuda_device) for k, v in
+          _tables(rng, HUB["n"], h, f).items()}
+    tol = hub_tol(db.to("cpu"), BLOCK_TOL)
+    for with_pos in (True, False):
+        args = (db, tb["ar"], tb["ac"], tb["feat"])
+        kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED,
+                  dense_dtype=dense_dtype)
+        before = dense.LAUNCHES["dense_gat_fwd"]
+        got = dense.dense_gat_fwd(*args, **kw)
+        assert dense.LAUNCHES["dense_gat_fwd"] == before + 1
+        want = dense.dense_gat_fwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for name, x, w in zip(("m", "l", "lpos", "acc", "accpos"), got,
+                              want):
+            if w is None:
+                assert x is None
+            else:
+                _assert_close(x.cpu(), w.cpu(), dense_dtype, tol, name)
 
 
 @pytest.mark.cuda

@@ -431,17 +431,70 @@ def test_tie_sum_backward_walks_pair_slices(rng, monkeypatch):
 
 
 def test_tie_sum_backward_refuses_activations_near_neg(rng):
-    """tie_sum tells admitted from masked candidates by neg / 2: activations
-    within a factor 4 of neg raise, where a tied source could be lost;
-    argmax needs no such margin."""
+    """Activations within a factor 4 of the mask's neg, which the tie-sum
+    backward refused while it told admitted from masked candidates by
+    neg / 2, now get the JAX op's gradients, as argmax does."""
     mask = _mask(rng, 1, 8, 3, -1e9, torch.float32)
     hs, hd, gout = (_f32(rng, 1, 8, 4) for _ in range(3))
     hs[0, 2, 1] = 3e8
-    with pytest.raises(ValueError, match="neg"):
-        _torch_dense_grads(mask, hs, hd, gout, torch.float32, "tie_sum")
-    _torch_dense_grads(mask, hs, hd, gout, torch.float32, "argmax")
-    hs[0, 2, 1] = 2e8
-    _torch_dense_grads(mask, hs, hd, gout, torch.float32, "tie_sum")
+    hs[0, 5, 0] = -9e8
+    for bwd_mode in ("tie_sum", "argmax"):
+        out, grads = _torch_dense_grads(mask, hs, hd, gout, torch.float32,
+                                        bwd_mode)
+        jout, jgrads = _jax_dense_grads(mask, hs, hd, gout, torch.float32,
+                                        bwd_mode)
+        np.testing.assert_allclose(out, jout, rtol=1e-6)
+        for g, jg in zip(grads, jgrads):
+            np.testing.assert_allclose(g, jg, **F32_TOL)
+
+
+def _tie_mask(rng, kind, b, p):
+    """The masks on which tie_sum's pair filter must keep every hit."""
+    if kind == "three-valued":
+        # 0, -0.5 and -3 beside unit-scale activations: masked candidates
+        # win rows, and sources tie under the same mask value
+        pick = rng.random((b, p, p))
+        m = np.where(pick < 0.3, 0.0, np.where(pick < 0.6, -0.5, -3.0))
+    elif kind == "near-neg":
+        # {0, neg} with activations above |neg| / 4
+        m = _mask(rng, b, p, 3, -8.0, torch.float32).numpy()
+    elif kind == "admits-nothing":
+        m = _mask(rng, b, p, 3, -1e30, torch.float32).numpy()
+        m[0, 4] = -1e30
+        m[1, 2] = -1e30
+    elif kind == "float":
+        m = rng.normal(size=(b, p, p)) * 2
+    else:
+        raise ValueError(kind)
+    return torch.from_numpy(m.astype(np.float32))
+
+
+@pytest.mark.parametrize("mul_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["three-valued", "near-neg",
+                                  "admits-nothing", "float", "knn"])
+def test_tie_sum_takes_any_mask(rng, kind, mul_dtype):
+    """tie_sum's gradients equal the JAX op's for any float mask: three
+    mask values, a {0, neg} mask with |h_src| above |neg| / 4, rows that
+    admit nothing, unit-scale floats, and the model's k-NN mask (bf16,
+    -1e30), on which the pair filter keeps what the admitted pairs did.
+    Duplicated source rows make exact ties in every case."""
+    b, p, f = 2, 12, 6
+    hs, hd, gout = (_f32(rng, b, p, f) for _ in range(3))
+    if kind == "knn":
+        mask = knn_mask_neg(torch.from_numpy(_f32(rng, b, p, 3)), 4)
+    else:
+        mask = _tie_mask(rng, kind, b, p)
+    if kind == "near-neg":
+        hs *= 4.0
+    hs[0, 5] = hs[0, 1]
+    hs[1, 9] = hs[1, 3]
+    out, grads = _torch_dense_grads(mask, hs, hd, gout, mul_dtype, "tie_sum")
+    jout, jgrads = _jax_dense_grads(mask, hs, hd, gout, mul_dtype, "tie_sum")
+    np.testing.assert_allclose(out, jout, rtol=1e-6, atol=1e-6)
+    tol = F32_TOL if mul_dtype == torch.float32 else BF16_TOL
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(g, jg, **tol)
 
 
 def test_edge_conv_max_dense_refuses_unknown_modes(rng):
@@ -936,6 +989,28 @@ def test_cuda_masked_max_refuses_what_the_kernel_does_not_take(rng,
         ec_tiles.masked_max(mask.transpose(1, 2), hs)
     with pytest.raises(ValueError):
         ec_tiles.masked_max(mask.cpu(), hs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["three-valued", "near-neg",
+                                  "admits-nothing", "float"])
+def test_cuda_tie_sum_any_mask_matches_cpu(rng, cuda_device, kind):
+    """The tie-sum backward's pair filter on the card against the CPU, on
+    the masks a {0, neg} rule would get wrong."""
+    b, p, f = 2, 64, 40
+    mask = _tie_mask(rng, kind, b, p)
+    hs, hd, gout = (_f32(rng, b, p, f) for _ in range(3))
+    if kind == "near-neg":
+        hs *= 4.0
+    hs[0, 5] = hs[0, 1]
+    _, want = _torch_dense_grads(mask, hs, hd, gout, torch.float32, "tie_sum")
+    a = torch.from_numpy(hs).to(cuda_device).requires_grad_(True)
+    bb = torch.from_numpy(hd).to(cuda_device).requires_grad_(True)
+    out = edge_conv_max_dense(mask.to(cuda_device), a, bb, torch.float32,
+                              "tie_sum")
+    out.backward(torch.from_numpy(gout).to(cuda_device))
+    for g, w in zip((a.grad, bb.grad), want):
+        np.testing.assert_allclose(g.cpu().numpy(), w, **F32_TOL)
 
 
 @pytest.mark.cuda

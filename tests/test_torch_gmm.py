@@ -22,6 +22,8 @@ from dgnn_tpu_torch.models import (GMMConv, MoNet, flax_monet_state_dict,
 from dgnn_tpu_torch.ops import bins, dense
 from dgnn_tpu_torch.ops.gmm import (NodePseudo, gaussian_weights,
                                     gmm_aggregate_node)
+from test_torch_dense import (EMPTIED_ROW, HUB, hub_block, hub_edges,
+                              hub_graph, hub_tol)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ACC_TOL = dict(rtol=1e-5, atol=1e-5)    # acc / dx of one bin
@@ -429,6 +431,54 @@ def test_dense_bwd_plain_matches_jax_kernel(multi_pair, use_tanh, dense_dtype):
     for name, g, w in zip(("dx", "st"), got, want):
         _assert_close(g.reshape(g.shape[0], -1).numpy(), w, dense_dtype,
                       BLOCK_TOL, name)
+
+
+@pytest.fixture(scope="module")
+def hub_pair():
+    """The backward's hub block over tests/test_torch_dense.py's hub_edges
+    (hub rows of many batches, two column tiles a chunk, an empty real
+    row), built by both packages, and node tables."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from dgnn_tpu.graph.structure import build_graph as jax_build_graph
+
+    rng = np.random.default_rng(4)
+    src, dst = hub_edges(rng, HUB["n"])
+    block = (HUB["r"], HUB["c"])
+    db = build_graph(src, dst, HUB["n"], dense=block).bwd.dense
+    jdb = jax_build_graph(src, dst, HUB["n"], dense=block).bwd.dense
+    np.testing.assert_array_equal(db.mask.numpy(), np.asarray(jdb.mask))
+    db = hub_block(db)
+    jdb = dataclasses.replace(jdb, mask=jnp.asarray(db.mask))
+    return db, jdb, _node_tables(rng, HUB["n"], 2, 5, dd=2)
+
+
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_dense_bwd_plain_matches_jax_kernel_on_hub_rows(hub_pair, use_tanh,
+                                                       dense_dtype):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_dense import dense_gmm_bwd as jax_bwd
+
+    db, jdb, t = hub_pair
+    n = t["feat"].shape[0]
+    want = jax_bwd(jdb, jnp.asarray(t["alpha"])[jdb.row_ids],
+                   jnp.asarray(t["beta"])[jdb.col_ids],
+                   jnp.asarray(t["feat"].reshape(n, -1))[jdb.row_ids],
+                   jnp.asarray(t["g"].reshape(n, -1))[jdb.col_ids],
+                   jnp.asarray(t["dfeat"])[jdb.col_ids],
+                   jnp.asarray(t["mu"]), jnp.asarray(t["isig"]),
+                   use_tanh=use_tanh, mat_dtype=_jax_dt(dense_dtype),
+                   interpret=True)
+    got = dense.dense_gmm_bwd(*_dense_bwd_args(db, _torch(t)),
+                              use_tanh=use_tanh, dense_dtype=dense_dtype)
+    for name, g, w in zip(("dx", "st"), got, want):
+        _assert_close(g.reshape(g.shape[0], -1).numpy(), w, dense_dtype,
+                      BLOCK_TOL, name)
+        assert not g[EMPTIED_ROW].any(), name
 
 
 # ---------------------------------------------------------------------------
@@ -871,6 +921,37 @@ def test_cuda_dense_kernels_match_plain(rng, cuda_device, dense_dtype,
         _assert_close(x.cpu(), y.cpu(), dense_dtype, tol, name)
     assert dense.LAUNCHES["dense_gmm_fwd"] == before["dense_gmm_fwd"] + 1
     assert dense.LAUNCHES["dense_gmm_bwd"] == before["dense_gmm_bwd"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("k,f,d,dd", [
+    (3, 64, 2, 1),   # cora's hidden layer: the models' instance, 8 a lane
+    (3, 7, 2, 1),    # cora's output layer: the models' instance, 1 a lane
+    (3, 128, 2, 2),  # the models' instance at 32 columns a lane
+    (8, 16, 4, 4),   # the general instance at its limits
+])
+def test_cuda_dense_bwd_matches_plain_on_hub_rows(rng, cuda_device,
+                                                  dense_dtype, use_tanh, k,
+                                                  f, d, dd):
+    """Rows over 32 edges (many batches of the row list), chunks of two
+    column tiles and an empty real row: the backward kernel against its
+    plain version, both stat-size instances."""
+    db = hub_block(hub_graph(rng).bwd.dense)
+    tol = hub_tol(db, STAT_TOL)
+    db = db.to(cuda_device)
+    t = _scaled_g(_torch(_node_tables(rng, HUB["n"], k, f, d=d, dd=dd),
+                         cuda_device))
+    kw = dict(use_tanh=use_tanh, dense_dtype=dense_dtype)
+    before = dense.LAUNCHES["dense_gmm_bwd"]
+    got = dense.dense_gmm_bwd(*_dense_bwd_args(db, t), **kw)
+    assert dense.LAUNCHES["dense_gmm_bwd"] == before + 1
+    want = dense.dense_gmm_bwd_plain(*_dense_bwd_args(db, t), **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dx", "st"), got, want):
+        _assert_close(x.cpu(), y.cpu(), dense_dtype, tol, name)
+        assert not x[EMPTIED_ROW].any(), name
 
 
 def _sum_tol(segs, tol):

@@ -43,10 +43,13 @@ def _assert_adj_equal(t, j):
             assert tv.dtype == torch.int32
             np.testing.assert_array_equal(tv.numpy(), np.asarray(jv),
                                           err_msg=f"{key}[{b}]")
-    for key in ("main", "ov_rows", "ov"):
-        np.testing.assert_array_equal(getattr(t.cmb, key).numpy(),
-                                      np.asarray(getattr(j.cmb, key)),
-                                      err_msg=key)
+    if j.cmb is None:
+        assert t.cmb is None
+    else:
+        for key in ("main", "ov_rows", "ov"):
+            np.testing.assert_array_equal(getattr(t.cmb, key).numpy(),
+                                          np.asarray(getattr(j.cmb, key)),
+                                          err_msg=key)
     if j.epos is None:
         assert t.epos is None
     else:
@@ -160,3 +163,49 @@ def test_segs_are_the_bins_slot_tables(rng):
         assert len(segs) == adj.num_bins > 1
         for seg, (_w, nbr, _e, row, count) in zip(segs, adj.bins()):
             assert seg[0] is nbr and seg[1] is row and seg[2] is count
+
+
+@pytest.mark.parametrize("with_edge", [True, False])
+@pytest.mark.parametrize("block", [None, (64, 150)])
+def test_from_binned_without_combine_table(rng, with_edge, block):
+    """from_binned(with_cmb=False) builds the JAX package's arrays, array for
+    array, without a combine table; the fused ops refuse such a graph."""
+    import dataclasses
+
+    from dgnn_tpu.graph import binning as jbinning
+    from dgnn_tpu_torch.graph import binning
+    from dgnn_tpu_torch.ops.gat import gat_aggregate
+    from dgnn_tpu_torch.ops.gmm import gmm_aggregate_node
+
+    n = 300
+    src, dst = random_graph(rng, n, 5, power_law=True)
+    rp, ci = tbuild.coo_to_csr(src, dst, n)
+    cp, _, _ = tbuild.csr_to_csc_permute(rp, ci)
+    plan = jplan = None
+    if block is not None:
+        rows = np.argsort(np.diff(rp), kind="stable")[::-1][:block[0]]
+        cols = np.argsort(np.diff(cp), kind="stable")[::-1][:block[1]]
+        plan, rp_t, ci_t, keep = hub.build_dense_numpy(rp, ci, rows, cols)
+        jplan, rp_j, ci_j, _ = jhub.build_dense_numpy(rp, ci, rows, cols)
+        eids = np.arange(len(ci), dtype=np.int64)[keep]
+    else:
+        rp_t, ci_t = rp_j, ci_j = rp, ci
+        eids = None
+    t = structure.from_binned(binning.bin_csr(rp_t, ci_t, edge_ids=eids),
+                              with_cmb=False, with_edge=with_edge,
+                              dense=plan)
+    j = jstructure.from_binned(jbinning.bin_csr(rp_j, ci_j, edge_ids=eids),
+                               with_cmb=False, with_edge=with_edge,
+                               dense=jplan)
+    assert t.cmb is None and j.cmb is None
+    _assert_adj_equal(t, j)
+    g = structure.build_graph(src, dst, n, dense=block)
+    g = dataclasses.replace(g, fwd=dataclasses.replace(g.fwd, cmb=None))
+    x = torch.zeros((n, 1, 2))
+    with pytest.raises(ValueError, match="combine tables"):
+        gat_aggregate(g, torch.zeros((n, 1)), torch.zeros((n, 1)), x)
+    with pytest.raises(ValueError, match="combine tables"):
+        gmm_aggregate_node(g, x, torch.zeros((n, 1)), torch.zeros((n, 1)),
+                           torch.zeros((1, 2)), torch.ones((1, 2)),
+                           proj_weight=torch.zeros((2, 2)),
+                           proj_bias=torch.zeros(2))

@@ -243,6 +243,7 @@ def test_port_imports_no_jax():
               ROOT / "scripts" / "train_gmm_torch.py",
               ROOT / "scripts" / "profile_step_torch.py",
               ROOT / "scripts" / "bin_kernel_times_torch.py",
+              ROOT / "scripts" / "dense_variants_torch.py",
               ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:
