@@ -154,8 +154,13 @@ bin_gmm_fwd_kernel(
       if (gl < nch) {
         // one lane a slot: its K weights, with gmm_common.cuh's roundings
         const int j = w0 == 0 ? j0 : __ldg(sg.nbr + w0 + gl);
-        float pj[kGmmMaxD], diff[kGmmMaxD], tk[kGmmMaxD];
-        gmm_coords(bv, alpha + static_cast<size_t>(j) * D, D, tanh_on, pj);
+        // alpha[u] as beta[v] above: gmm_row's clamped loads of all
+        // kGmmMaxD values measured slower here, where D < kGmmMaxD
+        float aj[kGmmMaxD], pj[kGmmMaxD], diff[kGmmMaxD], tk[kGmmMaxD];
+#pragma unroll
+        for (int d = 0; d < kGmmMaxD; ++d)
+          aj[d] = d < D ? __ldg(alpha + static_cast<size_t>(j) * D + d) : 0.f;
+        gmm_coords(bv, aj, D, tanh_on, pj);
         for (int k = 0; k < K; ++k)
           sw[gl * K + k] = gmm_weight(pj, mu + k * D, isig + k * D, D, diff, tk);
         sj[gl] = j;

@@ -9,11 +9,34 @@
 // bytes, bit j / 256).  The schedule is sorted by row chunk;
 // chunk_ptr[i]:chunk_ptr[i+1] are the entries of chunk i.
 //
-// Two ways for a warp to list a tile row's set columns: compact_pass (32
-// mask words a pass into a list of up to kListCap columns;
-// dense_gat_bwd_kernel and dense_gmm_fwd_kernel) and RowList (the row's 64
-// words in one pass, handed out 32 columns at a time; dense_gat_fwd_kernel
-// and dense_gmm_bwd_kernel).
+// The design all four dense kernels share (dense_gat_fwd, dense_gat_bwd,
+// dense_gmm_fwd, dense_gmm_bwd).  The block is sparse: cora's holds 0.22 %
+// of its (row, col) pairs, 4.4 edges a row.  So a kernel's cost is the
+// chain of dependent loads a row waits on, not FLOPs or bytes, and the
+// design keeps that chain short:
+//   - a warp a block row, kWarps rows a thread block, no block barrier
+//     after the start; a row's sums stay in its warp's registers, so no
+//     kernel needs atomics;
+//   - one pass over a tile row's kRowWords mask words lists its set
+//     columns (RowList: one 8-byte load a lane, one popcount scan, columns
+//     handed out 32 at a time), so a cora row's edges form one batch and
+//     one chain: chunk_ptr -> mask -> col_ids -> the edge's tables and
+//     feature row;
+//   - the row's own tables are requested before its mask; once a batch's
+//     ids are known the feature rows of several edges are requested before
+//     the per-edge scalars are computed, each from an address every lane
+//     may load (clamped into the row, the value zeroed past it): a load
+//     under a branch in the loop over edges made each edge wait for its
+//     row in turn;
+//   - lane i computes edge i's per-head or per-kernel weights into a
+//     warp-private slot in shared memory; then the lanes, spread over the
+//     feature columns, add the batch's weighted rows;
+//   - template instances sized to the models (heads or Gaussian kernels
+//     held, columns a lane; ops/dense.py picks one), with launch bounds
+//     that keep a layer's rows resident, chosen by measurement
+//     (scripts/dense_variants_torch.py).
+// A masked pair contributes exactly 0 in the TPU kernels, so skipping it
+// changes nothing but the summation order.
 
 #pragma once
 
@@ -29,8 +52,6 @@ constexpr int kRT = 256;               // rows per row chunk (DENSE_RT)
 constexpr int kCT = 2048;              // columns per tile (DENSE_CT)
 constexpr int kRowWords = kCT / 32;    // 64 mask words per tile row
 constexpr int kWarps = 4;              // block rows per thread block
-constexpr int kPassWords = 32;         // mask words compacted per pass
-constexpr int kListCap = kPassWords * 32;  // set columns per pass, at most
 constexpr unsigned kFull = 0xffffffffu;
 
 // Round to bf16 (nearest even) and back, as the TPU kernels' matmul operands.
@@ -42,31 +63,6 @@ __device__ __forceinline__ float rnd(float v, bool bf16) {
 // (little-endian) word is byte 4 w + b / 8, plane b % 8.
 __device__ __forceinline__ unsigned short tile_column(int w, int b) {
   return static_cast<unsigned short>((b & 7) * (kCT / 8) + 4 * w + (b >> 3));
-}
-
-// Compacts the set columns of mask words [w0, w0 + 32) of one tile row into
-// cols[0 .. kListCap), in increasing word order; returns how many there are.
-// Called by a whole warp; cols is the warp's own list in shared memory.
-__device__ __forceinline__ int compact_pass(const uint32_t* mrow, int w0,
-                                            int lane, unsigned short* cols) {
-  const uint32_t word = mrow[w0 + lane];
-  const int cnt = __popc(word);
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl += v;
-  }
-  const int total = __shfl_sync(kFull, incl, 31);
-  int at = incl - cnt;
-  uint32_t bits = word;
-  while (bits) {
-    const int b = __ffs(bits) - 1;
-    bits &= bits - 1;
-    cols[at++] = tile_column(w0 + lane, b);
-  }
-  __syncwarp();
-  return total;
 }
 
 // The set columns of one tile row, listed in one pass over its kRowWords
@@ -138,12 +134,6 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
 #pragma unroll
   for (int o = 16 / NV; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
   return s;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
 }
 
 // Feature columns per lane, rounded up to a power of two (HF <= 1024).

@@ -34,32 +34,20 @@
 // lpos ride the matmul's ones column, so they are sums of bf16-rounded p;
 // with dropout they are f32 sums of unrounded p.  Both cases are matched.
 //
-// Design.  One warp per block row, four rows per thread block; a warp
-// walks its row chunk's schedule entries, so each row's sums live in one
-// warp's registers and neither kernel needs atomics.  The block is sparse
-// (cora's hub block holds 11,350 edges in 5.2M (row, col) pairs, 0.22 %,
-// 4.4 a row), so the kernels skip empty pairs instead of computing every
-// pair of a tile, and take a row's edges 32 at a time: each lane computes
-// one edge's per-head weights (the score, exp and dropout hash) into
-// shared memory; then the lanes, spread over the H*F feature columns,
-// accumulate the batch's feature rows.  A masked pair contributes exactly
-// 0 in the TPU kernel, so skipping it changes nothing but the summation
-// order.
+// Design: dense_common.cuh's, which all four dense kernels share.  Each
+// has instances by (HMAX heads held, 4 or kMaxHeads; NC feature columns a
+// lane, 1 to 32), picked by ops/dense.py dense_gat_fwd_instance /
+// dense_gat_bwd_instance; the launchers refuse any other.
 //
-//   Forward: the warp lists the row's set columns in one pass over the
-//   tile row's 64 mask words (dense_common.cuh RowList: one load a lane,
-//   one popcount scan), so a cora row's few edges form one batch and one
-//   chain of dependent loads (chunk_ptr -> mask -> col_ids -> ac ->
-//   feature rows).  The feature rows of several edges are requested before
-//   any is used, from addresses every lane can load (a load under a branch
-//   made each edge wait for its row in turn).  Heads are held to HMAX (4
-//   or 16); l and lpos are per-lane sums that a slab in shared memory
-//   gathers at the end over the lanes that held an edge.  Launch bounds
-//   keep a layer's rows resident at once (gat_fwd_min_blocks).  A group of
-//   8 lanes a row at the output layer (4 rows a warp) measured slower than
-//   a warp a row.
-//   Backward: a warp compacts 32 mask words at a time into a list in
-//   shared memory (compact_pass) and takes the edges 32 at a time.
+//   Forward: the row's ar and bound sit in shared memory; l and lpos are
+//   per-lane sums that a slab in shared memory gathers at the end over the
+//   lanes that held an edge.  A group of 8 lanes a row at the output layer
+//   (4 rows a warp) measured slower than a warp a row.
+//   Backward: the row's ac is requested before its mask and its x row
+//   after the walk; lane i requests edge i's ar, M, Linv and ws rows
+//   together, HMAX values each.  dac's two terms, <x_j, sum a^ d' g> over
+//   the columns and sum a d' ws over the edges, meet in one reduce-scatter
+//   over the warp (HMAX - 1 + 5 - log2 HMAX shuffles, not 2 H warp sums).
 //
 // Bound on the H100: for cora-size blocks, the latency of the dependent
 // loads per edge; per edge the work is H exps and hashes and H*F
@@ -77,38 +65,25 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "dense_common.cuh"
 #include "gat_common.cuh"
 
 namespace {
 
 using dgnn::cols_per_lane;
-using dgnn::compact_pass;
 using dgnn::kCT;
 using dgnn::kFull;
-using dgnn::kListCap;
-using dgnn::kPassWords;
 using dgnn::kRT;
 using dgnn::kRowWords;
 using dgnn::kWarps;
 using dgnn::leaky;
 using dgnn::pair_base;
 using dgnn::pair_u_head;
+using dgnn::reduce_scatter;
 using dgnn::rnd;
 using dgnn::RowList;
-using dgnn::warp_sum;
 
 constexpr int kMaxHeads = 16;          // the wrapper refuses H > kMaxHeads
-
-// The backward's per-warp staging in shared memory.
-struct WarpStage {
-  unsigned short cols[kListCap];   // set tile columns of this pass
-  float w0[32][kMaxHeads];         // per edge and head: a^
-  float w1[32][kMaxHeads];         // per edge and head: a^ d'
-  float head0[kMaxHeads];          // ac of the row
-};
 
 // The forward's instances: HMAX heads held (4 or kMaxHeads), NC columns a
 // lane (ops/dense.py dense_gat_fwd_instance picks one).  Those with 4 heads
@@ -292,8 +267,41 @@ dense_gat_fwd_kernel(
   }
 }
 
-template <int NC>
-__global__ void __launch_bounds__(kWarps * 32) dense_gat_bwd_kernel(
+// The backward's instances, as the forward's: HMAX heads held, NC columns
+// a lane (ops/dense.py dense_gat_bwd_instance).  Those with 4 heads and up
+// to 8 columns a lane keep kGatBwdMinBlocks blocks of kWarps rows an SM by
+// their launch bounds (at most 96 registers, none spilled): cora's 2,560
+// block rows are then resident at once on 132 SMs.  Without the cap (158
+// registers) and at four blocks (128) the hidden layer measured slower.
+// The row's own x is read after the walk: requested before the mask, its
+// NC values a lane spilled at this cap and gained nothing.
+constexpr int kGatBwdMinBlocks = 5;
+constexpr int gat_bwd_min_blocks(int hmax, int nc) {
+  return hmax <= 4 && nc <= 8 ? kGatBwdMinBlocks : 1;
+}
+// Edges whose rows of g are requested together: as many as keep
+// kGatBwdPrefetch values a lane in flight, at most 8 edges.
+constexpr int kGatBwdPrefetch = 8;
+__host__ __device__ constexpr int gat_bwd_prefetch(int nc) {
+  return nc >= kGatBwdPrefetch ? 1 : kGatBwdPrefetch / nc;
+}
+
+// v[h] = tab[node * H + min(h, H - 1)] for h < HMAX: a node's row of an
+// [N, H] table, its last value repeated past H, from addresses every lane
+// may load.  (One 16-byte load a row at H = 4 measured no faster and cost
+// registers.)
+template <int HMAX>
+__device__ __forceinline__ void head_row(const float* __restrict__ tab,
+                                         uint32_t node, int H,
+                                         float (&v)[HMAX]) {
+  const float* row = tab + static_cast<size_t>(node) * H;
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h) v[h] = __ldg(row + min(h, H - 1));
+}
+
+template <int HMAX, int NC>
+__global__ void __launch_bounds__(kWarps * 32, gat_bwd_min_blocks(HMAX, NC))
+dense_gat_bwd_kernel(
     const float* __restrict__ g,         // [Nd, H*F] grad of the output
     const float* __restrict__ ar,        // [Nd, H]
     const float* __restrict__ Mx,        // [Nd, H]   merged softmax maximum
@@ -310,117 +318,150 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gat_bwd_kernel(
     int bf16,
     float* __restrict__ dx_out,          // [R, H*F]
     float* __restrict__ dac_out) {       // [R, H]
-  __shared__ WarpStage stage[kWarps];
+  constexpr int kSlot = 2 * HMAX + 1;  // floats a lane; odd: no bank conflicts
+  constexpr int PF = gat_bwd_prefetch(NC);
+  __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
+  // per lane: its edge's a^ (rounded) and a^ d' a head
+  __shared__ float slot[kWarps][32 * kSlot];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  WarpStage& st = stage[warp];
   const int HF = H * F;
   const bool drop = p > 0.f;
   const bool use_bf = bf16 != 0;
   const int chunk = r / kRT;
+  // the row's own ac is requested before its mask (its x after the walk)
   const uint32_t sid = static_cast<uint32_t>(row_ids[r]);
-
-  if (lane < H) st.head0[lane] = ac[static_cast<size_t>(sid) * H + lane];
-  __syncwarp();
-
-  float u2[kMaxHeads];  // this lane's edges' sum of a d' ws
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) u2[h] = 0.f;
+  const int t_end = chunk_ptr[chunk + 1];
+  float acs[HMAX];  // ac of the row, a head
+  head_row<HMAX>(ac, sid, H, acs);
   float dx[NC], tt[NC];  // sum a^ g and sum a^ d' g per column
-  int hcol[NC];
+  int hcol[NC];          // the column's head (0 past H*F)
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     const int c = lane + 32 * k;
     dx[k] = tt[k] = 0.f;
     hcol[k] = c < HF ? c / F : 0;
   }
+  float u2[HMAX];  // this lane's edges' sum of a d' ws
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h) u2[h] = 0.f;
 
-  for (int t = chunk_ptr[chunk]; t < chunk_ptr[chunk + 1]; ++t) {
+  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
     const uint32_t* mrow =
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
-    const int* did_tile = col_ids + static_cast<size_t>(ct[t]) * kCT;
-    for (int w0 = 0; w0 < kRowWords; w0 += kPassWords) {
-      const int total = compact_pass(mrow, w0, lane, st.cols);
-      for (int e0 = 0; e0 < total; e0 += 32) {
-        const int n = min(32, total - e0);
-        uint32_t did = 0;
-        if (lane < n) {
-          did = static_cast<uint32_t>(did_tile[st.cols[e0 + lane]]);
-          const uint32_t base = drop ? pair_base(seed, did, sid) : 0u;
+    const int* did_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
+    RowList rl;
+    rl.load(mrow, lane);
+    for (int e0 = 0; e0 < rl.total; e0 += 32) {
+      const int n = min(32, rl.total - e0);
+      rl.emit(e0, cols[warp]);
+      __syncwarp();
+      // lane i: edge e0 + i's destination (lanes past n: the last edge's)
+      const uint32_t did =
+          static_cast<uint32_t>(__ldg(did_tile + cols[warp][min(lane, n - 1)]));
+      // rows of g for PF edges at a time, every lane loading an address in
+      // the row and zeroing what lies past H*F; the first PF edges' rows
+      // are requested before the per-edge scalars
+      float gv[PF][NC];
+      auto request = [&](int i0) {
 #pragma unroll
-          for (int h = 0; h < kMaxHeads; ++h) {
-            if (h < H) {
-              const size_t ih = static_cast<size_t>(did) * H + h;
-              const float sr = ar[ih] + st.head0[h];
-              const float a = expf(leaky(sr, slope) - Mx[ih]) * Linv[ih];
-              float ah = a;
-              if (drop) ah = pair_u_head(base, H, h) > p ? a * inv_keep : 0.f;
-              const float dp = sr >= 0.f ? 1.f : slope;
-              u2[h] += a * dp * ws[ih];
-              st.w0[lane][h] = rnd(ah, use_bf);
-              st.w1[lane][h] = ah * dp;
-            }
-          }
-        }
-        __syncwarp();
-#pragma unroll 4
-        for (int i = 0; i < n; ++i) {
-          const uint32_t di = __shfl_sync(kFull, did, i);
+        for (int u = 0; u < PF; ++u) {
+          const uint32_t di = __shfl_sync(kFull, did, min(i0 + u, n - 1));
           const float* gr = g + static_cast<size_t>(di) * HF;
 #pragma unroll
           for (int k = 0; k < NC; ++k) {
             const int c = lane + 32 * k;
-            if (c < HF) {
-              const float gv = rnd(gr[c], use_bf);
-              dx[k] += st.w0[i][hcol[k]] * gv;
-              tt[k] += st.w1[i][hcol[k]] * gv;
+            const float raw = __ldg(gr + min(c, HF - 1));
+            gv[u][k] = c < HF ? rnd(raw, use_bf) : 0.f;
+          }
+        }
+      };
+      request(0);
+      {
+        // lane i: edge i's per-head weights (lanes past n compute the last
+        // edge's again and keep none of it)
+        float arv[HMAX], mxv[HMAX], liv[HMAX], wsv[HMAX];
+        head_row<HMAX>(ar, did, H, arv);
+        head_row<HMAX>(Mx, did, H, mxv);
+        head_row<HMAX>(Linv, did, H, liv);
+        head_row<HMAX>(ws, did, H, wsv);
+        const uint32_t pb = drop ? pair_base(seed, did, sid) : 0u;
+        const bool live = lane < n;
+        float* sl = slot[warp] + lane * kSlot;
+#pragma unroll
+        for (int h = 0; h < HMAX; ++h) {
+          if (h < H) {
+            const float sr = arv[h] + acs[h];
+            const float a = expf(leaky(sr, slope) - mxv[h]) * liv[h];
+            float ah = a;
+            if (drop) ah = pair_u_head(pb, H, h) > p ? a * inv_keep : 0.f;
+            const float dp = sr >= 0.f ? 1.f : slope;
+            u2[h] += live ? a * dp * wsv[h] : 0.f;
+            sl[h] = rnd(ah, use_bf);
+            sl[HMAX + h] = ah * dp;
+          }
+        }
+      }
+      __syncwarp();
+      // lanes over feature columns: the n edges' weighted rows
+      for (int i0 = 0;;) {
+#pragma unroll
+        for (int u = 0; u < PF; ++u) {
+          if (i0 + u < n) {
+            const float* sl = slot[warp] + (i0 + u) * kSlot;
+#pragma unroll
+            for (int k = 0; k < NC; ++k) {
+              dx[k] += sl[hcol[k]] * gv[u][k];
+              tt[k] += sl[HMAX + hcol[k]] * gv[u][k];
             }
           }
         }
-        __syncwarp();
+        i0 += PF;
+        if (i0 >= n) break;
+        request(i0);
       }
+      __syncwarp();  // before the next batch overwrites the staging
     }
   }
 
   const size_t ro = static_cast<size_t>(r);
-  const float* xr = x + static_cast<size_t>(sid) * HF;
-  float xt[NC];
+  // dac[h] = sum over the columns of head h of x t, less sum a d' ws: each
+  // lane's share of both, then one reduce-scatter over the warp
+  const float* xrow = x + static_cast<size_t>(sid) * HF;
+  float v[HMAX];
+#pragma unroll
+  for (int h = 0; h < HMAX; ++h) v[h] = -u2[h];
 #pragma unroll
   for (int k = 0; k < NC; ++k) {
     const int c = lane + 32 * k;
-    xt[k] = c < HF ? rnd(xr[c], use_bf) * tt[k] : 0.f;
     if (c < HF) dx_out[ro * HF + c] = dx[k];
-  }
+    const float raw = __ldg(xrow + min(c, HF - 1));
+    const float xt = c < HF ? rnd(raw, use_bf) * tt[k] : 0.f;
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    if (h < H) {
-      float v = 0.f;
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        if (hcol[k] == h && lane + 32 * k < HF) v += xt[k];
-      }
-      v = warp_sum(v);
-      const float u = warp_sum(u2[h]);
-      if (lane == h) dac_out[ro * H + h] = v - u;
-    }
+    for (int h = 0; h < HMAX; ++h) v[h] += hcol[k] == h ? xt : 0.f;
   }
+  const float s = reduce_scatter<HMAX>(v, lane);
+  const int h = lane / (32 / HMAX);
+  if ((lane & (32 / HMAX - 1)) == 0 && h < H) dac_out[ro * H + h] = s;
 }
 
-template <typename Launch>
-int dispatch_nc(int HF, Launch&& launch) {
-  switch (cols_per_lane(HF)) {
-    case 1: launch(std::integral_constant<int, 1>{}); break;
-    case 2: launch(std::integral_constant<int, 2>{}); break;
-    case 4: launch(std::integral_constant<int, 4>{}); break;
-    case 8: launch(std::integral_constant<int, 8>{}); break;
-    case 16: launch(std::integral_constant<int, 16>{}); break;
-    case 32: launch(std::integral_constant<int, 32>{}); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
+// Both kernels' instances: heads held 4 or kMaxHeads (at least H), the
+// fewest columns a lane (a power of two) that cover H*F.
+bool bad_instance(int H, int F, int hmax, int nc) {
+  return H < 1 || F < 1 || H > hmax || (hmax != 4 && hmax != kMaxHeads) ||
+         cols_per_lane(H * F) != nc || nc > 32;
 }
+
+// Launches LAUNCH(HM, nc) at the nc the launcher checked.
+#define DGNN_GAT_NC(LAUNCH, HM)            \
+  if (nc == 1) LAUNCH(HM, 1);              \
+  else if (nc == 2) LAUNCH(HM, 2);         \
+  else if (nc == 4) LAUNCH(HM, 4);         \
+  else if (nc == 8) LAUNCH(HM, 8);         \
+  else if (nc == 16) LAUNCH(HM, 16);       \
+  else LAUNCH(HM, 32)
 
 }  // namespace
 
@@ -434,8 +475,7 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
                        int bf16, int hmax, int nc, float* m, float* l,
                        float* lpos, float* acc, float* accpos, void* stream) {
   // the instance ops/dense.py dense_gat_fwd_instance chose, checked
-  if (H < 1 || F < 1 || H > hmax || (hmax != 4 && hmax != kMaxHeads) ||
-      cols_per_lane(H * F) != nc || nc > 32) {
+  if (bad_instance(H, F, hmax, nc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
@@ -446,19 +486,11 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
   dense_gat_fwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(              \
       x, ac, ar, acmax, row_ids, col_ids, msk, ct, chunk_ptr, R, H, F, slope, \
       with_pos, p, inv_keep, seed, bf16, m, l, lpos, acc, accpos)
-#define DGNN_GAT_FWD_NC(HM)                   \
-  if (nc == 1) DGNN_GAT_FWD(HM, 1);           \
-  else if (nc == 2) DGNN_GAT_FWD(HM, 2);      \
-  else if (nc == 4) DGNN_GAT_FWD(HM, 4);      \
-  else if (nc == 8) DGNN_GAT_FWD(HM, 8);      \
-  else if (nc == 16) DGNN_GAT_FWD(HM, 16);    \
-  else DGNN_GAT_FWD(HM, 32)
   if (hmax == 4) {
-    DGNN_GAT_FWD_NC(4);
+    DGNN_GAT_NC(DGNN_GAT_FWD, 4);
   } else {
-    DGNN_GAT_FWD_NC(kMaxHeads);
+    DGNN_GAT_NC(DGNN_GAT_FWD, kMaxHeads);
   }
-#undef DGNN_GAT_FWD_NC
 #undef DGNN_GAT_FWD
   return static_cast<int>(cudaGetLastError());
 }
@@ -468,18 +500,26 @@ int dgnn_dense_gat_bwd(const float* g, const float* ar, const float* M,
                        const float* x, const int* row_ids, const int* col_ids,
                        const void* mask, const int* ct, const int* chunk_ptr,
                        int R, int H, int F, float slope, float p,
-                       float inv_keep, uint32_t seed, int bf16, float* dx,
-                       float* dac, void* stream) {
+                       float inv_keep, uint32_t seed, int bf16, int hmax,
+                       int nc, float* dx, float* dac, void* stream) {
+  // the instance ops/dense.py dense_gat_bwd_instance chose, checked
+  if (bad_instance(H, F, hmax, nc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (R + kWarps - 1) / kWarps;
-  const int bad = dispatch_nc(H * F, [&](auto nc) {
-    dense_gat_bwd_kernel<decltype(nc)::value>
-        <<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-            g, ar, M, Linv, ws, ac, x, row_ids, col_ids,
-            static_cast<const uint32_t*>(mask), ct, chunk_ptr, R, H, F, slope,
-            p, inv_keep, seed, bf16, dx, dac);
-  });
-  if (bad) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* msk = static_cast<const uint32_t*>(mask);
+#define DGNN_GAT_BWD(HM, NCC)                                                \
+  dense_gat_bwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(               \
+      g, ar, M, Linv, ws, ac, x, row_ids, col_ids, msk, ct, chunk_ptr, R, H, \
+      F, slope, p, inv_keep, seed, bf16, dx, dac)
+  if (hmax == 4) {
+    DGNN_GAT_NC(DGNN_GAT_BWD, 4);
+  } else {
+    DGNN_GAT_NC(DGNN_GAT_BWD, kMaxHeads);
+  }
+#undef DGNN_GAT_BWD
   return static_cast<int>(cudaGetLastError());
 }
 

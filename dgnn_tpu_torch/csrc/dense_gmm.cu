@@ -32,30 +32,26 @@
 // multiply and add in f32: forward w_k and x; backward w_k and g for dx, x
 // and g for gw.  c_k = gw_k w_k and every stat use the unrounded w_k.
 //
-// Design, as dense_gat.cu: one warp per block row, four rows per thread
-// block; a warp walks its row chunk's schedule entries and takes a tile
-// row's set columns a batch of 32 at a time, so the work is proportional
-// to edges, not to (row, column) pairs.  A masked pair contributes exactly
-// 0 in the TPU kernel, so skipping it changes only the summation order.
-// Per batch: lane i computes edge i's coordinates and weights; then the
-// lanes, spread over the K*F columns, add the edges' weighted rows.
-// Neither kernel needs atomics.
+// Design: dense_common.cuh's, which all four dense kernels share.  Each
+// kernel has instances by the sizes held in registers (the models' or the
+// general limits) and NC feature columns a lane (1, 8 or 32), picked by
+// ops/dense.py dense_gmm_fwd_instance / dense_gmm_bwd_instance; the
+// launchers refuse any other.
 //
-//   Forward: a warp compacts 32 mask words at a time into a list in shared
-//   memory (compact_pass).
-//   Backward: the warp lists a tile row's set columns in one pass over its
-//   64 mask words (dense_common.cuh RowList), so a cora row's 4.4 edges
-//   form one batch and one chain of dependent loads (chunk_ptr -> mask ->
-//   col_ids -> beta, dfeat -> g row); the row's own alpha and x are
-//   requested before its mask, and each edge's row of g from addresses
-//   every lane can load, so that no load waits behind a branch.  Per edge
-//   the K dot products <x, g_v> take one interleaved butterfly over the K
-//   values (reduce_scatter) instead of K warp sums.  Lane i keeps edge i's
-//   stat terms in registers sized to the instance (the models' K <= 4,
-//   D <= 2, Dd <= 2, or the general limits); after the walk each lane that
-//   held an edge writes its sums to a warp-private slab in shared memory
-//   and lane c adds column c over those lanes only, instead of a warp sum
-//   per stat column.  Launch bounds cap the registers (gmm_bwd_min_blocks).
+//   Forward: the row's beta is requested before its mask; lane i computes
+//   edge i's D coordinates and K weights (KM kernels, DM dimensions held:
+//   the models' K <= 4, D <= 2, or kGmmMaxK, kGmmMaxD) into its slot while
+//   the first edges' rows of x are in flight.  Launch bounds cap the
+//   registers (gmm_fwd_min_blocks).
+//   Backward: the row's own alpha and x are requested before its mask.
+//   Per edge the K dot products <x, g_v> take one interleaved butterfly
+//   over the K values (reduce_scatter) instead of K warp sums.  Lane i
+//   keeps edge i's stat terms in registers sized to the instance (the
+//   models' K <= 4, D <= 2, Dd <= 2, or the general limits); after the
+//   walk each lane that held an edge writes its sums to a warp-private
+//   slab in shared memory and lane c adds column c over those lanes only,
+//   instead of a warp sum per stat column.  Launch bounds cap the
+//   registers (gmm_bwd_min_blocks).
 //
 // Bound on the H100: for cora-size blocks, the latency of the dependent
 // loads per edge; the bytes are one row of K*F floats per edge (768 B at
@@ -67,39 +63,49 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "dense_common.cuh"
 #include "gmm_common.cuh"
 
 namespace {
 
 using dgnn::cols_per_lane;
-using dgnn::compact_pass;
 using dgnn::gmm_coords;
+using dgnn::gmm_row;
 using dgnn::gmm_weight;
 using dgnn::kCT;
 using dgnn::kFull;
 using dgnn::kGmmMaxD;
 using dgnn::kGmmMaxDd;
 using dgnn::kGmmMaxK;
-using dgnn::kGmmMaxKD;
-using dgnn::kListCap;
-using dgnn::kPassWords;
 using dgnn::kRT;
 using dgnn::kRowWords;
 using dgnn::kWarps;
 using dgnn::rnd;
 using dgnn::RowList;
 
-// The forward's per-warp staging in shared memory.
-struct WarpStage {
-  unsigned short cols[kListCap];   // set tile columns of this pass
-  float w[32][kGmmMaxK];           // per edge and kernel: w_k (rounded)
-};
+// The forward's instances: KM kernels and DM dimensions held, the models'
+// (4, 2) or the general (kGmmMaxK, kGmmMaxD), each at 1, 8 or 32 columns a
+// lane (ops/dense.py dense_gmm_fwd_instance picks one).  The models'
+// instances at up to 8 columns a lane are capped by their launch bounds at
+// kGmmFwdMinBlocks blocks of kWarps rows an SM (at most 128 registers).
+// ptxas gives the hidden layer's 92, so five blocks still fit and cora's
+// 2,560 block rows are resident at once on 132 SMs; of the caps measured
+// this one was fastest (a cap of five gave 89 registers and a slower
+// schedule of the same loop).
+constexpr int kGmmFwdMinBlocks = 4;
+constexpr int gmm_fwd_min_blocks(int km, int nc) {
+  return km <= 4 && nc <= 8 ? kGmmFwdMinBlocks : 1;
+}
+// Edges whose rows of x are requested together: as many as keep
+// kGmmFwdPrefetch values a lane in flight, at most 8 edges.
+constexpr int kGmmFwdPrefetch = 8;
+__host__ __device__ constexpr int gmm_fwd_prefetch(int nc) {
+  return nc >= kGmmFwdPrefetch ? 1 : kGmmFwdPrefetch / nc;
+}
 
-template <int NC>
-__global__ void __launch_bounds__(kWarps * 32) dense_gmm_fwd_kernel(
+template <int KM, int DM, int NC>
+__global__ void __launch_bounds__(kWarps * 32, gmm_fwd_min_blocks(KM, NC))
+dense_gmm_fwd_kernel(
     const float* __restrict__ x,         // [N, K*F] source features
     const float* __restrict__ alpha,     // [N, D]   source-side projection
     const float* __restrict__ beta,      // [Nr, D]  destination-side projection
@@ -112,31 +118,35 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gmm_fwd_kernel(
     const float* __restrict__ isig,      // [K, D]
     int R, int K, int D, int F, int use_tanh, int bf16,
     float* __restrict__ acc_out) {       // [R, K*F]
-  __shared__ WarpStage stage[kWarps];
-  __shared__ float mu_sh[kGmmMaxKD];
-  __shared__ float isig_sh[kGmmMaxKD];
-  if (threadIdx.x < K * D) {
-    mu_sh[threadIdx.x] = mu[threadIdx.x];
-    isig_sh[threadIdx.x] = isig[threadIdx.x];
+  constexpr int kSlot = KM | 1;  // floats a lane; odd: no bank conflicts
+  constexpr int PF = gmm_fwd_prefetch(NC);
+  __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
+  __shared__ float slot[kWarps][32 * kSlot];   // per lane: its edge's w_k
+  __shared__ float mu_sh[KM * DM];             // index k * DM + d
+  __shared__ float isig_sh[KM * DM];
+  for (int i = threadIdx.x; i < KM * DM; i += blockDim.x) {
+    const int k = i / DM, d = i % DM;
+    const bool on = k < K && d < D;
+    mu_sh[i] = on ? mu[k * D + d] : 0.f;
+    isig_sh[i] = on ? isig[k * D + d] : 0.f;
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  WarpStage& st = stage[warp];
   const int KF = K * F;
   const bool use_bf = bf16 != 0;
   const bool tanh_on = use_tanh != 0;
   const int chunk = r / kRT;
+  // the row's own beta is requested before its mask
   const size_t rid = static_cast<size_t>(row_ids[r]);
-
-  float b[kGmmMaxD];
-#pragma unroll
-  for (int d = 0; d < kGmmMaxD; ++d) b[d] = d < D ? beta[rid * D + d] : 0.f;
+  const int t_end = chunk_ptr[chunk + 1];
+  float b[DM];
+  gmm_row<DM>(beta + rid * D, D, b);
 
   float acc[NC];
-  int kcol[NC];
+  int kcol[NC];  // the column's kernel (0 past K*F)
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int c = lane + 32 * j;
@@ -144,43 +154,69 @@ __global__ void __launch_bounds__(kWarps * 32) dense_gmm_fwd_kernel(
     kcol[j] = c < KF ? c / F : 0;
   }
 
-  for (int t = chunk_ptr[chunk]; t < chunk_ptr[chunk + 1]; ++t) {
+  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
     const uint32_t* mrow =
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
-    const int* cid_tile = col_ids + static_cast<size_t>(ct[t]) * kCT;
-    for (int w0 = 0; w0 < kRowWords; w0 += kPassWords) {
-      const int total = compact_pass(mrow, w0, lane, st.cols);
-      for (int e0 = 0; e0 < total; e0 += 32) {
-        const int n = min(32, total - e0);
-        // lane i: edge e0 + i's Gaussian weights
-        uint32_t cid = 0;
-        if (lane < n) {
-          cid = static_cast<uint32_t>(cid_tile[st.cols[e0 + lane]]);
-          float p[kGmmMaxD], diff[kGmmMaxD], tt[kGmmMaxD];
-          gmm_coords(b, alpha + static_cast<size_t>(cid) * D, D, tanh_on, p);
+    const int* cid_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
+    RowList rl;
+    rl.load(mrow, lane);
+    for (int e0 = 0; e0 < rl.total; e0 += 32) {
+      const int n = min(32, rl.total - e0);
+      rl.emit(e0, cols[warp]);
+      __syncwarp();
+      // lane i: edge e0 + i's source (lanes past n: the last edge's)
+      const uint32_t cid =
+          static_cast<uint32_t>(__ldg(cid_tile + cols[warp][min(lane, n - 1)]));
+      // rows of x for PF edges at a time, every lane loading an address in
+      // the row and zeroing what lies past K*F; the first PF edges' rows
+      // are requested before the Gaussian weights
+      float xv[PF][NC];
+      auto request = [&](int i0) {
 #pragma unroll
-          for (int k = 0; k < kGmmMaxK; ++k) {
-            if (k < K) {
-              st.w[lane][k] = rnd(
-                  gmm_weight(p, mu_sh + k * D, isig_sh + k * D, D, diff, tt),
-                  use_bf);
-            }
-          }
-        }
-        __syncwarp();
-        // lanes over feature columns: the n edges' weighted rows
-#pragma unroll 4
-        for (int i = 0; i < n; ++i) {
-          const uint32_t cj = __shfl_sync(kFull, cid, i);
+        for (int u = 0; u < PF; ++u) {
+          const uint32_t cj = __shfl_sync(kFull, cid, min(i0 + u, n - 1));
           const float* xr = x + static_cast<size_t>(cj) * KF;
 #pragma unroll
           for (int j = 0; j < NC; ++j) {
             const int c = lane + 32 * j;
-            if (c < KF) acc[j] += st.w[i][kcol[j]] * rnd(xr[c], use_bf);
+            const float raw = __ldg(xr + min(c, KF - 1));
+            xv[u][j] = c < KF ? rnd(raw, use_bf) : 0.f;
           }
         }
-        __syncwarp();  // before the next batch overwrites the staging
+      };
+      request(0);
+      {
+        // lane i: edge i's Gaussian weights (lanes past n compute the last
+        // edge's again into a slot nobody reads)
+        float a[DM], pc[DM], diff[DM], tk[DM];
+        gmm_row<DM>(alpha + static_cast<size_t>(cid) * D, D, a);
+        gmm_coords<DM>(b, a, D, tanh_on, pc);
+        float* sl = slot[warp] + lane * kSlot;
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          if (k < K) {
+            sl[k] = rnd(gmm_weight<DM>(pc, mu_sh + k * DM, isig_sh + k * DM,
+                                       D, diff, tk),
+                        use_bf);
+          }
+        }
       }
+      __syncwarp();
+      // lanes over feature columns: the n edges' weighted rows
+      for (int i0 = 0;;) {
+#pragma unroll
+        for (int u = 0; u < PF; ++u) {
+          if (i0 + u < n) {
+            const float* sl = slot[warp] + (i0 + u) * kSlot;
+#pragma unroll
+            for (int j = 0; j < NC; ++j) acc[j] += sl[kcol[j]] * xv[u][j];
+          }
+        }
+        i0 += PF;
+        if (i0 >= n) break;
+        request(i0);
+      }
+      __syncwarp();  // before the next batch overwrites the staging
     }
   }
 
@@ -429,26 +465,15 @@ dense_gmm_bwd_kernel(
   }
 }
 
-// Three instances per kernel keep the build short: K*F <= 32 takes one
-// column per lane, K*F <= 256 eight, K*F <= 1024 thirty-two.
-template <typename Launch>
-int dispatch_nc(int KF, Launch&& launch) {
-  const int nc = cols_per_lane(KF);
-  if (nc <= 1) {
-    launch(std::integral_constant<int, 1>{});
-  } else if (nc <= 8) {
-    launch(std::integral_constant<int, 8>{});
-  } else if (nc <= 32) {
-    launch(std::integral_constant<int, 32>{});
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return 0;
-}
-
 bool bad_dims(int K, int D, int Dd, int F) {
   return K < 1 || K > kGmmMaxK || D < 1 || D > kGmmMaxD || Dd < 1 ||
          Dd > kGmmMaxDd || F < 1;
+}
+
+// Both kernels' instances take 1, 8 or 32 columns a lane of a warp: the
+// fewest that cover K*F (at most 1024).
+bool bad_cols(int KF, int nc) {
+  return KF > 32 * 32 || nc != (KF <= 32 ? 1 : KF <= 8 * 32 ? 8 : 32);
 }
 
 }  // namespace
@@ -459,19 +484,31 @@ int dgnn_dense_gmm_fwd(const float* x, const float* alpha, const float* beta,
                        const int* row_ids, const int* col_ids,
                        const void* mask, const int* ct, const int* chunk_ptr,
                        const float* mu, const float* isig, int R, int K, int D,
-                       int F, int use_tanh, int bf16, float* acc,
-                       void* stream) {
-  if (bad_dims(K, D, 1, F)) return static_cast<int>(cudaErrorInvalidValue);
+                       int F, int use_tanh, int bf16, int general, int nc,
+                       float* acc, void* stream) {
+  // the instance ops/dense.py dense_gmm_fwd_instance chose, checked
+  const bool fits = general ? true : K <= 4 && D <= 2;
+  if (bad_dims(K, D, 1, F) || !fits || bad_cols(K * F, nc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
   const int blocks = (R + kWarps - 1) / kWarps;
-  const int bad = dispatch_nc(K * F, [&](auto nc) {
-    dense_gmm_fwd_kernel<decltype(nc)::value>
-        <<<blocks, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-            x, alpha, beta, row_ids, col_ids,
-            static_cast<const uint32_t*>(mask), ct, chunk_ptr, mu, isig, R, K,
-            D, F, use_tanh, bf16, acc);
-  });
-  if (bad) return bad;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* m = static_cast<const uint32_t*>(mask);
+#define DGNN_GMM_FWD(KM, DM, NC)                                         \
+  dense_gmm_fwd_kernel<KM, DM, NC><<<blocks, kWarps * 32, 0, s>>>(        \
+      x, alpha, beta, row_ids, col_ids, m, ct, chunk_ptr, mu, isig, R, K, \
+      D, F, use_tanh, bf16, acc)
+  if (!general) {
+    if (nc == 1) DGNN_GMM_FWD(4, 2, 1);
+    else if (nc == 8) DGNN_GMM_FWD(4, 2, 8);
+    else DGNN_GMM_FWD(4, 2, 32);
+  } else {
+    if (nc == 1) DGNN_GMM_FWD(kGmmMaxK, kGmmMaxD, 1);
+    else if (nc == 8) DGNN_GMM_FWD(kGmmMaxK, kGmmMaxD, 8);
+    else DGNN_GMM_FWD(kGmmMaxK, kGmmMaxD, 32);
+  }
+#undef DGNN_GMM_FWD
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -484,8 +521,7 @@ int dgnn_dense_gmm_bwd(const float* g, const float* beta, const float* dfeat,
                        float* st, void* stream) {
   // the instance ops/dense.py dense_gmm_bwd_instance chose, checked
   const bool fits = general ? true : K <= 4 && D <= 2 && Dd <= 2;
-  if (bad_dims(K, D, Dd, F) || !fits || (nc != 1 && nc != 8 && nc != 32) ||
-      32 * nc < K * F) {
+  if (bad_dims(K, D, Dd, F) || !fits || bad_cols(K * F, nc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());

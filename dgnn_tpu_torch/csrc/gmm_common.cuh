@@ -19,19 +19,30 @@ namespace dgnn {
 constexpr int kGmmMaxK = 8;    // Gaussian kernels; the wrappers refuse more
 constexpr int kGmmMaxD = 4;    // projected pseudo dimensions
 constexpr int kGmmMaxDd = 4;   // raw destination-side pseudo scalars
-constexpr int kGmmMaxKD = kGmmMaxK * kGmmMaxD;
 
-// p[d] for d < D from the two endpoints' projections.  DMAX: the length of
-// the caller's arrays (D <= DMAX).
+// v[d] = row[d] for d < D, 0 for D <= d < DMAX: one endpoint's projection,
+// loaded from addresses every lane may read (the row's last value
+// repeated), so that no branch guards a load.
 template <int DMAX = kGmmMaxD>
-__device__ __forceinline__ void gmm_coords(const float* a, const float* b,
-                                           int D, bool use_tanh, float* p) {
+__device__ __forceinline__ void gmm_row(const float* __restrict__ row, int D,
+                                        float (&v)[DMAX]) {
 #pragma unroll
   for (int d = 0; d < DMAX; ++d) {
-    if (d < D) {
-      const float pre = __fadd_rn(a[d], b[d]);
-      p[d] = use_tanh ? tanhf(pre) : pre;
-    }
+    const float raw = __ldg(row + min(d, D - 1));
+    v[d] = d < D ? raw : 0.f;
+  }
+}
+
+// p[d] from the two endpoints' projections (gmm_row's, 0 past D, so that
+// p[d] = 0 there).  DMAX: the length of the caller's arrays (D <= DMAX).
+template <int DMAX = kGmmMaxD>
+__device__ __forceinline__ void gmm_coords(const float (&a)[DMAX],
+                                           const float (&b)[DMAX], int D,
+                                           bool use_tanh, float (&p)[DMAX]) {
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) {
+    const float pre = __fadd_rn(a[d], b[d]);
+    p[d] = use_tanh && d < D ? tanhf(pre) : pre;
   }
 }
 

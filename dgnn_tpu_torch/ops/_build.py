@@ -142,7 +142,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             ci, ci, ci,                         # R H F
             cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
-            ci,                                 # bf16
+            ci, ci, ci,                         # bf16 hmax nc
             vp, vp,                             # dx dac
             vp]                                 # stream
         lib.dgnn_dense_gat_bwd.restype = ci
@@ -167,6 +167,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             vp, vp,                             # mu isig
             ci, ci, ci, ci, ci, ci,             # R K D F use_tanh bf16
+            ci, ci,                             # general nc
             vp,                                 # acc
             vp]                                 # stream
         lib.dgnn_dense_gmm_fwd.restype = ci

@@ -23,9 +23,10 @@ backward w_k and g for dx, x and g for <x, g>, while c_k = <x, g> w_k and
 the stat rows use the unrounded w_k); "float32" rounds nothing.
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
-only where the kernel is launched).  ``dense_gat_fwd_instance`` and
-``dense_gmm_bwd_instance`` pick the template instance of those two kernels
-that a call launches; the launchers refuse any other.
+only where the kernel is launched).  ``dense_gat_fwd_instance``,
+``dense_gat_bwd_instance``, ``dense_gmm_fwd_instance`` and
+``dense_gmm_bwd_instance`` pick the template instance of each kernel that a
+call launches; the launchers refuse any other.
 """
 
 from __future__ import annotations
@@ -42,14 +43,17 @@ __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
            "dense_gat_bwd_plain", "dense_gmm_fwd", "dense_gmm_fwd_plain",
            "dense_gmm_bwd", "dense_gmm_bwd_plain", "unpack_mask", "LAUNCHES",
            "reset_launches", "DENSE_DTYPES", "MAX_HF", "dense_gat_fwd_instance",
-           "dense_gmm_bwd_instance", "GMM_BWD_MODEL"]
+           "dense_gat_bwd_instance", "dense_gmm_fwd_instance",
+           "dense_gmm_bwd_instance", "GMM_FWD_MODEL", "GMM_BWD_MODEL"]
 
 DENSE_DTYPES = ("bfloat16", "float32")
 # Feature columns the kernels take: 32 lanes x at most 32 columns each.
 MAX_HF = 1024
 
-# (K, D, Dd) that dense_gmm_bwd's models' instance holds in registers
-# (csrc/dense_gmm.cu); larger sizes take the general instance.
+# (K, D) that dense_gmm_fwd's and (K, D, Dd) that dense_gmm_bwd's models'
+# instances hold in registers (csrc/dense_gmm.cu); larger sizes take the
+# general instance.
+GMM_FWD_MODEL = (4, 2)
 GMM_BWD_MODEL = (4, 2, 2)
 
 LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0,
@@ -73,6 +77,26 @@ def dense_gat_fwd_instance(H: int, F: int) -> tuple[int, int]:
     return (4 if H <= 4 else 16), cols
 
 
+def dense_gat_bwd_instance(H: int, F: int) -> tuple[int, int]:
+    """(heads held, feature columns a lane) of the csrc/dense_gat.cu
+    backward instance: the forward's rule (the two kernels share their
+    instance set)."""
+    return dense_gat_fwd_instance(H, F)
+
+
+def _gmm_cols(KF: int) -> int:
+    """1, 8 or 32 columns a lane of a warp, the fewest that cover K*F."""
+    return next(c for c in (1, 8, 32) if 32 * c >= KF or c == 32)
+
+
+def dense_gmm_fwd_instance(K: int, D: int, F: int) -> tuple[str, int]:
+    """("model" or "general", feature columns a lane) of the
+    csrc/dense_gmm.cu forward instance: the models' sizes where K and D fit
+    GMM_FWD_MODEL, else the general limits; 1, 8 or 32 columns a lane."""
+    fits = all(v <= m for v, m in zip((K, D), GMM_FWD_MODEL))
+    return ("model" if fits else "general"), _gmm_cols(K * F)
+
+
 def dense_gmm_bwd_instance(K: int, D: int, Dd: int,
                            F: int) -> tuple[str, int]:
     """("model" or "general", feature columns a lane) of the
@@ -80,8 +104,7 @@ def dense_gmm_bwd_instance(K: int, D: int, Dd: int,
     and Dd fit GMM_BWD_MODEL, else the general limits; 1, 8 or 32 columns
     a lane of a warp, the fewest that cover K*F."""
     fits = all(v <= m for v, m in zip((K, D, Dd), GMM_BWD_MODEL))
-    cols = next(c for c in (1, 8, 32) if 32 * c >= K * F or c == 32)
-    return ("model" if fits else "general"), cols
+    return ("model" if fits else "general"), _gmm_cols(K * F)
 
 
 def unpack_mask(bits_u8: torch.Tensor) -> torch.Tensor:
@@ -301,6 +324,7 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
     R = db.row_ids.shape[0]
     dx = torch.empty((R, H, F), device=g.device, dtype=torch.float32)
     dac = torch.empty((R, H), device=g.device, dtype=torch.float32)
+    hmax, cols = dense_gat_bwd_instance(H, F)
     lib = _build.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.dgnn_dense_gat_bwd(
@@ -308,7 +332,7 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
         _ptr(feat), _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask),
         _ptr(db.ct), _ptr(db.chunk_ptr), R, H, F, float(slope), float(p),
         _inv_keep(p), int(seed) & 0xFFFFFFFF, int(dense_dtype == "bfloat16"),
-        _ptr(dx), _ptr(dac), stream)
+        hmax, cols, _ptr(dx), _ptr(dac), stream)
     if err:
         raise RuntimeError(f"dense_gat_bwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")
@@ -373,13 +397,15 @@ def dense_gmm_fwd(db, beta, alpha, feat, mu, isig, *, use_tanh: bool,
     _check_block("dense_gmm_fwd", db, K * F)
     R = db.row_ids.shape[0]
     acc = torch.empty((R, K, F), device=feat.device, dtype=torch.float32)
+    sizes, cols = dense_gmm_fwd_instance(K, D, F)
     lib = _build.load()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gmm_fwd(
         _ptr(feat), _ptr(alpha), _ptr(beta), _ptr(db.row_ids),
         _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
         _ptr(mu), _ptr(isig), R, K, D, F, int(use_tanh),
-        int(dense_dtype == "bfloat16"), _ptr(acc), stream)
+        int(dense_dtype == "bfloat16"), int(sizes == "general"), cols,
+        _ptr(acc), stream)
     if err:
         raise RuntimeError(f"dense_gmm_fwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, K={K}, D={D}, F={F})")

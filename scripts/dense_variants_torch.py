@@ -1,19 +1,22 @@
 #!/usr/bin/env python
-"""Variants of the two dense hub-block kernels redesigned last, K5
-(``dense_gat_fwd``) and K8 (``dense_gmm_bwd``), timed in turns on one card.
+"""Variants of the four dense hub-block kernels, K5 (``dense_gat_fwd``), K6
+(``dense_gat_bwd``), K7 (``dense_gmm_fwd``) and K8 (``dense_gmm_bwd``),
+timed in turns on one card.
 
-    python scripts/dense_variants_torch.py [--out DIR] [--calls 50]
+    python scripts/dense_variants_torch.py [--kernels K6 K7] [--out DIR]
+        [--calls 50]
 
 Copies this checkout's ``dgnn_tpu_torch/`` into ``DIR/<variant>/`` (by
 default ``_checkout/variants``, which .gitignore lists) with one line of
 ``csrc/dense_gat.cu`` or ``csrc/dense_gmm.cu`` rewritten per variant (a
-register cap, a prefetch depth, an unroll count: VARIANTS), builds every copy
-at once, then runs ``scripts/bin_kernel_times_torch.py --tree`` on each copy
-in turns (the list, then the list reversed).  Prints the card, per variant
-ptxas' registers and spills at the models' instances of the two kernels,
-and the four dense kernels' own ms per call over cora's blocks at both
-layers' widths, then one JSON object with every number.  Needs a CUDA
-device and nvcc.
+register cap, a prefetch depth, an unroll count: VARIANTS) for the kernels
+named by ``--kernels`` (default K6 and K7), builds every copy at once, then
+runs ``scripts/bin_kernel_times_torch.py --tree`` on each copy in turns
+(the list, then the list reversed).  Prints the card, per variant ptxas'
+registers and spills at the models' instances of the four kernels, and the
+four dense kernels' own ms per call over cora's blocks at both layers'
+widths, then one JSON object with every number.  Needs a CUDA device and
+nvcc.
 """
 
 import argparse
@@ -25,7 +28,8 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# variant name -> (source under csrc/, the line as built, the variant's line)
+# variant name (its kernel first) -> (source under csrc/, the line as
+# built, the variant's line)
 VARIANTS = {
     "as built": None,
     "K5 no register cap": ("dense_gat.cu", "constexpr int kGatFwdMinBlocks = 5;",
@@ -35,6 +39,20 @@ VARIANTS = {
     "K5 16 prefetched values": ("dense_gat.cu",
                                 "constexpr int kGatFwdPrefetch = 8;",
                                 "constexpr int kGatFwdPrefetch = 16;"),
+    "K6 no register cap": ("dense_gat.cu", "constexpr int kGatBwdMinBlocks = 5;",
+                           "constexpr int kGatBwdMinBlocks = 1;"),
+    "K6 4 blocks an SM": ("dense_gat.cu", "constexpr int kGatBwdMinBlocks = 5;",
+                          "constexpr int kGatBwdMinBlocks = 4;"),
+    "K6 16 prefetched values": ("dense_gat.cu",
+                                "constexpr int kGatBwdPrefetch = 8;",
+                                "constexpr int kGatBwdPrefetch = 16;"),
+    "K7 no register cap": ("dense_gmm.cu", "constexpr int kGmmFwdMinBlocks = 4;",
+                           "constexpr int kGmmFwdMinBlocks = 1;"),
+    "K7 5 blocks an SM": ("dense_gmm.cu", "constexpr int kGmmFwdMinBlocks = 4;",
+                          "constexpr int kGmmFwdMinBlocks = 5;"),
+    "K7 16 prefetched values": ("dense_gmm.cu",
+                                "constexpr int kGmmFwdPrefetch = 8;",
+                                "constexpr int kGmmFwdPrefetch = 16;"),
     "K8 no register cap": ("dense_gmm.cu", "constexpr int kGmmBwdMinBlocks = 4;",
                            "constexpr int kGmmBwdMinBlocks = 1;"),
     "K8 5 blocks an SM": ("dense_gmm.cu", "constexpr int kGmmBwdMinBlocks = 4;",
@@ -44,7 +62,8 @@ VARIANTS = {
                                   "#pragma unroll 2"),
 }
 # the models' instances in ptxas' report
-INSTANCES = re.compile(r"(dense_gat_fwd_kernelILi4ELi(?:8|1)E|"
+INSTANCES = re.compile(r"(dense_gat_(?:fwd|bwd)_kernelILi4ELi(?:8|1)E|"
+                       r"dense_gmm_fwd_kernelILi4ELi2ELi(?:8|1)E|"
                        r"dense_gmm_bwd_kernelILi4ELi2ELi2ELi(?:8|1)E)")
 
 
@@ -87,6 +106,8 @@ def main():
     ap.add_argument("--out", default=os.path.join(ROOT, "_checkout",
                                                   "variants"))
     ap.add_argument("--calls", type=int, default=50)
+    ap.add_argument("--kernels", nargs="+", default=["K6", "K7"],
+                    choices=["K5", "K6", "K7", "K8"])
     args = ap.parse_args()
     import torch
 
@@ -95,7 +116,8 @@ def main():
               file=sys.stderr)
         return 1
     trees = {name: make_tree(args.out, name, edit)
-             for name, edit in VARIANTS.items()}
+             for name, edit in VARIANTS.items()
+             if edit is None or name.split()[0] in args.kernels}
     build = ("import sys; sys.path.insert(0, sys.argv[1]); "
              "from dgnn_tpu_torch.ops import _build; _build.load()")
     procs = [subprocess.Popen([sys.executable, "-c", build, tree])

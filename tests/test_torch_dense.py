@@ -339,6 +339,36 @@ def test_fwd_plain_matches_jax_kernel_on_hub_rows(hub_pair, with_pos, p,
         assert not t[EMPTIED_ROW].any()
 
 
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_bwd_plain_matches_jax_kernel_on_hub_rows(hub_pair, p, dense_dtype):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_dense import dense_gat_bwd as jax_bwd
+
+    blocks, tb = hub_pair
+    db, jdb = blocks["bwd"]
+    n, h, f = tb["feat"].shape
+    cid = np.asarray(jdb.col_ids)
+    st = np.concatenate([tb[k].numpy() for k in ("ar", "M", "Linv", "ws")],
+                        axis=1)[cid]
+    drop = (p, jnp.uint32(SEED), jdb.row_ids, jdb.col_ids) if p > 0 else None
+    want = jax_bwd(jdb, jnp.asarray(tb["ac"].numpy())[jdb.row_ids],
+                   jnp.asarray(tb["feat"].numpy().reshape(n, -1))[jdb.row_ids],
+                   jnp.asarray(tb["g"].numpy().reshape(n, -1)[cid]),
+                   jnp.asarray(st), slope=SLOPE, H=h,
+                   mat_dtype=_jax_dt(dense_dtype), drop=drop, interpret=True)
+    got = dense.dense_gat_bwd(
+        db, *(tb[k] for k in ("g", "ar", "M", "Linv", "ws", "ac", "feat")),
+        slope=SLOPE, p=p, seed=SEED, dense_dtype=dense_dtype)
+    tol = hub_tol(db, BLOCK_TOL)
+    for name, g, w in zip(("dx", "dac"), got, want):
+        _assert_close(g.reshape(g.shape[0], -1).numpy(), w, dense_dtype, tol,
+                      name)
+        # the emptied row: no partials
+        assert not g[EMPTIED_ROW].any(), name
+
+
 @pytest.mark.parametrize("hf,want", [
     ((4, 64), (4, 8)),     # the hidden layer: 8 columns a lane
     ((1, 7), (4, 1)),      # the output layer: a warp a row all the same
@@ -367,6 +397,37 @@ def test_gmm_bwd_instance_choice(kdf, want):
     """The MoNet backward's template instance: the models' stat sizes
     (GMM_BWD_MODEL) or the general ones, and columns a lane."""
     assert dense.dense_gmm_bwd_instance(*kdf) == want
+
+
+@pytest.mark.parametrize("hf,want", [
+    ((4, 64), (4, 8)),     # the hidden layer: 8 columns a lane
+    ((1, 7), (4, 1)),      # the output layer
+    ((3, 5), (4, 1)),
+    ((4, 8), (4, 1)),      # 32 columns: one a lane
+    ((8, 16), (16, 4)),    # more than 4 heads: 16 held
+    ((16, 64), (16, 32)),  # the widest row a warp takes
+], ids=["4x64", "1x7", "3x5", "4x8", "8x16", "16x64"])
+def test_gat_bwd_instance_choice(hf, want):
+    """The backward's template instance (heads held, columns a lane): the
+    forward's for every shape, the two kernels sharing their instances."""
+    assert dense.dense_gat_bwd_instance(*hf) == want
+    assert dense.dense_gat_bwd_instance(*hf) == dense.dense_gat_fwd_instance(
+        *hf)
+
+
+@pytest.mark.parametrize("kdf,want", [
+    ((3, 2, 64), ("model", 8)),    # cora MoNet's hidden layer
+    ((3, 2, 7), ("model", 1)),     # its output layer
+    ((4, 2, 256), ("model", 32)),  # the models' limits, 1024 columns
+    ((8, 4, 16), ("general", 8)),
+    ((5, 2, 8), ("general", 8)),   # K over the models' instance
+    ((3, 3, 8), ("general", 1)),   # D over it
+    ((1, 1, 33), ("model", 8)),    # one column over a lane's one
+], ids=["3x64", "3x7", "4x256", "8x16", "K5", "D3", "33"])
+def test_gmm_fwd_instance_choice(kdf, want):
+    """The MoNet forward's template instance: the models' sizes
+    (GMM_FWD_MODEL) or the general ones, and columns a lane."""
+    assert dense.dense_gmm_fwd_instance(*kdf) == want
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +612,33 @@ def test_cuda_fwd_matches_plain_on_hub_rows(rng, cuda_device, dense_dtype, p,
                 assert x is None
             else:
                 _assert_close(x.cpu(), w.cpu(), dense_dtype, tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [0.0, 0.3])
+@pytest.mark.parametrize("h,f", [(4, 64), (1, 7), (3, 5), (8, 16)])
+def test_cuda_bwd_matches_plain_on_hub_rows(rng, cuda_device, dense_dtype, p,
+                                            h, f):
+    """Rows over 32 edges (many batches of a row list), chunks of two column
+    tiles and an empty real row: the backward kernel against its plain
+    version, both heads-held instances."""
+    db = hub_block(hub_graph(rng).bwd.dense).to(cuda_device)
+    tb = {k: v.to(cuda_device) for k, v in
+          _tables(rng, HUB["n"], h, f).items()}
+    tb["g"] = tb["g"] / 16  # see chip_smoke.py G_SCALE
+    tol = hub_tol(db.to("cpu"), BLOCK_TOL)
+    args = (db, *(tb[k] for k in ("g", "ar", "M", "Linv", "ws", "ac",
+                                  "feat")))
+    kw = dict(slope=SLOPE, p=p, seed=SEED, dense_dtype=dense_dtype)
+    before = dense.LAUNCHES["dense_gat_bwd"]
+    got = dense.dense_gat_bwd(*args, **kw)
+    assert dense.LAUNCHES["dense_gat_bwd"] == before + 1
+    want = dense.dense_gat_bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for name, x, w in zip(("dx", "dac"), got, want):
+        _assert_close(x.cpu(), w.cpu(), dense_dtype, tol, name)
+        assert not x[EMPTIED_ROW].any(), name
 
 
 @pytest.mark.cuda

@@ -435,9 +435,10 @@ def test_dense_bwd_plain_matches_jax_kernel(multi_pair, use_tanh, dense_dtype):
 
 @pytest.fixture(scope="module")
 def hub_pair():
-    """The backward's hub block over tests/test_torch_dense.py's hub_edges
-    (hub rows of many batches, two column tiles a chunk, an empty real
-    row), built by both packages, and node tables."""
+    """Both directions' hub blocks over tests/test_torch_dense.py's
+    hub_edges (hub rows of many batches, two column tiles a chunk, an empty
+    real row), built by both packages ({"fwd": (port, jax), "bwd": ...}),
+    and node tables."""
     import dataclasses
 
     import jax.numpy as jnp
@@ -447,12 +448,39 @@ def hub_pair():
     rng = np.random.default_rng(4)
     src, dst = hub_edges(rng, HUB["n"])
     block = (HUB["r"], HUB["c"])
-    db = build_graph(src, dst, HUB["n"], dense=block).bwd.dense
-    jdb = jax_build_graph(src, dst, HUB["n"], dense=block).bwd.dense
-    np.testing.assert_array_equal(db.mask.numpy(), np.asarray(jdb.mask))
-    db = hub_block(db)
-    jdb = dataclasses.replace(jdb, mask=jnp.asarray(db.mask))
-    return db, jdb, _node_tables(rng, HUB["n"], 2, 5, dd=2)
+    tg = build_graph(src, dst, HUB["n"], dense=block)
+    jg = jax_build_graph(src, dst, HUB["n"], dense=block)
+    blocks = {}
+    for d in ("fwd", "bwd"):
+        db, jdb = getattr(tg, d).dense, getattr(jg, d).dense
+        np.testing.assert_array_equal(db.mask.numpy(), np.asarray(jdb.mask))
+        db = hub_block(db)
+        blocks[d] = (db, dataclasses.replace(jdb, mask=jnp.asarray(db.mask)))
+    return blocks, _node_tables(rng, HUB["n"], 2, 5, dd=2)
+
+
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_dense_fwd_plain_matches_jax_kernel_on_hub_rows(hub_pair, use_tanh,
+                                                       dense_dtype):
+    import jax.numpy as jnp
+
+    from dgnn_tpu.ops.pallas_dense import dense_gmm_fwd as jax_fwd
+
+    blocks, t = hub_pair
+    db, jdb = blocks["fwd"]
+    n = t["feat"].shape[0]
+    want = jax_fwd(jdb, jnp.asarray(t["beta"])[jdb.row_ids],
+                   jnp.asarray(t["alpha"])[jdb.col_ids],
+                   jnp.asarray(t["feat"].reshape(n, -1))[jdb.col_ids],
+                   jnp.asarray(t["mu"]), jnp.asarray(t["isig"]),
+                   use_tanh=use_tanh, mat_dtype=_jax_dt(dense_dtype),
+                   interpret=True)
+    got = dense.dense_gmm_fwd(*_dense_fwd_args(db, _torch(t)),
+                              use_tanh=use_tanh, dense_dtype=dense_dtype)
+    _assert_close(got.reshape(got.shape[0], -1).numpy(), want, dense_dtype,
+                  hub_tol(db, BLOCK_TOL), "acc")
+    assert not got[EMPTIED_ROW].any()
 
 
 @pytest.mark.parametrize("use_tanh", [True, False])
@@ -463,7 +491,8 @@ def test_dense_bwd_plain_matches_jax_kernel_on_hub_rows(hub_pair, use_tanh,
 
     from dgnn_tpu.ops.pallas_dense import dense_gmm_bwd as jax_bwd
 
-    db, jdb, t = hub_pair
+    blocks, t = hub_pair
+    db, jdb = blocks["bwd"]
     n = t["feat"].shape[0]
     want = jax_bwd(jdb, jnp.asarray(t["alpha"])[jdb.row_ids],
                    jnp.asarray(t["beta"])[jdb.col_ids],
@@ -952,6 +981,35 @@ def test_cuda_dense_bwd_matches_plain_on_hub_rows(rng, cuda_device,
     for name, x, y in zip(("dx", "st"), got, want):
         _assert_close(x.cpu(), y.cpu(), dense_dtype, tol, name)
         assert not x[EMPTIED_ROW].any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_tanh", [True, False])
+@pytest.mark.parametrize("k,f,d", [
+    (3, 64, 2),   # cora's hidden layer: the models' instance, 8 a lane
+    (3, 7, 2),    # cora's output layer: the models' instance, 1 a lane
+    (3, 128, 2),  # the models' instance at 32 columns a lane
+    (8, 16, 4),   # the general instance at its limits
+])
+def test_cuda_dense_fwd_matches_plain_on_hub_rows(rng, cuda_device,
+                                                  dense_dtype, use_tanh, k,
+                                                  f, d):
+    """Rows over 32 edges (many batches of the row list), chunks of two
+    column tiles and an empty real row: the forward kernel against its
+    plain version, both instances."""
+    db = hub_block(hub_graph(rng).fwd.dense)
+    tol = hub_tol(db, BLOCK_TOL)
+    db = db.to(cuda_device)
+    t = _torch(_node_tables(rng, HUB["n"], k, f, d=d), cuda_device)
+    kw = dict(use_tanh=use_tanh, dense_dtype=dense_dtype)
+    before = dense.LAUNCHES["dense_gmm_fwd"]
+    got = dense.dense_gmm_fwd(*_dense_fwd_args(db, t), **kw)
+    assert dense.LAUNCHES["dense_gmm_fwd"] == before + 1
+    want = dense.dense_gmm_fwd_plain(*_dense_fwd_args(db, t), **kw)
+    torch.cuda.synchronize()
+    _assert_close(got.cpu(), want.cpu(), dense_dtype, tol, "acc")
+    assert not got[EMPTIED_ROW].any()
 
 
 def _sum_tol(segs, tol):
