@@ -55,10 +55,12 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                list pass alone (live_counts) must count exactly the
                columns its plain rule (live_candidates) keeps.
                gather_rows_sum at W in {32, 64, 256} x rows of 4 KB and 1 KB
-               (rtol 1e-5, atol 8 W 2^-23: sums of W terms in another order)
-               and gather_lanes at tables of 512 ... 4096 rows, and at
-               lane counts and widths that are no multiple of 4 or of the
-               slab (exact).
+               and on large tables in many column slices of 32 floats
+               (5200 floats a row, the last slice 16; 128; 36, the last
+               slice one 16-byte group) (rtol 1e-5, atol 8 W 2^-23:
+               sums of W terms in another order), and gather_lanes at
+               tables of 512 ... 4096 rows, and at lane counts and widths
+               that are no multiple of 4 or of the slab (exact).
   4. op      - gat_aggregate forward and (ar, ac, feat) gradients on the
                card against the same op on CPU copies (the plain path):
                pubmed at p 0 and 0.3; cora (hub block) at p 0 and 0.3 in
@@ -118,7 +120,11 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                (embedding_bag, torch.gather; timed here, used nowhere);
                gather_lanes and torch.gather from a replayed CUDA graph of
                20 calls, since one call is shorter on the card than the
-               host takes to launch it.
+               host takes to launch it; gather_rows_sum also beside its
+               all-miss traffic (every named row from device memory) and
+               its time on a table the L2 holds whole (the same ids into
+               L2_ROWS rows, every repeat an L2 hit), with the rate of
+               gathered rows it reaches there.
                Each kernel's bound is the larger of its bytes (every input
                tensor read once, of a hub block's node tables and of
                gather_rows_sum's table the distinct rows the ids name, every
@@ -198,6 +204,9 @@ EC_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 # products can cross the bfloat16 threshold (the H100 read at most 7 of
 # 2,097,152 a layer).
 EC_MASK_FLIPS = 1e-4
+# gather_rows_sum is also timed on a table of this many rows (16.8 MB at the
+# study's 4 KB rows), which stays in the H100's 50 MB L2 whole.
+L2_ROWS = 4096
 # The H100's published peaks (SXM): HBM3 bytes/s, float32 FLOP/s outside the
 # tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -752,6 +761,21 @@ def check_gathers(gather, study, dev, err):
                                          float((got - want).abs().max()))
             done.append(f"W={width} row={sub * 128}")
             del feat, nbr, got, want
+    # large tables in many column slices of 32 floats: 5200 floats a row
+    # (the last slice 16), 128, and 36 (the last slice one 16-byte group)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for n, row, segs, width in ((4096, 5200, 40, 7), (100000, 128, 33, 40),
+                                (50000, 36, 21, 70)):
+        feat = torch.randn((n, row // 4, 4), generator=gen, device=dev)
+        nbr = torch.randint(0, n, (segs, width), generator=gen, device=dev,
+                            dtype=torch.int32)
+        got = gather.gather_rows_sum(feat, nbr)
+        want = gather.gather_rows_sum_plain(feat, nbr)
+        torch.testing.assert_close(got, want, **study.rows_tol(width))
+        err["gather_rows_sum"] = max(err["gather_rows_sum"],
+                                     float((got - want).abs().max()))
+        done.append(f"N={n} W={width} row={row}")
+        del feat, nbr, got, want
     for c in study.LANES_CASES:
         tab, idx = study.lanes_inputs(dev, c, seed=6)
         got = gather.gather_lanes(tab, idx)
@@ -1459,33 +1483,47 @@ def main():
     for width, sub in ((64, 8), (32, 8), (256, 8), (64, 2)):
         feat, nbr = gather_study.rows_inputs(dev, sub=sub, width=width,
                                              seed=9)
+        # the same call on a table of L2_ROWS rows, which the L2 holds
+        # whole, so that every repeat is an L2 hit
+        feat_l2, nbr_l2 = gather_study.rows_inputs(
+            dev, n=L2_ROWS, sub=sub, width=width, seed=9)
         nbr_long = nbr.long()
         fns = [lambda: gather.gather_rows_sum_plain(feat, nbr),
                lambda: gather_study.rows_library(feat, nbr_long),
-               lambda: gather.gather_rows_sum(feat, nbr)]
-        plain_ms, library_ms, ms = time_turns(fns, time_calls, dev,
-                                              [10, 10, 20])
+               lambda: gather.gather_rows_sum(feat, nbr),
+               lambda: gather.gather_rows_sum(feat_l2, nbr_l2)]
+        plain_ms, library_ms, ms, l2_ms = time_turns(
+            fns, time_calls, dev, [10, 10, 20, 20])
+        torch.testing.assert_close(
+            fns[3](), gather.gather_rows_sum_plain(feat_l2, nbr_l2),
+            **gather_study.rows_tol(width))
         # what the function must move: each distinct named row of the table
         # once (a row named again need not be fetched again), the ids, the
         # output.  Beside it the all-miss traffic: every named row fetched
-        # from device memory, repeats included, as the kernel's copies ask.
+        # from device memory, repeats included.
         distinct = int(torch.unique(nbr).numel())
         bound_ms, bound_by = bound("gather_rows_sum",
                                    [(feat, distinct), nbr], [fns[2]()],
                                    nbr.numel(), sub * 128, 1)
         all_miss_ms, _ = bound("gather_rows_sum", [(feat, nbr.numel()), nbr],
                                [fns[2]()], nbr.numel(), sub * 128, 1)
+        gathered = nbr.numel() * sub * 512  # bytes of the named rows
+        l2_tb_s = gathered / l2_ms / 1e9
         times[("gather_rows_sum", width, sub)] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=library_ms)
+            library_ms=library_ms, l2_resident_ms=l2_ms,
+            l2_resident_tb_per_s=l2_tb_s)
         phase("times", f"gather_rows_sum {nbr.numel()} rows of "
               f"{sub * 128 * 4} bytes in segments of {width}: kernel "
-              f"{ms:.4f} ms ({nbr.numel() * sub * 512 / ms / 1e6:.0f} GB/s "
+              f"{ms:.4f} ms ({gathered / ms / 1e6:.0f} GB/s "
               f"useful), plain {plain_ms:.4f} ms, embedding_bag "
               f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
               f"({distinct} distinct rows; kernel {ms / bound_ms:.1f} times "
-              f"above it; all-miss traffic {all_miss_ms:.5f} ms) | {smi}")
-        del feat, nbr, nbr_long, fns
+              f"above it; all-miss traffic {all_miss_ms:.5f} ms); on a "
+              f"table the L2 holds whole (the same ids into {L2_ROWS} rows) "
+              f"{l2_ms:.4f} ms, {l2_tb_s:.3f} TB/s of gathered rows (kernel "
+              f"{ms / l2_ms:.2f} times that) | {smi}")
+        del feat, nbr, nbr_long, fns, feat_l2, nbr_l2
     for c in (2048, 512, 1024, 4096):
         tab, idx = gather_study.lanes_inputs(dev, c, seed=10)
         idx_wide = idx.repeat(1, tab.shape[1] // idx.shape[1]).long()

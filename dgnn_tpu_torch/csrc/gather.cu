@@ -5,24 +5,45 @@
 //   gather_rows_sum_kernel  replaces microbench_gather.py:bench_dma_gather
 //     (kernel _dma_kernel; wrapper ops/gather.py gather_rows_sum):
 //       out[s, :] = sum_j feat[nbr[s, j], :]
-//     Rows travel from device memory to shared memory by asynchronous
-//     copies (cp.async, 16 bytes each), two stages deep: while a stage is
-//     summed, the next one is in flight.  The TPU kernel kept two whole
-//     segments (2 x W x row) in its scratch; a Hopper block has at most
-//     227 KB of shared memory, so a stage holds kStageBytes of a segment's
-//     rows (8 rows of 4 KB) and the segment's sum is carried in registers
-//     across its stages.  A thread owns one 16-byte column group of the
-//     row: it copies that group of every row of a stage and later sums
-//     exactly what it copied, so cp.async.wait_group is the only
-//     synchronisation the pipeline needs.  A block walks kSegsPerBlock
-//     consecutive segments without draining the pipeline between them
-//     (the TPU kernel's 8 segments per grid step).
 //     Bound on the H100: bytes, of which the function must move the
-//     table's distinct named rows once, the ids and the output.  The copies
-//     themselves fetch every named row, repeats included (cp.async.cg: from
-//     the L2 where it still holds the row, else from device memory).  Left
-//     for later PRs: cp.async.bulk with an mbarrier (one copy per row
-//     instead of one per 16 bytes), deeper stages, reuse of repeated rows.
+//     table's distinct named rows once, the ids and the output.  At the
+//     study's shapes every row is named about 16 times, and the 268 MB
+//     table does not stay in the 50 MB L2, so fetching whole rows in
+//     segment order reads nearly every named row from device memory again
+//     (the design before this one: 1.29 ms a call, 13 times the bound).
+//     The function's columns are independent (an SpMM of a 0/1 matrix with
+//     the table), so the kernel walks the table one column slice at a time:
+//     kRowsSlice4 16-byte groups of every row (32 floats, one 128-byte
+//     line), the last slice ragged where the row is no multiple of it.
+//     Work items are (slice, segment), a warp each, numbered slice-major;
+//     blocks start in about ascending index, so the warps in flight read
+//     one slice, or two at a boundary (N x 128 bytes: 8.4 MB at the study's
+//     65,536 rows): each line of a row comes from device memory about once
+//     and its repeats are L2 hits.  Slicing by row ranges instead would
+//     write every output row and read every id once a range.  Past the
+//     bytes, what holds the kernel back is the L2's rate for these gathers
+//     while every repeat is read again; chip_smoke.py times the same call
+//     on a table the L2 holds whole beside it.
+//     A lane takes one 16-byte group of a row, so one load instruction
+//     covers 32 / kRowsSlice4 rows.  The warp loads the segment's ids 32 at
+//     a time, coalesced (the next 32 while the current ones are used),
+//     hands them out by shuffle, keeps kRowsUnroll rows a lane in flight
+//     straight into registers (no block reads a row twice, so staging
+//     through shared memory buys nothing), sums in float32, combines its
+//     row groups by __shfl_xor, and stores 16 bytes a lane by a streaming
+//     store, so that the output does not push the slice out of L2.  A row
+//     past the segment's end loads the segment's last row and adds zero,
+//     and a column past the row's end loads the row's last 16 bytes and is
+//     not stored: no load waits behind a branch.
+//     On an H100 80GB HBM3 at 700 W (scripts/gather_variants_torch.py,
+//     each tree twice in turns in one call), 2^20 ids in segments of 64
+//     into 65,536 rows of 4 KB: 0.557 ms a call against 1.30 for the
+//     design before; the same ids into 4,096 rows, which the L2 holds
+//     whole, 0.35 ms.  Measured there and not kept: slices of 64 floats
+//     (0.556 against 0.551 in that call) and of 128 (0.607; at W = 256
+//     0.783 against 0.559); 4 rows a lane in flight instead of 8, and an
+//     L2 evict_last hint on the table loads, each within 0.5 % of the
+//     built kernel in one call and on either side of it in the other.
 //
 //   gather_lanes_kernel  replaces microbench_gather.py:bench_vmem_dynamic_gather
 //     (kernel _dg_kernel; wrapper gather_lanes):
@@ -66,10 +87,9 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kStageBytes = 32 * 1024;  // of one stage; two are resident
-constexpr int kMaxStageRows = 32;
-constexpr int kSegsPerBlock = 8;
+constexpr int kRowsThreads = 256;  // 8 warps, a work item each
+constexpr int kRowsSlice4 = 8;     // 16-byte groups of a column slice
+constexpr int kRowsUnroll = 8;     // rows a lane has in flight
 constexpr int kLaneSlabBytes = 200 * 1024;
 constexpr int kLaneThreads = 1024;
 constexpr int kLaneRows = 8;  // rows of one thread in flight together
@@ -109,64 +129,63 @@ void check_ids(const int* ids, size_t n, int limit, cudaStream_t stream) {
                      stream>>>(ids, n, limit);
 }
 
-// grid: (segment groups, column slabs of blockDim.x 16-byte groups).
-__global__ void __launch_bounds__(kMaxThreads) gather_rows_sum_kernel(
+// A warp a work item: column slice k of every row (the last one may be
+// ragged) and segment s, numbered slice-major: item = k * S + s.
+__global__ void __launch_bounds__(kRowsThreads) gather_rows_sum_kernel(
     const float4* __restrict__ feat,  // [N, row4]
     const int* __restrict__ nbr,      // [S, W]
-    int S, int W, int row4, int stage_rows,
+    int S, int W, int row4, long long items,
     float4* __restrict__ out) {       // [S, row4]
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float4* buf = reinterpret_cast<float4*>(smem_raw);  // [2][stage_rows][T]
+  constexpr int kR = 32 / kRowsSlice4;  // rows one load instruction covers
+  constexpr int kSteps = 32 / kR;       // instructions for 32 ids
+  static_assert(32 % kRowsSlice4 == 0 && kSteps % kRowsUnroll == 0,
+                "a slice must divide a warp and the unroll the steps");
+  const long long item =
+      static_cast<long long>(blockIdx.x) * (kRowsThreads / 32) +
+      (threadIdx.x >> 5);
+  if (item >= items) return;  // warp-uniform; no block barrier below
+  const int lane = threadIdx.x & 31;
+  const int k = static_cast<int>(item / S);
+  const int s = static_cast<int>(item - static_cast<long long>(k) * S);
+  const int c4 = k * kRowsSlice4 + lane % kRowsSlice4;  // this lane's group
+  const bool col_ok = c4 < row4;
+  const float4* src = feat + min(c4, row4 - 1);
+  const int r = lane / kRowsSlice4;   // this lane's row within a step
+  const int* ids = nbr + static_cast<size_t>(s) * W;
 
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int col = blockIdx.y * T + tid;
-  if (col >= row4) return;  // no block-wide barrier below
-  const int s0 = blockIdx.x * kSegsPerBlock;
-  const int nseg = min(kSegsPerBlock, S - s0);
-  const int per_seg = (W + stage_rows - 1) / stage_rows;
-  const int nstage = nseg * per_seg;
-
-  // stage t covers rows [j0, j0 + n) of segment s0 + t / per_seg
-  auto fetch = [&](int t) {
-    const int seg = t / per_seg;
-    const int j0 = (t - seg * per_seg) * stage_rows;
-    const int n = min(stage_rows, W - j0);
-    const int* ids = nbr + static_cast<size_t>(s0 + seg) * W + j0;
-    float4* dst = buf + static_cast<size_t>(t & 1) * stage_rows * T + tid;
-    for (int r = 0; r < n; ++r) {
-      cp_async_16(dst + static_cast<size_t>(r) * T,
-                  feat + static_cast<size_t>(ids[r]) * row4 + col);
-    }
-    cp_async_commit();
-  };
-
-  fetch(0);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int t = 0; t < nstage; ++t) {
-    if (t + 1 < nstage) {
-      fetch(t + 1);
-      cp_async_wait<1>();  // stage t has landed; t + 1 may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    const int seg = t / per_seg;
-    const int j0 = (t - seg * per_seg) * stage_rows;
-    const int n = min(stage_rows, W - j0);
-    const float4* src =
-        buf + static_cast<size_t>(t & 1) * stage_rows * T + tid;
-    for (int r = 0; r < n; ++r) {
-      const float4 v = src[static_cast<size_t>(r) * T];
-      acc.x += v.x;
-      acc.y += v.y;
-      acc.z += v.z;
-      acc.w += v.w;
-    }
-    if (j0 + n == W) {  // the segment's last stage
-      out[static_cast<size_t>(s0 + seg) * row4 + col] = acc;
-      acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  int id_next = __ldg(ids + min(lane, W - 1));
+  for (int j0 = 0; j0 < W; j0 += 32) {
+    const int id_lane = id_next;
+    id_next = __ldg(ids + min(j0 + 32 + lane, W - 1));
+    const int n = W - j0;             // rows of the segment from j0 on
+#pragma unroll
+    for (int u0 = 0; u0 < kSteps; u0 += kRowsUnroll) {
+      if (u0 * kR >= n) break;        // warp-uniform
+      float4 v[kRowsUnroll];
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u) {
+        const int id = __shfl_sync(0xffffffffu, id_lane, (u0 + u) * kR + r);
+        v[u] = __ldg(src + static_cast<size_t>(id) * row4);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowsUnroll; ++u) {
+        const bool ok = (u0 + u) * kR + r < n;
+        acc.x += ok ? v[u].x : 0.f;
+        acc.y += ok ? v[u].y : 0.f;
+        acc.z += ok ? v[u].z : 0.f;
+        acc.w += ok ? v[u].w : 0.f;
+      }
     }
   }
+#pragma unroll
+  for (int o = kRowsSlice4; o < 32; o <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+  }
+  if (r == 0 && col_ok) __stcs(out + static_cast<size_t>(s) * row4 + c4, acc);
 }
 
 // grid: (column slabs of w, row chunks).  Threads: kLaneThreads / w rows x w
@@ -268,22 +287,17 @@ int dgnn_gather_rows_sum(const float* feat, const int* nbr, int N, int S,
     return static_cast<int>(cudaErrorInvalidValue);
   if (S == 0) return static_cast<int>(cudaGetLastError());
   const int row4 = row / 4;
-  int T = ((min(row4, kMaxThreads) + 31) / 32) * 32;
-  int stage_rows = kStageBytes / (T * 16);
-  stage_rows = max(1, min(min(stage_rows, kMaxStageRows), W));
-  const size_t smem = static_cast<size_t>(2) * stage_rows * T * 16;
-  cudaError_t e = cudaFuncSetAttribute(
-      gather_rows_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((S + kSegsPerBlock - 1) / kSegsPerBlock,
-                  (row4 + T - 1) / T);
-  check_ids(nbr, static_cast<size_t>(S) * W, N,
-            static_cast<cudaStream_t>(stream));
-  gather_rows_sum_kernel<<<grid, T, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(feat), nbr, S, W, row4, stage_rows,
-      reinterpret_cast<float4*>(out));
+  const long long items = static_cast<long long>(S) *
+                          ((row4 + kRowsSlice4 - 1) / kRowsSlice4);
+  constexpr int kWarps = kRowsThreads / 32;
+  const long long blocks = (items + kWarps - 1) / kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  check_ids(nbr, static_cast<size_t>(S) * W, N, s);
+  gather_rows_sum_kernel<<<static_cast<unsigned>(blocks), kRowsThreads, 0,
+                           s>>>(reinterpret_cast<const float4*>(feat), nbr,
+                                S, W, row4, items,
+                                reinterpret_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,20 @@
 """Two neighbour-gather strategies as CUDA kernels, with their plain
 versions (port of the two Pallas kernels of ``scripts/microbench_gather.py``).
 
-``gather_rows_sum`` (``bench_dma_gather``): every row of a segment is
-fetched from the table in device memory by asynchronous copies into shared
-memory, the next stage in flight while the current one is summed:
+``gather_rows_sum`` (``bench_dma_gather``), a sum of the table rows each
+segment names:
 
     out[s, :] = sum_j feat[nbr[s, j], :]
+
+Its bound is bytes: the distinct rows named, the ids and the output, once
+each.  The kernel walks the table one column slice of 32 floats (a 128-byte
+line of every row) at a time, all warps in flight on the same slice, so
+each line of a row comes from device memory about once and the ids'
+repeats of it are L2 hits; past that it is bound by the L2's rate for
+these gathers.  Column slices, not row ranges: the output is written once
+and the ids are read once a slice, where a row range would write every
+output row again.  Wider slices were slower on every table measured
+(scripts/gather_variants_torch.py).
 
 ``gather_lanes`` (``bench_vmem_dynamic_gather``): a per-lane gather from a
 table held in shared memory, one column slab per 1024-thread block (32

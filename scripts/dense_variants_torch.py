@@ -28,38 +28,35 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# variant name (its kernel first) -> (source under csrc/, the line as
-# built, the variant's line)
+GAT, GMM = "csrc/dense_gat.cu", "csrc/dense_gmm.cu"
+# variant name (its kernel first) -> [(file under dgnn_tpu_torch/, the line
+# as built, the variant's line)]
 VARIANTS = {
-    "as built": None,
-    "K5 no register cap": ("dense_gat.cu", "constexpr int kGatFwdMinBlocks = 5;",
-                           "constexpr int kGatFwdMinBlocks = 1;"),
-    "K5 4 blocks an SM": ("dense_gat.cu", "constexpr int kGatFwdMinBlocks = 5;",
-                          "constexpr int kGatFwdMinBlocks = 4;"),
-    "K5 16 prefetched values": ("dense_gat.cu",
-                                "constexpr int kGatFwdPrefetch = 8;",
-                                "constexpr int kGatFwdPrefetch = 16;"),
-    "K6 no register cap": ("dense_gat.cu", "constexpr int kGatBwdMinBlocks = 5;",
-                           "constexpr int kGatBwdMinBlocks = 1;"),
-    "K6 4 blocks an SM": ("dense_gat.cu", "constexpr int kGatBwdMinBlocks = 5;",
-                          "constexpr int kGatBwdMinBlocks = 4;"),
-    "K6 16 prefetched values": ("dense_gat.cu",
-                                "constexpr int kGatBwdPrefetch = 8;",
-                                "constexpr int kGatBwdPrefetch = 16;"),
-    "K7 no register cap": ("dense_gmm.cu", "constexpr int kGmmFwdMinBlocks = 4;",
-                           "constexpr int kGmmFwdMinBlocks = 1;"),
-    "K7 5 blocks an SM": ("dense_gmm.cu", "constexpr int kGmmFwdMinBlocks = 4;",
-                          "constexpr int kGmmFwdMinBlocks = 5;"),
-    "K7 16 prefetched values": ("dense_gmm.cu",
-                                "constexpr int kGmmFwdPrefetch = 8;",
-                                "constexpr int kGmmFwdPrefetch = 16;"),
-    "K8 no register cap": ("dense_gmm.cu", "constexpr int kGmmBwdMinBlocks = 4;",
-                           "constexpr int kGmmBwdMinBlocks = 1;"),
-    "K8 5 blocks an SM": ("dense_gmm.cu", "constexpr int kGmmBwdMinBlocks = 4;",
-                          "constexpr int kGmmBwdMinBlocks = 5;"),
-    "K8 two edges at 8 columns": ("dense_gmm.cu",
-                                  "#pragma unroll(NC == 1 ? 2 : 1)",
-                                  "#pragma unroll 2"),
+    "as built": [],
+    "K5 no register cap": [(GAT, "constexpr int kGatFwdMinBlocks = 5;",
+                            "constexpr int kGatFwdMinBlocks = 1;")],
+    "K5 4 blocks an SM": [(GAT, "constexpr int kGatFwdMinBlocks = 5;",
+                           "constexpr int kGatFwdMinBlocks = 4;")],
+    "K5 16 prefetched values": [(GAT, "constexpr int kGatFwdPrefetch = 8;",
+                                 "constexpr int kGatFwdPrefetch = 16;")],
+    "K6 no register cap": [(GAT, "constexpr int kGatBwdMinBlocks = 5;",
+                            "constexpr int kGatBwdMinBlocks = 1;")],
+    "K6 4 blocks an SM": [(GAT, "constexpr int kGatBwdMinBlocks = 5;",
+                           "constexpr int kGatBwdMinBlocks = 4;")],
+    "K6 16 prefetched values": [(GAT, "constexpr int kGatBwdPrefetch = 8;",
+                                 "constexpr int kGatBwdPrefetch = 16;")],
+    "K7 no register cap": [(GMM, "constexpr int kGmmFwdMinBlocks = 4;",
+                            "constexpr int kGmmFwdMinBlocks = 1;")],
+    "K7 5 blocks an SM": [(GMM, "constexpr int kGmmFwdMinBlocks = 4;",
+                           "constexpr int kGmmFwdMinBlocks = 5;")],
+    "K7 16 prefetched values": [(GMM, "constexpr int kGmmFwdPrefetch = 8;",
+                                 "constexpr int kGmmFwdPrefetch = 16;")],
+    "K8 no register cap": [(GMM, "constexpr int kGmmBwdMinBlocks = 4;",
+                            "constexpr int kGmmBwdMinBlocks = 1;")],
+    "K8 5 blocks an SM": [(GMM, "constexpr int kGmmBwdMinBlocks = 4;",
+                           "constexpr int kGmmBwdMinBlocks = 5;")],
+    "K8 two edges at 8 columns": [(GMM, "#pragma unroll(NC == 1 ? 2 : 1)",
+                                   "#pragma unroll 2")],
 }
 # the models' instances in ptxas' report
 INSTANCES = re.compile(r"(dense_gat_(?:fwd|bwd)_kernelILi4ELi(?:8|1)E|"
@@ -67,15 +64,16 @@ INSTANCES = re.compile(r"(dense_gat_(?:fwd|bwd)_kernelILi4ELi(?:8|1)E|"
                        r"dense_gmm_bwd_kernelILi4ELi2ELi2ELi(?:8|1)E)")
 
 
-def make_tree(out, name, edit):
+def make_tree(out, name, edits):
+    """A copy of this checkout's dgnn_tpu_torch/ under ``out`` with each
+    (file, old, new) of ``edits`` applied; ``old`` must occur once."""
     tree = os.path.join(out, re.sub(r"\W+", "_", name).strip("_"))
     shutil.rmtree(tree, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, "dgnn_tpu_torch"),
                     os.path.join(tree, "dgnn_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    if edit is not None:
-        src, old, new = edit
-        path = os.path.join(tree, "dgnn_tpu_torch", "csrc", src)
+    for src, old, new in edits:
+        path = os.path.join(tree, "dgnn_tpu_torch", src)
         text = open(path).read()
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: {old!r} is not one line of {src}")
@@ -83,19 +81,30 @@ def make_tree(out, name, edit):
     return tree
 
 
-def ptxas(tree):
-    """{instance: "N registers, S bytes spilled"} from the tree's build log."""
+def build_trees(trees):
+    """Builds the kernels of every tree at once."""
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from dgnn_tpu_torch.ops import _build; _build.load()")
+    procs = [subprocess.Popen([sys.executable, "-c", build, tree])
+             for tree in trees]
+    if any(p.wait() for p in procs):
+        raise RuntimeError("a tree failed to build")
+
+
+def ptxas(tree, instances=INSTANCES):
+    """{instance: "N registers, S bytes spilled"} from the tree's build log,
+    for the kernels ``instances`` matches."""
     log_dir = os.path.join(tree, "build", "dgnn_tpu_torch")
     (sub,) = os.listdir(log_dir)
     lines = open(os.path.join(log_dir, sub, "build.log")).read().splitlines()
     out = {}
     for i, line in enumerate(lines):
-        m = INSTANCES.search(line)
+        m = instances.search(line)
         if m and "Compiling entry" in line:
             after = "\n".join(lines[i + 1:i + 5])
             spill = re.search(r"(\d+) bytes spill stores", after)
             regs = re.search(r"Used (\d+) registers", after)
-            out[m.group(1)] = (f"{regs.group(1) if regs else '?'} registers, "
+            out[m.group(0)] = (f"{regs.group(1) if regs else '?'} registers, "
                                f"{spill.group(1) if spill else '?'} bytes "
                                "spilled")
     return out
@@ -115,15 +124,10 @@ def main():
         print("dense_variants_torch: torch sees no CUDA device",
               file=sys.stderr)
         return 1
-    trees = {name: make_tree(args.out, name, edit)
-             for name, edit in VARIANTS.items()
-             if edit is None or name.split()[0] in args.kernels}
-    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
-             "from dgnn_tpu_torch.ops import _build; _build.load()")
-    procs = [subprocess.Popen([sys.executable, "-c", build, tree])
-             for tree in trees.values()]
-    if any(p.wait() for p in procs):
-        raise RuntimeError("a variant failed to build")
+    trees = {name: make_tree(args.out, name, edits)
+             for name, edits in VARIANTS.items()
+             if not edits or name.split()[0] in args.kernels}
+    build_trees(trees.values())
     script = os.path.join(ROOT, "scripts", "bin_kernel_times_torch.py")
     runs = {name: [] for name in trees}
     for name in list(trees) + list(trees)[::-1]:

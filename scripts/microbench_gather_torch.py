@@ -5,12 +5,15 @@
 1. PyTorch's row gather ``feat[idx]`` for [E] indices into [N, D], summed
    (what the plain versions of the bin kernels do).
 2. ``gather_rows_sum``: the hand-written kernel of
-   dgnn_tpu_torch/csrc/gather.cu that fetches every row by asynchronous
-   copies into shared memory, the next stage in flight while the current one
-   is summed; beside it its plain version (``feat[nbr].sum(1)``) and the one
-   library call that computes the same function,
-   ``torch.nn.functional.embedding_bag(mode="sum")`` (given the ids as
-   int64, converted outside the timed region).
+   dgnn_tpu_torch/csrc/gather.cu that walks the table one column slice of
+   32 floats (a 128-byte line of every row) at a time, a warp a segment's
+   piece of the slice, so that each line of a row comes from device memory
+   about once and its repeats from the L2; beside it its plain version
+   (``feat[nbr].sum(1)``) and the one library call that computes the same
+   function, ``torch.nn.functional.embedding_bag(mode="sum")`` (given the
+   ids as int64, converted outside the timed region).  Its variants, and
+   its time on a table the L2 holds whole: scripts/gather_variants_torch.py
+   and chip_smoke.py.
 3. ``gather_lanes``: the hand-written per-lane gather from a table held in
    shared memory one column slab at a time; beside it its plain version and
    ``torch.gather`` (given the widened int64 index, made outside the timed

@@ -66,8 +66,12 @@ def _np_lanes(tab, idx):
 
 
 @pytest.mark.parametrize("shape,w", [((8, 128), 32), ((2, 128), 64),
-                                     ((12,), 5), ((3, 4), 1)],
-                         ids=["sub8-w32", "sub2-w64", "flat-w5", "w1"])
+                                     ((12,), 5), ((3, 4), 1),
+                                     ((1300, 4), 7), ((9, 4), 40),
+                                     ((32,), 33)],
+                         ids=["sub8-w32", "sub2-w64", "flat-w5", "w1",
+                              "ragged-last-slice", "one-group-past-a-slice",
+                              "one-slice-w33"])
 def test_gather_rows_sum_plain_matches_numpy(rng, shape, w):
     feat, nbr = _rows(rng, 50, shape, 7, w)
     want = feat[nbr].astype(np.float64).sum(axis=1)
@@ -170,6 +174,38 @@ def test_gather_study_runs_on_cpu():
     assert gather.LAUNCHES == dict.fromkeys(gather.LAUNCHES, 0)
 
 
+def _variants():
+    scripts = pathlib.Path(__file__).resolve().parents[1] / "scripts"
+    sys.path.insert(0, str(scripts))
+    try:
+        import gather_variants_torch
+    finally:
+        sys.path.remove(str(scripts))
+    return gather_variants_torch
+
+
+@pytest.mark.parametrize("name", ["as built", "slices of 64",
+                                  "slices of 128", "unroll 4",
+                                  "slices of 128, unroll 4",
+                                  "evict_last hint",
+                                  "unroll 4, evict_last hint"])
+def test_gather_variants_edit_lines_of_this_checkout(tmp_path, name):
+    """Each variant of scripts/gather_variants_torch.py rewrites lines that
+    stand exactly once in the kernel's source, and its copy differs from
+    the source by just those lines."""
+    mod = _variants()
+    edits = mod.VARIANTS[name]
+    tree = mod.make_tree(str(tmp_path), name, edits)
+    src = pathlib.Path(mod.ROOT) / "dgnn_tpu_torch" / "csrc" / "gather.cu"
+    got = (pathlib.Path(tree) / "dgnn_tpu_torch" / "csrc"
+           / "gather.cu").read_text()
+    want = src.read_text()
+    for path, old, new in edits:
+        assert path == "csrc/gather.cu" and want.count(old) == 1
+        want = want.replace(old, new)
+    assert got == want
+
+
 def test_gather_study_library_calls_compute_the_same_function(rng):
     mod = _study()
     feat, nbr = _rows(rng, 40, (2, 128), 6, 9)
@@ -189,13 +225,23 @@ def test_gather_study_library_calls_compute_the_same_function(rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,s,w", [((8, 128), 20, 32), ((2, 128), 9, 64),
-                                       ((8, 128), 3, 256), ((12,), 17, 5),
-                                       ((1300, 4), 2, 3)],
-                         ids=["sub8-w32", "sub2-w64", "sub8-w256", "flat-w5",
-                              "two-column-slabs"])
-def test_cuda_gather_rows_sum_matches_plain(rng, cuda_device, shape, s, w):
-    feat, nbr = _rows(rng, 300, shape, s, w)
+@pytest.mark.parametrize("n,shape,s,w,span", [
+    (300, (8, 128), 20, 32, 300), (300, (2, 128), 9, 64, 300),
+    (300, (8, 128), 3, 256, 300), (300, (12,), 17, 5, 300),
+    (300, (1300, 4), 2, 3, 300),
+    # large tables in many column slices of 32 floats: 5200 floats a row
+    # (the last slice 16), 128, and 36 (the last slice one 16-byte group)
+    (4096, (1300, 4), 40, 7, 4096), (100000, (128,), 33, 40, 100000),
+    (50000, (9, 4), 21, 70, 50000),
+    # every segment names the same five rows again and again
+    (300, (8, 128), 50, 64, 5)],
+    ids=["sub8-w32", "sub2-w64", "sub8-w256", "flat-w5", "two-column-slabs",
+         "multi-slice-ragged", "many-slices", "one-group-past-a-slice",
+         "repeats-across-segments"])
+def test_cuda_gather_rows_sum_matches_plain(rng, cuda_device, n, shape, s, w,
+                                            span):
+    feat, nbr = _rows(rng, n, shape, s, w)
+    nbr %= span
     f = torch.from_numpy(feat).to(cuda_device)
     n = torch.from_numpy(nbr).to(cuda_device)
     gather.reset_launches()

@@ -244,6 +244,8 @@ def test_port_imports_no_jax():
               ROOT / "scripts" / "profile_step_torch.py",
               ROOT / "scripts" / "bin_kernel_times_torch.py",
               ROOT / "scripts" / "dense_variants_torch.py",
+              ROOT / "scripts" / "gather_variants_torch.py",
+              ROOT / "scripts" / "microbench_gather_torch.py",
               ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:
