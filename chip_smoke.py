@@ -19,7 +19,11 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                differs).  All four bin kernels also in their list form,
                every bin of the direction in one launch (the form the ops
                call), on every graph checked (atol at least 8 W 2^-23 for
-               the widest bin's W).
+               the widest bin's W).  The four again with their feature
+               rows in bf16 (the instances gather_dtype bfloat16 runs) on
+               pubmed and the power-law graph, at the same tolerances: both
+               sides widen the same bf16 values exactly, so only float32
+               summation order tells them apart.
                Dense kernels: the hub blocks of cora and citeseer (the
                planner's, both directions) and a forced (1000, 5000) block
                of pubmed (4 row chunks x 3 column tiles, padded rows and
@@ -86,6 +90,20 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                launch; the
                trained model's logits on the card must match a CPU copy's;
                test accuracy must clear a margin above chance.
+               MoNet again on pubmed at the CLI's default, binned per-edge
+               pseudo with no hub block (plain PyTorch: no kernel may
+               launch).  Then reddit (run_reddit): the R-MAT graph at
+               REDDIT_SCALE of reddit's size (232,965 nodes, 114,615,892
+               edges), built on the host and cached as the trainers do; GAT
+               (heads (4, 1), hidden 64, attn_drop 0.3) and MoNet (2
+               kernels, as the bench's gmm_reddit_*), both with bf16
+               gathers, REDDIT_STEPS steps and the evals through the
+               trainers' entry points, launches exact (the bf16 bin
+               instances and the dense kernels), logits finite; it prints
+               the host build's seconds and peak memory, the hub blocks'
+               tiles, edges and widest row, ms/step, inference ms, peak MB,
+               and each kernel of the path on that graph at both layers'
+               widths beside its bound.
                Then scripts/train_edgeconv_torch.py at full width (B = 64,
                P = 1024, k = 40, DGCNN's default dims, 512 train and 128
                test synthetic clouds): 2 epochs (16 steps) and the eval
@@ -101,7 +119,8 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at both layers' widths
                ((H, F) = (4, 64) and (1, 7), p 0.3; (K, F) = (3, 64) and
-               (3, 7)), bf16; the four bin kernels in their list form and
+               (3, 7)), bf16; the bin kernels' bf16 instances over the same
+               bins and tables; the four bin kernels in their list form and
                the four dense kernels read from a replayed CUDA graph,
                summed to a pubmed (bins) or cora (dense) training step
                beside the step's bound; the bin kernels also beside one
@@ -165,6 +184,8 @@ BLOCK_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_FLIPS = 1e-3
 BF16_BOUND = dict(rtol=2e-2, atol=2e-2)
 SLOPE = 0.2
+# the GAT backward kernels' node tables, in their arguments' order
+GAT_BWD_KEYS = ("g", "ar", "M", "Linv", "ws", "ac", "feat")
 SEED = 0x9E3779B9  # a uint32 dropout seed above the int32 range
 SHAPES = ((4, 64), (1, 3))  # (H, F) of pubmed's hidden and output layers
 DENSE_SHAPES = ((4, 64), (1, 7))  # (H, F) of cora's hidden and output layers
@@ -204,6 +225,11 @@ EC_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 # products can cross the bfloat16 threshold (the H100 read at most 7 of
 # 2,097,152 a layer).
 EC_MASK_FLIPS = 1e-4
+# The reddit phase: the cut of reddit's nodes and edges it runs at (the
+# largest of 1, 1/2, 1/4, 1/8 whose host build, with the rest of the
+# script, fits the script's time limit), and its training steps.
+REDDIT_SCALE = 1.0
+REDDIT_STEPS = 5
 # gather_rows_sum is also timed on a table of this many rows (16.8 MB at the
 # study's 4 KB rows), which stays in the H100's 50 MB L2 whole.
 L2_ROWS = 4096
@@ -216,6 +242,12 @@ KERNELS = {
                         replaces="dgnn_tpu/ops/pallas_bins.py:225"),
     "bin_gat_bwd": dict(route="cuda", source="dgnn_tpu_torch/csrc/bin_gat.cu",
                         replaces="dgnn_tpu/ops/pallas_bins.py:359"),
+    "bin_gat_fwd_bf16": dict(route="cuda",
+                             source="dgnn_tpu_torch/csrc/bin_gat.cu",
+                             replaces="dgnn_tpu/ops/pallas_bins.py:225"),
+    "bin_gat_bwd_bf16": dict(route="cuda",
+                             source="dgnn_tpu_torch/csrc/bin_gat.cu",
+                             replaces="dgnn_tpu/ops/pallas_bins.py:359"),
     "dense_gat_fwd": dict(route="cuda",
                           source="dgnn_tpu_torch/csrc/dense_gat.cu",
                           replaces="dgnn_tpu/ops/pallas_dense.py:265"),
@@ -228,6 +260,12 @@ KERNELS = {
     "bin_gmm_node_bwd": dict(route="cuda",
                              source="dgnn_tpu_torch/csrc/bin_gmm.cu",
                              replaces="dgnn_tpu/ops/pallas_bins.py:554"),
+    "bin_gmm_node_fwd_bf16": dict(route="cuda",
+                                  source="dgnn_tpu_torch/csrc/bin_gmm.cu",
+                                  replaces="dgnn_tpu/ops/pallas_bins.py:453"),
+    "bin_gmm_node_bwd_bf16": dict(route="cuda",
+                                  source="dgnn_tpu_torch/csrc/bin_gmm.cu",
+                                  replaces="dgnn_tpu/ops/pallas_bins.py:554"),
     "dense_gmm_fwd": dict(route="cuda",
                           source="dgnn_tpu_torch/csrc/dense_gmm.cu",
                           replaces="dgnn_tpu/ops/pallas_dense.py:539"),
@@ -275,6 +313,10 @@ for _k in ("gat_fwd", "gat_bwd"):
     FLOPS_PER_EDGE["dense_" + _k] = FLOPS_PER_EDGE["bin_" + _k]
 for _k in ("fwd", "bwd"):
     FLOPS_PER_EDGE["dense_gmm_" + _k] = FLOPS_PER_EDGE["bin_gmm_node_" + _k]
+# the bf16 instances do the float32 instances' operations on narrower rows
+for _k in ("bin_gat_fwd", "bin_gat_bwd", "bin_gmm_node_fwd",
+           "bin_gmm_node_bwd"):
+    FLOPS_PER_EDGE[_k + "_bf16"] = FLOPS_PER_EDGE[_k]
 
 
 def phase(name, msg):
@@ -335,8 +377,28 @@ def list_launches(bins, adj):
     return -(-adj.num_bins // bins.MAX_BINS_PER_LAUNCH)
 
 
-def check_bins(bins, adj_fwd, adj_bwd, tb, err):
-    """Every bin of one graph, kernel against plain; returns comparisons."""
+def with_rows(tb, rows):
+    """A kernel check's tables with the feature rows (feat, g) stored as
+    ``rows``: the kernels' float32 or bf16 instances."""
+    return dict(tb, feat=tb["feat"].to(rows), g=tb["g"].to(rows))
+
+
+def hold(bins, err, name, rows, got, want, tol, what=""):
+    """One kernel output against its plain version on the same inputs,
+    every element within ``tol`` whether the feature rows are float32 or
+    bf16 (both sides widen the same bf16 values exactly, so only float32
+    summation order tells them apart), the largest difference recorded
+    under the kernel's name (``_bf16`` for bf16 rows)."""
+    key = bins.launch_name(name, rows == torch.bfloat16)
+    torch.testing.assert_close(got, want, **tol,
+                               msg=lambda m: f"{key} {what}: {m}")
+    err[key] = max(err[key], float((got - want).abs().max()))
+
+
+def check_bins(bins, adj_fwd, adj_bwd, tb, err, rows=torch.float32):
+    """Every bin of one graph, kernel against plain, feature rows stored as
+    ``rows``; returns the number of comparisons."""
+    tb = with_rows(tb, rows)
     n_cmp = 0
     for _w, nbr, _e, row, count in adj_fwd.bins():
         for p in (0.0, 0.3):
@@ -349,9 +411,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
                     if w is None:
                         assert g is None
                         continue
-                    torch.testing.assert_close(g, w, **FWD_TOL)
-                    err["bin_gat_fwd"] = max(err["bin_gat_fwd"],
-                                             float((g - w).abs().max()))
+                    hold(bins, err, "bin_gat_fwd", rows, g, w, FWD_TOL)
                 n_cmp += 1
     # every bin in one launch (the op's path)
     segs = adj_fwd.segs()
@@ -365,11 +425,10 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
                 if w is None:
                     assert g is None
                     continue
-                torch.testing.assert_close(g, w, **sum_tol(adj_fwd, FWD_TOL))
-                err["bin_gat_fwd"] = max(err["bin_gat_fwd"],
-                                         float((g - w).abs().max()))
+                hold(bins, err, "bin_gat_fwd", rows, g, w,
+                     sum_tol(adj_fwd, FWD_TOL), "list")
             n_cmp += 1
-    dst = tuple(tb[k] for k in ("g", "ar", "M", "Linv", "ws", "ac", "feat"))
+    dst = tuple(tb[k] for k in GAT_BWD_KEYS)
     for _w, nbr, _e, row, count in adj_bwd.bins():
         for p in (0.0, 0.3):
             args = (*dst, nbr, row, count)
@@ -377,9 +436,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
             got = bins.bin_gat_bwd(*args, **kw)
             want = bins.bin_gat_bwd_plain(*args, **kw)
             for g, w in zip(got, want):
-                torch.testing.assert_close(g, w, **BWD_TOL)
-                err["bin_gat_bwd"] = max(err["bin_gat_bwd"],
-                                         float((g - w).abs().max()))
+                hold(bins, err, "bin_gat_bwd", rows, g, w, BWD_TOL)
             n_cmp += 1
     # the backward's every bin in one launch (the op's path)
     for p in (0.0, 0.3):
@@ -387,9 +444,8 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err):
         got = bins.bin_gat_bwd_list(*dst, adj_bwd.segs(), **kw)
         want = bins.bin_gat_bwd_list_plain(*dst, adj_bwd.segs(), **kw)
         for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, **sum_tol(adj_bwd, BWD_TOL))
-            err["bin_gat_bwd"] = max(err["bin_gat_bwd"],
-                                     float((g - w).abs().max()))
+            hold(bins, err, "bin_gat_bwd", rows, g, w,
+                 sum_tol(adj_bwd, BWD_TOL), "list")
         n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
@@ -474,50 +530,41 @@ def gmm_dense_args(graph, tb):
              tb["feat"], *par))
 
 
-def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err):
+def check_gmm_bins(bins, adj_fwd, adj_bwd, tb, err, rows=torch.float32):
     """Every bin of one graph, MoNet kernels against their plain versions,
-    tanh on and off; returns comparisons."""
+    tanh on and off, feature rows stored as ``rows``; returns the number of
+    comparisons."""
+    tb = with_rows(tb, rows)
     n_cmp = 0
     for use_tanh in (True, False):
         for _w, nbr, _e, row, count in adj_fwd.bins():
             args = gmm_bin_args(tb, nbr, row, count)[0]
             got = bins.bin_gmm_node_fwd(*args, use_tanh=use_tanh)
             want = bins.bin_gmm_node_fwd_plain(*args, use_tanh=use_tanh)
-            torch.testing.assert_close(got, want, **FWD_TOL)
-            err["bin_gmm_node_fwd"] = max(err["bin_gmm_node_fwd"],
-                                          float((got - want).abs().max()))
+            hold(bins, err, "bin_gmm_node_fwd", rows, got, want, FWD_TOL)
             n_cmp += 1
         # every bin of each direction in one launch (the op's path)
         args = gmm_list_fwd_args(tb, adj_fwd.segs())
         got = bins.bin_gmm_node_fwd_list(*args, use_tanh=use_tanh)
         want = bins.bin_gmm_node_fwd_list_plain(*args, use_tanh=use_tanh)
-        torch.testing.assert_close(
-            got, want, **sum_tol(adj_fwd, FWD_TOL),
-            msg=lambda m: f"bin_gmm_node_fwd_list: {m}")
-        err["bin_gmm_node_fwd"] = max(err["bin_gmm_node_fwd"],
-                                      float((got - want).abs().max()))
+        hold(bins, err, "bin_gmm_node_fwd", rows, got, want,
+             sum_tol(adj_fwd, FWD_TOL), "list")
         n_cmp += 1
         for _w, nbr, _e, row, count in adj_bwd.bins():
             args = gmm_bin_args(tb, nbr, row, count)[1]
             got = bins.bin_gmm_node_bwd(*args, use_tanh=use_tanh)
             want = bins.bin_gmm_node_bwd_plain(*args, use_tanh=use_tanh)
             for name, g, w in zip(("dx", "stat rows"), got, want):
-                torch.testing.assert_close(
-                    g, w, **BWD_TOL,
-                    msg=lambda m: f"bin_gmm_node_bwd {name}: {m}")
-                err["bin_gmm_node_bwd"] = max(err["bin_gmm_node_bwd"],
-                                              float((g - w).abs().max()))
+                hold(bins, err, "bin_gmm_node_bwd", rows, g, w, BWD_TOL,
+                     name)
             n_cmp += 1
         args = gmm_list_bwd_args(tb, adj_bwd.segs())
         got = bins.bin_gmm_node_bwd_list(*args, use_tanh=use_tanh)
         want = bins.bin_gmm_node_bwd_list_plain(*args, use_tanh=use_tanh)
         for name, g, w, tol in zip(("dx", "stat rows"), got, want,
                                    (FWD_TOL, BWD_TOL)):
-            torch.testing.assert_close(
-                g, w, **sum_tol(adj_bwd, tol),
-                msg=lambda m: f"bin_gmm_node_bwd_list {name}: {m}")
-            err["bin_gmm_node_bwd"] = max(err["bin_gmm_node_bwd"],
-                                          float((g - w).abs().max()))
+            hold(bins, err, "bin_gmm_node_bwd", rows, g, w,
+                 sum_tol(adj_bwd, tol), f"list {name}")
         n_cmp += 1
     torch.cuda.synchronize()
     return n_cmp
@@ -559,7 +606,17 @@ def block_stats(adj):
 
 
 def block_edges(db):
-    return int(np.unpackbits(db.mask.cpu().numpy()).sum())
+    return int(block_row_edges(db).sum())
+
+
+def block_inputs(db, by_row, by_col, whole=()):
+    """A hub block's inputs for ``bound``: its ids, mask and schedule in
+    full, and of each node table the rows that row_ids (by_row) or col_ids
+    (by_col) name."""
+    n_row = int(torch.unique(db.row_ids).numel())
+    n_col = int(torch.unique(db.col_ids).numel())
+    return ([db.row_ids, db.col_ids, db.mask, db.ct, db.chunk_ptr, *whole]
+            + [(t, n_row) for t in by_row] + [(t, n_col) for t in by_col])
 
 
 def bound(name, inputs, outputs, edges, columns, groups):
@@ -592,6 +649,80 @@ def flat(results):
         out += [t for t in (r if isinstance(r, tuple) else (r,))
                 if t is not None]
     return out
+
+
+def edges_of(adj):
+    """Edges of one direction's bins."""
+    return sum(int(c.sum()) for c in adj.count)
+
+
+def path_jobs(bins, dense, kind, graph, tb, rows):
+    """The calls the ops make of one model's kernels over ``graph`` at one
+    table set's width (p 0.3, tanh): each bin kernel's list call over every
+    bin of its direction, feature rows stored as ``rows``, and where the
+    graph has a hub block each dense kernel on the float32 tables with bf16
+    products.  {launch name: (kernel call, plain call, inputs for
+    ``bound``, edges)}; each call returns a list of its results."""
+    bf16 = rows == torch.bfloat16
+    rt = with_rows(tb, rows)
+    fwd, bwd = graph.fwd, graph.bwd
+    jobs = {}
+    if kind == "gat":
+        fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
+        bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
+        la = (rt["feat"], rt["ac"], rt["ar"], fwd.segs())
+        lb = (*(rt[k] for k in GAT_BWD_KEYS), bwd.segs())
+        jobs[bins.launch_name("bin_gat_fwd", bf16)] = (
+            lambda: [bins.bin_gat_fwd_list(*la, **fkw)],
+            lambda: [bins.bin_gat_fwd_list_plain(*la, **fkw)],
+            [*la[:3], *flat(la[3])], edges_of(fwd))
+        jobs[bins.launch_name("bin_gat_bwd", bf16)] = (
+            lambda: [bins.bin_gat_bwd_list(*lb, **bkw)],
+            lambda: [bins.bin_gat_bwd_list_plain(*lb, **bkw)],
+            [*lb[:7], *flat(lb[7])], edges_of(bwd))
+        if fwd.dense is not None:
+            fa = (fwd.dense, tb["ar"], tb["ac"], tb["feat"])
+            ba = (bwd.dense, *(tb[k] for k in GAT_BWD_KEYS))
+            dfkw, dbkw = (dict(kw, dense_dtype="bfloat16")
+                          for kw in (fkw, bkw))
+            jobs["dense_gat_fwd"] = (
+                lambda: [dense.dense_gat_fwd(*fa, **dfkw)],
+                lambda: [dense.dense_gat_fwd_plain(*fa, **dfkw)],
+                block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]]),
+                block_edges(fa[0]))
+            jobs["dense_gat_bwd"] = (
+                lambda: [dense.dense_gat_bwd(*ba, **dbkw)],
+                lambda: [dense.dense_gat_bwd_plain(*ba, **dbkw)],
+                block_inputs(ba[0], [tb["ac"], tb["feat"]],
+                             [tb[k] for k in GAT_BWD_KEYS[:5]]),
+                block_edges(ba[0]))
+        return jobs
+    la = gmm_list_fwd_args(rt, fwd.segs())
+    lb = gmm_list_bwd_args(rt, bwd.segs())
+    jobs[bins.launch_name("bin_gmm_node_fwd", bf16)] = (
+        lambda: [bins.bin_gmm_node_fwd_list(*la, use_tanh=True)],
+        lambda: [bins.bin_gmm_node_fwd_list_plain(*la, use_tanh=True)],
+        [*la[:3], *flat(la[3]), *la[4:]], edges_of(fwd))
+    jobs[bins.launch_name("bin_gmm_node_bwd", bf16)] = (
+        lambda: [bins.bin_gmm_node_bwd_list(*lb, use_tanh=True)],
+        lambda: [bins.bin_gmm_node_bwd_list_plain(*lb, use_tanh=True)],
+        [*lb[:6], *flat(lb[6]), *lb[7:]], edges_of(bwd))
+    if fwd.dense is not None:
+        gkw = dict(use_tanh=True, dense_dtype="bfloat16")
+        gfa, gba = gmm_dense_args(graph, tb)
+        par = (tb["mu"], tb["isig"])
+        jobs["dense_gmm_fwd"] = (
+            lambda: [dense.dense_gmm_fwd(*gfa, **gkw)],
+            lambda: [dense.dense_gmm_fwd_plain(*gfa, **gkw)],
+            block_inputs(gfa[0], [tb["beta"]], [tb["alpha"], tb["feat"]],
+                         par), block_edges(gfa[0]))
+        jobs["dense_gmm_bwd"] = (
+            lambda: [dense.dense_gmm_bwd(*gba, **gkw)],
+            lambda: [dense.dense_gmm_bwd_plain(*gba, **gkw)],
+            block_inputs(gba[0], [tb["alpha"], tb["feat"]],
+                         [tb["g"], tb["beta"], tb["dfeat"]], par),
+            block_edges(gba[0]))
+    return jobs
 
 
 def power_law_graph(structure, rng, n=4000):
@@ -913,33 +1044,48 @@ def load_script(name):
     return mod
 
 
-def run_trainer(bins, trainer, model_kind, dataset):
-    """20 steps at the bench width (the trainer's BENCH_ARGV) through its
-    entry point, with every launch count set to 0 just before and read just
-    after."""
+def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
+                cpu_copy=True):
+    """``steps`` steps through the trainer's entry point, at the bench width
+    (its BENCH_ARGV) unless ``argv`` says otherwise, with every launch count
+    set to 0 just before and read just after.  The launches must be exactly
+    what the steps, evals, layers, bins and hub blocks imply, under the
+    instance the gathered rows' type selects (a binned-pseudo MoNet
+    launches none: its passes are plain PyTorch).  With ``cpu_copy`` the
+    loss must fall and the trained model's logits must match a CPU copy's;
+    else they must be finite."""
     args = trainer.parser().parse_args(
-        ["--dataset", dataset, *trainer.BENCH_ARGV, "--n-epochs", "20",
-         "--device", "cuda"])
+        ["--dataset", dataset,
+         *(trainer.BENCH_ARGV if argv is None else argv),
+         "--n-epochs", str(steps), "--device", "cuda"])
     reset_all_launches()
     r = trainer.run(args)
     launches = all_launches()
     losses = r["losses"]
     assert all(np.isfinite(losses)), losses
-    assert losses[-1] < losses[0], losses
     g = r["graph"]
     fwd_calls = (r["train_steps"] + r["infer_calls"]) * len(r["model"].convs)
     bwd_calls = r["train_steps"] * len(r["model"].convs)
     bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
+    bf16 = r["gather_dtype"] == "bfloat16"
     want = dict.fromkeys(launches, 0)  # the other model's kernels: none
-    # one launch a call for every bin of the direction (the list wrappers)
-    want.update({bin_fwd: fwd_calls * list_launches(bins, g.fwd),
-                 bin_bwd: bwd_calls * list_launches(bins, g.bwd),
-                 dense_fwd: fwd_calls * (g.fwd.dense is not None),
-                 dense_bwd: bwd_calls * (g.bwd.dense is not None)})
+    if r.get("pseudo_mode", "node") == "node":
+        # one launch a call for every bin of the direction (the list
+        # wrappers)
+        want.update({
+            bins.launch_name(bin_fwd, bf16):
+                fwd_calls * list_launches(bins, g.fwd),
+            bins.launch_name(bin_bwd, bf16):
+                bwd_calls * list_launches(bins, g.bwd),
+            dense_fwd: fwd_calls * (g.fwd.dense is not None),
+            dense_bwd: bwd_calls * (g.bwd.dense is not None)})
     assert launches == want, (launches, want)
+    if not cpu_copy:
+        assert bool(torch.isfinite(r["logits"]).all())
+        return r, launches
+    assert losses[-1] < losses[0], losses
     model_cpu = copy.deepcopy(r["model"]).to("cpu").eval()
-    extra = ([type(r["pseudo"])(*(t.cpu() for t in r["pseudo"]))]
-             if "pseudo" in r else [])
+    extra = [trainer._to(r["pseudo"], "cpu")] if "pseudo" in r else []
     with torch.no_grad():
         logits_cpu = model_cpu(g.to("cpu"), r["feats"].cpu(), *extra)
     got = r["logits"].cpu()
@@ -955,6 +1101,131 @@ def run_trainer(bins, trainer, model_kind, dataset):
         tol = BF16_BOUND
     torch.testing.assert_close(got, logits_cpu, **tol)
     return r, launches
+
+
+def block_row_edges(db, chunk=512):
+    """Edges of each row of a hub block (its set mask bits over every tile
+    of the row), counted on the card a few hundred tiles at a time (a
+    reddit block's masks are hundreds of MB)."""
+    dev = db.mask.device
+    pop = torch.tensor([bin(i).count("1") for i in range(256)],
+                       dtype=torch.int64, device=dev)
+    rt = db.mask.shape[1]
+    rows = torch.zeros(db.row_ids.shape[0], dtype=torch.int64, device=dev)
+    lane = torch.arange(rt, device=dev)
+    for t0 in range(0, db.mask.shape[0], chunk):
+        per = pop[db.mask[t0:t0 + chunk].long()].sum(dim=-1)  # [c, RT]
+        idx = db.rc[t0:t0 + chunk].long()[:, None] * rt + lane
+        rows.index_add_(0, idx.flatten(), per.flatten())
+    return rows
+
+
+def hub_line(graph):
+    """Tiles, edges and widest row of each direction's hub block."""
+    out = []
+    for name, adj in (("fwd", graph.fwd), ("bwd", graph.bwd)):
+        db = adj.dense
+        if db is None:
+            out.append(f"{name} no hub block")
+            continue
+        rows = block_row_edges(db)
+        out.append(f"{name} {db.mask.shape[0]} tiles, {db.num_rows} rows x "
+                   f"{db.col_ids.shape[0]} columns, {int(rows.sum())} edges, "
+                   f"widest row {int(rows.max())} edges")
+    return "; ".join(out)
+
+
+def reddit_tables(kind, n, a, f, dev):
+    """Random tables of one layer of ``kind`` at (heads or Gaussian kernels,
+    F) on n nodes, made on the card (a CPU pass at reddit's size would not
+    fit): the keys of ``tables`` or ``gmm_tables``, the feature rows
+    rounded to bf16 (the values the model gathers), M, Linv and the inverse
+    widths in the ranges the forward gives."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def t(*shape, lo=None, scale=1.0):
+        x = torch.randn(shape, generator=gen, device=dev) * scale
+        return x if lo is None else x.abs() + lo
+
+    rows = dict(feat=t(n, a, f), g=t(n, a, f, scale=G_SCALE))
+    rows = {k: v.to(torch.bfloat16).float() for k, v in rows.items()}
+    if kind == "gat":
+        return dict(rows, ac=t(n, a), ar=t(n, a), M=t(n, a, lo=2.0),
+                    Linv=t(n, a, lo=0.01), ws=t(n, a))
+    return dict(rows, alpha=t(n, GMM_D), beta=t(n, GMM_D), sfeat=t(n, 1),
+                dfeat=t(n, 1), mu=t(a, GMM_D), isig=t(a, GMM_D, lo=0.5))
+
+
+def reddit_kernel_times(bins, dense, kind, graph, shapes, dev, time_calls):
+    """Each kernel of one model's reddit path at each layer's width, called
+    as the ops call it (``path_jobs`` with bf16 feature rows) on random
+    tables: (name, shape) -> dict(ms, bound_ms, bound_by, edges).  Times
+    from CUDA events over 3 calls after one warmup; no plain version (it
+    would not fit at this size)."""
+    out = {}
+    for a, f in shapes:
+        tb = reddit_tables(kind, graph.num_nodes, a, f, dev)
+        for name, (fn, _plain, inputs, edges) in path_jobs(
+                bins, dense, kind, graph, tb, torch.bfloat16).items():
+            ms = time_calls(fn, dev, iters=3, warmup=1) * 1e3
+            bound_ms, bound_by = bound(name, inputs, flat(fn()), edges,
+                                       a * f, a)
+            out[(name, (a, f))] = dict(ms=ms, bound_ms=bound_ms,
+                                       bound_by=bound_by, edges=edges)
+        del tb
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi):
+    """The reddit phase: GAT and MoNet at the JAX bench's reddit widths
+    (bf16 feature gathers) through their trainers' entry points on the
+    R-MAT graph at ``scale`` of reddit's size, built on the host and cached
+    as the trainers do, launches into ``launches``; then each kernel of the
+    path on that graph at both layers' widths, timed beside its bound."""
+    from dgnn_tpu_torch.data.reddit import reddit_size
+    from dgnn_tpu_torch.utils import time_calls
+
+    n, e = reddit_size(scale)
+    cut = "" if scale == 1 else (f" (cut from 232965 nodes, 114615892 "
+                                 f"edges: nodes and edges x {scale})")
+    argv = {"gat": trainers["gat"].BENCH_ARGV + ["--gather-dtype",
+                                                 "bfloat16"],
+            "gmm": trainers["gmm"].BENCH_ARGV + ["--n-kernels", "2"]}
+    shapes = {"gat": ((4, 64), (1, 41)), "gmm": ((2, 64), (2, 41))}
+    titles = dict(titles, gmm="MoNet hidden 64 kernels 2 dim 2 dropout 0.5 "
+                  "lr 1e-2")
+    for kind in ("gat", "gmm"):
+        r, launches[(kind, "reddit")] = run_trainer(
+            bins, trainers[kind], kind, "reddit",
+            argv=argv[kind] + ["--scale", str(scale)], steps=REDDIT_STEPS,
+            cpu_copy=False)
+        g = r["graph"]
+        assert r["logits"].shape == (n, 41), r["logits"].shape
+        assert g.fwd.dense is not None and g.bwd.dense is not None
+        used = {k: v for k, v in launches[(kind, "reddit")].items() if v}
+        setup = ", ".join(f"{k} {v:.1f} s" for k, v in r["setup_s"].items())
+        phase("reddit", f"scale {scale}: {n} nodes, {e} edges{cut}; "
+              f"{titles[kind]}, bf16 gathers: {r['train_steps']} steps, "
+              f"loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, train "
+              f"{r['train_s'] * 1e3:.3f} ms/step, inference "
+              f"{r['infer_s'] * 1e3:.3f} ms, peak {r['peak_mb']:.0f} MB, test "
+              f"acc {r['test_acc']:.4f}, launches {used} (every other kernel "
+              f"0); host set-up {setup}, host peak RSS "
+              f"{r['host_peak_mb']:.0f} MB; bins fwd {g.fwd.widths} bwd "
+              f"{g.bwd.widths}; hub block {hub_line(g)} | {smi}")
+        steps_ = r["train_steps"] + r["infer_calls"]
+        kt = reddit_kernel_times(bins, dense, kind, g, shapes[kind], dev,
+                                 time_calls)
+        for (name, sh), v in kt.items():
+            per_step = launches[(kind, "reddit")].get(name, 0) / steps_
+            phase("reddit", f"{name} scale {scale} layer {sh}: "
+                  f"{v['ms']:.4f} ms a call, bound {v['bound_ms']:.5f} ms by "
+                  f"{v['bound_by']} ({v['edges']} edges; "
+                  f"{v['ms'] / v['bound_ms']:.1f} times it), "
+                  f"{per_step:.2f} launches a step or inference | {smi}")
+        del r, g
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1010,6 +1281,15 @@ def main():
         phase("kernels", f"power-law H={h} F={f}: fwd widths "
               f"{pl.fwd.widths} (one empty segment): {n_cmp} comparisons "
               "agree")
+    # the bf16 instances (gather_dtype bfloat16) on the same tables, their
+    # feature rows rounded to bf16: no new draws from rng
+    for name, g, tbs in (("pubmed", pub, [tabs[sh] for sh in SHAPES]),
+                         ("power-law", pl, pl_tabs)):
+        for (h, f), tb in zip(SHAPES, tbs):
+            n_cmp = check_bins(bins, g.fwd, g.bwd, tb, err, torch.bfloat16)
+            phase("kernels", f"{name} H={h} F={f} bf16 rows: {n_cmp} "
+                  "kernel/plain comparisons agree (the float32 "
+                  "tolerances)")
     hubs = {}
     for name in ("cora", "citeseer"):
         dd = synthetic_citation(name)
@@ -1038,17 +1318,27 @@ def main():
     # MoNet draws from a generator of its own, so that the GAT checks see
     # the same numbers whether or not the MoNet ones run
     grng = np.random.default_rng(1)
-    gmm_tabs = {}
+    gmm_tabs, pl_gmm_tabs = {}, {}
     for k, f in GMM_SHAPES:
         gmm_tabs[(k, f)] = gmm_tables(pub.num_nodes, k, f, grng, dev)
-        n_cmp = check_gmm_bins(bins, pub.fwd, pub.bwd, gmm_tabs[(k, f)], err)
+        n_cmp = check_gmm_bins(bins, pub.fwd, pub.bwd, gmm_tabs[(k, f)],
+                                  err)
         phase("kernels", f"pubmed MoNet K={k} F={f} D={GMM_D}: {n_cmp} "
               "kernel/plain comparisons agree (tanh on and off)")
-        n_cmp = check_gmm_bins(bins, pl.fwd, pl.bwd,
-                               gmm_tables(pl.num_nodes, k, f, grng, dev), err)
+        pl_gmm_tabs[(k, f)] = gmm_tables(pl.num_nodes, k, f, grng, dev)
+        n_cmp = check_gmm_bins(bins, pl.fwd, pl.bwd, pl_gmm_tabs[(k, f)],
+                                  err)
         phase("kernels", f"power-law MoNet K={k} F={f}: fwd widths "
               f"{pl.fwd.widths} (one empty segment): {n_cmp} comparisons "
               "agree")
+    for name, g, tbs in (("pubmed", pub, gmm_tabs),
+                         ("power-law", pl, pl_gmm_tabs)):
+        for (k, f), tb in tbs.items():
+            n_cmp = check_gmm_bins(bins, g.fwd, g.bwd, tb, err,
+                                   torch.bfloat16)
+            phase("kernels", f"{name} MoNet K={k} F={f} bf16 rows: {n_cmp} "
+                  "kernel/plain comparisons agree (the float32 "
+                  "tolerances)")
     cora_gmm_tabs = {}
     for name, g in hubs.items():
         for k, f in GMM_DENSE_SHAPES:
@@ -1197,6 +1487,27 @@ def main():
               f"a CPU copy (max |diff| {r['logit_err']:.3g}, "
               f"{r['logit_off']} of {r['logits'].numel()} outside 1e-4)")
 
+    # MoNet's CLI default on the citation graphs (the JAX CLI's set-up):
+    # binned per-edge pseudo, no hub block, plain PyTorch passes
+    gmm_argv = trainers["gmm"].BENCH_ARGV
+    cut = gmm_argv.index("--pseudo")
+    binned_argv = gmm_argv[:cut] + gmm_argv[cut + 2:]
+    r, launches[("gmm", "pubmed binned")] = run_trainer(
+        bins, trainers["gmm"], "gmm", "pubmed", argv=binned_argv)
+    assert r["pseudo_mode"] == "binned" and r["graph"].fwd.dense is None
+    assert r["test_acc"] > 0.5, r["test_acc"]
+    phase("train", f"pubmed {titles['gmm']}, binned pseudo (the CLI's "
+          f"default): {r['train_steps']} steps, loss {r['losses'][0]:.4f} "
+          f"-> {r['losses'][-1]:.4f}, train {r['train_s'] * 1e3:.3f} "
+          f"ms/step, inference {r['infer_s'] * 1e3:.3f} ms, peak "
+          f"{r['peak_mb']:.0f} MB, test acc {r['test_acc']:.4f} (> 0.5), no "
+          "kernel launched (its passes are plain PyTorch); card logits "
+          f"match a CPU copy (max |diff| {r['logit_err']:.3g})")
+    del r
+
+    run_reddit(bins, dense, trainers, titles, launches, REDDIT_SCALE, dev,
+               smi)
+
     ec_trainer = load_script("train_edgeconv_torch")
     for schedule, epochs in (("step1", 2), ("step8", 1)):
         r, launches[("edgeconv", schedule)] = run_edgeconv_trainer(
@@ -1240,41 +1551,47 @@ def main():
 
     # 6. times: kernel and plain, in turns.  One job per (kernel, shape):
     #    (what it ran on, kernel call, plain call, input tensors, edges,
-    #    feature columns, heads or Gaussian kernels)
-    def edges_of(adj):
-        return sum(int(c.sum()) for c in adj.count)
+    #    feature columns, heads or Gaussian kernels).  The bin kernels one
+    #    call over every bin, float32 and bf16 rows (the reddit path's
+    #    instances), on pubmed; the dense kernels on cora's hub block
+    def at(kind, a, f):
+        return (f"H={a} F={f} p=0.3" if kind == "gat"
+                else f"K={a} F={f} D={GMM_D} tanh")
 
     jobs = {}
+    for kind, shapes, tbs in (("gat", SHAPES, tabs),
+                              ("gmm", GMM_SHAPES, gmm_tabs)):
+        for a, f in shapes:
+            for rows, note in ((torch.float32, ""),
+                               (torch.bfloat16, " bf16 rows")):
+                what = f"pubmed all bins {at(kind, a, f)}{note} (one launch)"
+                for name, job in path_jobs(bins, dense, kind, pub,
+                                           tbs[(a, f)], rows).items():
+                    jobs[(name, a, f)] = (what, *job, a * f, a)
+    for kind, shapes, tbs in (("gat", DENSE_SHAPES, cora_tabs),
+                              ("gmm", GMM_DENSE_SHAPES, cora_gmm_tabs)):
+        for a, f in shapes:
+            what = f"cora hub block {at(kind, a, f)} bf16"
+            for name, job in path_jobs(bins, dense, kind, cora, tbs[(a, f)],
+                                       torch.float32).items():
+                if name.startswith("dense"):
+                    jobs[(name, a, f)] = (what, *job, a * f, a)
     # the bin kernels one launch a bin, the way they ran before the list
     # kernels, beside one launch for every bin: (per-bin loop, list call)
     per_bin = {}
+    fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
+    bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
     for h, f in SHAPES:
         tb = tabs[(h, f)]
         fwd_args = [(tb["feat"], tb["ac"], tb["ar"], nbr, row, count)
                     for _w, nbr, _e, row, count in pub.fwd.bins()]
-        bwd_args = [(tb["g"], tb["ar"], tb["M"], tb["Linv"], tb["ws"],
-                     tb["ac"], tb["feat"], nbr, row, count)
+        bwd_args = [(*(tb[k_] for k_ in GAT_BWD_KEYS), nbr, row, count)
                     for _w, nbr, _e, row, count in pub.bwd.bins()]
-        fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
-        bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
-        what = f"pubmed all bins H={h} F={f} p=0.3"
-        la = (tb["feat"], tb["ac"], tb["ar"], pub.fwd.segs())
-        jobs[("bin_gat_fwd", h, f)] = (
-            what + " (one launch)",
-            lambda a=la, kw=fkw: bins.bin_gat_fwd_list(*a, **kw),
-            lambda a=la, kw=fkw: bins.bin_gat_fwd_list_plain(*a, **kw),
-            [*la[:3], *flat(la[3])], edges_of(pub.fwd), h * f, h)
         per_bin[("bin_gat_fwd", h, f)] = (
-            lambda a=fwd_args, kw=fkw: [bins.bin_gat_fwd(*x, **kw) for x in a],
+            lambda a=fwd_args: [bins.bin_gat_fwd(*x, **fkw) for x in a],
             jobs[("bin_gat_fwd", h, f)][1])
-        lb = (*bwd_args[0][:7], pub.bwd.segs())
-        jobs[("bin_gat_bwd", h, f)] = (
-            what + " (one launch)",
-            lambda a=lb, kw=bkw: bins.bin_gat_bwd_list(*a, **kw),
-            lambda a=lb, kw=bkw: bins.bin_gat_bwd_list_plain(*a, **kw),
-            [*lb[:7], *flat(lb[7])], edges_of(pub.bwd), h * f, h)
         per_bin[("bin_gat_bwd", h, f)] = (
-            lambda a=bwd_args, kw=bkw: [bins.bin_gat_bwd(*x, **kw) for x in a],
+            lambda a=bwd_args: [bins.bin_gat_bwd(*x, **bkw) for x in a],
             jobs[("bin_gat_bwd", h, f)][1])
     for k, f in GMM_SHAPES:
         tb = gmm_tabs[(k, f)]
@@ -1282,82 +1599,22 @@ def main():
                     for _w, nbr, _e, row, count in pub.fwd.bins()]
         bwd_args = [gmm_bin_args(tb, nbr, row, count)[1]
                     for _w, nbr, _e, row, count in pub.bwd.bins()]
-        what = f"pubmed all bins K={k} F={f} D={GMM_D} tanh"
-        la = gmm_list_fwd_args(tb, pub.fwd.segs())
-        jobs[("bin_gmm_node_fwd", k, f)] = (
-            what + " (one launch)",
-            lambda a=la: bins.bin_gmm_node_fwd_list(*a, use_tanh=True),
-            lambda a=la: bins.bin_gmm_node_fwd_list_plain(*a, use_tanh=True),
-            [*la[:3], *flat(la[3]), *la[4:]], edges_of(pub.fwd), k * f, k)
         per_bin[("bin_gmm_node_fwd", k, f)] = (
             lambda a=fwd_args: [bins.bin_gmm_node_fwd(*x, use_tanh=True)
                                 for x in a],
             jobs[("bin_gmm_node_fwd", k, f)][1])
-        la = gmm_list_bwd_args(tb, pub.bwd.segs())
-        jobs[("bin_gmm_node_bwd", k, f)] = (
-            what + " (one launch)",
-            lambda a=la: bins.bin_gmm_node_bwd_list(*a, use_tanh=True),
-            lambda a=la: bins.bin_gmm_node_bwd_list_plain(*a, use_tanh=True),
-            [*la[:6], *flat(la[6]), *la[7:]], edges_of(pub.bwd), k * f, k)
         per_bin[("bin_gmm_node_bwd", k, f)] = (
             lambda a=bwd_args: [bins.bin_gmm_node_bwd(*x, use_tanh=True)
                                 for x in a],
             jobs[("bin_gmm_node_bwd", k, f)][1])
-
-    def block_inputs(db, by_row, by_col, whole=()):
-        """A hub block's inputs: its ids, mask and schedule in full, and of
-        each node table the rows that row_ids (by_row) or col_ids (by_col)
-        name."""
-        n_row = int(torch.unique(db.row_ids).numel())
-        n_col = int(torch.unique(db.col_ids).numel())
-        return ([db.row_ids, db.col_ids, db.mask, db.ct, db.chunk_ptr, *whole]
-                + [(t, n_row) for t in by_row] + [(t, n_col) for t in by_col])
-
-    for h, f in DENSE_SHAPES:
-        tb = cora_tabs[(h, f)]
-        fa = (cora.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
-        fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED,
-                   dense_dtype="bfloat16")
-        ba = (cora.bwd.dense, *(tb[k_] for k_ in ("g", "ar", "M", "Linv",
-                                                  "ws", "ac", "feat")))
-        bkw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype="bfloat16")
-        what = f"cora hub block H={h} F={f} p=0.3 bf16"
-        jobs[("dense_gat_fwd", h, f)] = (
-            what, lambda a=fa, kw=fkw: [dense.dense_gat_fwd(*a, **kw)],
-            lambda a=fa, kw=fkw: [dense.dense_gat_fwd_plain(*a, **kw)],
-            block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]]),
-            block_edges(fa[0]), h * f, h)
-        jobs[("dense_gat_bwd", h, f)] = (
-            what, lambda a=ba, kw=bkw: [dense.dense_gat_bwd(*a, **kw)],
-            lambda a=ba, kw=bkw: [dense.dense_gat_bwd_plain(*a, **kw)],
-            block_inputs(ba[0], [tb["ac"], tb["feat"]],
-                         [tb[k_] for k_ in ("g", "ar", "M", "Linv", "ws")]),
-            block_edges(ba[0]), h * f, h)
-    gkw = dict(use_tanh=True, dense_dtype="bfloat16")
-    for k, f in GMM_DENSE_SHAPES:
-        tb = cora_gmm_tabs[(k, f)]
-        gfa, gba = gmm_dense_args(cora, tb)
-        par = (tb["mu"], tb["isig"])
-        what = f"cora hub block K={k} F={f} D={GMM_D} tanh bf16"
-        jobs[("dense_gmm_fwd", k, f)] = (
-            what, lambda a=gfa: [dense.dense_gmm_fwd(*a, **gkw)],
-            lambda a=gfa: [dense.dense_gmm_fwd_plain(*a, **gkw)],
-            block_inputs(gfa[0], [tb["beta"]], [tb["alpha"], tb["feat"]],
-                         par),
-            block_edges(gfa[0]), k * f, k)
-        jobs[("dense_gmm_bwd", k, f)] = (
-            what, lambda a=gba: [dense.dense_gmm_bwd(*a, **gkw)],
-            lambda a=gba: [dense.dense_gmm_bwd_plain(*a, **gkw)],
-            block_inputs(gba[0], [tb["alpha"], tb["feat"]],
-                         [tb["g"], tb["beta"], tb["dfeat"]], par),
-            block_edges(gba[0]), k * f, k)
 
     times = {}
     for key, (what, fn_kernel, fn_plain, inputs, edges, cols, groups) in \
             jobs.items():
         ms, plain_ms = time_pair(fn_kernel, fn_plain, time_calls, dev)
         host = ""
-        if key in per_bin or key[0].startswith("dense"):
+        if key in per_bin or key[0].startswith("dense") \
+                or key[0].endswith("_bf16"):
             # a list call, or a call over cora's hub block, is shorter on the
             # card than the host takes to launch it: its time is read from a
             # replayed CUDA graph (dense_gat_fwd's holds the wrapper's two
@@ -1374,18 +1631,23 @@ def main():
 
     # the bin kernels a pubmed training step: one call a layer, beside the
     # sum of the layers' bounds; and one launch a bin against one for every
-    # bin
+    # bin; the bf16 instances' step beside the float32 one's
     for name, shapes in (("bin_gat_fwd", SHAPES), ("bin_gat_bwd", SHAPES),
                          ("bin_gmm_node_fwd", GMM_SHAPES),
                          ("bin_gmm_node_bwd", GMM_SHAPES)):
         step_ms = sum(times[(name, *sh)]["ms"] for sh in shapes)
         step_bound = sum(times[(name, *sh)]["bound_ms"] for sh in shapes)
+        bf_ms = sum(times[(name + "_bf16", *sh)]["ms"] for sh in shapes)
+        bf_bound = sum(times[(name + "_bf16", *sh)]["bound_ms"]
+                       for sh in shapes)
         loop_ms = [[gather_study.graph_ms(fn, dev, 10)
                     for fn in per_bin[(name, *sh)]] for sh in shapes]
         phase("times", f"{name} a pubmed training step, layers {shapes}, "
               f"on the card (a replayed CUDA graph): {step_ms:.4f} ms "
               f"against a bound of {step_bound:.5f} ms "
-              f"({step_ms / step_bound:.1f} times it); one launch a bin "
+              f"({step_ms / step_bound:.1f} times it); bf16 rows "
+              f"{bf_ms:.4f} ms against {bf_bound:.5f} ms "
+              f"({bf_ms / bf_bound:.1f} times it); one launch a bin "
               f"against one for every bin: "
               + ", ".join(f"{sh} {a:.4f} / {b:.4f} ms"
                           for sh, (a, b) in zip(shapes, loop_ms))
@@ -1612,6 +1874,7 @@ def main():
         # launches: the cora run of the kernel's model, the path that runs
         # its bin and its dense kernels; the DGCNN run in the kernel's
         # schedule; the gather study
+        # the bf16 instances: the reddit run of their model (bf16 gathers)
         if name == "masked_max_live_lists":
             run = ("edgeconv", "step1")
         elif name.startswith("masked_max"):
@@ -1619,7 +1882,8 @@ def main():
         elif name.startswith("gather"):
             run = "gather"
         else:
-            run = ("gat" if "gat" in name else "gmm", "cora")
+            run = ("gat" if "gat" in name else "gmm",
+                   "reddit" if name.endswith("_bf16") else "cora")
         report.append(dict(name=name, **meta, launches=launches[run][name],
                            max_abs_err=err[name], **times[first]))
         assert report[-1]["launches"] > 0, name

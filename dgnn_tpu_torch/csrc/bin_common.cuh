@@ -14,9 +14,16 @@
 // inside one warp; every cross-lane step stays inside the group
 // (group_mask for __shfl_*_sync and __syncwarp), so groups of one warp with
 // different slot counts never wait on each other.
+//
+// Feature rows (the gathered x or g rows and a segment's own x row) are
+// stored as float or as bf16 (__nv_bfloat16, the ops' gather_dtype) and
+// read as float by ld_row / ld_row4: every sum stays in float32.  A bf16
+// value is the high half of the float with the same bits, so the widening
+// is a shift and exact.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +42,37 @@ struct BinList {
   int nbins;
   int total;                   // segments in all bins
 };
+
+__device__ __forceinline__ float ld_row(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float ld_row(const __nv_bfloat16* p) {
+  const uint32_t u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(u << 16);
+}
+
+// Four consecutive values from an address aligned to four of them (16
+// bytes of float, 8 of bf16).
+__device__ __forceinline__ float4 ld_row4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 ld_row4(const __nv_bfloat16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Whether a lane may load its columns four at a time (ld_row4): at least
+// four columns a lane, F % 4 == 0 for F the columns of one head or kernel
+// (so that a load's four columns lie in one of them), and the table
+// aligned to four of its values.
+template <typename T>
+inline bool vec_rows(int cpl, int F, const void* table) {
+  return cpl >= 4 && F % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(table) % (4 * sizeof(T)) == 0;
+}
 
 // Segment `s` (global) resolved to its bin's tables.
 struct Seg {

@@ -1,4 +1,5 @@
-// Degree-binned GAT passes for NVIDIA Hopper (sm_90a), float32.
+// Degree-binned GAT passes for NVIDIA Hopper (sm_90a): float32 sums over
+// feature rows stored as float32 or bf16.
 //
 //   bin_gat_fwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gat_fwd_kernel
 //     (wrappers bin_gat_fwd, bin_gat_fwd_list).  Over the CSR bins (rows =
@@ -36,8 +37,8 @@
 // slot's id and its H coefficients and writes the slot's weights to a
 // warp-private slab behind __syncwarp; the first slots' ids are requested
 // with the segment's row and count.  Then lanes work over columns, up to
-// eight a lane (dgnn::cols_per_lane; 16-byte loads where F % 4 = 0 and the
-// feature tables are aligned, else scalar loads): every slot of the chunk
+// eight a lane (dgnn::cols_per_lane; loads of four values where F % 4 = 0
+// and the feature tables are aligned, else scalar loads): every slot of the chunk
 // in ascending order, reading the weights from the slab and the row
 // x[nbr] / g[nbr] coalesced.  Rows wider than 8 G columns are walked in
 // column tiles.
@@ -53,9 +54,17 @@
 //   partial of x[j, c] t[c] over its columns, less its slots' a d' ws, and
 //   one interleaved shuffle butterfly over every head gives dac.
 //
-// Left for later PRs: cp.async / TMA prefetch of the next slots' rows, bf16
-// feature rows, and fusing the segment merge (ops/common.py combine_lse /
-// combine_sum) into the kernel.
+// Feature rows (x in the forward; g and the segment's own x in the
+// backward) are float32 or bf16, one template instance each (T): a bf16
+// row is half the bytes of the gather, widened to float32 as it is loaded
+// (bin_common.cuh ld_row / ld_row4), so the arithmetic is the float32
+// kernel's on bf16-rounded values, as the TPU kernels upcast the gathered
+// block.  The per-node scalars (ac, ar, M, Linv, ws) stay float32 tables;
+// where the ops round them to bf16 they hand over the rounded values.
+//
+// Left for later PRs: cp.async / TMA prefetch of the next slots' rows, and
+// fusing the segment merge (ops/common.py combine_lse / combine_sum) into
+// the kernel.
 //
 // Dropout re-derives dgnn_tpu/ops/common.py:pair_keep bit for bit
 // (gat_common.cuh).  Forward: dst = segment row, src = slot; backward:
@@ -74,6 +83,8 @@ namespace {
 using dgnn::BinList;
 using dgnn::find_seg;
 using dgnn::group_mask;
+using dgnn::ld_row;
+using dgnn::ld_row4;
 using dgnn::leaky;
 using dgnn::pair_base;
 using dgnn::pair_u_head;
@@ -82,7 +93,9 @@ using dgnn::Seg;
 constexpr int kMaxHeads = 16;    // the wrapper refuses H > kMaxHeads
 constexpr float kNegB = -1e30f;  // finite "-inf": max of an empty segment
 
-// HMAX: heads held in registers (4 or kMaxHeads); VEC: 16-byte loads of x;
+// T: the feature rows' storage (float or __nv_bfloat16); HMAX: heads held
+// in registers (4 or kMaxHeads); VEC: loads of four values of x (16 bytes
+// of float, 8 of bf16);
 // CPL: feature columns a lane per tile of CPL * G (dgnn::cols_per_lane).
 // Dynamic shared memory: per group G slot ids, then per group 2 G H floats.
 // Blocks of dgnn::kGroupThreads an SM keeps by the launch bounds: three
@@ -90,11 +103,11 @@ constexpr float kNegB = -1e30f;  // finite "-inf": max of an empty segment
 // 16 heads, whose row state would spill under a cap.
 constexpr int gat_fwd_min_blocks(int hmax) { return hmax <= 4 ? 3 : 1; }
 
-template <int HMAX, bool VEC, int CPL>
+template <typename T, int HMAX, bool VEC, int CPL>
 __global__ void __launch_bounds__(dgnn::kGroupThreads,
                                   gat_fwd_min_blocks(HMAX))
 bin_gat_fwd_kernel(
-    const float* __restrict__ x,      // [N, H*F] source features
+    const T* __restrict__ x,          // [N, H*F] source features
     const float* __restrict__ ac,     // [N, H]   source coefficients
     const float* __restrict__ ar,     // [Nr, H]  destination coefficients
     const BinList bl, int G, int H, int F, float slope, int with_pos,
@@ -221,7 +234,7 @@ bin_gat_fwd_kernel(
       __syncwarp(gmask);
 #pragma unroll 2
       for (int wl = 0; wl < nch; ++wl) {
-        const float* xr = x + static_cast<size_t>(sj[wl]) * HF;
+        const T* xr = x + static_cast<size_t>(sj[wl]) * HF;
         const float* wd = spd + wl * H;
         const float* wp = spp + wl * H;
 #pragma unroll
@@ -230,7 +243,7 @@ bin_gat_fwd_kernel(
             const float a = wd[hc[q]];
             const float b = wp[hc[q]];
             if constexpr (VEC) {
-              const float4 v = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+              const float4 v = ld_row4(xr + col[q]);
               acc[4 * q] += a * v.x;
               acc[4 * q + 1] += a * v.y;
               acc[4 * q + 2] += a * v.z;
@@ -240,7 +253,7 @@ bin_gat_fwd_kernel(
               accp[4 * q + 2] += b * v.z;
               accp[4 * q + 3] += b * v.w;
             } else {
-              const float v = __ldg(xr + col[q]);
+              const float v = ld_row(xr + col[q]);
               acc[q] += a * v;
               accp[q] += b * v;
             }
@@ -288,29 +301,29 @@ bin_gat_fwd_kernel(
   }
 }
 
-template <int HMAX, bool VEC, int CPL>
+template <typename T, int HMAX, bool VEC, int CPL>
 void launch_gat_fwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
-                    const float* x, const float* ac, const float* ar, int H,
+                    const T* x, const float* ac, const float* ar, int H,
                     int F, float slope, int with_pos, float p, float inv_keep,
                     uint32_t seed, float* m, float* l, float* lpos, float* acc,
                     float* accpos) {
   const int gpb = dgnn::kGroupThreads / G;
   const int blocks = (bl.total + gpb - 1) / gpb;
-  bin_gat_fwd_kernel<HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
+  bin_gat_fwd_kernel<T, HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
       x, ac, ar, bl, G, H, F, slope, with_pos, p, inv_keep, seed, m, l, lpos,
       acc, accpos);
 }
 
-// The instance for (vec, cpl): 16-byte loads at 4 or 8 columns a lane.
-template <int HMAX>
+// The instance for (vec, cpl): vector loads at 4 or 8 columns a lane.
+template <typename T, int HMAX>
 void dispatch_gat_fwd(bool vec, int cpl, const BinList& bl, int G,
-                      size_t shm, cudaStream_t st, const float* x,
+                      size_t shm, cudaStream_t st, const T* x,
                       const float* ac, const float* ar, int H, int F,
                       float slope, int with_pos, float p, float inv_keep,
                       uint32_t seed, float* m, float* l, float* lpos,
                       float* acc, float* accpos) {
 #define DGNN_GAT_FWD(V, C)                                                  \
-  launch_gat_fwd<HMAX, V, C>(bl, G, shm, st, x, ac, ar, H, F, slope,        \
+  launch_gat_fwd<T, HMAX, V, C>(bl, G, shm, st, x, ac, ar, H, F, slope,     \
                              with_pos, p, inv_keep, seed, m, l, lpos, acc,  \
                              accpos)
   if (vec && cpl == 8) DGNN_GAT_FWD(true, 8);
@@ -329,17 +342,17 @@ void dispatch_gat_fwd(bool vec, int cpl, const BinList& bl, int G,
 // requesting x[j] before the walk with three; one for 16 heads.
 constexpr int gat_bwd_min_blocks(int hmax) { return hmax <= 4 ? 4 : 1; }
 
-template <int HMAX, bool VEC, int CPL>
+template <typename T, int HMAX, bool VEC, int CPL>
 __global__ void __launch_bounds__(dgnn::kGroupThreads,
                                   gat_bwd_min_blocks(HMAX))
 bin_gat_bwd_kernel(
-    const float* __restrict__ g,      // [Nd, H*F] grad of the output
+    const T* __restrict__ g,          // [Nd, H*F] grad of the output
     const float* __restrict__ ar,     // [Nd, H]
     const float* __restrict__ Mx,     // [Nd, H]   merged softmax maximum
     const float* __restrict__ Linv,   // [Nd, H]   1 / max(L, 1e-20)
     const float* __restrict__ ws,     // [Nd, H]   <g, out> per destination
     const float* __restrict__ ac,     // [Ns, H]   source coefficients
-    const float* __restrict__ x,      // [Ns, H*F] source features
+    const T* __restrict__ x,          // [Ns, H*F] source features
     const BinList bl,                 // nbr: destination ids; row: source id
     int G, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
     float* __restrict__ dx_out,       // [total, H*F]
@@ -414,7 +427,7 @@ bin_gat_bwd_kernel(
       // lanes over columns: every slot of the chunk in ascending order
 #pragma unroll 2
       for (int wl = 0; wl < nch; ++wl) {
-        const float* gr = g + static_cast<size_t>(si[wl]) * HF;
+        const T* gr = g + static_cast<size_t>(si[wl]) * HF;
         const float* wa = sah + wl * H;
         const float* wb = sahd + wl * H;
 #pragma unroll
@@ -423,7 +436,7 @@ bin_gat_bwd_kernel(
             const float a = wa[hc[q]];
             const float b = wb[hc[q]];
             if constexpr (VEC) {
-              const float4 v = __ldg(reinterpret_cast<const float4*>(gr + col[q]));
+              const float4 v = ld_row4(gr + col[q]);
               dx[4 * q] += a * v.x;
               dx[4 * q + 1] += a * v.y;
               dx[4 * q + 2] += a * v.z;
@@ -433,7 +446,7 @@ bin_gat_bwd_kernel(
               t[4 * q + 2] += b * v.z;
               t[4 * q + 3] += b * v.w;
             } else {
-              const float v = __ldg(gr + col[q]);
+              const float v = ld_row(gr + col[q]);
               dx[q] += a * v;
               t[q] += b * v;
             }
@@ -443,7 +456,7 @@ bin_gat_bwd_kernel(
       __syncwarp(gmask);  // the slab is rewritten by the next chunk
     }
     float* dxo = dx_out + static_cast<size_t>(s) * HF;
-    const float* xr = x + static_cast<size_t>(r) * HF;
+    const T* xr = x + static_cast<size_t>(r) * HF;
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       if (col[q] < HF) {
@@ -452,12 +465,12 @@ bin_gat_bwd_kernel(
         if constexpr (VEC) {
           *reinterpret_cast<float4*>(dxo + col[q]) = make_float4(
               dx[4 * q], dx[4 * q + 1], dx[4 * q + 2], dx[4 * q + 3]);
-          const float4 xv = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+          const float4 xv = ld_row4(xr + col[q]);
           v = xv.x * t[4 * q] + xv.y * t[4 * q + 1] + xv.z * t[4 * q + 2] +
               xv.w * t[4 * q + 3];
         } else {
           dxo[col[q]] = dx[q];
-          v = __ldg(xr + col[q]) * t[q];
+          v = ld_row(xr + col[q]) * t[q];
         }
         // a load's columns lie in one head (F % 4 = 0 where VEC)
 #pragma unroll
@@ -480,30 +493,30 @@ bin_gat_bwd_kernel(
   }
 }
 
-template <int HMAX, bool VEC, int CPL>
+template <typename T, int HMAX, bool VEC, int CPL>
 void launch_gat_bwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
-                    const float* g, const float* ar, const float* M,
+                    const T* g, const float* ar, const float* M,
                     const float* Linv, const float* ws, const float* ac,
-                    const float* x, int H, int F, float slope, float p,
+                    const T* x, int H, int F, float slope, float p,
                     float inv_keep, uint32_t seed, float* dx, float* dac) {
   const int gpb = dgnn::kGroupThreads / G;
   const int blocks = (bl.total + gpb - 1) / gpb;
-  bin_gat_bwd_kernel<HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
+  bin_gat_bwd_kernel<T, HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
       g, ar, M, Linv, ws, ac, x, bl, G, H, F, slope, p, inv_keep, seed, dx,
       dac);
 }
 
 // The instance for (vec, cpl), as dispatch_gat_fwd.
-template <int HMAX>
+template <typename T, int HMAX>
 void dispatch_gat_bwd(bool vec, int cpl, const BinList& bl, int G,
-                      size_t shm, cudaStream_t st, const float* g,
+                      size_t shm, cudaStream_t st, const T* g,
                       const float* ar, const float* M, const float* Linv,
-                      const float* ws, const float* ac, const float* x, int H,
+                      const float* ws, const float* ac, const T* x, int H,
                       int F, float slope, float p, float inv_keep,
                       uint32_t seed, float* dx, float* dac) {
 #define DGNN_GAT_BWD(V, C)                                                  \
-  launch_gat_bwd<HMAX, V, C>(bl, G, shm, st, g, ar, M, Linv, ws, ac, x, H,  \
-                             F, slope, p, inv_keep, seed, dx, dac)
+  launch_gat_bwd<T, HMAX, V, C>(bl, G, shm, st, g, ar, M, Linv, ws, ac, x, \
+                                H, F, slope, p, inv_keep, seed, dx, dac)
   if (vec && cpl == 8) DGNN_GAT_BWD(true, 8);
   else if (vec) DGNN_GAT_BWD(true, 4);
   else if (cpl == 8) DGNN_GAT_BWD(false, 8);
@@ -521,71 +534,105 @@ size_t gat_shm(int G, int H) {
          (sizeof(int) + 2 * H * sizeof(float));
 }
 
+// Every bin of one direction in one launch, feature rows of type T.
+template <typename T>
+int run_gat_fwd(const T* x, const float* ac, const float* ar, int nbins,
+                void* const* nbr, void* const* row, void* const* count,
+                const int* S, const int* W, int H, int F, float slope,
+                int with_pos, float p, float inv_keep, uint32_t seed, float* m,
+                float* l, float* lpos, float* acc, float* accpos,
+                void* stream) {
+  BinList bl;
+  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
+      H > kMaxHeads || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bl.total > 0) {
+    const int G = dgnn::group_lanes(H * F);
+    const size_t shm = gat_shm(G, H);
+    const int cpl = dgnn::cols_per_lane(H * F, G);
+    const bool vec = dgnn::vec_rows<T>(cpl, F, x);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (H <= 4)
+      dispatch_gat_fwd<T, 4>(vec, cpl, bl, G, shm, st, x, ac, ar, H, F,
+                             slope, with_pos, p, inv_keep, seed, m, l, lpos,
+                             acc, accpos);
+    else
+      dispatch_gat_fwd<T, kMaxHeads>(vec, cpl, bl, G, shm, st, x, ac, ar, H,
+                                     F, slope, with_pos, p, inv_keep, seed, m,
+                                     l, lpos, acc, accpos);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_gat_bwd(const T* g, const float* ar, const float* M,
+                const float* Linv, const float* ws, const float* ac,
+                const T* x, int nbins, void* const* nbr, void* const* row,
+                void* const* count, const int* S, const int* W, int H, int F,
+                float slope, float p, float inv_keep, uint32_t seed,
+                float* dx, float* dac, void* stream) {
+  BinList bl;
+  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
+      H > kMaxHeads || F < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bl.total > 0) {
+    const int G = dgnn::group_lanes(H * F);
+    const size_t shm = gat_shm(G, H);
+    const int cpl = dgnn::cols_per_lane(H * F, G);
+    const bool vec =
+        dgnn::vec_rows<T>(cpl, F, g) && dgnn::vec_rows<T>(cpl, F, x);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (H <= 4)
+      dispatch_gat_bwd<T, 4>(vec, cpl, bl, G, shm, st, g, ar, M, Linv, ws,
+                             ac, x, H, F, slope, p, inv_keep, seed, dx, dac);
+    else
+      dispatch_gat_bwd<T, kMaxHeads>(vec, cpl, bl, G, shm, st, g, ar, M,
+                                     Linv, ws, ac, x, H, F, slope, p,
+                                     inv_keep, seed, dx, dac);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // Every bin of one direction in one launch: nbins <= dgnn::kMaxBins bins,
 // bin b with S[b] segments of W[b] slots (nbr[b], row[b], count[b] device
-// pointers); the outputs hold sum S[b] rows in bin order.
-int dgnn_bin_gat_fwd(const float* x, const float* ac, const float* ar,
+// pointers); the outputs hold sum S[b] rows in bin order.  x holds float32
+// values, or bf16 where bf16 is 1.
+int dgnn_bin_gat_fwd(const void* x, const float* ac, const float* ar,
                      int nbins, void* const* nbr, void* const* row,
                      void* const* count, const int* S, const int* W, int H,
-                     int F, float slope, int with_pos, float p,
+                     int F, int bf16, float slope, int with_pos, float p,
                      float inv_keep, uint32_t seed, float* m, float* l,
                      float* lpos, float* acc, float* accpos, void* stream) {
-  BinList bl;
-  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
-      H > kMaxHeads || F < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bl.total > 0) {
-    const int G = dgnn::group_lanes(H * F);
-    const size_t shm = gat_shm(G, H);
-    const int cpl = dgnn::cols_per_lane(H * F, G);
-    const bool vec = cpl >= 4 && F % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (H <= 4)
-      dispatch_gat_fwd<4>(vec, cpl, bl, G, shm, st, x, ac, ar, H, F, slope,
-                          with_pos, p, inv_keep, seed, m, l, lpos, acc,
-                          accpos);
-    else
-      dispatch_gat_fwd<kMaxHeads>(vec, cpl, bl, G, shm, st, x, ac, ar, H, F,
-                                  slope, with_pos, p, inv_keep, seed, m, l,
-                                  lpos, acc, accpos);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (bf16)
+    return run_gat_fwd(static_cast<const __nv_bfloat16*>(x), ac, ar, nbins,
+                       nbr, row, count, S, W, H, F, slope, with_pos, p,
+                       inv_keep, seed, m, l, lpos, acc, accpos, stream);
+  return run_gat_fwd(static_cast<const float*>(x), ac, ar, nbins, nbr, row,
+                     count, S, W, H, F, slope, with_pos, p, inv_keep, seed, m,
+                     l, lpos, acc, accpos, stream);
 }
 
-// The backward over every bin of one direction, as dgnn_bin_gat_fwd.
-int dgnn_bin_gat_bwd(const float* g, const float* ar, const float* M,
+// The backward over every bin of one direction, as dgnn_bin_gat_fwd; g and
+// x hold float32 values, or both bf16 where bf16 is 1.
+int dgnn_bin_gat_bwd(const void* g, const float* ar, const float* M,
                      const float* Linv, const float* ws, const float* ac,
-                     const float* x, int nbins, void* const* nbr,
+                     const void* x, int nbins, void* const* nbr,
                      void* const* row, void* const* count, const int* S,
-                     const int* W, int H, int F, float slope, float p,
-                     float inv_keep, uint32_t seed, float* dx, float* dac,
-                     void* stream) {
-  BinList bl;
-  if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
-      H > kMaxHeads || F < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (bl.total > 0) {
-    const int G = dgnn::group_lanes(H * F);
-    const size_t shm = gat_shm(G, H);
-    const int cpl = dgnn::cols_per_lane(H * F, G);
-    const bool vec = cpl >= 4 && F % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (H <= 4)
-      dispatch_gat_bwd<4>(vec, cpl, bl, G, shm, st, g, ar, M, Linv, ws, ac,
-                          x, H, F, slope, p, inv_keep, seed, dx, dac);
-    else
-      dispatch_gat_bwd<kMaxHeads>(vec, cpl, bl, G, shm, st, g, ar, M, Linv,
-                                  ws, ac, x, H, F, slope, p, inv_keep, seed,
-                                  dx, dac);
-  }
-  return static_cast<int>(cudaGetLastError());
+                     const int* W, int H, int F, int bf16, float slope,
+                     float p, float inv_keep, uint32_t seed, float* dx,
+                     float* dac, void* stream) {
+  if (bf16)
+    return run_gat_bwd(static_cast<const __nv_bfloat16*>(g), ar, M, Linv, ws,
+                       ac, static_cast<const __nv_bfloat16*>(x), nbins, nbr,
+                       row, count, S, W, H, F, slope, p, inv_keep, seed, dx,
+                       dac, stream);
+  return run_gat_bwd(static_cast<const float*>(g), ar, M, Linv, ws, ac,
+                     static_cast<const float*>(x), nbins, nbr, row, count, S,
+                     W, H, F, slope, p, inv_keep, seed, dx, dac, stream);
 }
 
 }  // extern "C"

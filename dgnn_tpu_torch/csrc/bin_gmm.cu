@@ -1,5 +1,6 @@
 // Degree-binned MoNet (GMMConv, node-derived pseudo-coordinates) passes for
-// NVIDIA Hopper (sm_90a), float32.
+// NVIDIA Hopper (sm_90a): float32 sums over feature rows stored as float32
+// or bf16.
 //
 //   bin_gmm_fwd_kernel  replaces dgnn_tpu/ops/pallas_bins.py:_bin_gmm_fwd_kernel
 //     (wrappers bin_gmm_node_fwd, bin_gmm_node_fwd_list).  Over the CSR bins
@@ -49,8 +50,8 @@
 // slot's id and its pseudo halves and computes the slot's scalars into a
 // warp-private slab (__syncwarp); the first slots' ids are requested with
 // the segment's row and count.  Then lanes work over columns, up to eight
-// a lane (dgnn::cols_per_lane; 16-byte loads where F % 4 = 0 and the
-// tables are aligned): each slot of the chunk in ascending order, all sums
+// a lane (dgnn::cols_per_lane; loads of four values where F % 4 = 0 and
+// the tables are aligned): each slot of the chunk in ascending order, all sums
 // in registers.  Rows wider than 8 G columns are walked in column tiles.
 //
 //   Forward: the segment's beta[v] sits in registers; the slot lane
@@ -63,6 +64,13 @@
 //   the lane's columns of k for every set a, reduced by one interleaved
 //   shuffle butterfly; lane 0 keeps the sums in the slab across column
 //   tiles, and the group writes the stat row (the dpre sets summed over k).
+//
+// Feature rows (x in the forward; g and the segment's own x in the
+// backward) are float32 or bf16, one template instance each (T), widened
+// to float32 as they are loaded (bin_common.cuh ld_row / ld_row4), as
+// bin_gat.cu reads them.  alpha, beta and the raw pseudo scalars stay
+// float32 tables; where the ops round them to bf16 they hand over the
+// rounded values.
 //
 // Left for later PRs: prefetch of the next slots' rows, and fusing the
 // segment merge (ops/common.py combine_sum).
@@ -83,6 +91,8 @@ using dgnn::gmm_coords;
 using dgnn::gmm_weight;
 using dgnn::group_mask;
 using dgnn::kGmmMaxD;
+using dgnn::ld_row;
+using dgnn::ld_row4;
 using dgnn::kGmmMaxDd;
 using dgnn::kGmmMaxK;
 using dgnn::Seg;
@@ -93,7 +103,8 @@ constexpr int kMaxKF = 1024;  // feature columns; the wrappers refuse more
 constexpr int kMaxCoef = 8;
 constexpr int kStat = kMaxCoef * kGmmMaxK;  // a group's stat sums [a][k]
 
-// VEC: 16-byte loads of x; CPL: feature columns a lane per tile of CPL * G
+// T: the feature rows' storage (float or __nv_bfloat16); VEC: loads of
+// four values of x; CPL: feature columns a lane per tile of CPL * G
 // (dgnn::cols_per_lane).  Dynamic shared memory, per group
 // (gmm_fwd_group_floats): G slot ids, [G][K] weights.  Blocks of
 // dgnn::kGroupThreads an SM kept by the launch bounds: four (at most 64
@@ -104,10 +115,10 @@ __host__ __device__ inline int gmm_fwd_group_floats(int G, int K) {
   return G + G * K;
 }
 
-template <bool VEC, int CPL>
+template <typename T, bool VEC, int CPL>
 __global__ void __launch_bounds__(dgnn::kGroupThreads, kGmmFwdMinBlocks)
 bin_gmm_fwd_kernel(
-    const float* __restrict__ x,      // [N, K*F] source features
+    const T* __restrict__ x,          // [N, K*F] source features
     const float* __restrict__ alpha,  // [N, D]   source-side projection
     const float* __restrict__ beta,   // [Nr, D]  destination-side projection
     const BinList bl,                 // nbr: source ids; row: destination id
@@ -169,19 +180,19 @@ bin_gmm_fwd_kernel(
       // lanes over columns: every slot of the chunk in ascending order
 #pragma unroll 2
       for (int wl = 0; wl < nch; ++wl) {
-        const float* xr = x + static_cast<size_t>(sj[wl]) * KF;
+        const T* xr = x + static_cast<size_t>(sj[wl]) * KF;
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
           if (col[q] < KF) {
             const float w = sw[wl * K + kc[q]];
             if constexpr (VEC) {
-              const float4 v = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+              const float4 v = ld_row4(xr + col[q]);
               acc[4 * q] += w * v.x;
               acc[4 * q + 1] += w * v.y;
               acc[4 * q + 2] += w * v.z;
               acc[4 * q + 3] += w * v.w;
             } else {
-              acc[q] += w * __ldg(xr + col[q]);
+              acc[q] += w * ld_row(xr + col[q]);
             }
           }
         }
@@ -208,8 +219,8 @@ __host__ __device__ inline int gmm_bwd_group_floats(int G, int K) {
   return G + G * K + G * K * kMaxCoef + kStat;
 }
 
-// VEC: 16-byte loads of g and x; CPL: feature columns a lane per tile of
-// CPL * G (dgnn::cols_per_lane).  Dynamic shared memory, per group
+// T: the feature rows' storage; VEC: loads of four values of g and x; CPL:
+// feature columns a lane per tile of CPL * G (dgnn::cols_per_lane).  Dynamic shared memory, per group
 // (gmm_bwd_group_floats): G slot ids, [G][K] weights, [G][K][kMaxCoef]
 // coefficients (zero past NA), [kMaxCoef][kGmmMaxK] stat sums.
 // Blocks of dgnn::kGroupThreads an SM kept by the launch bounds: two (at
@@ -217,15 +228,15 @@ __host__ __device__ inline int gmm_bwd_group_floats(int G, int K) {
 // up to 72; three (85) at one column a lane.
 constexpr int gmm_bwd_min_blocks(int cpl) { return cpl == 1 ? 3 : 2; }
 
-template <bool VEC, int CPL>
+template <typename T, bool VEC, int CPL>
 __global__ void __launch_bounds__(dgnn::kGroupThreads,
                                   gmm_bwd_min_blocks(CPL))
 bin_gmm_bwd_kernel(
-    const float* __restrict__ g,      // [Nd, K*F] grad of the output
+    const T* __restrict__ g,          // [Nd, K*F] grad of the output
     const float* __restrict__ beta,   // [Nd, D]   destination-side projection
     const float* __restrict__ dfeat,  // [Nd, Dd]  raw destination scalars
     const float* __restrict__ alpha,  // [Ns, D]   source-side projection
-    const float* __restrict__ x,      // [Ns, K*F] source features
+    const T* __restrict__ x,          // [Ns, K*F] source features
     const float* __restrict__ sfeat,  // [Ns, Ds]  raw source scalars
     const BinList bl,                 // nbr: destination ids; row: source id
     const float* __restrict__ mu,     // [K, D]
@@ -331,19 +342,19 @@ bin_gmm_bwd_kernel(
       // lanes over columns: every slot of the chunk in ascending order
 #pragma unroll 2
       for (int wl = 0; wl < nch; ++wl) {
-        const float* gr = g + static_cast<size_t>(sj[wl]) * KF;
+        const T* gr = g + static_cast<size_t>(sj[wl]) * KF;
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
           if (col[q] < KF) {
             float gv[QW];
             if constexpr (VEC) {
-              const float4 v = __ldg(reinterpret_cast<const float4*>(gr + col[q]));
+              const float4 v = ld_row4(gr + col[q]);
               gv[0] = v.x;
               gv[1] = v.y;
               gv[2] = v.z;
               gv[3] = v.w;
             } else {
-              gv[0] = __ldg(gr + col[q]);
+              gv[0] = ld_row(gr + col[q]);
             }
             const float w = sw[wl * K + kc[q]];
             const float* cf = scf + (wl * K + kc[q]) * kMaxCoef;
@@ -376,18 +387,18 @@ bin_gmm_bwd_kernel(
     // the segment's own row, read after the walk so that its registers are
     // free during it (a row of the node table, mostly in L2 by then)
     float xv[CPL];
-    const float* xr = x + static_cast<size_t>(r) * KF;
+    const T* xr = x + static_cast<size_t>(r) * KF;
 #pragma unroll
     for (int q = 0; q < NQ; ++q) {
       if constexpr (VEC) {
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (col[q] < KF) v = __ldg(reinterpret_cast<const float4*>(xr + col[q]));
+        if (col[q] < KF) v = ld_row4(xr + col[q]);
         xv[4 * q] = v.x;
         xv[4 * q + 1] = v.y;
         xv[4 * q + 2] = v.z;
         xv[4 * q + 3] = v.w;
       } else {
-        xv[q] = col[q] < KF ? __ldg(xr + col[q]) : 0.f;
+        xv[q] = col[q] < KF ? ld_row(xr + col[q]) : 0.f;
       }
     }
     // stat partials: per kernel k, the sums of x[u, c] A_a[c] over this
@@ -460,18 +471,13 @@ int groups_per_block(int G, size_t per) {
   return gpb;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Every bin of one direction in one launch: nbins <= dgnn::kMaxBins bins,
-// bin b with S[b] segments of W[b] slots (nbr[b], row[b], count[b] device
-// pointers); the outputs hold sum S[b] rows in bin order.
-int dgnn_bin_gmm_fwd(const float* x, const float* alpha, const float* beta,
-                     int nbins, void* const* nbr, void* const* row,
-                     void* const* count, const int* S, const int* W,
-                     const float* mu, const float* isig, int K, int D, int F,
-                     int use_tanh, float* acc, void* stream) {
+// Every bin of one direction in one launch, feature rows of type T.
+template <typename T>
+int run_gmm_fwd(const T* x, const float* alpha, const float* beta, int nbins,
+                void* const* nbr, void* const* row, void* const* count,
+                const int* S, const int* W, const float* mu,
+                const float* isig, int K, int D, int F, int use_tanh,
+                float* acc, void* stream) {
   BinList bl;
   if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || K < 1 ||
       K > kGmmMaxK || D < 1 || D > kGmmMaxD || F < 1 || K * F > kMaxKF)
@@ -483,11 +489,10 @@ int dgnn_bin_gmm_fwd(const float* x, const float* alpha, const float* beta,
     const int gpb = groups_per_block(G, per);  // at most 9.2 KB: all 8 groups
     const int blocks = (bl.total + gpb - 1) / gpb;
     const int cpl = dgnn::cols_per_lane(K * F, G);
-    const bool vec = cpl >= 4 && F % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const bool vec = dgnn::vec_rows<T>(cpl, F, x);
     cudaStream_t stm = static_cast<cudaStream_t>(stream);
 #define DGNN_GMM_FWD(V, C)                                                  \
-  bin_gmm_fwd_kernel<V, C><<<blocks, gpb * G, gpb * per, stm>>>(            \
+  bin_gmm_fwd_kernel<T, V, C><<<blocks, gpb * G, gpb * per, stm>>>(         \
       x, alpha, beta, bl, mu, isig, G, K, D, F, use_tanh, acc)
     if (vec && cpl == 8) DGNN_GMM_FWD(true, 8);
     else if (vec) DGNN_GMM_FWD(true, 4);
@@ -500,14 +505,13 @@ int dgnn_bin_gmm_fwd(const float* x, const float* alpha, const float* beta,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward over every bin of one direction, as dgnn_bin_gmm_fwd.
-int dgnn_bin_gmm_bwd(const float* g, const float* beta, const float* dfeat,
-                     const float* alpha, const float* x, const float* sfeat,
-                     int nbins, void* const* nbr, void* const* row,
-                     void* const* count, const int* S, const int* W,
-                     const float* mu, const float* isig, int K, int D, int Dd,
-                     int Ds, int F, int use_tanh, float* dx, float* st,
-                     void* stream) {
+template <typename T>
+int run_gmm_bwd(const T* g, const float* beta, const float* dfeat,
+                const float* alpha, const T* x, const float* sfeat, int nbins,
+                void* const* nbr, void* const* row, void* const* count,
+                const int* S, const int* W, const float* mu,
+                const float* isig, int K, int D, int Dd, int Ds, int F,
+                int use_tanh, float* dx, float* st, void* stream) {
   BinList bl;
   if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || K < 1 ||
       K > kGmmMaxK || D < 1 || D > kGmmMaxD || Dd < 1 || Dd > kGmmMaxDd ||
@@ -520,12 +524,11 @@ int dgnn_bin_gmm_bwd(const float* g, const float* beta, const float* dfeat,
     const int gpb = groups_per_block(G, per);  // at most 9.4 KB a group (K = 8)
     const int blocks = (bl.total + gpb - 1) / gpb;
     const int cpl = dgnn::cols_per_lane(K * F, G);
-    const bool vec = cpl >= 4 && F % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    const bool vec =
+        dgnn::vec_rows<T>(cpl, F, g) && dgnn::vec_rows<T>(cpl, F, x);
     cudaStream_t stm = static_cast<cudaStream_t>(stream);
 #define DGNN_GMM_BWD(V, C)                                                  \
-  bin_gmm_bwd_kernel<V, C><<<blocks, gpb * G, gpb * per, stm>>>(            \
+  bin_gmm_bwd_kernel<T, V, C><<<blocks, gpb * G, gpb * per, stm>>>(         \
       g, beta, dfeat, alpha, x, sfeat, bl, mu, isig, G, K, D, Dd, Ds, F,    \
       use_tanh, dx, st)
     if (vec && cpl == 8) DGNN_GMM_BWD(true, 8);
@@ -537,6 +540,48 @@ int dgnn_bin_gmm_bwd(const float* g, const float* beta, const float* dfeat,
 #undef DGNN_GMM_BWD
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every bin of one direction in one launch: nbins <= dgnn::kMaxBins bins,
+// bin b with S[b] segments of W[b] slots (nbr[b], row[b], count[b] device
+// pointers); the outputs hold sum S[b] rows in bin order.  x holds float32
+// values, or bf16 where bf16 is 1.
+int dgnn_bin_gmm_fwd(const void* x, const float* alpha, const float* beta,
+                     int nbins, void* const* nbr, void* const* row,
+                     void* const* count, const int* S, const int* W,
+                     const float* mu, const float* isig, int K, int D, int F,
+                     int use_tanh, int bf16, float* acc, void* stream) {
+  if (bf16)
+    return run_gmm_fwd(static_cast<const __nv_bfloat16*>(x), alpha, beta,
+                       nbins, nbr, row, count, S, W, mu, isig, K, D, F,
+                       use_tanh, acc, stream);
+  return run_gmm_fwd(static_cast<const float*>(x), alpha, beta, nbins, nbr,
+                     row, count, S, W, mu, isig, K, D, F, use_tanh, acc,
+                     stream);
+}
+
+// The backward over every bin of one direction, as dgnn_bin_gmm_fwd; g and
+// x hold float32 values, or both bf16 where bf16 is 1.
+int dgnn_bin_gmm_bwd(const void* g, const float* beta, const float* dfeat,
+                     const float* alpha, const void* x, const float* sfeat,
+                     int nbins, void* const* nbr, void* const* row,
+                     void* const* count, const int* S, const int* W,
+                     const float* mu, const float* isig, int K, int D, int Dd,
+                     int Ds, int F, int use_tanh, int bf16, float* dx,
+                     float* st, void* stream) {
+  if (bf16)
+    return run_gmm_bwd(static_cast<const __nv_bfloat16*>(g), beta, dfeat,
+                       alpha, static_cast<const __nv_bfloat16*>(x), sfeat,
+                       nbins, nbr, row, count, S, W, mu, isig, K, D, Dd, Ds,
+                       F, use_tanh, dx, st, stream);
+  return run_gmm_bwd(static_cast<const float*>(g), beta, dfeat, alpha,
+                     static_cast<const float*>(x), sfeat, nbins, nbr, row,
+                     count, S, W, mu, isig, K, D, Dd, Ds, F, use_tanh, dx, st,
+                     stream);
 }
 
 }  // extern "C"

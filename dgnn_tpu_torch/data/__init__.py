@@ -3,6 +3,7 @@ from .synthetic import (
     CITATION_SHAPES,
     CitationData,
     rmat_edges,
+    structure_task_from_csr,
     synthetic_citation,
     synthetic_point_clouds,
 )
@@ -13,6 +14,7 @@ __all__ = [
     "load_citation_dataset",
     "load_modelnet",
     "rmat_edges",
+    "structure_task_from_csr",
     "synthetic_citation",
     "synthetic_point_clouds",
 ]

@@ -1,0 +1,134 @@
+"""The reddit-scale graph of the JAX bench, built and cached without JAX.
+
+Reddit itself is not in the repository, so the JAX bench and trainers run
+an R-MAT power-law graph at its size (``CITATION_SHAPES["reddit"]``:
+232,965 nodes, 114,615,892 edges before self loops) with a task derived
+from its own edges (``structure_task_from_csr``).  The host build is two
+levels of cache under ``.bench_cache/`` at the root of the checkout, as
+``bench.py`` keeps them, under the port's own names:
+
+- ``rmat_raw_{n}_{e}_torch.npz``: the raw CSR / CSC / permute arrays
+  (``build_raw``; the keys and dtypes of ``scripts/build_reddit_raw.py``);
+- ``rmat_graph_{n}_{e}_d6_torch.npz``: the binned graph with its hub block
+  (``dense="auto"``, no edge tables), in graph/cache.py's layout.
+
+``scale`` cuts both counts as the bench's ``BENCH_SCALE`` does
+(``bench.py:122-125``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import resource
+import time
+from pathlib import Path
+
+import numpy as np
+
+from ..graph import build as _gbuild
+from ..graph.cache import load_graph, save_graph
+from ..graph.structure import Graph, build_graph_from_csr
+from .synthetic import CITATION_SHAPES, rmat_edges, structure_task_from_csr
+
+__all__ = ["RedditData", "reddit_size", "build_raw", "load_reddit",
+           "CACHE_DIR"]
+
+CACHE_DIR = Path(__file__).resolve().parents[2] / ".bench_cache"
+
+
+def reddit_size(scale: float = 1.0) -> tuple[int, int]:
+    """(nodes, edges before self loops) of the reddit graph at ``scale``."""
+    n, e, _, _ = CITATION_SHAPES["reddit"]
+    return int(n * scale), int(e * scale)
+
+
+def _stage(seconds: dict, name: str, t0: float, log) -> None:
+    seconds[name] = time.perf_counter() - t0
+    log(f"{name} {seconds[name]:.1f}s")
+
+
+def build_raw(n: int, e: int, out_path: str, seed: int = 0,
+              log=print) -> dict:
+    """R-MAT edges -> self loops -> CSR -> CSC + permute, written to
+    ``out_path`` (atomically) with the keys and dtypes of
+    ``scripts/build_reddit_raw.py``.  Returns the seconds each stage took,
+    from the start (``log`` prints each as it ends)."""
+    seconds = {}
+    t0 = time.perf_counter()
+    src, dst = rmat_edges(n, e, seed=seed)
+    _stage(seconds, "rmat edges", t0, log)
+    src, dst = _gbuild.remove_self_loops(src, dst)
+    src, dst = _gbuild.add_self_loops(src, dst, n)
+    row_ptr, col_ind = _gbuild.coo_to_csr(src, dst, n)
+    _stage(seconds, "csr", t0, log)
+    del src, dst
+    col_ptr, row_ind, permute = _gbuild.csr_to_csc_permute(row_ptr, col_ind)
+    _stage(seconds, "csc+permute", t0, log)
+    meta = dict(num_nodes=n, num_edges=int(col_ind.shape[0]), seed=seed)
+    tmp = out_path + ".tmp.npz"
+    np.savez(tmp, row_ptr=row_ptr.astype(np.int64),
+             col_ind=col_ind.astype(np.int32),
+             col_ptr=col_ptr.astype(np.int64),
+             row_ind=row_ind.astype(np.int32),
+             permute=permute.astype(np.int32),
+             meta_json=np.frombuffer(json.dumps(meta).encode(), np.uint8))
+    os.replace(tmp, out_path)
+    _stage(seconds, "saved raw", t0, log)
+    return seconds
+
+
+@dataclasses.dataclass
+class RedditData:
+    graph: Graph             # CPU tensors, raw CSR / CSC kept
+    features: np.ndarray     # [N, F] float32
+    labels: np.ndarray       # [N] int32
+    train_mask: np.ndarray   # [N] bool
+    val_mask: np.ndarray
+    test_mask: np.ndarray
+    n_classes: int
+    seconds: dict            # host set-up seconds by stage
+    host_peak_mb: float      # the process's peak resident memory so far
+
+
+def load_reddit(scale: float = 1.0, seed: int = 0,
+                cache_dir: str | os.PathLike | None = None,
+                log=print) -> RedditData:
+    """The reddit graph at ``scale`` from the port's cache, building and
+    caching what is missing (the raw arrays, then the binned graph), and
+    its task from ``structure_task_from_csr`` on the raw CSR."""
+    cache = Path(cache_dir) if cache_dir is not None else CACHE_DIR
+    cache.mkdir(parents=True, exist_ok=True)
+    n, e = reddit_size(scale)
+    _, _, n_feats, n_classes = CITATION_SHAPES["reddit"]
+    raw_path = cache / f"rmat_raw_{n}_{e}_torch.npz"
+    graph_path = cache / f"rmat_graph_{n}_{e}_d6_torch.npz"
+    seconds = {}
+    if not raw_path.exists():
+        seconds.update(build_raw(n, e, str(raw_path), log=log))
+    t0 = time.perf_counter()
+    with np.load(raw_path) as z:
+        raw = {k: z[k] for k in ("row_ptr", "col_ind", "col_ptr", "row_ind",
+                                 "permute")}
+    if not graph_path.exists():
+        graph = build_graph_from_csr(raw["row_ptr"], raw["col_ind"],
+                                     raw["col_ptr"], raw["row_ind"],
+                                     raw["permute"], dense="auto",
+                                     edge_tables=False)
+        _stage(seconds, "bins + hub block", t0, log)
+        save_graph(str(graph_path), graph)
+        _stage(seconds, "bins + hub block + save", t0, log)
+    else:
+        graph = load_graph(str(graph_path))
+        _stage(seconds, "cache load", t0, log)
+    t0 = time.perf_counter()
+    feats, labels, tr, va, te = structure_task_from_csr(
+        raw["row_ptr"], raw["col_ind"], n_classes, n_feats, seed=seed)
+    _stage(seconds, "task", t0, log)
+    # ru_maxrss is in KiB on Linux
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+    return RedditData(graph=graph, features=feats, labels=labels,
+                      train_mask=tr, val_mask=va, test_mask=te,
+                      n_classes=n_classes, seconds=seconds,
+                      host_peak_mb=peak)

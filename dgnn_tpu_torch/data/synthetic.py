@@ -16,7 +16,7 @@ import dataclasses
 import numpy as np
 
 __all__ = ["CitationData", "synthetic_citation", "synthetic_point_clouds",
-           "rmat_edges", "CITATION_SHAPES"]
+           "rmat_edges", "CITATION_SHAPES", "structure_task_from_csr"]
 
 # name: (num_nodes, num_edges(directed, pre-self-loop), n_feats, n_classes)
 CITATION_SHAPES = {
@@ -112,6 +112,75 @@ def synthetic_citation(name: str = "cora", seed: int = 0,
     return CitationData(src=src, dst=dst, num_nodes=n, features=feats,
                         labels=labels, train_mask=train_mask, val_mask=val_mask,
                         test_mask=test_mask, n_classes=c)
+
+
+def structure_task_from_csr(row_ptr, col_ind, n_classes: int, n_feats: int,
+                            seed: int = 0, rounds: int = 8):
+    """Node-classification task derived from an existing graph's edges.
+
+    Labels are a multi-source BFS Voronoi partition: ``n_classes`` random
+    seed nodes each claim the nodes closest to them (ties to the lower class
+    id), giving connected, homophilous label regions over the actual edge
+    set, so accuracy on the graph means something.  Each BFS round packs
+    (dist, label) into one int64 key and takes a per-row
+    ``np.minimum.reduceat`` over the CSR segments.  Same seed, same arrays
+    as ``dgnn_tpu/data/synthetic.py:structure_task_from_csr``.
+
+    Returns (features [N, F] f32, labels [N] i32, train/val/test masks).
+    """
+    row_ptr = np.asarray(row_ptr, np.int64)
+    col_ind = np.asarray(col_ind, np.int64)
+    n = len(row_ptr) - 1
+    rng = np.random.default_rng(seed)
+    c = n_classes
+
+    if len(col_ind) == 0:
+        # zero-edge graph: the reduceat below would index col_ind[-1]; BFS
+        # means nothing, so random labels, centroid features as usual
+        labels = rng.integers(0, c, n).astype(np.int32)
+        return _finish_structure_task(rng, labels, n, c, n_feats)
+
+    seeds = rng.choice(n, size=c, replace=False)
+    big = np.int64(n + 1)  # "unreached" distance sentinel
+    dist = np.full(n, big, np.int64)
+    lab = np.zeros(n, np.int64)
+    dist[seeds] = 0
+    lab[seeds] = np.arange(c)
+    nonempty = row_ptr[:-1] < row_ptr[1:]
+    for _ in range(rounds):
+        key = dist * c + lab  # lexicographic (dist, label) in one int64
+        nk = np.minimum.reduceat(key[col_ind], np.minimum(
+            row_ptr[:-1], len(col_ind) - 1))
+        cand_dist = nk // c + 1
+        upd = nonempty & (cand_dist < dist)
+        if not upd.any():
+            break
+        dist[upd] = cand_dist[upd]
+        lab[upd] = nk[upd] % c
+    # unreached nodes (isolated / tiny components): random labels
+    unreached = dist >= big
+    lab[unreached] = rng.integers(0, c, int(unreached.sum()))
+    labels = lab.astype(np.int32)
+    return _finish_structure_task(rng, labels, n, c, n_feats)
+
+
+def _finish_structure_task(rng, labels, n, c, n_feats):
+    centroids = (rng.random((c, n_feats)) < 0.05).astype(np.float32)
+    feats = centroids[labels] + rng.normal(
+        0, 0.5, (n, n_feats)).astype(np.float32)
+
+    idx = rng.permutation(n)
+    # clamp the train/val splits so a nonzero test split always remains
+    # (tiny n would otherwise make test accuracy a 0/0)
+    n_train = min(max(20 * c, n // 10), max(1, int(n * 0.6)))
+    n_val = min(max(500, n // 20), max(1, int(n * 0.2)))
+    train_mask = np.zeros(n, bool)
+    val_mask = np.zeros(n, bool)
+    test_mask = np.zeros(n, bool)
+    train_mask[idx[:n_train]] = True
+    val_mask[idx[n_train:n_train + n_val]] = True
+    test_mask[idx[n_train + n_val:]] = True
+    return feats, labels, train_mask, val_mask, test_mask
 
 
 def synthetic_point_clouds(num_samples: int, num_points: int = 1024,

@@ -206,6 +206,11 @@ class Graph:
         ``slim()`` drops it)."""
         return torch.diff(self.row_ptr)
 
+    def out_degrees(self) -> torch.Tensor:
+        """[N] int32 out-degree per node, from the raw CSC (so before
+        ``slim()`` drops it)."""
+        return torch.diff(self.col_ptr)
+
     def slim(self) -> "Graph":
         """Graph with the raw CSR/CSC/permute arrays dropped (zero-length):
         the fused op reads only the binned layouts."""

@@ -7,11 +7,13 @@ GAT: maps ``params["gat_<l>"]`` / ``params["gat_out"]`` of a
 ``nn.Linear``'s [out, in] weight, ``attn_l``, ``attn_r`` and ``bias`` keep
 their (1, H, F) shape.
 
-MoNet: maps ``params["gmm_<i>"]`` of a ``dgnn_tpu.models.MoNet`` in
-node-pseudo mode onto ``convs.gmm_<i>``: ``fc/kernel`` [in, K*F] and
-``res_fc/kernel`` are transposed into ``nn.Linear`` weights; ``mu``,
-``inv_sigma`` [K, D], ``pseudo_w`` [Ds+Dd, D], ``pseudo_b`` [D] and ``bias``
-[F] keep their shapes.
+MoNet: maps ``params["gmm_<i>"]`` of a ``dgnn_tpu.models.MoNet`` onto
+``convs.gmm_<i>``: ``fc/kernel`` [in, K*F] and ``res_fc/kernel`` are
+transposed into ``nn.Linear`` weights; ``mu``, ``inv_sigma`` [K, D], the
+node and binned modes' ``pseudo_w`` [Din, D] and ``pseudo_b`` [D], and
+``bias`` [F] keep their shapes.  The flat mode's ``params["pseudo_proj_<i>"]``
+Dense (``kernel`` [Din, D], ``bias`` [D]) becomes
+``pseudo_projs.pseudo_proj_<i>``, its kernel transposed.
 
 DGCNN: maps ``params`` and ``batch_stats`` of a ``dgnn_tpu.models.DGCNN``
 onto ``convs.conv_<i>.{theta,phi}``, ``proj``, ``embs.emb_<i>``,
@@ -70,9 +72,13 @@ def flax_monet_state_dict(params) -> dict:
         params = params["params"]
     sd = {}
     for name, layer in params.items():
+        if name.startswith("pseudo_proj_"):
+            sd.update(_dense_entries(f"pseudo_projs.{name}.", layer))
+            continue
         if not name.startswith("gmm_"):
-            raise ValueError(f"{name}: only node-pseudo MoNet layers "
-                             "(gmm_<i>) have a counterpart in dgnn_tpu_torch")
+            raise ValueError(f"{name}: only MoNet layers (gmm_<i>) and the "
+                             "flat mode's projections (pseudo_proj_<i>) have "
+                             "a counterpart in dgnn_tpu_torch")
         unknown = set(layer) - {"fc", "res_fc", "mu", "inv_sigma", "pseudo_w",
                                 "pseudo_b", "bias"}
         if unknown:

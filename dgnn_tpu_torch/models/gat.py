@@ -15,6 +15,10 @@ fan_in = H and fan_out = F (``torch.nn.init.xavier_normal_`` would take
 fan_in = H*F), so the std is computed here the flax way.  Every random draw
 (init, feature dropout) comes from an explicit ``torch.Generator``;
 attention dropout takes one uint32 seed per layer.
+
+``gather_dtype`` ("bfloat16" halves the gathered feature rows; sums stay
+float32) is handed to every layer's ``gat_aggregate``, as the flax modules
+hand it to the fused op.
 """
 
 from __future__ import annotations
@@ -57,10 +61,12 @@ class GATConv(nn.Module):
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
                  negative_slope: float = 0.2, residual: bool = False,
                  activation: Callable | None = None, use_bias: bool = True,
+                 gather_dtype=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.out_feats = out_feats
         self.num_heads = num_heads
+        self.gather_dtype = gather_dtype
         self.feat_drop = feat_drop
         self.attn_drop = attn_drop
         self.negative_slope = negative_slope
@@ -91,7 +97,8 @@ class GATConv(nn.Module):
         rst = gat_aggregate(graph, attn_row, attn_col, x,
                             negative_slope=self.negative_slope,
                             attn_drop=self.attn_drop, seed=seed,
-                            training=self.training)
+                            training=self.training,
+                            gather_dtype=self.gather_dtype)
         if self.residual:
             res = feat if self.res_fc is None else self.res_fc(feat)
             rst = rst + res.reshape(-1, self.num_heads, self.out_feats)
@@ -113,7 +120,7 @@ class GAT(nn.Module):
                  n_classes: int, heads: Sequence[int], *,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
                  negative_slope: float = 0.2, residual: bool = False,
-                 activation: Callable | None = None,
+                 activation: Callable | None = None, gather_dtype=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.attn_drop = attn_drop
@@ -125,12 +132,12 @@ class GAT(nn.Module):
                 attn_drop=attn_drop, negative_slope=negative_slope,
                 residual=residual, activation=activation,
                 use_bias=layer > 0,  # the input projection has no bias
-                generator=generator)
+                gather_dtype=gather_dtype, generator=generator)
             dim = n_hidden * heads[layer]
         convs["gat_out"] = GATConv(
             dim, n_classes, heads[-1], feat_drop=feat_drop,
             attn_drop=attn_drop, negative_slope=negative_slope,
-            generator=generator)
+            gather_dtype=gather_dtype, generator=generator)
         self.convs = nn.ModuleDict(convs)
 
     def forward(self, graph: Graph, feat: torch.Tensor, *,

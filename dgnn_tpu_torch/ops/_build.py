@@ -115,7 +115,7 @@ def load() -> ctypes.CDLL:
         lib.dgnn_bin_gat_fwd.argtypes = [
             vp, vp, vp,                         # x ac ar
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
-            ci, ci,                             # H F
+            ci, ci, ci,                         # H F bf16
             cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
             vp]                                 # stream
@@ -123,7 +123,7 @@ def load() -> ctypes.CDLL:
         lib.dgnn_bin_gat_bwd.argtypes = [
             vp, vp, vp, vp, vp, vp, vp,         # g ar M Linv ws ac x
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
-            ci, ci,                             # H F
+            ci, ci, ci,                         # H F bf16
             cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
             vp, vp,                             # dx dac
             vp]                                 # stream
@@ -150,7 +150,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp,                         # x alpha beta
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
             vp, vp,                             # mu isig
-            ci, ci, ci, ci,                     # K D F use_tanh
+            ci, ci, ci, ci, ci,                 # K D F use_tanh bf16
             vp,                                 # acc
             vp]                                 # stream
         lib.dgnn_bin_gmm_fwd.restype = ci
@@ -158,7 +158,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp,             # g beta dfeat alpha x sfeat
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
             vp, vp,                             # mu isig
-            ci, ci, ci, ci, ci, ci,             # K D Dd Ds F use_tanh
+            ci, ci, ci, ci, ci, ci, ci,         # K D Dd Ds F use_tanh bf16
             vp, vp,                             # dx st
             vp]                                 # stream
         lib.dgnn_bin_gmm_bwd.restype = ci

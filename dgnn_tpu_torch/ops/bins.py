@@ -14,6 +14,13 @@ The kernels gather for themselves from the node tables, given the bin's
 slot table ``nbr [S, W]`` and the per-segment ``row [S]`` and
 ``count [S]``; every bin width runs the kernel.
 
+Feature rows (``feat`` of the forwards; ``g`` and ``feat`` of the
+backwards) may be float32 or bfloat16, one type for both tables of a call
+(the ops' ``gather_dtype``): the kernels widen bf16 rows to float32 as they
+load them, and the plain versions widen the gathered rows the same way.
+Every other table is float32, every output float32, and every sum is taken
+in float32.
+
 ``bin_gat_fwd_list``, ``bin_gat_bwd_list``, ``bin_gmm_node_fwd_list`` and
 ``bin_gmm_node_bwd_list`` take every bin of one adjacency direction (a
 sequence of ``(nbr, row, count)``) in one launch of the same kernel as
@@ -25,7 +32,8 @@ give, and so their plain versions.  A direction with more than
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
 only where the kernel is launched), so a run can show that its main path
-went through the kernels.
+went through the kernels; a launch of a kernel's bf16 instance counts
+under its name with ``_bf16`` appended (``launch_name``).
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ __all__ = ["bin_gat_fwd", "bin_gat_fwd_plain", "bin_gat_fwd_list",
            "bin_gmm_node_fwd_list_plain", "bin_gmm_node_bwd",
            "bin_gmm_node_bwd_plain", "bin_gmm_node_bwd_list",
            "bin_gmm_node_bwd_list_plain", "gmm_stat_width", "LAUNCHES",
-           "reset_launches", "MAX_HEADS", "MAX_BINS_PER_LAUNCH", "GMM_MAX_K",
+           "reset_launches", "launch_name", "MAX_HEADS", "MAX_BINS_PER_LAUNCH", "GMM_MAX_K",
            "GMM_MAX_D", "GMM_MAX_KF", "GMM_MAX_COEF"]
 
 # Finite "-inf" the kernels emit as the maximum of an empty segment.
@@ -66,8 +74,16 @@ GMM_MAX_KF = 1024
 # 8 at the models' D = 2, Dd = 1.
 GMM_MAX_COEF = 8
 
-LAUNCHES = {"bin_gat_fwd": 0, "bin_gat_bwd": 0,
-            "bin_gmm_node_fwd": 0, "bin_gmm_node_bwd": 0}
+LAUNCHES = {name + suffix: 0
+            for name in ("bin_gat_fwd", "bin_gat_bwd", "bin_gmm_node_fwd",
+                         "bin_gmm_node_bwd")
+            for suffix in ("", "_bf16")}
+
+
+def launch_name(name: str, bf16: int) -> str:
+    """The LAUNCHES key of a launch of ``name``'s float32 or bf16
+    instance."""
+    return name + "_bf16" if bf16 else name
 
 
 def reset_launches() -> None:
@@ -88,7 +104,26 @@ def _on_cpu(*ts) -> bool:
     return False
 
 
-def _check_cuda(name, floats, ints, H=None):
+def _row_type(name, rows) -> int:
+    """The launchers' bf16 flag for a call's feature-row tables: 0 if all
+    are float32, 1 if all are bfloat16; raises for any other type or a
+    mix."""
+    types = {t.dtype for t in rows.values()}
+    if len(types) != 1 or not types <= {torch.float32, torch.bfloat16}:
+        got = ", ".join(f"{k} {t.dtype}" for k, t in rows.items())
+        raise TypeError(f"{name}: {', '.join(rows)} must be all float32 or "
+                        f"all bfloat16 (got {got}); the kernels take those "
+                        "two only")
+    return int(types == {torch.bfloat16})
+
+
+def _check_cuda(name, floats, ints, H=None, rows=None):
+    """Types, contiguity and heads of a CUDA call; ``rows``: the feature-row
+    tables (float32 or bfloat16).  Returns the launchers' bf16 flag."""
+    bf16 = 0 if rows is None else _row_type(name, rows)
+    for key, t in (rows or {}).items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
     for key, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: {key} must be float32 (got {t.dtype}); "
@@ -102,6 +137,7 @@ def _check_cuda(name, floats, ints, H=None):
             raise ValueError(f"{name}: {key} must be contiguous")
     if H is not None and not 1 <= H <= MAX_HEADS:
         raise ValueError(f"{name}: {H} heads; the kernel takes 1..{MAX_HEADS}")
+    return bf16
 
 
 def _check_seg(nbr, row, count):
@@ -162,10 +198,11 @@ def _row_ptr(t, row):
 
 
 def _cat_rows(parts, shape, like):
-    """Rows of ``parts`` one after the other; [0, *shape] if there are
-    none."""
+    """Rows of ``parts`` one after the other; float32 [0, *shape] on
+    ``like``'s device if there are none."""
     if not parts:
-        return torch.zeros((0, *shape), dtype=like.dtype, device=like.device)
+        return torch.zeros((0, *shape), dtype=torch.float32,
+                           device=like.device)
     return torch.cat(parts)
 
 
@@ -196,7 +233,7 @@ def bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, *, slope: float,
     w = torch.where(mask, torch.exp(s - m[:, None, :]), 0.0)
     l = w.sum(dim=1)
     w_agg = w * pair_keep(seed, rw[:, None], nb, H, p) if p > 0 else w
-    x = feat[nb]                                          # [S, W, H, F]
+    x = feat[nb].float()                                  # [S, W, H, F]
     acc = torch.einsum("swh,swhf->shf", w_agg, x)
     if not with_pos:
         return m, l, None, acc, None
@@ -211,7 +248,7 @@ def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
     """One degree bin of the GAT forward (pass A).
 
     Args:
-      feat: [N, H, F] float32 source features.
+      feat: [N, H, F] float32 or bfloat16 source features.
       ac: [N, H] float32 source attention coefficients.
       ar: [Nr, H] float32 destination coefficients (indexed by ``row``).
       nbr: [S, W] int32 source id per slot; row, count: [S] int32.
@@ -271,8 +308,8 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
     if ac.shape != (N, H) or ar.dim() != 2 or ar.shape[1] != H:
         raise ValueError(f"bin_gat_fwd: feat {tuple(feat.shape)}, ac "
                          f"{tuple(ac.shape)}, ar {tuple(ar.shape)}")
-    _check_cuda("bin_gat_fwd", dict(feat=feat, ac=ac, ar=ar), _seg_ints(segs),
-                H)
+    bf16 = _check_cuda("bin_gat_fwd", dict(ac=ac, ar=ar), _seg_ints(segs), H,
+                       rows=dict(feat=feat))
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if tail is None else tail[0].shape[0])
     new = dict(device=feat.device, dtype=torch.float32)
@@ -285,14 +322,14 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
     for base, part in _launches(segs):
         err = lib.dgnn_bin_gat_fwd(
             _ptr(feat), _ptr(ac), _ptr(ar), len(part), *_bin_arrays(part),
-            H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
+            H, F, bf16, float(slope), int(with_pos), float(p), _inv_keep(p),
             int(seed) & 0xFFFFFFFF, *(_row_ptr(t, base) for t in outs),
             stream)
         if err:
             raise RuntimeError(
                 f"bin_gat_fwd kernel launch failed: CUDA error {err} (bins "
                 f"{[tuple(nbr.shape) for nbr, _, _ in part]}, H={H}, F={F})")
-        LAUNCHES["bin_gat_fwd"] += 1
+        LAUNCHES[launch_name("bin_gat_fwd", bf16)] += 1
     if tail is not None:
         _copy_tail(outs, S, tail)
     return outs
@@ -316,9 +353,9 @@ def bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
     a = torch.exp(leaky_relu(sr, slope) - M[nb]) * Linv[nb]
     a = torch.where(mask, a, 0.0)
     ah = a * pair_keep(seed, nb, rw[:, None], H, p) if p > 0 else a
-    gi = g[nb]                                            # [S, W, H, F]
+    gi = g[nb].float()                                    # [S, W, H, F]
     dx = torch.einsum("swh,swhf->shf", ah, gi)
-    ge = torch.einsum("shf,swhf->swh", feat[rw], gi)
+    ge = torch.einsum("shf,swhf->swh", feat[rw].float(), gi)
     u = (ah * ge - a * ws[nb]) * leaky_relu_grad(sr, slope)
     return dx, u.sum(dim=1)
 
@@ -328,11 +365,13 @@ def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
     """One degree bin of the GAT backward (pass B, CSC: rows = sources).
 
     Args:
-      g: [Nd, H, F] float32 gradient of the op's output (destination rows).
+      g: [Nd, H, F] float32 or bfloat16 gradient of the op's output
+        (destination rows).
       ar, M, Linv, ws: [Nd, H] float32 destination tables: attention
         coefficient, merged softmax maximum, 1 / max(L, 1e-20) and
         <g, out>.
-      ac: [Ns, H], feat: [Ns, H, F] float32 source tables.
+      ac: [Ns, H] float32, feat: [Ns, H, F] source tables (feat of g's
+        type).
       nbr: [S, W] int32 destination id per slot; row, count: [S] int32.
     Returns (dx [S, H, F], dac [S, H]) per segment:
       dx  = sum_w a^ g_w
@@ -389,9 +428,9 @@ def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail):
         if tuple(t.shape) != shape:
             raise ValueError(f"bin_gat_bwd: {key} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
-    _check_cuda("bin_gat_bwd",
-                dict(g=g, ar=ar, M=M, Linv=Linv, ws=ws, ac=ac, feat=feat),
-                _seg_ints(segs), H)
+    bf16 = _check_cuda("bin_gat_bwd",
+                       dict(ar=ar, M=M, Linv=Linv, ws=ws, ac=ac),
+                       _seg_ints(segs), H, rows=dict(g=g, feat=feat))
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if tail is None else tail[0].shape[0])
     dx = torch.empty((rows, H, F), device=g.device, dtype=torch.float32)
@@ -401,14 +440,14 @@ def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail):
     for base, part in _launches(segs):
         err = lib.dgnn_bin_gat_bwd(
             _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
-            _ptr(feat), len(part), *_bin_arrays(part), H, F, float(slope),
-            float(p), _inv_keep(p), int(seed) & 0xFFFFFFFF,
+            _ptr(feat), len(part), *_bin_arrays(part), H, F, bf16,
+            float(slope), float(p), _inv_keep(p), int(seed) & 0xFFFFFFFF,
             _row_ptr(dx, base), _row_ptr(dac, base), stream)
         if err:
             raise RuntimeError(
                 f"bin_gat_bwd kernel launch failed: CUDA error {err} (bins "
                 f"{[tuple(nbr.shape) for nbr, _, _ in part]}, H={H}, F={F})")
-        LAUNCHES["bin_gat_bwd"] += 1
+        LAUNCHES[launch_name("bin_gat_bwd", bf16)] += 1
     if tail is not None:
         _copy_tail((dx, dac), S, tail)
     return dx, dac
@@ -460,7 +499,7 @@ def bin_gmm_node_fwd_plain(feat, alpha, beta, nbr, row, count, mu, isig, *,
     pre = beta[row.long()][:, None, :] + alpha[nb]        # [S, W, D]
     p = torch.tanh(pre) if use_tanh else pre
     w = torch.where(mask[..., None], gaussian_terms(p, mu, isig)[2], 0.0)
-    return torch.einsum("swk,swkf->skf", w, feat[nb])
+    return torch.einsum("swk,swkf->skf", w, feat[nb].float())
 
 
 def bin_gmm_node_fwd(feat, alpha, beta, nbr, row, count, mu, isig, *,
@@ -468,7 +507,8 @@ def bin_gmm_node_fwd(feat, alpha, beta, nbr, row, count, mu, isig, *,
     """One degree bin of the MoNet forward (CSR: rows = destinations).
 
     Args:
-      feat: [N, K, F] float32 source features (K Gaussian kernels).
+      feat: [N, K, F] float32 or bfloat16 source features (K Gaussian
+        kernels).
       alpha: [N, D] float32 source-side projected pseudo (indexed by nbr).
       beta: [Nr, D] float32 destination-side projection, bias folded in
         (indexed by ``row``).
@@ -527,9 +567,9 @@ def _gmm_fwd_cuda(feat, alpha, beta, segs, mu, isig, use_tanh, tail):
                          f"{tuple(alpha.shape)}, beta {tuple(beta.shape)}, "
                          f"mu {tuple(mu.shape)}")
     _check_gmm("bin_gmm_node_fwd", K, D, F)
-    _check_cuda("bin_gmm_node_fwd",
-                dict(feat=feat, alpha=alpha, beta=beta, mu=mu, isig=isig),
-                _seg_ints(segs))
+    bf16 = _check_cuda("bin_gmm_node_fwd",
+                       dict(alpha=alpha, beta=beta, mu=mu, isig=isig),
+                       _seg_ints(segs), rows=dict(feat=feat))
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if tail is None else tail.shape[0])
     acc = torch.empty((rows, K, F), device=feat.device, dtype=torch.float32)
@@ -539,13 +579,13 @@ def _gmm_fwd_cuda(feat, alpha, beta, segs, mu, isig, use_tanh, tail):
         err = lib.dgnn_bin_gmm_fwd(
             _ptr(feat), _ptr(alpha), _ptr(beta), len(part),
             *_bin_arrays(part), _ptr(mu), _ptr(isig), K, D, F,
-            int(use_tanh), _row_ptr(acc, base), stream)
+            int(use_tanh), bf16, _row_ptr(acc, base), stream)
         if err:
             raise RuntimeError(
                 f"bin_gmm_node_fwd kernel launch failed: CUDA error {err} "
                 f"(bins {[tuple(nbr.shape) for nbr, _, _ in part]}, K={K}, "
                 f"D={D}, F={F})")
-        LAUNCHES["bin_gmm_node_fwd"] += 1
+        LAUNCHES[launch_name("bin_gmm_node_fwd", bf16)] += 1
     if tail is not None:
         _copy_tail((acc,), S, (tail,))
     return acc
@@ -563,9 +603,9 @@ def bin_gmm_node_bwd_plain(g, beta, dfeat, alpha, feat, sfeat, nbr, row,
     p = torch.tanh(pre) if use_tanh else pre
     diff, t, w = gaussian_terms(p, mu, isig)              # [S, W, K, D], [S, W, K]
     w = torch.where(mask[..., None], w, 0.0)
-    gi = g[nb]                                            # [S, W, K, F]
+    gi = g[nb].float()                                    # [S, W, K, F]
     dx = torch.einsum("swk,swkf->skf", w, gi)
-    c = torch.einsum("skf,swkf->swk", feat[rw], gi) * w   # [S, W, K]
+    c = torch.einsum("skf,swkf->swk", feat[rw].float(), gi) * w  # [S, W, K]
     ct = c[..., None] * t                                 # [S, W, K, D]
     dpre = -(ct * isig).sum(dim=2)                        # [S, W, D]
     if use_tanh:
@@ -585,11 +625,12 @@ def bin_gmm_node_bwd(g, beta, dfeat, alpha, feat, sfeat, nbr, row, count, mu,
     """One degree bin of the MoNet backward (CSC: rows = sources).
 
     Args:
-      g: [Nd, K, F] float32 gradient of the op's output (destination rows).
+      g: [Nd, K, F] float32 or bfloat16 gradient of the op's output
+        (destination rows).
       beta: [Nd, D], dfeat: [Nd, Dd] float32 destination tables: projected
         and raw pseudo scalars (indexed by nbr).
-      alpha: [Ns, D], feat: [Ns, K, F], sfeat: [Ns, Ds] float32 source
-        tables (indexed by ``row``).
+      alpha: [Ns, D], feat: [Ns, K, F] (of g's type), sfeat: [Ns, Ds]
+        source tables (indexed by ``row``).
       nbr: [S, W] int32 destination id per slot; row, count: [S] int32.
     Returns (dx [S, K, F], st [S, 2KD + D + D*Dd + D*Ds]) per segment, with
     c_k = w_k <feat[row, k], g[nbr, k]>, t_kd = (p_d - mu_kd) isig_kd,
@@ -668,10 +709,10 @@ def _gmm_bwd_cuda(g, beta, dfeat, alpha, feat, sfeat, segs, mu, isig,
     if 3 * D + D * Dd > GMM_MAX_COEF:
         raise ValueError(f"bin_gmm_node_bwd: D={D}, Dd={Dd}; the kernel takes "
                          f"3D + D*Dd <= {GMM_MAX_COEF}")
-    _check_cuda("bin_gmm_node_bwd",
-                dict(g=g, beta=beta, dfeat=dfeat, alpha=alpha, feat=feat,
-                     sfeat=sfeat, mu=mu, isig=isig),
-                _seg_ints(segs))
+    bf16 = _check_cuda("bin_gmm_node_bwd",
+                       dict(beta=beta, dfeat=dfeat, alpha=alpha, sfeat=sfeat,
+                            mu=mu, isig=isig),
+                       _seg_ints(segs), rows=dict(g=g, feat=feat))
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if dx_tail is None else dx_tail.shape[0])
     dx = torch.empty((rows, K, F), device=g.device, dtype=torch.float32)
@@ -683,14 +724,14 @@ def _gmm_bwd_cuda(g, beta, dfeat, alpha, feat, sfeat, segs, mu, isig,
         err = lib.dgnn_bin_gmm_bwd(
             _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
             _ptr(sfeat), len(part), *_bin_arrays(part), _ptr(mu), _ptr(isig),
-            K, D, Dd, Ds, F, int(use_tanh), _row_ptr(dx, base),
+            K, D, Dd, Ds, F, int(use_tanh), bf16, _row_ptr(dx, base),
             _row_ptr(st, base), stream)
         if err:
             raise RuntimeError(
                 f"bin_gmm_node_bwd kernel launch failed: CUDA error {err} "
                 f"(bins {[tuple(nbr.shape) for nbr, _, _ in part]}, K={K}, "
                 f"D={D}, Dd={Dd}, Ds={Ds}, F={F})")
-        LAUNCHES["bin_gmm_node_bwd"] += 1
+        LAUNCHES[launch_name("bin_gmm_node_bwd", bf16)] += 1
     if dx_tail is not None:
         _copy_tail((dx,), S, (dx_tail,))
     return dx, st

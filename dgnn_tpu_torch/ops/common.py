@@ -8,7 +8,9 @@
   hash and to the one inside csrc/bin_gat.cu,
 - the scatter-free segment merges ``combine_sum`` / ``combine_lse`` over a
   graph's combine table,
-- the Gaussian kernel weights of the MoNet passes (``gaussian_terms``).
+- the Gaussian kernel weights of the MoNet passes (``gaussian_terms``),
+- the ops' ``gather_dtype``: ``gather_type`` reads it, ``rounded`` rounds a
+  gathered scalar column with the feature rows.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ __all__ = [
     "NEG_INF",
     "combine_lse",
     "combine_sum",
+    "gather_type",
     "gaussian_terms",
     "is_empty_m",
     "lane_mask",
     "leaky_relu",
     "leaky_relu_grad",
     "pair_keep",
+    "rounded",
 ]
 
 NEG_INF = float("-inf")
@@ -37,6 +41,26 @@ NEG_INF = float("-inf")
 EMPTY_M = -1e29
 
 _M32 = 0xFFFFFFFF
+
+
+def gather_type(gather_dtype) -> torch.dtype:
+    """The storage type of the ops' gathered feature rows for a
+    ``gather_dtype`` argument: None (or float32) keeps float32;
+    ``torch.bfloat16`` (or "bfloat16") halves the rows.  Sums are float32
+    either way."""
+    if gather_dtype in (None, torch.float32, "float32"):
+        return torch.float32
+    if gather_dtype in (torch.bfloat16, "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"gather_dtype must be None, float32 or bfloat16, got "
+                     f"{gather_dtype!r}")
+
+
+def rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` rounded to ``dtype`` and held as float32: a scalar column that
+    the JAX ops concatenate into the gathered rows, and so narrow with
+    them.  The identity for float32."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
 
 
 def is_empty_m(m: torch.Tensor) -> torch.Tensor:

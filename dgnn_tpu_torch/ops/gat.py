@@ -21,6 +21,18 @@ The backward saves only M, L, out, out_pos, r (and the inputs) and
 recomputes per-edge attention in pass B.  Attention dropout is re-derived
 from (seed, dst, src, head) by ops/common.pair_keep's hash in both passes.
 
+``gather_dtype=torch.bfloat16`` stores the gathered feature rows as bf16,
+as the JAX op does (``dgnn_tpu/ops/gat.py:505-509``), and rounds where it
+rounds: the op casts ``feat`` to bf16 before the Function, so the forward
+gathers bf16 rows of x and the bf16-rounded ``ac`` column beside them
+(``_concat_rows(feat, ac)``); the backward casts ``g`` to bf16 before the
+closed-form ws / t1 / d_ar, gathers the bf16-rounded ``ar``, ``M``,
+``Linv`` and ``ws``, reads the resident x rows in bf16, and returns
+``d_feat`` rounded to bf16, which the cast's own gradient widens.  The hub
+block takes the rounded tables as float32 values and ``ac`` unrounded, as
+the JAX op hands them to its dense kernels.  Every sum and the output stay
+float32.
+
 Pass A runs every bin of the CSR direction in one launch
 (ops/bins.bin_gat_fwd_list), pass B every bin of the CSC direction in one
 launch (bin_gat_bwd_list), and a graph's tile-sparse hub block
@@ -36,7 +48,7 @@ import torch
 
 from ..graph.structure import BinnedAdj, Graph
 from .bins import bin_gat_bwd_list, bin_gat_fwd_list
-from .common import combine_lse, combine_sum
+from .common import combine_lse, combine_sum, gather_type, rounded
 from .dense import DENSE_DTYPES, dense_gat_bwd, dense_gat_fwd
 
 __all__ = ["gat_aggregate"]
@@ -45,18 +57,19 @@ __all__ = ["gat_aggregate"]
 def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed, dense_dtype,
                  with_pos=True):
     """Pass A over ``adj``'s bins and hub block, merged through its combine
-    table.  Returns (out, M, L, out_pos, r); out_pos and r are None unless
-    ``with_pos``."""
+    table.  ``feat`` is float32 or bf16 (the gathered rows' type; the bins
+    then read ``ac`` rounded to it).  Returns (out, M, L, out_pos, r);
+    out_pos and r are None unless ``with_pos``."""
     tail = None
     if adj.dense is not None:
         # the block's partials follow every bin's: m is the rows' score
         # bound, which the log-sum-exp combine takes like an exact max
-        tail = dense_gat_fwd(adj.dense, ar, ac, feat, slope=slope,
+        tail = dense_gat_fwd(adj.dense, ar, ac, feat.float(), slope=slope,
                              with_pos=with_pos, p=p, seed=seed,
                              dense_dtype=dense_dtype)
     m, l, lpos, acc, accpos = bin_gat_fwd_list(
-        feat, ac, ar, adj.segs(), slope=slope, with_pos=with_pos, p=p,
-        seed=seed, tail=tail)
+        feat, rounded(ac, feat.dtype), ar, adj.segs(), slope=slope,
+        with_pos=with_pos, p=p, seed=seed, tail=tail)
     parts = [l, acc] + ([lpos, accpos] if with_pos else [])
     M, merged = combine_lse(adj.cmb, m, parts)
     L = merged[0]
@@ -84,28 +97,32 @@ class _GATFused(torch.autograd.Function):
         ar, ac, feat, M, L, out, out_pos, r = ctx.saved_tensors
         slope, p, seed = ctx.slope, ctx.p, ctx.seed
         adj_bwd = ctx.graph.bwd
-        g = g_out.contiguous()
+        dt = feat.dtype  # the gathered rows' type
+        g = g_out.to(dt).contiguous()
+        g32 = g.float()
         # per-destination softmax backward, closed-form (module docstring)
-        ws = (g * out).sum(dim=-1)
-        t1 = (g * (slope * out + (1.0 - slope) * out_pos)).sum(dim=-1)
+        ws = (g32 * out).sum(dim=-1)
+        t1 = (g32 * (slope * out + (1.0 - slope) * out_pos)).sum(dim=-1)
         t2 = slope + (1.0 - slope) * r
         d_ar = t1 - ws * t2
-        # pass B over the CSC bins: dX and d attn_col, per-source sums
+        # pass B over the CSC bins: dX and d attn_col, per-source sums; the
+        # destination columns are gathered beside g, so rounded with it
         Linv = 1.0 / torch.clamp(L, min=1e-20)
+        cols = [rounded(t, dt) for t in (ar, M, Linv, ws)]
         tail = None
         if adj_bwd.dense is not None:
             # transposed block: rows = sources, cols = destinations; its
             # rows follow every bin's
-            tail = dense_gat_bwd(adj_bwd.dense, g, ar, M, Linv, ws, ac, feat,
+            tail = dense_gat_bwd(adj_bwd.dense, g32, *cols, ac, feat.float(),
                                  slope=slope, p=p, seed=seed,
                                  dense_dtype=ctx.dense_dtype)
-        dx, dac = bin_gat_bwd_list(g, ar, M, Linv, ws, ac, feat,
-                                   adj_bwd.segs(), slope=slope, p=p,
-                                   seed=seed, tail=tail)
+        dx, dac = bin_gat_bwd_list(g, *cols, ac, feat, adj_bwd.segs(),
+                                   slope=slope, p=p, seed=seed, tail=tail)
         d_feat, d_ac = combine_sum(adj_bwd.cmb, [dx, dac])
         need = ctx.needs_input_grad
         return (d_ar if need[0] else None, d_ac if need[1] else None,
-                d_feat if need[2] else None, None, None, None, None, None)
+                d_feat.to(dt) if need[2] else None, None, None, None, None,
+                None)
 
 
 def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
@@ -127,7 +144,9 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
       seed: uint32 dropout seed, required if training and attn_drop > 0
         (the JAX package draws it as ``jax.random.bits(key, uint32)``).
       training: enables dropout.
-      gather_dtype: bf16 feature gathers are not ported yet; must be None.
+      gather_dtype: None (float32) or ``torch.bfloat16`` (also
+        "bfloat16"): the storage type of the gathered feature rows, rounded
+        as the module docstring says; sums stay float32.
       dense_dtype: operand precision of the hub block's products:
         "bfloat16" (the default, as the JAX op) rounds them to bf16 and sums
         in float32; "float32" is exact.  Unused without a hub block.
@@ -137,9 +156,7 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
     When no input needs a gradient (inference, or under ``torch.no_grad``),
     the forward skips the sign-split partials and saves nothing.
     """
-    if gather_dtype is not None:
-        raise NotImplementedError("gather_dtype (bf16 feature gathers) is not "
-                                  "ported to dgnn_tpu_torch yet")
+    rows = gather_type(gather_dtype)
     if dense_dtype not in DENSE_DTYPES:
         raise ValueError(f"dense_dtype must be one of {DENSE_DTYPES}, got "
                          f"{dense_dtype!r}")
@@ -157,7 +174,9 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
     else:
         seed = 0
     slope = float(negative_slope)
-    ar, ac, x = attn_row.contiguous(), attn_col.contiguous(), feat.contiguous()
+    ar, ac = attn_row.contiguous(), attn_col.contiguous()
+    # the gathered rows' type; the cast's own gradient widens d_feat
+    x = feat.to(rows).contiguous()
     if not (torch.is_grad_enabled()
             and (ar.requires_grad or ac.requires_grad or x.requires_grad)):
         return _gat_forward(graph.fwd, ar, ac, x, slope, p, seed,

@@ -3,12 +3,16 @@
 
     python scripts/profile_step_torch.py gat:cora gmm:cora gat:pubmed \
         gmm:pubmed edgeconv:modelnet
+    python scripts/profile_step_torch.py gat:reddit gmm:reddit
 
 For each ``model:dataset`` cell it sets the trainer up at the bench width
 (the trainer's ``BENCH_ARGV``: scripts/train_gat_torch.py with heads (4, 1),
 hidden 64, attn_drop 0.3; scripts/train_gmm_torch.py with hidden 64, 3
 kernels, pseudo dim 2; scripts/train_edgeconv_torch.py at its defaults:
-DGCNN on 64 synthetic clouds of 1024 points, k = 40), runs a
+DGCNN on 64 synthetic clouds of 1024 points, k = 40; on reddit, the JAX
+bench's reddit widths: bf16 feature gathers, and 2 Gaussian kernels for
+MoNet, on the R-MAT graph at reddit's size, read from the trainers'
+cache or built there), runs a
 few warmup steps, times ``--steps`` unprofiled steps on the host clock
 (ending in a synchronize), then traces the same number of steps with
 ``torch.profiler`` and sums the trace's device events by kernel name (the
@@ -162,6 +166,11 @@ def edgeconv_mask_stats(model, x):
     return stats
 
 
+# the JAX bench's reddit configurations beyond the trainers' BENCH_ARGV
+REDDIT_ARGV = {"gat": ["--gather-dtype", "bfloat16"],
+               "gmm": ["--n-kernels", "2"]}
+
+
 def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
     trainer = load_trainer(kind)
     if kind == "edgeconv":
@@ -174,9 +183,10 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
         step = make_edgeconv_step(trainer, r, warmup + 3 * steps,
                                   args.batch_size)
     else:
+        extra = REDDIT_ARGV[kind] if dataset == "reddit" else []
         args = trainer.parser().parse_args(
-            ["--dataset", dataset, *trainer.BENCH_ARGV, "--n-epochs", "4",
-             "--device", "cuda"])
+            ["--dataset", dataset, *trainer.BENCH_ARGV, *extra, "--n-epochs",
+             "4", "--device", "cuda"])
         r = trainer.run(args)  # set-up (and 4 steps of its own)
         step = make_step(kind, trainer, r, args.lr, args.weight_decay)
     for _ in range(warmup):
@@ -236,8 +246,8 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cells", nargs="+", help="model:dataset: gat or gmm on cora, citeseer "
-                    "or pubmed; edgeconv:modelnet, or "
+    ap.add_argument("cells", nargs="+", help="model:dataset: gat or gmm on cora, citeseer, "
+                    "pubmed or reddit; edgeconv:modelnet, or "
                     "edgeconv:modelnet:step8 for the masked-max kernel's "
                     "second schedule")
     ap.add_argument("--steps", type=int, default=10)

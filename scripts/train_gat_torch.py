@@ -2,7 +2,7 @@
 """GAT training CLI for the PyTorch port (counterpart of scripts/train_gat.py).
 
 Same flags and defaults as scripts/train_gat.py, plus ``--device`` (default
-``cuda``).  Same loss (masked mean cross-entropy over ``train_mask``) and
+``cuda``), ``--gather-dtype``, ``--scale`` and ``--cache-dir``.  Same loss (masked mean cross-entropy over ``train_mask``) and
 optimizer (Adam with coupled L2 weight decay, which is what
 ``optax.add_decayed_weights`` + ``optax.adam`` compute).  Prints train and
 inference seconds per epoch, peak device memory and test accuracy, and
@@ -14,8 +14,18 @@ with ``dense="auto"``, as the JAX trainer builds it: on cora and citeseer
 the hub planner keeps a dense block, which the dense hub-block kernels
 take, and the rest of the edges go through the degree bins.
 
+``--dataset reddit`` takes the JAX CLI's reddit protocol
+(``scripts/train_gat.py:30-50``): the R-MAT graph at reddit's size (cut by
+``--scale``, as bench.py's scale), read from the port's cache under
+``--cache-dir`` or built and cached there (dgnn_tpu_torch/data/reddit.py),
+with its task derived from its own edges.  ``--gather-dtype bfloat16``
+stores the gathered feature rows as bf16, as the JAX bench's reddit
+configurations do (the JAX CLI keeps float32, this CLI's default).
+
     python scripts/train_gat_torch.py --dataset cora --n-heads 4 \
         --n-hidden 64 --attn-drop 0.3 --n-epochs 20
+    python scripts/train_gat_torch.py --dataset reddit --n-heads 4 \
+        --n-hidden 64 --gather-dtype bfloat16 --n-epochs 5 [--scale 0.25]
 """
 
 import os
@@ -28,6 +38,7 @@ import argparse
 import torch
 
 from dgnn_tpu_torch.data import load_citation_dataset
+from dgnn_tpu_torch.data.reddit import load_reddit
 from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.models import GAT
 from dgnn_tpu_torch.utils import (append_csv_row, make_optimizer,
@@ -66,9 +77,18 @@ def run(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device")
 
-    data = load_citation_dataset(args.dataset, seed=args.seed)
-    graph = build_graph(data.src, data.dst, data.num_nodes, dense="auto",
-                        edge_tables=False).slim().to(device)
+    if args.dataset == "reddit":
+        data = load_reddit(args.scale, seed=args.seed,
+                           cache_dir=args.cache_dir)
+        graph, setup_s = data.graph, data.seconds
+        print(f"reddit scale {args.scale}: host set-up {setup_s}, host peak "
+              f"RSS {data.host_peak_mb:.0f} MB")
+    else:
+        data = load_citation_dataset(args.dataset, seed=args.seed)
+        graph = build_graph(data.src, data.dst, data.num_nodes, dense="auto",
+                            edge_tables=False)
+        setup_s = {}
+    graph = graph.slim().to(device)
     feats = torch.from_numpy(data.features).to(device)
     labels = torch.from_numpy(data.labels).long().to(device)
     train_mask = torch.from_numpy(data.train_mask).to(device)
@@ -78,6 +98,7 @@ def run(args) -> dict:
     model = GAT(feats.shape[1], args.n_layers, args.n_hidden, data.n_classes,
                 heads, feat_drop=args.dropout, attn_drop=args.attn_drop,
                 negative_slope=args.negative_slope,
+                gather_dtype=args.gather_dtype,
                 generator=torch.Generator().manual_seed(args.seed)).to(device)
     opt = make_optimizer(model, args.lr, args.weight_decay)
     drop_gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -129,8 +150,10 @@ def run(args) -> dict:
                 peak_mb=max_mb, test_acc=acc, train_acc=train_acc,
                 train_steps=args.n_epochs,
                 infer_calls=args.n_epochs + WARMUP_STEPS + 1,
-                model=model, graph=graph, feats=feats, labels=labels,
-                train_mask=train_mask, logits=logits)
+                gather_dtype=args.gather_dtype, setup_s=setup_s,
+                host_peak_mb=getattr(data, "host_peak_mb", None),
+                model=model, graph=graph, feats=feats,
+                labels=labels, train_mask=train_mask, logits=logits)
 
 
 def parser():
@@ -152,6 +175,14 @@ def parser():
                    choices=["fused", "naive"],
                    help="fused binned kernels vs DGL-style baseline "
                         "(naive is not ported yet)")
+    p.add_argument("--gather-dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="storage of the gathered feature rows")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="reddit only: nodes and edges times this")
+    p.add_argument("--cache-dir", type=str, default=None,
+                   help="reddit only: where the host build is cached "
+                        "(default: .bench_cache at the checkout's root)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 

@@ -3,12 +3,25 @@
 scripts/train_gmm.py).
 
 Same flags and defaults as scripts/train_gmm.py, plus ``--device`` (default
-``cuda``) and ``--pseudo`` (default ``node``).  Pseudo-coordinates are
-node-derived, as in every gmm configuration of the JAX bench: the pseudo of
-edge (u -> v) is [1/sqrt(deg_u), 1/sqrt(deg_v)] over in-degrees clamped at
-1, handed to the model as per-node columns (``NodePseudo``) and projected
-inside the fused op.  ``--pseudo binned`` (the pre-binned per-edge tables the
-JAX CLI uses on the citation graphs) is not ported yet.
+``cuda``), ``--pseudo``, ``--scale`` and ``--cache-dir``.  The pseudo of edge (u -> v) is [1/sqrt(deg_u),
+1/sqrt(deg_v)] over in-degrees clamped at 1, in one of two forms:
+
+- binned (the JAX CLI's on the citation graphs, ``scripts/train_gmm.py``
+  :66-74, and this CLI's default there): the graph is built with no hub
+  block and with edge tables, and the per-edge pseudo is pre-binned into
+  both directions' slot tables (``bin_pseudo``); its passes are plain
+  PyTorch (the JAX package's are XLA, no Pallas kernel);
+- node (``--pseudo node``, every gmm configuration of the JAX bench, and
+  the default on reddit as in the JAX CLI): per-node columns
+  (``NodePseudo``) projected inside the fused op, on a graph built with
+  ``dense="auto"``, through the bin and hub-block kernels.
+
+``--dataset reddit`` takes the JAX CLI's reddit protocol
+(``scripts/train_gmm.py:40-64``): the R-MAT graph at reddit's size (cut by
+``--scale``, as bench.py's scale), read from the port's cache under
+``--cache-dir`` or built and cached there (dgnn_tpu_torch/data/reddit.py),
+its task derived from its own edges, node pseudo, and bf16 feature gathers
+(float32 on the citation graphs, as the JAX CLI).
 
 Same loss (masked mean cross-entropy over ``train_mask``) and optimizer
 (Adam with coupled L2 weight decay, which is what
@@ -17,13 +30,15 @@ inference seconds per epoch, peak device memory and test accuracy, and
 appends one CSV row named ``train_GMM_dgnn_tpu_torch``.
 
 Training runs exactly ``--n-epochs`` steps; the steps after the first few
-(warmup) are timed with CUDA events on a CUDA device.  The graph is built
-with ``dense="auto"``: on cora and citeseer the hub planner keeps a dense
-block, which the dense hub-block kernels take, and the rest of the edges go
-through the degree bins.
+(warmup) are timed with CUDA events on a CUDA device.  With node pseudo the
+graph is built with ``dense="auto"``: on cora, citeseer and reddit the hub
+planner keeps a dense block, which the dense hub-block kernels take, and
+the rest of the edges go through the degree bins.
 
     python scripts/train_gmm_torch.py --dataset cora --n-hidden 64 \
-        --n-kernels 3 --pseudo-dim 2 --n-epochs 20
+        --n-kernels 3 --pseudo-dim 2 --n-epochs 20 [--pseudo node]
+    python scripts/train_gmm_torch.py --dataset reddit --n-hidden 64 \
+        --n-kernels 2 --pseudo-dim 2 --n-epochs 5 [--scale 0.25]
 """
 
 import os
@@ -36,18 +51,21 @@ import argparse
 import torch
 
 from dgnn_tpu_torch.data import load_citation_dataset
+from dgnn_tpu_torch.data.reddit import load_reddit
 from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.models import MoNet
-from dgnn_tpu_torch.ops.gmm import NodePseudo
+from dgnn_tpu_torch.ops.gmm import NodePseudo, bin_pseudo
 from dgnn_tpu_torch.utils import (append_csv_row, make_optimizer,
                                   masked_loss, peak_memory_mb,
                                   reset_peak_memory, time_calls)
 
 WARMUP_STEPS = 3
-# The width of the JAX bench's gmm_* configurations (bench.py): what the
-# card smoke run and scripts/profile_step_torch.py train at.
+# The JAX bench's gmm_* configurations on the citation graphs (bench.py):
+# node pseudo at their width, what the card smoke run and
+# scripts/profile_step_torch.py train at.
 BENCH_ARGV = ["--n-hidden", "64", "--n-kernels", "3", "--pseudo-dim", "2",
-              "--n-layers", "1", "--dropout", "0.5", "--lr", "1e-2"]
+              "--n-layers", "1", "--dropout", "0.5", "--lr", "1e-2",
+              "--pseudo", "node"]
 
 
 def node_pseudo(graph) -> NodePseudo:
@@ -56,6 +74,59 @@ def node_pseudo(graph) -> NodePseudo:
     deg = graph.in_degrees().to(torch.float32).clamp(min=1.0)
     rsq = torch.rsqrt(deg)[:, None]
     return NodePseudo(src=rsq, dst=rsq)
+
+
+def edge_pseudo(graph):
+    """[E, 2] pseudo-coordinates in CSR edge order: [1/sqrt(deg_u),
+    1/sqrt(deg_v)] over in-degrees clamped at 1 (scripts/train_gmm.py:27).
+    Needs the raw CSR, so call it before ``graph.slim()``."""
+    rsq = torch.rsqrt(graph.in_degrees().to(torch.float32).clamp(min=1.0))
+    row = torch.repeat_interleave(torch.arange(graph.num_nodes),
+                                  torch.diff(graph.row_ptr).long())
+    return torch.stack([rsq[graph.col_ind.long()], rsq[row]], dim=1)
+
+
+def setup(args):
+    """Graph, pseudo-coordinates (CPU) and task as the CLI builds them:
+    (graph, pseudo, mode, gather_dtype, features, labels, train_mask,
+    test_mask, n_classes, host set-up seconds by stage, host peak resident
+    MB or None)."""
+    reddit = args.dataset == "reddit"
+    mode = args.pseudo or ("node" if reddit else "binned")
+    gather = "bfloat16" if reddit else "float32"
+    if reddit:
+        if mode != "node":
+            raise ValueError("--dataset reddit takes node pseudo (its graph "
+                             "is cached without edge tables)")
+        rd = load_reddit(args.scale, seed=args.seed, cache_dir=args.cache_dir)
+        graph, seconds, peak = rd.graph, rd.seconds, rd.host_peak_mb
+        print(f"reddit scale {args.scale}: host set-up {seconds}, host peak "
+              f"RSS {peak:.0f} MB")
+        feats, labels, n_classes = rd.features, rd.labels, rd.n_classes
+        train_mask, test_mask = rd.train_mask, rd.test_mask
+    else:
+        data = load_citation_dataset(args.dataset, seed=args.seed)
+        # binned: the JAX CLI's build_graph defaults (no hub block, edge
+        # tables); node: the bench's
+        kw = (dict(dense=None, edge_tables=True) if mode == "binned"
+              else dict(dense="auto", edge_tables=False))
+        graph = build_graph(data.src, data.dst, data.num_nodes, **kw)
+        seconds, peak = {}, None
+        feats, labels, n_classes = data.features, data.labels, data.n_classes
+        train_mask, test_mask = data.train_mask, data.test_mask
+    pseudo = (bin_pseudo(graph, edge_pseudo(graph)) if mode == "binned"
+              else node_pseudo(graph))
+    return (graph.slim(), pseudo, mode, gather, feats, labels, train_mask,
+            test_mask, n_classes, seconds, peak)
+
+
+def _to(pseudo, device):
+    """A pseudo argument of either mode on ``device``."""
+    if isinstance(pseudo, torch.Tensor):
+        return pseudo.to(device)
+    moved = [_to(p, device) for p in pseudo]
+    return NodePseudo(*moved) if isinstance(pseudo, NodePseudo) \
+        else tuple(moved)
 
 
 def train_step(model, opt, graph, feats, pseudo, labels, train_mask,
@@ -73,10 +144,6 @@ def train_step(model, opt, graph, feats, pseudo, labels, train_mask,
 def run(args) -> dict:
     """Train and evaluate as the CLI does; returns what it printed plus the
     trained model and its inputs."""
-    if args.pseudo != "node":
-        raise NotImplementedError(
-            f"--pseudo {args.pseudo}: pre-binned per-edge pseudo tables "
-            "(gmm_aggregate_binned) are not ported to dgnn_tpu_torch yet")
     if args.n_epochs <= WARMUP_STEPS:
         raise ValueError(f"--n-epochs must exceed the {WARMUP_STEPS} warmup "
                          "steps")
@@ -84,19 +151,18 @@ def run(args) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device")
 
-    data = load_citation_dataset(args.dataset, seed=args.seed)
-    graph = build_graph(data.src, data.dst, data.num_nodes, dense="auto",
-                        edge_tables=False)
-    pseudo = NodePseudo(*(t.to(device) for t in node_pseudo(graph)))
-    graph = graph.slim().to(device)
-    feats = torch.from_numpy(data.features).to(device)
-    labels = torch.from_numpy(data.labels).long().to(device)
-    train_mask = torch.from_numpy(data.train_mask).to(device)
-    test_mask = torch.from_numpy(data.test_mask).to(device)
+    (graph, pseudo, mode, gather, feats, labels, train_mask, test_mask,
+     n_classes, setup_s, host_peak_mb) = setup(args)
+    graph = graph.to(device)
+    pseudo = _to(pseudo, device)
+    feats = torch.from_numpy(feats).to(device)
+    labels = torch.from_numpy(labels).long().to(device)
+    train_mask = torch.from_numpy(train_mask).to(device)
+    test_mask = torch.from_numpy(test_mask).to(device)
 
-    model = MoNet(feats.shape[1], args.n_hidden, data.n_classes,
+    model = MoNet(feats.shape[1], args.n_hidden, n_classes,
                   args.n_layers, args.pseudo_dim, args.n_kernels,
-                  dropout=args.dropout,
+                  dropout=args.dropout, pseudo=mode, gather_dtype=gather,
                   generator=torch.Generator().manual_seed(args.seed)
                   ).to(device)
     opt = make_optimizer(model, args.lr, args.weight_decay)
@@ -145,6 +211,8 @@ def run(args) -> dict:
                 train_steps=args.n_epochs,
                 infer_calls=args.n_epochs + WARMUP_STEPS + 1,
                 model=model, graph=graph, feats=feats, pseudo=pseudo,
+                pseudo_mode=mode, gather_dtype=gather, setup_s=setup_s,
+                host_peak_mb=host_peak_mb,
                 labels=labels, train_mask=train_mask, logits=logits)
 
 
@@ -161,10 +229,17 @@ def parser():
     p.add_argument("--n-kernels", type=int, default=3)
     p.add_argument("--output", type=str, default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--pseudo", type=str, default="node",
+    p.add_argument("--pseudo", type=str, default=None,
                    choices=["node", "binned"],
-                   help="node-derived pseudo-coordinates vs pre-binned "
-                        "per-edge tables (binned is not ported yet)")
+                   help="node-derived pseudo-coordinates (the bench's) or "
+                        "pre-binned per-edge tables; default: the JAX "
+                        "CLI's, binned on the citation graphs, node on "
+                        "reddit")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="reddit only: nodes and edges times this")
+    p.add_argument("--cache-dir", type=str, default=None,
+                   help="reddit only: where the host build is cached "
+                        "(default: .bench_cache at the checkout's root)")
     p.add_argument("--device", type=str, default="cuda")
     return p
 

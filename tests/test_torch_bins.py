@@ -449,12 +449,31 @@ def test_cuda_bwd_list_takes_more_bins_than_a_launch(rng, cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_wrappers_refuse_bf16(rng, cuda_device):
-    t = _torch(_bin(rng), cuda_device)
-    bad = dict(t, feat=t["feat"].to(torch.bfloat16))
-    with pytest.raises(TypeError, match="float32"):
-        bins.bin_gat_fwd(*_fwd_args(bad), slope=SLOPE, with_pos=True)
-    bad = dict(t, g=t["g"].to(torch.bfloat16))
-    with pytest.raises(TypeError, match="float32"):
-        bins.bin_gat_bwd_list(*_bwd_args(bad)[:7], [_bwd_args(bad)[7:]],
-                              slope=SLOPE)
+def test_cuda_wrappers_take_bf16_rows_and_refuse_other_types(rng,
+                                                            cuda_device):
+    """bf16 feature rows launch the kernels' bf16 instances (equal to the
+    plain versions on the same bf16 rows); float16, float64 and a mix of
+    row types are refused."""
+    t = _torch(_bin(rng, h=4, f=64), cuda_device)
+    rows = dict(t, feat=t["feat"].to(torch.bfloat16),
+                g=t["g"].to(torch.bfloat16))
+    kw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
+    got = bins.bin_gat_fwd(*_fwd_args(rows), **kw)
+    want = bins.bin_gat_fwd_plain(*_fwd_args(rows), **kw)
+    bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
+    got += bins.bin_gat_bwd(*_bwd_args(rows), **bkw)
+    want += bins.bin_gat_bwd_plain(*_bwd_args(rows), **bkw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **BWD_TOL)
+    for dtype in (torch.float16, torch.float64):
+        bad = dict(t, feat=t["feat"].to(dtype))
+        with pytest.raises(TypeError, match="float32"):
+            bins.bin_gat_fwd(*_fwd_args(bad), slope=SLOPE, with_pos=True)
+        bad = dict(t, g=t["g"].to(dtype), feat=t["feat"].to(dtype))
+        with pytest.raises(TypeError, match="float32"):
+            bins.bin_gat_bwd_list(*_bwd_args(bad)[:7], [_bwd_args(bad)[7:]],
+                                  slope=SLOPE)
+    mixed = dict(t, g=t["g"].to(torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        bins.bin_gat_bwd(*_bwd_args(mixed), slope=SLOPE)

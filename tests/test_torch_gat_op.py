@@ -109,7 +109,5 @@ def test_refusals(rng):
     ar, ac, feat = (torch.from_numpy(a) for a in arrs)
     with pytest.raises(ValueError, match="seed"):
         gat_aggregate(tg, ar, ac, feat, attn_drop=0.3, training=True)
-    with pytest.raises(NotImplementedError, match="gather_dtype"):
-        gat_aggregate(tg, ar, ac, feat, gather_dtype=torch.bfloat16)
     with pytest.raises(TypeError, match="float32"):
         gat_aggregate(tg, ar.double(), ac, feat)

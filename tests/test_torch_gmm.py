@@ -615,8 +615,6 @@ def test_op_refusals(rng):
     t = {n: torch.from_numpy(v) for n, v in a.items()}
     args = (g, t["feat"], t["s"], t["d"], t["mu"], t["isig"])
     call = dict(proj_weight=t["pw"], proj_bias=t["pb"])
-    with pytest.raises(NotImplementedError, match="gather_dtype"):
-        gmm_aggregate_node(*args, **call, gather_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="dense_dtype"):
         gmm_aggregate_node(*args, **call, dense_dtype="fp16")
     with pytest.raises(ValueError, match="proj_weight"):
@@ -747,14 +745,18 @@ def test_monet_init_follows_flax():
 
 
 def test_model_refuses_other_pseudo_modes(rng):
+    """A MoNet built for node pseudo (the default) takes no flat or binned
+    pseudo: its parameters are those of node mode."""
     _, tg, feat, _, rsq = _model_problem(rng, None)
     tm = MoNet(feat.shape[1], 8, 3, 1, 2, 2)
     x = torch.from_numpy(feat)
     flat = torch.zeros((tg.num_edges, 2))
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(TypeError, match="node"):
         tm(tg, x, flat)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tm.convs["gmm_0"](tg, x, (flat,))
+    with pytest.raises(TypeError, match="node"):
+        tm(tg, x, ((flat,), (flat,)))
+    with pytest.raises(ValueError, match="pseudo_proj=False"):
+        tm.convs["gmm_0"](tg, x, flat)
     pseudo = NodePseudo(src=torch.from_numpy(rsq), dst=torch.from_numpy(rsq))
     with pytest.raises(ValueError, match="Generator"):
         tm.train()(tg, x, pseudo)  # dropout 0.5 in training needs one
@@ -779,7 +781,8 @@ def test_trainer_on_cpu_cora(capsys, tmp_path):
     trainer = _trainer()
     out = tmp_path / "r.csv"
     r = trainer.run(trainer.parser().parse_args(
-        ["--device", "cpu", "--n-epochs", "6", "--output", str(out)]))
+        ["--device", "cpu", "--n-epochs", "6", "--output", str(out),
+         "--pseudo", "node"]))
     assert r["graph"].fwd.dense is not None
     assert r["graph"].bwd.dense is not None
     assert r["graph"].row_ptr.numel() == 0  # slimmed after the degrees
@@ -798,9 +801,10 @@ def test_trainer_cli_refusals():
     trainer = _trainer()
     p = trainer.parser()
     assert p.parse_args([]).device == "cuda"
-    assert p.parse_args([]).pseudo == "node"
-    with pytest.raises(NotImplementedError, match="binned"):
-        trainer.run(p.parse_args(["--device", "cpu", "--pseudo", "binned"]))
+    assert p.parse_args([]).pseudo is None  # the JAX CLI's mode per dataset
+    with pytest.raises(ValueError, match="node pseudo"):
+        trainer.run(p.parse_args(["--device", "cpu", "--dataset", "reddit",
+                                  "--pseudo", "binned"]))
     with pytest.raises(ValueError, match="warmup"):
         trainer.run(p.parse_args(["--device", "cpu", "--n-epochs", "2"]))
     if not torch.cuda.is_available():
@@ -1117,10 +1121,10 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
     t = _torch(_bin(rng, k=2, f=4), cuda_device)
     with pytest.raises(TypeError, match="float32"):
         bins.bin_gmm_node_fwd(*_bin_fwd_args(dict(
-            t, feat=t["feat"].to(torch.bfloat16))), use_tanh=True)
+            t, feat=t["feat"].to(torch.float16))), use_tanh=True)
     with pytest.raises(TypeError, match="float32"):
         bins.bin_gmm_node_fwd_list(
-            *_list_fwd_args(dict(t, feat=t["feat"].to(torch.bfloat16)),
+            *_list_fwd_args(dict(t, feat=t["feat"].to(torch.float16)),
                             [(t["nbr"], t["row"], t["count"])]),
             use_tanh=True)
     nine = _torch(_bin(rng, k=9, f=4), cuda_device)

@@ -241,6 +241,7 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "dgnn_tpu_torch").rglob("*.py"))
     files += [ROOT / "scripts" / "train_gat_torch.py",
               ROOT / "scripts" / "train_gmm_torch.py",
+              ROOT / "scripts" / "build_reddit_raw_torch.py",
               ROOT / "scripts" / "profile_step_torch.py",
               ROOT / "scripts" / "bin_kernel_times_torch.py",
               ROOT / "scripts" / "dense_variants_torch.py",
