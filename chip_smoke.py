@@ -9,7 +9,9 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                limit; turns TF32 off for matmuls and cuDNN.
   2. build   - builds the CUDA kernels from csrc/ (one nvcc per source, in
                parallel, sm_90a) and loads them; prints the build seconds and
-               ptxas' register report.
+               ptxas' register report.  Builds the native graph library
+               (native/graph_prep.cc, g++) that the host graph build
+               calls, and prints its seconds and path.
   3. kernels - bin kernels: every bin of synthetic pubmed's forward and
                backward graphs, at (H, F) = (4, 64) and (1, 3), attention
                dropout p 0 and 0.3, with and without the sign-split
@@ -94,7 +96,9 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                pseudo with no hub block (plain PyTorch: no kernel may
                launch).  Then reddit (run_reddit): the R-MAT graph at
                REDDIT_SCALE of reddit's size (232,965 nodes, 114,615,892
-               edges), built on the host and cached as the trainers do; GAT
+               edges), built on the host through the native graph library
+               (its calls asserted) and cached in a fresh directory as the
+               trainers do (MoNet's run reads that cache); GAT
                (heads (4, 1), hidden 64, attn_drop 0.3) and MoNet (2
                kernels, as the bench's gmm_reddit_*), both with bf16
                gathers, REDDIT_STEPS steps and the evals through the
@@ -115,7 +119,28 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                list pass launches once per masked_max call.  Then
                scripts/microbench_gather_torch.py, the only path of the two
                gather kernels, with their launches counted.
-  6. times   - each kernel and its plain version, CUDA events, in turns:
+  6. baselines - native: the host build of pubmed (dense=None), of cora
+               with its planner's hub block and of the skewed graph under
+               its forced block (the kernels phase's), through the native
+               library and through the numpy versions (DGNN_TPU_NATIVE=0):
+               every array equal, the library's calls counted, both times.
+               primitives: spmm, sddmm, edge_softmax and edge_transpose on
+               pubmed (dense=None, edge tables) at H = 4, F = 64 on the card
+               against CPU copies, out and every gradient (rtol 1e-5 / atol
+               1e-5; gradients rtol 1e-4 / atol 1e-5).  naive: gat_naive
+               against gat_aggregate on the card (pubmed, p 0 and 0.3, out
+               and gradients), gmm_naive against the flat gmm_aggregate
+               (pubmed), and on cora the size of their difference (its hub
+               block counts a duplicate edge once, the naive sum every
+               copy); then scripts/train_gat_torch.py --impl naive and
+               --impl fused at the bench width on pubmed and cora, 20 steps
+               each (ms/step, inference ms, peak MB, test accuracy; launches
+               exact: none for naive; card logits against a CPU copy).
+               checkpoint: scripts/train_edgeconv_torch.py at full width on
+               320 clouds saves after training; the trainer's restore into a
+               model of another seed gives the run's eval logits exactly,
+               and a second run with --load-model-path restores the step.
+  7. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at both layers' widths
                ((H, F) = (4, 64) and (1, 7), p 0.3; (K, F) = (3, 64) and
@@ -161,8 +186,10 @@ import copy
 import importlib.util
 import json
 import pathlib
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -736,17 +763,22 @@ def power_law_graph(structure, rng, n=4000):
     return g
 
 
-def hub_graph(structure, rng, n=4000):
-    """Edges skewed both ways (Zipf destinations from uniform sources, Zipf
-    sources to uniform destinations) under the forced block PL_FORCED: in
-    each direction hub rows of thousands of set columns in one tile row,
-    two column tiles a row chunk."""
+def hub_edges(rng, n=4000):
+    """(src, dst, n): edges skewed both ways (Zipf destinations from
+    uniform sources, Zipf sources to uniform destinations)."""
     e = 3 * n
     zipf = lambda: np.minimum(rng.zipf(1.6, e) - 1, n - 1)  # noqa: E731
     into = np.stack([rng.integers(0, n, e), zipf()], 1)
     out_of = np.stack([rng.permutation(n)[zipf()], rng.integers(0, n, e)], 1)
     uniq = np.unique(np.concatenate([into, out_of]), axis=0)
-    g = structure.build_graph(uniq[:, 0], uniq[:, 1], n, dense=PL_FORCED,
+    return uniq[:, 0], uniq[:, 1], n
+
+
+def hub_graph(structure, rng):
+    """hub_edges under the forced block PL_FORCED: in each direction hub
+    rows of thousands of set columns in one tile row, two column tiles a
+    row chunk."""
+    g = structure.build_graph(*hub_edges(rng), dense=PL_FORCED,
                               edge_tables=False)
     for adj in (g.fwd, g.bwd):
         assert widest_row(adj.dense) > 1000, widest_row(adj.dense)
@@ -1050,8 +1082,8 @@ def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
     (its BENCH_ARGV) unless ``argv`` says otherwise, with every launch count
     set to 0 just before and read just after.  The launches must be exactly
     what the steps, evals, layers, bins and hub blocks imply, under the
-    instance the gathered rows' type selects (a binned-pseudo MoNet
-    launches none: its passes are plain PyTorch).  With ``cpu_copy`` the
+    instance the gathered rows' type selects (a binned-pseudo MoNet and
+    the naive GAT launch none: their passes are plain PyTorch).  With ``cpu_copy`` the
     loss must fall and the trained model's logits must match a CPU copy's;
     else they must be finite."""
     args = trainer.parser().parse_args(
@@ -1068,8 +1100,9 @@ def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
     bwd_calls = r["train_steps"] * len(r["model"].convs)
     bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
     bf16 = r["gather_dtype"] == "bfloat16"
+    fused = r.get("impl", "fused") == "fused"
     want = dict.fromkeys(launches, 0)  # the other model's kernels: none
-    if r.get("pseudo_mode", "node") == "node":
+    if fused and r.get("pseudo_mode", "node") == "node":
         # one launch a call for every bin of the direction (the list
         # wrappers)
         want.update({
@@ -1092,7 +1125,7 @@ def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
     tol = dict(rtol=1e-4, atol=1e-4)
     r["logit_off"] = int((~torch.isclose(got, logits_cpu, **tol)).sum())
     r["logit_err"] = float((got - logits_cpu).abs().max())
-    if g.fwd.dense is not None:
+    if fused and g.fwd.dense is not None:
         # bf16 hub-block products: the card's and the CPU's projection
         # matmuls (float32, another order) and exp differ by ulps, which
         # moves some operands across a bf16 rounding boundary; each such
@@ -1180,9 +1213,20 @@ def reddit_kernel_times(bins, dense, kind, graph, shapes, dev, time_calls):
 def run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi):
     """The reddit phase: GAT and MoNet at the JAX bench's reddit widths
     (bf16 feature gathers) through their trainers' entry points on the
-    R-MAT graph at ``scale`` of reddit's size, built on the host and cached
-    as the trainers do, launches into ``launches``; then each kernel of the
-    path on that graph at both layers' widths, timed beside its bound."""
+    R-MAT graph at ``scale`` of reddit's size, built on the host (GAT's run,
+    through the native graph library: asserted) and cached in a fresh
+    directory as the trainers do (MoNet's run reads it), launches into
+    ``launches``; then each kernel of the path on that graph at both
+    layers' widths, timed beside its bound."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache:
+        _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
+                    cache)
+
+
+def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
+                cache):
+    from dgnn_tpu_torch import native
     from dgnn_tpu_torch.data.reddit import reddit_size
     from dgnn_tpu_torch.utils import time_calls
 
@@ -1196,11 +1240,22 @@ def run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi):
     titles = dict(titles, gmm="MoNet hidden 64 kernels 2 dim 2 dropout 0.5 "
                   "lr 1e-2")
     for kind in ("gat", "gmm"):
+        native.reset_calls()
         r, launches[(kind, "reddit")] = run_trainer(
             bins, trainers[kind], kind, "reddit",
-            argv=argv[kind] + ["--scale", str(scale)], steps=REDDIT_STEPS,
-            cpu_copy=False)
+            argv=argv[kind] + ["--scale", str(scale), "--cache-dir", cache],
+            steps=REDDIT_STEPS, cpu_copy=False)
+        calls = dict(native.CALLS)
         g = r["graph"]
+        if kind == "gat":  # the host build: every stage in the library,
+            # one bin fill a bin of each direction that kept edges
+            assert calls == dict(
+                coo_to_csr=1, csr_to_csc_permute=1, dense_mask_fill=2,
+                bin_fill=sum(len(a.widths) for a in (g.fwd, g.bwd)
+                             if a.num_edges)), calls
+        else:  # read from the cache GAT's run wrote
+            assert not any(calls.values()), calls
+            assert "cache load" in r["setup_s"], r["setup_s"]
         assert r["logits"].shape == (n, 41), r["logits"].shape
         assert g.fwd.dense is not None and g.bwd.dense is not None
         used = {k: v for k, v in launches[(kind, "reddit")].items() if v}
@@ -1212,7 +1267,8 @@ def run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi):
               f"{r['infer_s'] * 1e3:.3f} ms, peak {r['peak_mb']:.0f} MB, test "
               f"acc {r['test_acc']:.4f}, launches {used} (every other kernel "
               f"0); host set-up {setup}, host peak RSS "
-              f"{r['host_peak_mb']:.0f} MB; bins fwd {g.fwd.widths} bwd "
+              f"{r['host_peak_mb']:.0f} MB; native graph library calls "
+              f"{calls}; bins fwd {g.fwd.widths} bwd "
               f"{g.bwd.widths}; hub block {hub_line(g)} | {smi}")
         steps_ = r["train_steps"] + r["infer_calls"]
         kt = reddit_kernel_times(bins, dense, kind, g, shapes[kind], dev,
@@ -1228,12 +1284,235 @@ def run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase "baselines": the native graph library, the flat primitives, the
+# naive baselines, checkpoints
+# ---------------------------------------------------------------------------
+
+
+def graph_arrays(g):
+    """Every array of a Graph, by name (None where a layout has none)."""
+    out = {k: getattr(g, k) for k in ("row_ptr", "col_ind", "col_ptr",
+                                      "row_ind", "permute")}
+    for name in ("fwd", "bwd"):
+        a = getattr(g, name)
+        for key in ("nbr", "edge", "row", "count"):
+            for i, t in enumerate(getattr(a, key)):
+                out[f"{name}.{key}{i}"] = t
+        for key in ("main", "ov_rows", "ov"):
+            out[f"{name}.cmb.{key}"] = getattr(a.cmb, key)
+        out[f"{name}.epos"] = a.epos
+        if a.dense is not None:
+            for key in ("row_ids", "col_ids", "mask", "rc", "ct", "first",
+                        "chunk_ptr"):
+                out[f"{name}.dense.{key}"] = getattr(a.dense, key)
+    return out
+
+
+def check_native(structure, native, src, dst, n, dense):
+    """The host build through the native library (every function it calls
+    counted) and through the numpy versions (DGNN_TPU_NATIVE=0): every
+    array equal.  Returns (calls, native s, numpy s, arrays compared)."""
+    native.reset_calls()
+    t0 = time.perf_counter()
+    got = structure.build_graph(src, dst, n, dense=dense, edge_tables=True)
+    t_native = time.perf_counter() - t0
+    calls = dict(native.CALLS)
+    assert calls["coo_to_csr"] == calls["csr_to_csc_permute"] == 1, calls
+    assert calls["bin_fill"] >= 2, calls
+    assert calls["dense_mask_fill"] == (0 if dense is None else 2), calls
+    os.environ["DGNN_TPU_NATIVE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        want = structure.build_graph(src, dst, n, dense=dense,
+                                     edge_tables=True)
+        t_numpy = time.perf_counter() - t0
+    finally:
+        del os.environ["DGNN_TPU_NATIVE"]
+    assert native.CALLS == calls  # the numpy versions only
+    a, b = graph_arrays(got), graph_arrays(want)
+    assert a.keys() == b.keys()
+    for key in a:
+        if b[key] is None:
+            assert a[key] is None, key
+            continue
+        assert a[key].dtype == b[key].dtype and torch.equal(a[key], b[key]), \
+            key
+    return calls, t_native, t_numpy, sum(v is not None for v in a.values())
+
+
+def on_both(fn, arrs, dev):
+    """fn(*tensors) forward and backward on the card and on the CPU, the
+    same float32 inputs; the last array is the output gradient.  Returns
+    {"card" | "cpu": [out, grads...]} on the CPU."""
+    res = {}
+    for where, to in (("card", dev), ("cpu", "cpu")):
+        ins = [torch.from_numpy(a).to(to).requires_grad_(True)
+               for a in arrs[:-1]]
+        out = fn(to, *ins)
+        out.backward(torch.from_numpy(arrs[-1]).to(to))
+        res[where] = [out.detach().cpu()] + [t.grad.cpu() for t in ins]
+    return res
+
+
+def hold_both(res, tols, what):
+    """Card against CPU: the output at FWD_TOL, each gradient at its
+    tolerance; returns the largest difference."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(res["card"], res["cpu"])):
+        tol = FWD_TOL if i == 0 else tols[i - 1]
+        torch.testing.assert_close(a, b, **tol, msg=lambda m: f"{what} "
+                                   f"{'out' if i == 0 else f'grad {i}'}: {m}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
+
+
+def check_primitives(pub_flat, rng, dev):
+    """spmm, sddmm, edge_softmax and edge_transpose on the card against the
+    same functions on CPU copies, forward and every gradient, at
+    (H, F) = (4, 64): tests/test_primitives.py's tolerances."""
+    from dgnn_tpu_torch.ops import edge_softmax, edge_transpose, sddmm, spmm
+
+    h, f = 4, 64
+    n, e = pub_flat.num_nodes, pub_flat.num_edges
+    graphs = {dev: pub_flat.to(dev), "cpu": pub_flat}
+
+    def arrays(*shapes):
+        return [rng.normal(size=s).astype(np.float32) for s in shapes]
+
+    out = {}
+    out["spmm"] = hold_both(on_both(
+        lambda to, w, x: spmm(graphs[to], w, x),
+        arrays((e, h), (n, h, f), (n, h, f)), dev), (BWD_TOL, BWD_TOL),
+        "spmm")
+    out["sddmm"] = hold_both(on_both(
+        lambda to, a, b: sddmm(graphs[to], a, b),
+        arrays((n, h, f), (n, h, f), (e, h)), dev), (BWD_TOL, BWD_TOL),
+        "sddmm")
+    out["edge_softmax"] = hold_both(on_both(
+        lambda to, s_: edge_softmax(graphs[to], 3 * s_),
+        arrays((e, h), (e, h)), dev), (BWD_TOL,), "edge_softmax")
+    data = torch.from_numpy(arrays((e, 3))[0])
+    got = edge_transpose(graphs[dev], data.to(dev)).cpu()
+    assert torch.equal(got, edge_transpose(pub_flat, data))
+    out["edge_transpose"] = 0.0
+    return out
+
+
+def check_naive(pub, pub_flat, cora, rng, dev):
+    """gat_naive against gat_aggregate on the card (pubmed, p 0 and 0.3,
+    forward and the gradients of ar, ac, feat), gmm_naive against the flat
+    gmm_aggregate (pubmed, forward and the gradients of feat, pseudo, mu,
+    inv_sigma), and on cora, whose hub block counts a duplicate edge once,
+    the size of the difference between the two GAT functions."""
+    from dgnn_tpu_torch.ops import gat_aggregate, gmm_aggregate
+    from dgnn_tpu_torch.ops.naive import gat_naive, gmm_naive
+    from dgnn_tpu_torch.ops.primitives import edge_rows
+
+    h, f = SHAPES[0]
+    lines = []
+    n = pub.num_nodes
+    for p in (0.0, 0.3):
+        arrs = [rng.normal(size=s).astype(np.float32)
+                for s in ((n, h), (n, h), (n, h, f), (n, h, f))]
+        arrs[-1] *= G_SCALE
+        res = {}
+        for name, fn in (("naive", gat_naive), ("fused", gat_aggregate)):
+            ins = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                   for a in arrs[:3]]
+            out = fn(pub, *ins, attn_drop=p, seed=SEED, training=True)
+            out.backward(torch.from_numpy(arrs[3]).to(dev))
+            res[name] = [out.detach()] + [t.grad for t in ins]
+        worst = 0.0
+        for i, (a, b) in enumerate(zip(res["naive"], res["fused"])):
+            torch.testing.assert_close(a, b, **(FWD_TOL if i == 0
+                                                else BWD_TOL))
+            worst = max(worst, float((a - b).abs().max()))
+        lines.append(f"gat_naive = gat_aggregate pubmed H={h} F={f} p={p}, "
+                     f"out and d(ar, ac, feat) (max |diff| {worst:.3g})")
+    k, d = 3, 2
+    e = pub_flat.num_edges
+    arrs = [rng.normal(size=(n, k, f)), rng.normal(size=(e, d)),
+            rng.normal(scale=0.5, size=(k, d)), rng.random((k, d)) + 0.5,
+            rng.normal(size=(n, k, f)) * G_SCALE]
+    arrs = [a.astype(np.float32) for a in arrs]
+    res = {}
+    for name, fn in (("naive", gmm_naive), ("fused", gmm_aggregate)):
+        ins = [torch.from_numpy(a).to(dev).requires_grad_(True)
+               for a in arrs[:4]]
+        out = fn(pub_flat, *ins)
+        out.backward(torch.from_numpy(arrs[4]).to(dev))
+        res[name] = [out.detach()] + [t.grad for t in ins]
+    # mu and inv_sigma: sums over every edge in another order
+    param_tol = dict(rtol=PARAM_TOL["rtol"],
+                     atol=PARAM_TOL["atol_per_edge"] * e)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(res["naive"], res["fused"])):
+        torch.testing.assert_close(
+            a, b, **(FWD_TOL if i == 0 else BWD_TOL if i < 3 else param_tol))
+        worst = max(worst, float((a - b).abs().max()))
+    lines.append(f"gmm_naive = flat gmm_aggregate pubmed K={k} F={f} D={d}, "
+                 f"out and d(feat, pseudo, mu, inv_sigma) (max |diff| "
+                 f"{worst:.3g})")
+    # cora with its hub block: a multigraph whose duplicates the block
+    # counts once (ROADMAP C5)
+    n = cora.num_nodes
+    ins = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev)
+           for s in ((n, h), (n, h), (n, h, f))]
+    with torch.no_grad():
+        a = gat_naive(cora, *ins)
+        b = gat_aggregate(cora, *ins, dense_dtype="float32")
+    off = ~torch.isclose(a, b, **FWD_TOL)
+    pairs = edge_rows(cora) * n + cora.col_ind.long()
+    dup = cora.num_edges - int(torch.unique(pairs).numel())
+    lines.append(f"cora (hub block, dense_dtype float32) H={h} F={f}: "
+                 f"{cora.num_edges} edges, {dup} duplicates; gat_naive and "
+                 f"gat_aggregate differ in {int(off.any(dim=(1, 2)).sum())} of "
+                 f"{n} rows, max |diff| {float((a - b).abs().max()):.4g}, "
+                 f"{int(off.sum())} of {off.numel()} elements outside "
+                 "FWD_TOL")
+    return lines
+
+
+def check_checkpoint(trainer, dev, tmp):
+    """train_edgeconv_torch.py at full width on few clouds: a run that saves
+    after training; the trainer's restore into a model of another seed
+    gives the first run's eval logits exactly; a second run loads the
+    step before it trains."""
+    from dgnn_tpu_torch.models import DGCNN
+
+    argv = ["--num-epochs", "1", "--train-samples", "320", "--test-samples",
+            "64", "--device", "cuda"]
+    r = trainer.run(trainer.parser().parse_args(
+        argv + ["--save-model-path", tmp]))
+    x = r["x_test"]
+    fresh = DGCNN(k=EC_K, output_classes=r["n_classes"], dropout=0.5,
+                  generator=torch.Generator().manual_seed(9)).to(dev)
+    args = trainer.parser().parse_args(argv + ["--load-model-path", tmp])
+    step = trainer.restore_checkpoint(trainer.checkpoint_manager(args),
+                                      fresh)
+    assert step == 1, step
+    with torch.no_grad():
+        want = r["model"].eval()(x)
+        got = fresh.eval()(x)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    r2 = trainer.run(args)
+    assert r2["restored_step"] == 1 and all(np.isfinite(r2["losses"]))
+    return (f"train_edgeconv_torch.py B={EC_B} P={EC_P} k={EC_K}, "
+            f"{r['train_steps']} steps, saved to a checkpoint; restored "
+            f"into a model of another seed: eval logits on {x.shape[0]} "
+            f"clouds equal ({tuple(got.shape)}); a second run restored step "
+            f"{r2['restored_step']} and trained {r2['train_steps']} steps, "
+            f"loss {r2['losses'][0]:.4f} -> {r2['losses'][-1]:.4f}")
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device; this check runs only "
               "on the card", file=sys.stderr)
         return 1
+    from dgnn_tpu_torch import native
     from dgnn_tpu_torch.data import synthetic_citation
     from dgnn_tpu_torch.graph import structure
     from dgnn_tpu_torch.ops import _build, bins, dense, ec_tiles, gather
@@ -1257,6 +1536,10 @@ def main():
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     phase("build", f"{build_s:.1f} s -> {_build.library_path()} | "
           + " | ".join(regs))
+    t0 = time.perf_counter()
+    native.load()  # g++: the host graph build's library
+    phase("build", f"native graph library (g++ {' '.join(native.CXX_FLAGS)})"
+          f" {time.perf_counter() - t0:.1f} s -> {native.library_path()}")
 
     # 3. kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -1505,8 +1788,11 @@ def main():
           f"match a CPU copy (max |diff| {r['logit_err']:.3g})")
     del r
 
+    t0 = time.perf_counter()
     run_reddit(bins, dense, trainers, titles, launches, REDDIT_SCALE, dev,
                smi)
+    phase("reddit", f"the reddit phase took {time.perf_counter() - t0:.1f} s "
+          "(host build included)")
 
     ec_trainer = load_script("train_edgeconv_torch")
     for schedule, epochs in (("step1", 2), ("step8", 1)):
@@ -1549,7 +1835,54 @@ def main():
             for row in case["rows"]) + f" | {smi}")
     torch.cuda.empty_cache()
 
-    # 6. times: kernel and plain, in turns.  One job per (kernel, shape):
+    # 6. baselines: the native graph library, the flat primitives, the
+    #    naive baselines against the fused ops, checkpoints
+    t0 = time.perf_counter()
+    prng2 = np.random.default_rng(2)  # hub_graph's edges again
+    dc = synthetic_citation("cora")
+    for name, edges, dense_arg in (
+            ("pubmed", (d.src, d.dst, d.num_nodes), None),
+            ("cora planner block", (dc.src, dc.dst, dc.num_nodes), "auto"),
+            (f"skewed forced block {PL_FORCED}", hub_edges(prng2),
+             PL_FORCED)):
+        calls, t_nat, t_np, n_arr = check_native(structure, native, *edges,
+                                                 dense_arg)
+        phase("baselines", f"native {name}: coo_to_csr, csr_to_csc_permute, "
+              f"bin_fill, dense_mask_fill ({calls}) give the numpy versions' "
+              f"graph, {n_arr} arrays equal; host build {t_nat:.3f} s "
+              f"against {t_np:.3f} s in numpy ({native.library_path()})")
+    brng = np.random.default_rng(3)  # the baselines' own draws
+    pub_flat = structure.build_graph(d.src, d.dst, d.num_nodes, dense=None,
+                                     edge_tables=True)
+    worst = check_primitives(pub_flat, brng, dev)
+    phase("baselines", "primitives pubmed (dense=None, edge tables) H=4 "
+          "F=64: spmm, sddmm, edge_softmax, edge_transpose on the card match "
+          "the CPU, out and every gradient (rtol 1e-5 / atol 1e-5; "
+          f"gradients rtol 1e-4 / atol 1e-5): max |diff| {worst}")
+    for line in check_naive(pub, pub_flat.to(dev), cora, brng, dev):
+        phase("baselines", "naive " + line)
+    for dataset in ("pubmed", "cora"):
+        for impl in ("naive", "fused"):
+            r, used = run_trainer(
+                bins, trainers["gat"], "gat", dataset,
+                argv=trainers["gat"].BENCH_ARGV + ["--impl", impl])
+            used = {k: v for k, v in used.items() if v}
+            phase("baselines", f"naive {dataset} {titles['gat']} --impl "
+                  f"{impl}: {r['train_steps']} steps, loss "
+                  f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, train "
+                  f"{r['train_s'] * 1e3:.3f} ms/step, inference "
+                  f"{r['infer_s'] * 1e3:.3f} ms, peak {r['peak_mb']:.0f} MB, "
+                  f"test acc {r['test_acc']:.4f}, launches {used}; card "
+                  f"logits match a CPU copy (max |diff| "
+                  f"{r['logit_err']:.3g}) | {smi}")
+            del r
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        phase("baselines", "checkpoint " + check_checkpoint(ec_trainer, dev,
+                                                           tmp))
+    phase("baselines", f"the phase took {time.perf_counter() - t0:.1f} s")
+
+    # 7. times: kernel and plain, in turns.  One job per (kernel, shape):
     #    (what it ran on, kernel call, plain call, input tensors, edges,
     #    feature columns, heads or Gaussian kernels).  The bin kernels one
     #    call over every bin, float32 and bf16 rows (the reddit path's
@@ -1815,7 +2148,6 @@ def main():
         del tab, idx, idx_wide, fns
     torch.cuda.empty_cache()
 
-    dc = synthetic_citation("cora")
     cora_binned = structure.build_graph(dc.src, dc.dst, dc.num_nodes,
                                         dense=None, edge_tables=False).to(dev)
     n = cora.num_nodes

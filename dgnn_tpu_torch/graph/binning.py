@@ -8,7 +8,9 @@ the slot tables and the combine tables are identical to the JAX package's
 for the same graph (tests/test_torch_graph.py), so both packages feed their
 kernels the same layout.
 
-All construction is vectorized numpy and runs once per graph on the host.
+All construction runs once per graph on the host, in vectorized numpy;
+the slot tables are filled by the native library where it is available
+(dgnn_tpu_torch/native), by ``_bin_fill_numpy`` where not.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+
+from .. import native
 
 __all__ = ["BinnedCSR", "bin_csr", "auto_widths", "combine_table",
            "combine_tables", "DEFAULT_WIDTHS"]
@@ -207,18 +211,30 @@ class BinnedCSR:
 
 
 def _build_bin(col_ind, edge_ids, rows, starts, counts, width):
-    """Materialize the dense [S, width] slot table for the given segments."""
+    """Materialize the dense [S, width] slot table for the given segments
+    (in the native library where it is available, else numpy)."""
     pad = (-rows.shape[0]) % _SEG_PAD
     if pad:
         rows = np.concatenate([rows, np.zeros(pad, np.int64)])
         starts = np.concatenate([starts, np.zeros(pad, np.int64)])
         counts = np.concatenate([counts, np.zeros(pad, np.int64)])
+    if native.available():
+        nbr, edge = native.bin_fill(starts, counts, width, col_ind, edge_ids)
+    else:
+        nbr, edge = _bin_fill_numpy(starts, counts, width, col_ind, edge_ids)
+    return nbr, edge, rows.astype(np.int32), counts.astype(np.int32)
+
+
+def _bin_fill_numpy(starts, counts, width, col_ind, edge_ids):
+    """native.bin_fill's numpy version: ([S, width] nbr, [S, width] edge)
+    int32, segment s holding CSR slots [starts[s], starts[s] + counts[s])
+    and zeros after them."""
     lane = np.arange(width, dtype=np.int64)[None, :]
     mask = lane < counts[:, None]
     offs = np.where(mask, starts[:, None] + lane, 0)
     nbr = np.where(mask, col_ind[offs], 0).astype(np.int32)
     edge = np.where(mask, edge_ids[offs], 0).astype(np.int32)
-    return nbr, edge, rows.astype(np.int32), counts.astype(np.int32)
+    return nbr, edge
 
 
 def bin_csr(
@@ -235,11 +251,13 @@ def bin_csr(
     """
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     num_rows = row_ptr.shape[0] - 1
+    # the slot tables are int32: convert once, not once a bin
+    col_ind = np.ascontiguousarray(col_ind, dtype=np.int32)
     num_edges = col_ind.shape[0]
     if edge_ids is None:
         edge_ids = np.arange(num_edges, dtype=np.int64)
     else:
-        edge_ids = np.asarray(edge_ids, dtype=np.int64)
+        edge_ids = np.ascontiguousarray(edge_ids, dtype=np.int64)
     deg = np.diff(row_ptr)
 
     widths = tuple(sorted(set(int(w) for w in widths)))

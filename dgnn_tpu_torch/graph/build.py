@@ -1,7 +1,9 @@
 """Host-side graph preprocessing: COO -> CSR/CSC + edge permutation.
 
-Numpy copy of ``dgnn_tpu/graph/build.py`` (its numpy branch; the JAX
-package's optional C++ library produces the same arrays).  All index
+Port of ``dgnn_tpu/graph/build.py``.  The sorts run in the port's native
+library (dgnn_tpu_torch/native: O(E) counting sorts) where it is
+available, else in numpy (``_coo_to_csr_numpy``,
+``_csr_to_csc_permute_numpy``); both give the same arrays.  All index
 construction happens once on the host; the results are uploaded as torch
 tensors by graph/structure.py.
 """
@@ -9,6 +11,8 @@ tensors by graph/structure.py.
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 __all__ = [
     "coo_to_csr",
@@ -33,6 +37,13 @@ def coo_to_csr(src: np.ndarray, dst: np.ndarray, num_nodes: int):
     dst = _as_int64(dst)
     if src.shape[0] >= np.iinfo(np.int32).max:
         raise ValueError("per-shard edge count must fit int32")
+    if native.available():
+        return native.coo_to_csr(src, dst, num_nodes)
+    return _coo_to_csr_numpy(src, dst, num_nodes)
+
+
+def _coo_to_csr_numpy(src: np.ndarray, dst: np.ndarray, num_nodes: int):
+    """coo_to_csr's numpy version, on int64 ``src`` / ``dst``."""
     # Sort edges by (dst, src): stable lexsort, primary key last.
     order = np.lexsort((src, dst))
     col_ind = src[order].astype(np.int32)
@@ -48,6 +59,13 @@ def csr_to_csc_permute(row_ptr: np.ndarray, col_ind: np.ndarray):
     Returns (col_ptr[int64 N+1], row_ind[int32 E], permute[int32 E]) where
     ``permute[j]`` is the CSR edge id stored at CSC slot ``j``.
     """
+    if native.available():
+        return native.csr_to_csc_permute(row_ptr, col_ind)
+    return _csr_to_csc_permute_numpy(row_ptr, col_ind)
+
+
+def _csr_to_csc_permute_numpy(row_ptr: np.ndarray, col_ind: np.ndarray):
+    """csr_to_csc_permute's numpy version."""
     num_nodes = row_ptr.shape[0] - 1
     row_of_edge = np.repeat(
         np.arange(num_nodes, dtype=np.int64), np.diff(row_ptr).astype(np.int64)

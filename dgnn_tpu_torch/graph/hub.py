@@ -1,4 +1,5 @@
-"""Tile-sparse dense hub block (numpy): planning and building.
+"""Tile-sparse dense hub block: planning and building (numpy; the mask
+fill in the native library where it is available, dgnn_tpu_torch/native).
 
 Copy of ``dgnn_tpu/graph/hub.py`` without the half-row schedule (a TPU
 memory workaround that the CUDA kernels do not need).  Under
@@ -20,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from .. import native
 
 __all__ = ["DensePlan", "plan_dense", "build_dense_numpy", "pack_mask_bits",
            "DENSE_RT", "DENSE_CT"]
@@ -133,6 +136,15 @@ def pack_mask_bits(mask01: np.ndarray, ct: int = DENSE_CT) -> np.ndarray:
     return np.packbits(tiles.reshape(R, C), axis=1, bitorder="little")
 
 
+def _mask_fill_numpy(rows: np.ndarray, cols: np.ndarray, rpad: int,
+                     cpad: int, ct: int) -> np.ndarray:
+    """native.dense_mask_fill's numpy version: an [rpad, cpad] bool image
+    with (rows[i], cols[i]) set, bit-plane packed to [rpad, cpad // 8]."""
+    mask01 = np.zeros((rpad, cpad), bool)
+    mask01[rows, cols] = True
+    return pack_mask_bits(mask01, ct)
+
+
 def _pad_to(x: np.ndarray, m: int) -> np.ndarray:
     pad = (-len(x)) % m
     return np.concatenate([x, np.zeros(pad, x.dtype)]) if pad else x
@@ -216,12 +228,14 @@ def build_dense_numpy(row_ptr: np.ndarray, col_ind: np.ndarray,
     res_col_ind = col_ind[keep_e]
     res_edge_ids = np.nonzero(keep_e)[0]
 
-    # per-tile masks, filled as one [T*RT, CT] image and bit-plane packed
+    # per-tile masks as one bit-plane packed [T*RT, CT//8] image: one O(E)
+    # pass in the native library where it is available
     er = et[e_dense] * DENSE_RT + er_rank[e_dense] % DENSE_RT
     ec = ec_rank[e_dense] % DENSE_CT
-    mask01 = np.zeros((T * DENSE_RT, DENSE_CT), bool)
-    mask01[er, ec] = True
-    mask = pack_mask_bits(mask01).reshape(T, DENSE_RT, DENSE_CT // 8)
+    fill = native.dense_mask_fill if native.available() else \
+        _mask_fill_numpy
+    mask = fill(er, ec, T * DENSE_RT, DENSE_CT, DENSE_CT).reshape(
+        T, DENSE_RT, DENSE_CT // 8)
 
     # compacted id lists (kept chunks'/tiles' ranks, 0-padded)
     row_chunks = _pad_to(row_sel, DENSE_RT).reshape(-1, DENSE_RT)

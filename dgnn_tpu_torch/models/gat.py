@@ -16,9 +16,13 @@ fan_in = H*F), so the std is computed here the flax way.  Every random draw
 (init, feature dropout) comes from an explicit ``torch.Generator``;
 attention dropout takes one uint32 seed per layer.
 
-``gather_dtype`` ("bfloat16" halves the gathered feature rows; sums stay
-float32) is handed to every layer's ``gat_aggregate``, as the flax modules
-hand it to the fused op.
+``impl`` picks the aggregation: "fused" (the default) is ``gat_aggregate``
+over the binned layouts and hub blocks; "naive" is ``ops/naive.py``'s
+``gat_naive``, the DGL-style baseline that materialises per-edge tensors
+and reads the raw CSR (so the graph must not be slim).  ``gather_dtype``
+("bfloat16" halves the gathered feature rows; sums stay float32) is
+handed to every layer's ``gat_aggregate``, as the flax modules hand it to
+the fused op; the naive path ignores it, as the flax modules do.
 """
 
 from __future__ import annotations
@@ -31,8 +35,11 @@ from torch import nn
 
 from ..graph.structure import Graph
 from ..ops.gat import gat_aggregate
+from ..ops.naive import gat_naive
 
-__all__ = ["GATConv", "GAT"]
+__all__ = ["GATConv", "GAT", "IMPLS"]
+
+IMPLS = ("fused", "naive")
 
 _GAIN_RELU = math.sqrt(2.0)
 
@@ -61,9 +68,12 @@ class GATConv(nn.Module):
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
                  negative_slope: float = 0.2, residual: bool = False,
                  activation: Callable | None = None, use_bias: bool = True,
-                 gather_dtype=None,
+                 impl: str = "fused", gather_dtype=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        self.impl = impl
         self.out_feats = out_feats
         self.num_heads = num_heads
         self.gather_dtype = gather_dtype
@@ -94,11 +104,14 @@ class GATConv(nn.Module):
             x = _dropout(x, self.feat_drop, generator)
         attn_row = (self.attn_l * x).sum(dim=-1)  # [N, H] dst coefficients
         attn_col = (self.attn_r * x).sum(dim=-1)  # [N, H] src coefficients
-        rst = gat_aggregate(graph, attn_row, attn_col, x,
-                            negative_slope=self.negative_slope,
-                            attn_drop=self.attn_drop, seed=seed,
-                            training=self.training,
-                            gather_dtype=self.gather_dtype)
+        kw = {}
+        agg = gat_naive
+        if self.impl == "fused":
+            agg, kw = gat_aggregate, dict(gather_dtype=self.gather_dtype)
+        rst = agg(graph, attn_row, attn_col, x,
+                  negative_slope=self.negative_slope,
+                  attn_drop=self.attn_drop, seed=seed,
+                  training=self.training, **kw)
         if self.residual:
             res = feat if self.res_fc is None else self.res_fc(feat)
             rst = rst + res.reshape(-1, self.num_heads, self.out_feats)
@@ -120,7 +133,8 @@ class GAT(nn.Module):
                  n_classes: int, heads: Sequence[int], *,
                  feat_drop: float = 0.0, attn_drop: float = 0.0,
                  negative_slope: float = 0.2, residual: bool = False,
-                 activation: Callable | None = None, gather_dtype=None,
+                 activation: Callable | None = None, impl: str = "fused",
+                 gather_dtype=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.attn_drop = attn_drop
@@ -132,11 +146,11 @@ class GAT(nn.Module):
                 attn_drop=attn_drop, negative_slope=negative_slope,
                 residual=residual, activation=activation,
                 use_bias=layer > 0,  # the input projection has no bias
-                gather_dtype=gather_dtype, generator=generator)
+                impl=impl, gather_dtype=gather_dtype, generator=generator)
             dim = n_hidden * heads[layer]
         convs["gat_out"] = GATConv(
             dim, n_classes, heads[-1], feat_drop=feat_drop,
-            attn_drop=attn_drop, negative_slope=negative_slope,
+            attn_drop=attn_drop, negative_slope=negative_slope, impl=impl,
             gather_dtype=gather_dtype, generator=generator)
         self.convs = nn.ModuleDict(convs)
 

@@ -5,7 +5,8 @@
   edge is re-derived from (seed, dst id, src id, head) by an integer hash,
   so the forward (CSR bins) and backward (CSC bins) passes agree bit for
   bit with no per-edge storage.  It is bit-identical to the JAX package's
-  hash and to the one inside csrc/bin_gat.cu,
+  hash and to the one inside csrc/bin_gat.cu; ``edge_keep`` is the JAX
+  package's hash of (seed, edge id, head),
 - the scatter-free segment merges ``combine_sum`` / ``combine_lse`` over a
   graph's combine table,
 - the Gaussian kernel weights of the MoNet passes (``gaussian_terms``),
@@ -22,6 +23,7 @@ __all__ = [
     "NEG_INF",
     "combine_lse",
     "combine_sum",
+    "edge_keep",
     "gather_type",
     "gaussian_terms",
     "is_empty_m",
@@ -93,6 +95,28 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     x = _mul32(x, 0xC2B2AE35)
     x = x ^ (x >> 16)
     return x
+
+
+def edge_keep(seed: int, edge: torch.Tensor, num_heads: int,
+              p: float) -> torch.Tensor:
+    """Deterministic per-(edge, head) inverted-dropout keep mask.
+
+    ``edge`` is an integer edge-id tensor (read as uint32), ``seed`` a
+    uint32 Python int.  The result has shape edge.shape + (num_heads,) with
+    values in {0, float32(1/(1-p))}; a slot is kept iff u > p, with
+
+      u = (mix32((edge * H + h) ^ seed * 0x9E3779B9) >> 8) * 2^-24
+
+    all in uint32 arithmetic, bit-identical to
+    ``dgnn_tpu.ops.common.edge_keep``.
+    """
+    e = edge.to(torch.int64) & _M32
+    h = torch.arange(num_heads, device=e.device, dtype=torch.int64)
+    z = (e[..., None] * num_heads + h) & _M32
+    z = _mix32(z ^ (((int(seed) & _M32) * 0x9E3779B9) & _M32))
+    # z >> 8 < 2^24: exact in float32, as the JAX cast is
+    u = (z >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return torch.where(u > p, 1.0 / (1.0 - p), 0.0).to(torch.float32)
 
 
 def pair_keep(seed: int, dst: torch.Tensor, src: torch.Tensor,

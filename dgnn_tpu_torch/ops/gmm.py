@@ -58,7 +58,8 @@ slot's raw pseudo (Linear + optional tanh), forms the K Gaussian weights
 and sums w_k x[nbr]; the backward is one walk over the CSC bins that gives
 dX and every parameter gradient (mu, inv_sigma, the projection) as sums
 over the pass, as ``_gmm2_backward`` does.  Flat pseudo-coordinates: the
-Gaussian weights of every edge, an SpMM over the forward bins; its
+Gaussian weights of every edge, an SpMM over the forward bins
+(ops/primitives.py's ``spmm`` Function); its
 backward is the same SpMM over the backward bins for dX and a per-edge
 SDDMM reordered through the bins' ``epos`` table for the weights, through
 which autograd gives d pseudo, d mu and d inv_sigma.
@@ -75,6 +76,7 @@ from .bins import _cat_rows, bin_gmm_node_bwd_list, bin_gmm_node_fwd_list
 from .common import (combine_sum, gather_type, gaussian_terms, lane_mask,
                      rounded)
 from .dense import DENSE_DTYPES, dense_gmm_bwd, dense_gmm_fwd
+from .primitives import _SpMM
 
 __all__ = ["NodePseudo", "gaussian_weights", "gmm_aggregate_node",
            "gmm_aggregate_binned", "gmm_aggregate", "bin_edge_data",
@@ -393,51 +395,6 @@ def gmm_aggregate_binned(graph: Graph, feat, pseudo_bins, mu, inv_sigma, *,
 # ---------------------------------------------------------------------------
 
 
-def _spmm_bins(adj: BinnedAdj, w_flat, feat):
-    """out[row, k] = sum over the row's slots of w_flat[edge, k] *
-    feat[nbr, k], merged per row."""
-    accs = []
-    for w_, nbr, edge, _row, count in adj.bins():
-        mask = lane_mask(count, w_)[..., None]
-        w = torch.where(mask, w_flat[edge.long()], 0.0)   # [S, W, K]
-        accs.append(torch.einsum("swk,swkf->skf", w, feat[nbr.long()]))
-    return combine_sum(adj.cmb, _cat_rows(accs, feat.shape[1:], feat))
-
-
-def _sddmm_bins(adj: BinnedAdj, g_out, feat):
-    """grad_w[e, k] = <g_out[row(e), k], feat[col(e), k]> in CSR edge order:
-    per slot in the bins' concatenated slot order, reordered through the
-    inverse slot table ``adj.epos``."""
-    parts = []
-    for w_, nbr, _e, row, count in adj.bins():
-        mask = lane_mask(count, w_)[..., None]
-        gw = torch.einsum("skf,swkf->swk", g_out[row.long()],
-                          feat[nbr.long()])
-        parts.append(torch.where(mask, gw, 0.0).reshape(-1, gw.shape[-1]))
-    return torch.cat(parts)[adj.epos.long()]
-
-
-class _SpMMBins(torch.autograd.Function):
-    """out = SpMM(w_flat, feat) over the forward bins; the backward's dX is
-    the same SpMM over the backward bins (whose edge tables hold CSR edge
-    ids) and its d w_flat a per-edge SDDMM."""
-
-    @staticmethod
-    def forward(ctx, w_flat, feat, graph):
-        ctx.save_for_backward(w_flat, feat)
-        ctx.graph = graph
-        return _spmm_bins(graph.fwd, w_flat, feat)
-
-    @staticmethod
-    def backward(ctx, g_out):
-        w_flat, feat = ctx.saved_tensors
-        g = g_out.float().contiguous()
-        need = ctx.needs_input_grad
-        d_w = _sddmm_bins(ctx.graph.fwd, g, feat) if need[0] else None
-        d_feat = _spmm_bins(ctx.graph.bwd, w_flat, g) if need[1] else None
-        return d_w, d_feat, None
-
-
 def gmm_aggregate(graph: Graph, feat, pseudo, mu, inv_sigma):
     """Fused MoNet aggregation over flat pseudo-coordinates (differentiable
     in pseudo, mu and inv_sigma).
@@ -458,4 +415,4 @@ def gmm_aggregate(graph: Graph, feat, pseudo, mu, inv_sigma):
     if graph.fwd.cmb is None or graph.bwd.cmb is None:
         raise ValueError("gmm_aggregate needs the graph's combine tables")
     w_flat = gaussian_weights(pseudo, mu, inv_sigma)
-    return _SpMMBins.apply(w_flat, feat.float().contiguous(), graph)
+    return _SpMM.apply(w_flat, feat.float().contiguous(), graph)

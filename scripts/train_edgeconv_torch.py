@@ -23,8 +23,13 @@ and per epoch, inference seconds per pass over the test batches, peak
 device memory and test accuracy, and appends one CSV row named
 ``train_edgeconv_dgnn_tpu_torch`` (train seconds per epoch).
 
-``--save-model-path`` / ``--load-model-path`` are not ported yet and
-raise.
+``--load-model-path DIR`` restores the newest checkpoint in DIR (the
+model's parameters and its BatchNorm statistics, as the JAX CLI restores
+``params`` and ``batch_stats``) before training, and ``--save-model-path
+DIR`` saves them after training under the step ``--num-epochs``
+(utils/checkpoint.py), as scripts/train_edgeconv.py does.  With both
+flags, both read and write the save path, as the JAX CLI does; a
+directory with no checkpoint restores nothing.
 
     python scripts/train_edgeconv_torch.py --num-epochs 2
 """
@@ -40,9 +45,10 @@ import torch
 
 from dgnn_tpu_torch.data import load_modelnet
 from dgnn_tpu_torch.models import DGCNN
-from dgnn_tpu_torch.utils import (append_csv_row, make_sgd_cosine,
-                                  peak_memory_mb, reset_peak_memory,
-                                  smoothed_loss, time_calls)
+from dgnn_tpu_torch.utils import (CheckpointManager, append_csv_row,
+                                  make_sgd_cosine, peak_memory_mb,
+                                  reset_peak_memory, smoothed_loss,
+                                  time_calls)
 
 WARMUP_STEPS = 3
 
@@ -54,6 +60,24 @@ def augment(x, generator):
     s = torch.rand(shape, generator=generator, device=x.device)
     t = torch.rand(shape, generator=generator, device=x.device)
     return x * (2 / 3 + s * (3 / 2 - 2 / 3)) + (t * 0.4 - 0.2)
+
+
+def checkpoint_manager(args):
+    """The CLI's CheckpointManager (the save path, else the load path), or
+    None without either flag."""
+    path = args.save_model_path or args.load_model_path
+    return CheckpointManager(os.path.abspath(path)) if path else None
+
+
+def restore_checkpoint(ckpt, model):
+    """Load the newest checkpoint's parameters and BatchNorm statistics
+    into ``model``; returns its step, or None if there is none."""
+    restored = ckpt.restore_latest(model.state_dict())
+    if restored is None:
+        return None
+    step, state = restored
+    model.load_state_dict(state)
+    return step
 
 
 def train_step(model, opt, sched, x, y, generator):
@@ -70,10 +94,6 @@ def train_step(model, opt, sched, x, y, generator):
 def run(args) -> dict:
     """Train and evaluate as the CLI does; returns what it printed plus the
     trained model and the clouds on the device."""
-    if args.save_model_path or args.load_model_path:
-        raise NotImplementedError(
-            "--save-model-path / --load-model-path: checkpoints are not "
-            "ported to dgnn_tpu_torch yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device")
@@ -102,6 +122,12 @@ def run(args) -> dict:
                   schedule=args.schedule,
                   generator=torch.Generator().manual_seed(args.seed)
                   ).to(device)
+    ckpt = checkpoint_manager(args)
+    restored_step = None
+    if args.load_model_path and ckpt is not None:
+        restored_step = restore_checkpoint(ckpt, model)
+        if restored_step is not None:
+            print(f"restored checkpoint at step {restored_step}")
     opt, sched = make_sgd_cosine(model, total_steps)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
@@ -154,6 +180,10 @@ def run(args) -> dict:
     print(f"max memory:{max_mb:.0f}MB")
     print("train time:", train_s, f"({step_s} s/step)")
     print("inference time:", infer_s)
+    if args.save_model_path and ckpt is not None:
+        ckpt.save(args.num_epochs, model.state_dict(), force=True)
+        ckpt.wait()
+        print(f"saved checkpoint to {args.save_model_path}")
     if args.output is not None:
         append_csv_row(args.output, "train_edgeconv_dgnn_tpu_torch",
                        f"{args.batch_size} {args.k}", train_s, infer_s,
@@ -163,6 +193,7 @@ def run(args) -> dict:
                 train_steps=total_steps,
                 eval_batches=n_eval * (1 + infer_passes),
                 last_lr=opt.param_groups[0]["lr"], model=model,
+                restored_step=restored_step, n_classes=n_classes,
                 x_train=xtr_d, y_train=ytr_d, x_test=xte_d, y_test=yte_d)
 
 

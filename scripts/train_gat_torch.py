@@ -6,7 +6,15 @@ Same flags and defaults as scripts/train_gat.py, plus ``--device`` (default
 optimizer (Adam with coupled L2 weight decay, which is what
 ``optax.add_decayed_weights`` + ``optax.adam`` compute).  Prints train and
 inference seconds per epoch, peak device memory and test accuracy, and
-appends one CSV row named ``train_GAT_dgnn_tpu_torch_fused``.
+appends one CSV row named ``train_GAT_dgnn_tpu_torch_<impl>``.
+
+``--impl naive`` runs the DGL-style baseline (ops/naive.py: per-edge
+scores and messages materialised, segment sums over the raw CSR) in
+place of the fused op, as the JAX CLI's ``--impl naive`` does; the graph
+then keeps its raw CSR on the device, which the fused path drops
+(``graph.slim()``).  On a multigraph with a hub block (synthetic cora and
+citeseer) the two compute different functions: the block counts a
+duplicate edge once, the baseline every copy.
 
 Training runs exactly ``--n-epochs`` steps; the steps after the first few
 (warmup) are timed with CUDA events on a CUDA device.  The graph is built
@@ -67,9 +75,6 @@ def train_step(model, opt, graph, feats, labels, train_mask, generator,
 def run(args) -> dict:
     """Train and evaluate as the CLI does; returns what it printed plus the
     trained model and its inputs."""
-    if args.impl != "fused":
-        raise NotImplementedError(f"--impl {args.impl}: the DGL-style naive "
-                                  "baseline is not ported to dgnn_tpu_torch")
     if args.n_epochs <= WARMUP_STEPS:
         raise ValueError(f"--n-epochs must exceed the {WARMUP_STEPS} warmup "
                          "steps")
@@ -88,7 +93,9 @@ def run(args) -> dict:
         graph = build_graph(data.src, data.dst, data.num_nodes, dense="auto",
                             edge_tables=False)
         setup_s = {}
-    graph = graph.slim().to(device)
+    if args.impl == "fused":  # the naive baseline reads the raw CSR
+        graph = graph.slim()
+    graph = graph.to(device)
     feats = torch.from_numpy(data.features).to(device)
     labels = torch.from_numpy(data.labels).long().to(device)
     train_mask = torch.from_numpy(data.train_mask).to(device)
@@ -97,7 +104,7 @@ def run(args) -> dict:
     heads = [args.n_heads] * args.n_layers + [1]
     model = GAT(feats.shape[1], args.n_layers, args.n_hidden, data.n_classes,
                 heads, feat_drop=args.dropout, attn_drop=args.attn_drop,
-                negative_slope=args.negative_slope,
+                negative_slope=args.negative_slope, impl=args.impl,
                 gather_dtype=args.gather_dtype,
                 generator=torch.Generator().manual_seed(args.seed)).to(device)
     opt = make_optimizer(model, args.lr, args.weight_decay)
@@ -147,6 +154,7 @@ def run(args) -> dict:
                        f"hidden_dim={args.n_hidden}",
                        train_s, infer_s, max_mb, acc)
     return dict(losses=losses, train_s=train_s, infer_s=infer_s,
+                impl=args.impl,
                 peak_mb=max_mb, test_acc=acc, train_acc=train_acc,
                 train_steps=args.n_epochs,
                 infer_calls=args.n_epochs + WARMUP_STEPS + 1,
@@ -173,8 +181,7 @@ def parser():
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--impl", type=str, default="fused",
                    choices=["fused", "naive"],
-                   help="fused binned kernels vs DGL-style baseline "
-                        "(naive is not ported yet)")
+                   help="fused binned kernels vs DGL-style baseline")
     p.add_argument("--gather-dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="storage of the gathered feature rows")

@@ -871,11 +871,20 @@ def test_trainer_runs_on_cpu(tmp_path):
     assert abs(r["last_lr"] - cosine_lr(8, 8)) < 1e-12
 
 
-def test_trainer_refuses_checkpoint_flags():
+def test_trainer_refuses_checkpoint_flags(tmp_path):
+    """The checkpoint flags work (tests/test_torch_checkpoint.py); a
+    checkpoint that does not fit the model is refused before training."""
+    from dgnn_tpu_torch.utils import CheckpointManager
+
     trainer = _load_trainer()
+    CheckpointManager(str(tmp_path)).save(1, {"w": torch.zeros(3)})
     for flag in ("--save-model-path", "--load-model-path"):
-        args = trainer.parser().parse_args(["--device", "cpu", flag, "x"])
-        with pytest.raises(NotImplementedError):
+        args = trainer.parser().parse_args(
+            ["--device", "cpu", "--num-epochs", "2", "--batch-size", "4",
+             "--k", "4", "--num-points", "16", "--train-samples", "16",
+             "--test-samples", "8", "--load-model-path", str(tmp_path)]
+            + ([flag, str(tmp_path)] if flag == "--save-model-path" else []))
+        with pytest.raises(ValueError, match="keys"):
             trainer.run(args)
 
 

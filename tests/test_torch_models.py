@@ -191,18 +191,21 @@ def test_trainers_agree_for_five_adam_steps(rng):
 
 
 def test_trainer_cli_refusals(capsys):
-    """The naive baseline is refused; cora (a hub block in both directions,
-    the CLI's default dataset) trains on the CPU's plain versions."""
+    """Cora (a hub block in both directions, the CLI's default dataset)
+    trains on the CPU's plain versions, on a slim graph; no more steps than
+    the warmup is refused.  (--impl naive runs: tests/test_torch_naive.py.)"""
     trainer = _trainer()
     args = trainer.parser().parse_args(["--device", "cpu", "--n-epochs", "5",
                                         "--attn-drop", "0.3"])
     r = trainer.run(args)
     assert r["graph"].fwd.dense is not None
     assert r["graph"].bwd.dense is not None
+    assert r["graph"].row_ptr.numel() == 0  # the fused op needs no raw CSR
     assert len(r["losses"]) == 5 and np.isfinite(r["losses"]).all()
     assert "Test Accuracy" in capsys.readouterr().out
-    args = trainer.parser().parse_args(["--device", "cpu", "--impl", "naive"])
-    with pytest.raises(NotImplementedError, match="naive"):
+    args = trainer.parser().parse_args(["--device", "cpu", "--impl", "naive",
+                                        "--n-epochs", "3"])
+    with pytest.raises(ValueError, match="warmup"):
         trainer.run(args)
 
 
@@ -247,6 +250,9 @@ def test_port_imports_no_jax():
               ROOT / "scripts" / "dense_variants_torch.py",
               ROOT / "scripts" / "gather_variants_torch.py",
               ROOT / "scripts" / "microbench_gather_torch.py",
+              ROOT / "scripts" / "record_results_torch.py",
+              ROOT / "scripts" / "train_edgeconv_torch.py",
+              ROOT / "scripts" / "exp_ec_tiles_torch.py",
               ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:
