@@ -140,7 +140,39 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                320 clouds saves after training; the trainer's restore into a
                model of another seed gives the run's eval logits exactly,
                and a second run with --load-model-path restores the step.
-  7. times   - each kernel and its plain version, CUDA events, in turns:
+  7. sharded - the sharded path (dgnn_tpu_torch/parallel), SHARD_P = 4
+               ranks sharing the card (parallel.run_ranks: spawned
+               processes in one gloo group; the exchange route printed).
+               Every comparison deduplicates its edge list first (a hub
+               block counts a repeated edge once, the bins every copy).
+               Synthetic pubmed (dense="auto") and cora (a forced
+               CORA_SHARD_FORCED block a shard and direction) in 4 shards,
+               and reddit's R-MAT graph at SHARD_REDDIT_SCALE
+               (dense="auto"); on shard 1 the GAT kernels given the
+               shard's table of global ids (the "_gid" instances of K1,
+               K2, K5, K6) against their plain versions, p 0.3, at each
+               graph's layer widths (reddit's those of its training run
+               below; sum_tol / BLOCK_TOL, both dense dtypes), and timed
+               with and without the table beside their bounds.  Then
+               ShardedGAT (hidden 64, heads (4, 1), attn_drop 0.3 with the
+               single-device model's seeds, feat_drop 0) on pubmed and on
+               cora's forced blocks, ShardedMoNet (hidden 64, K 3, dim 2)
+               with node pseudo on cora's forced blocks and binned pseudo
+               on pubmed, each against the single-device port model on
+               the card with the same weights (dense_dtype float32):
+               output (SHARD_FWD_TOL) and every parameter gradient
+               (SHARD_GRAD_TOL) of the masked cross entropy, on every
+               rank, and each rank's launches in that pass exactly those
+               its layout implies (the binned-pseudo MoNet none).  Then 23
+               steps (3 of them warmup) of sharded GAT at the bench width
+               (feat_drop 0.5, attn_drop 0.3, Adam 1e-3) through
+               parallel.trainer on pubmed and on the reddit cut: the loss
+               finite and falling, each rank's launches exactly the gid
+               instances' (one list call a direction and layer, the hub
+               kernels where the shard has a block; nothing else).  Prints
+               ms a step at P = 1, 2, 4 (pubmed), the halo rows and bytes
+               an exchange, the route and the peak MB a rank.
+  8. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at both layers' widths
                ((H, F) = (4, 64) and (1, 7), p 0.3; (K, F) = (3, 64) and
@@ -216,6 +248,7 @@ GAT_BWD_KEYS = ("g", "ar", "M", "Linv", "ws", "ac", "feat")
 SEED = 0x9E3779B9  # a uint32 dropout seed above the int32 range
 SHAPES = ((4, 64), (1, 3))  # (H, F) of pubmed's hidden and output layers
 DENSE_SHAPES = ((4, 64), (1, 7))  # (H, F) of cora's hidden and output layers
+REDDIT_SHAPES = ((4, 64), (1, 41))  # (H, F) of reddit's GAT layers
 DENSE_DTYPES = ("float32", "bfloat16")
 PUBMED_FORCED = (1000, 5000)  # a forced pubmed block: 4 x 3 tiles
 PL_FORCED = (512, 3000)  # a forced block of hub_graph: 2 x 2 tiles
@@ -257,6 +290,23 @@ EC_MASK_FLIPS = 1e-4
 # script, fits the script's time limit), and its training steps.
 REDDIT_SCALE = 1.0
 REDDIT_STEPS = 5
+# The sharded phase: ranks sharing the card, the reddit cut it trains at,
+# cora's forced per-shard block (R, C), training steps (after the warmup
+# ones; fewer for the P = 1, 2 timings).
+SHARD_P = 4
+SHARD_REDDIT_SCALE = 0.05
+CORA_SHARD_FORCED = (256, 2048)
+SHARD_STEPS = 20
+SHARD_WARMUP = 3
+SHARD_SCALING_STEPS = 10
+# Sharded against single-device on the card, both float32: the same sums in
+# another order (the shards' partials merge through other combine tables,
+# and the dense projections run on other matrix shapes), so an element's
+# error scales with the terms it sums, not with itself: atol is a share of
+# the tensor's largest element (the H100 read 2.9e-5 on one MoNet cora
+# output element, 5.7e-3 of that element).
+SHARD_FWD_TOL = dict(rtol=1e-4, atol_scale=1e-5)
+SHARD_GRAD_TOL = dict(rtol=1e-3, atol_scale=1e-4)
 # gather_rows_sum is also timed on a table of this many rows (16.8 MB at the
 # study's 4 KB rows), which stays in the H100's 50 MB L2 whole.
 L2_ROWS = 4096
@@ -317,6 +367,9 @@ KERNELS = {
                          source="dgnn_tpu_torch/csrc/gather.cu",
                          replaces="scripts/microbench_gather.py:148"),
 }
+# the GAT kernels given a shard's table of global ids (the sharded path)
+for _k in ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd"):
+    KERNELS[_k + "_gid"] = dict(KERNELS[_k])
 # Float32 operations per edge that each function needs, by (C, G) = (feature
 # columns, heads or Gaussian kernels): a multiply-add per column and
 # weighted sum, plus the edge's score or Gaussian weights (a dozen
@@ -344,6 +397,9 @@ for _k in ("fwd", "bwd"):
 for _k in ("bin_gat_fwd", "bin_gat_bwd", "bin_gmm_node_fwd",
            "bin_gmm_node_bwd"):
     FLOPS_PER_EDGE[_k + "_bf16"] = FLOPS_PER_EDGE[_k]
+# and the gid instances those of the kernels without the table
+for _k in ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd"):
+    FLOPS_PER_EDGE[_k + "_gid"] = FLOPS_PER_EDGE[_k]
 
 
 def phase(name, msg):
@@ -1236,7 +1292,7 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
     argv = {"gat": trainers["gat"].BENCH_ARGV + ["--gather-dtype",
                                                  "bfloat16"],
             "gmm": trainers["gmm"].BENCH_ARGV + ["--n-kernels", "2"]}
-    shapes = {"gat": ((4, 64), (1, 41)), "gmm": ((2, 64), (2, 41))}
+    shapes = {"gat": REDDIT_SHAPES, "gmm": ((2, 64), (2, 41))}
     titles = dict(titles, gmm="MoNet hidden 64 kernels 2 dim 2 dropout 0.5 "
                   "lr 1e-2")
     for kind in ("gat", "gmm"):
@@ -1504,6 +1560,514 @@ def check_checkpoint(trainer, dev, tmp):
             f"clouds equal ({tuple(got.shape)}); a second run restored step "
             f"{r2['restored_step']} and trained {r2['train_steps']} steps, "
             f"loss {r2['losses'][0]:.4f} -> {r2['losses'][-1]:.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase "sharded": the sharded path (dgnn_tpu_torch/parallel), SHARD_P ranks
+# sharing the one card
+# ---------------------------------------------------------------------------
+
+
+def dedup_edges(src, dst, n):
+    """The edge list without repeated (src, dst) pairs.  Every comparison
+    of the sharded path with the single-device one builds both from it: a
+    hub block counts a repeated edge once and the bins every copy (ROADMAP
+    C5), and the shards' block plans differ from the single-device plan."""
+    key = np.unique(np.asarray(src, np.int64) * n + np.asarray(dst))
+    return key // n, key % n
+
+
+def shard_tables(gat_forward, view, h, f, rng):
+    """``tables`` on one shard: destinations are its C rows, sources its C +
+    P*Hmax extended rows; M, 1 / L and ws from the shard's forward (plain
+    versions, float32).  CPU tensors."""
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.normal(size=shape) * scale).astype(np.float32))
+
+    c, ext = view.nodes_per_shard, view.ext_size
+    tb = dict(feat=t(ext, h, f), ac=t(ext, h), ar=t(c, h),
+              g=t(c, h, f, scale=G_SCALE))
+    out, M, L, _, _ = gat_forward(view.fwd, tb["ar"], tb["ac"], tb["feat"],
+                                  SLOPE, 0.0, 0, "float32", with_pos=False)
+    tb["M"] = M
+    tb["Linv"] = 1.0 / torch.clamp(L, min=1e-20)
+    tb["ws"] = (tb["g"] * out).sum(dim=-1)
+    return tb
+
+
+def gid_jobs(bins, dense, view, tb):
+    """The four gid kernels' calls over one shard as the sharded op makes
+    them (p 0.3, every bin of a direction in one call, the hub block in
+    float32): {name: (kernel call, the same call without gid, plain call,
+    inputs for ``bound``, edges)}; each call returns a list of results."""
+    gid = view.ext_gids
+    fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
+    bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
+    la = (tb["feat"], tb["ac"], tb["ar"], view.fwd.segs())
+    lb = (*(tb[k] for k in GAT_BWD_KEYS), view.bwd.segs())
+    jobs = {
+        "bin_gat_fwd_gid": (
+            lambda: [bins.bin_gat_fwd_list(*la, **fkw, gid=gid)],
+            lambda: [bins.bin_gat_fwd_list(*la, **fkw)],
+            lambda: [bins.bin_gat_fwd_list_plain(*la, **fkw, gid=gid)],
+            [*la[:3], *flat(la[3]), gid], edges_of(view.fwd)),
+        "bin_gat_bwd_gid": (
+            lambda: [bins.bin_gat_bwd_list(*lb, **bkw, gid=gid)],
+            lambda: [bins.bin_gat_bwd_list(*lb, **bkw)],
+            lambda: [bins.bin_gat_bwd_list_plain(*lb, **bkw, gid=gid)],
+            [*lb[:7], *flat(lb[7]), gid], edges_of(view.bwd))}
+    if view.fwd.dense is not None:
+        fa = (view.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
+        ba = (view.bwd.dense, *(tb[k] for k in GAT_BWD_KEYS))
+        dfkw, dbkw = (dict(kw, dense_dtype="float32") for kw in (fkw, bkw))
+        jobs["dense_gat_fwd_gid"] = (
+            lambda: [dense.dense_gat_fwd(*fa, **dfkw, gid=gid)],
+            lambda: [dense.dense_gat_fwd(*fa, **dfkw)],
+            lambda: [dense.dense_gat_fwd_plain(*fa, **dfkw, gid=gid)],
+            block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]], [gid]),
+            block_edges(fa[0]))
+        jobs["dense_gat_bwd_gid"] = (
+            lambda: [dense.dense_gat_bwd(*ba, **dbkw, gid=gid)],
+            lambda: [dense.dense_gat_bwd(*ba, **dbkw)],
+            lambda: [dense.dense_gat_bwd_plain(*ba, **dbkw, gid=gid)],
+            block_inputs(ba[0], [tb["ac"], tb["feat"]],
+                         [tb[k] for k in GAT_BWD_KEYS[:5]], [gid]),
+            block_edges(ba[0]))
+    return jobs
+
+
+def check_gid_kernels(bins, dense, view, tb, err):
+    """The gid kernels against their plain versions on one shard, p 0.3:
+    the bin kernels' list calls with and without the sign-split partials
+    (sum_tol), the hub-block kernels in both dense dtypes (BLOCK_TOL, bf16
+    flips as check_dense).  Returns the number of comparisons."""
+    gid = view.ext_gids
+    n_cmp = 0
+    la = (tb["feat"], tb["ac"], tb["ar"], view.fwd.segs())
+    for with_pos in (True, False):
+        kw = dict(slope=SLOPE, with_pos=with_pos, p=0.3, seed=SEED, gid=gid)
+        for g, w in zip(bins.bin_gat_fwd_list(*la, **kw),
+                        bins.bin_gat_fwd_list_plain(*la, **kw)):
+            if w is None:
+                assert g is None
+                continue
+            torch.testing.assert_close(g, w, **sum_tol(view.fwd, FWD_TOL))
+            err["bin_gat_fwd_gid"] = max(err["bin_gat_fwd_gid"],
+                                         float((g - w).abs().max()))
+        n_cmp += 1
+    lb = (*(tb[k] for k in GAT_BWD_KEYS), view.bwd.segs())
+    kw = dict(slope=SLOPE, p=0.3, seed=SEED, gid=gid)
+    for g, w in zip(bins.bin_gat_bwd_list(*lb, **kw),
+                    bins.bin_gat_bwd_list_plain(*lb, **kw)):
+        torch.testing.assert_close(g, w, **sum_tol(view.bwd, BWD_TOL))
+        err["bin_gat_bwd_gid"] = max(err["bin_gat_bwd_gid"],
+                                     float((g - w).abs().max()))
+    n_cmp += 1
+    if view.fwd.dense is None:
+        return n_cmp
+    for dt in DENSE_DTYPES:
+        for with_pos in (True, False):
+            kw = dict(slope=SLOPE, with_pos=with_pos, p=0.3, seed=SEED,
+                      dense_dtype=dt, gid=gid)
+            args = (view.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
+            for g, w in zip(dense.dense_gat_fwd(*args, **kw),
+                            dense.dense_gat_fwd_plain(*args, **kw)):
+                if w is None:
+                    continue
+                e, _ = assert_close(g, w, BLOCK_TOL, dt, f"fwd gid {dt}: ")
+                err["dense_gat_fwd_gid"] = max(err["dense_gat_fwd_gid"], e)
+            n_cmp += 1
+        kw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype=dt, gid=gid)
+        args = (view.bwd.dense, *(tb[k] for k in GAT_BWD_KEYS))
+        for g, w in zip(dense.dense_gat_bwd(*args, **kw),
+                        dense.dense_gat_bwd_plain(*args, **kw)):
+            e, _ = assert_close(g, w, BLOCK_TOL, dt, f"bwd gid {dt}: ")
+            err["dense_gat_bwd_gid"] = max(err["dense_gat_bwd_gid"], e)
+        n_cmp += 1
+    torch.cuda.synchronize()
+    return n_cmp
+
+
+def sharded_rank(rank, world, specs, jobs):
+    """One rank of the phase's P-rank run: each comparison spec (the
+    sharded model on this shard: its rows' output, the summed parameter
+    gradients of its share of the loss, and the launches it made, every
+    count set to 0 just before), then each training job
+    (parallel.trainer.train_gat_rank)."""
+    from dgnn_tpu_torch.parallel.trainer import (shard_loss, spec_grads,
+                                                 train_gat_rank)
+
+    dev = torch.device("cuda", 0)
+    compared = {}
+    for name, s in specs.items():
+        n_train = float(s["train_mask"].sum())
+
+        def loss(out, rows, s=s, n_train=n_train):
+            return shard_loss(out, rows(s["labels"].astype(np.int64)),
+                              rows(s["train_mask"]), n_train)
+
+        reset_all_launches()
+        out, grads = spec_grads(s, rank, loss, dev)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in all_launches().items() if v}
+        compared[name] = (out.cpu().numpy(),
+                          {k: g.cpu() for k, g in grads.items()}, launches)
+    trained = [train_gat_rank(rank, world, job) for job in jobs]
+    return compared, trained, collective_ms(jobs[0], rank, dev)
+
+
+def collective_ms(job, rank, dev):
+    """ms a call of the training step's collectives alone, on this rank,
+    after the run: one halo exchange of ``job``'s hidden-layer payload
+    (features ++ attn_col, [C, H*F + H] float32) and one all-reduce of the
+    model's gradients (every parameter, float32)."""
+    import torch.distributed as dist
+
+    from dgnn_tpu_torch.parallel import ShardedGAT, halo_exchange, shard_view
+    from dgnn_tpu_torch.utils import time_calls
+
+    view = shard_view(job.shards, rank, dev)
+    width = job.heads[0] * job.n_hidden
+    payload = torch.randn(view.nodes_per_shard, width + job.heads[0],
+                          device=dev)
+    n_params = sum(p.numel() for p in ShardedGAT(
+        job.features.shape[1], len(job.heads) - 1, job.n_hidden,
+        job.n_classes, job.heads).parameters())
+    grads = torch.randn(n_params, device=dev)
+    return dict(
+        exchange_ms=time_calls(lambda: halo_exchange(payload, view.send_ids),
+                               dev, iters=10, warmup=2) * 1e3,
+        allreduce_ms=time_calls(lambda: dist.all_reduce(grads), dev,
+                                iters=10, warmup=2) * 1e3,
+        params=n_params)
+
+
+def compare_spec(kind, shards, graph, data, state_model, dev, *, seeds=None,
+                 pseudo=None, pseudo_args=()):
+    """One comparison: the single-device port model ``state_model`` on the
+    card (forward and every parameter gradient of the masked cross entropy
+    over the training rows), and the spec the ranks run with its weights."""
+    feats = torch.from_numpy(data["features"]).to(dev)
+    labels = torch.from_numpy(data["labels"].astype(np.int64)).to(dev)
+    mask = torch.from_numpy(data["train_mask"]).to(dev)
+    from dgnn_tpu_torch.parallel.trainer import shard_loss
+
+    model = state_model.to(dev).train(seeds is not None)
+    kw = {} if seeds is None else dict(attn_seeds=seeds)
+    out = model(graph, feats, *pseudo_args, **kw)
+    shard_loss(out, labels, mask, float(data["train_mask"].sum())).backward()
+    want = (out.detach().cpu().numpy(),
+            {k: p.grad.cpu() for k, p in model.named_parameters()})
+    spec = dict(model=kind, shards=shards, training=seeds is not None,
+                seeds=seeds,
+                state={k: v.cpu() for k, v in model.state_dict().items()},
+                features=data["features"], labels=data["labels"],
+                train_mask=data["train_mask"], pseudo=pseudo, **data["extra"])
+    return spec, want
+
+
+def check_compared(name, want, got_ranks, n):
+    """The ranks' rows of the output (concatenated, the real n) and every
+    rank's summed gradients against the single-device run on the card."""
+    out = np.concatenate([r[name][0] for r in got_ranks])[:n]
+    scale = float(np.abs(want[0]).max())
+    torch.testing.assert_close(
+        torch.from_numpy(out), torch.from_numpy(want[0]),
+        rtol=SHARD_FWD_TOL["rtol"], atol=SHARD_FWD_TOL["atol_scale"] * scale,
+        msg=lambda m: f"{name} output (largest |element| {scale:.4g}): {m}")
+    worst = float(np.abs(out - want[0]).max())
+    g0 = got_ranks[0][name][1]
+    assert set(g0) == set(want[1]), (name, sorted(g0), sorted(want[1]))
+    for k, w in want[1].items():
+        tol = dict(rtol=SHARD_GRAD_TOL["rtol"],
+                   atol=SHARD_GRAD_TOL["atol_scale"] * float(w.abs().max()))
+        torch.testing.assert_close(g0[k], w, **tol,
+                                   msg=lambda m: f"{name} d {k}: {m}")
+        for r in got_ranks[1:]:
+            assert torch.equal(r[name][1][k], g0[k]), (name, k)
+    return worst
+
+
+def train_line(results, shards):
+    """ms a step (the slowest rank), halo plan, exchange bytes and route,
+    peak MB a rank, the loss (the ranks' shares summed) of one run."""
+    ex = results[0]["exchanges"]
+    loss = [sum(v) for v in zip(*(r["losses"] for r in results))]
+    return dict(
+        ms=max(r["step_s"] for r in results) * 1e3, loss=loss,
+        halo_rows=int(shards.halo_counts.sum()), halo_max=shards.halo_max,
+        bytes_per_exchange=ex["bytes"] // max(ex["exchanges"], 1),
+        exchanges=ex["exchanges"], route=ex["route"],
+        peak_mb=max(r["peak_mb"] for r in results))
+
+
+def expected_shard_launches(bins, shards, kind, calls, gid):
+    """Launches each rank makes in ``calls`` layer passes (forward and
+    backward) of a ``kind`` model ("gat" or "gmm", PATH_KERNELS) over its
+    shard: one list call per direction, and one hub-block call where the
+    shard has a block; the GAT's under their gid names when attention
+    dropout is on (``gid``)."""
+    from dgnn_tpu_torch.parallel import shard_view
+
+    names = [k + "_gid" if gid else k for k in PATH_KERNELS[kind]]
+    out = []
+    for v in (shard_view(shards, p) for p in range(shards.num_shards)):
+        want = {names[0]: calls * list_launches(bins, v.fwd),
+                names[1]: calls * list_launches(bins, v.bwd),
+                names[2]: calls * (v.fwd.dense is not None),
+                names[3]: calls * (v.bwd.dense is not None)}
+        out.append({k: n for k, n in want.items() if n})
+    return out
+
+
+def reddit_cut(scale, n_feats_classes):
+    """The reddit R-MAT graph at ``scale`` of its size, deduplicated, and
+    its task (data/reddit.py's: structure_task_from_csr)."""
+    from dgnn_tpu_torch.data.reddit import reddit_size
+    from dgnn_tpu_torch.data.synthetic import (rmat_edges,
+                                               structure_task_from_csr)
+    from dgnn_tpu_torch.graph import build as gbuild
+
+    n, e = reddit_size(scale)
+    src, dst = dedup_edges(*rmat_edges(n, e, seed=0), n)
+    s2, d2 = gbuild.add_self_loops(*gbuild.remove_self_loops(src, dst), n)
+    row_ptr, col_ind = gbuild.coo_to_csr(s2, d2, n)
+    n_feats, n_classes = n_feats_classes
+    feats, labels, tr, _va, _te = structure_task_from_csr(
+        row_ptr, col_ind, n_classes, n_feats, seed=0)
+    return dict(src=src, dst=dst, n=n, features=feats, labels=labels,
+                train_mask=tr, n_classes=n_classes)
+
+
+def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
+                time_calls, graph_ms):
+    """The sharded phase.  Returns (launches of the P-rank training runs,
+    summed over ranks and runs; the gid kernels' times)."""
+    from dgnn_tpu_torch.data import synthetic_citation
+    from dgnn_tpu_torch.data.synthetic import CITATION_SHAPES
+    from dgnn_tpu_torch.models import GAT, MoNet
+    from dgnn_tpu_torch.ops.gmm import NodePseudo, bin_pseudo
+    from dgnn_tpu_torch.parallel import (partition_graph, run_ranks,
+                                         shard_view)
+    from dgnn_tpu_torch.parallel.trainer import GATJob, train_gat_rank
+
+    t_phase = time.perf_counter()
+    srng = np.random.default_rng(11)  # the phase's own draws
+    data, shards = {}, {}
+    for name, forced in (("pubmed", "auto"), ("cora", CORA_SHARD_FORCED)):
+        d = synthetic_citation(name)
+        src, dst = dedup_edges(d.src, d.dst, d.num_nodes)
+        data[name] = dict(src=src, dst=dst, n=d.num_nodes,
+                          features=d.features, labels=d.labels,
+                          train_mask=d.train_mask, n_classes=d.n_classes)
+        t0 = time.perf_counter()
+        shards[name] = partition_graph(src, dst, d.num_nodes, SHARD_P,
+                                       dense=forced)
+        sh = shards[name]
+        phase("sharded", f"{name} ({d.num_nodes} nodes, {len(src)} edges "
+              f"after dedup) in {SHARD_P} shards, dense={forced}: C="
+              f"{sh.nodes_per_shard}, halo max {sh.halo_max} rows, "
+              f"{int(sh.halo_counts.sum())} halo rows in all, hub blocks "
+              f"fwd {sh.fwd_dense is not None} bwd {sh.bwd_dense is not None}"
+              f", partitioned in {time.perf_counter() - t0:.2f} s")
+    assert shards["cora"].fwd_dense is not None
+    assert shards["cora"].bwd_dense is not None
+
+    t0 = time.perf_counter()
+    red = reddit_cut(SHARD_REDDIT_SCALE, CITATION_SHAPES["reddit"][2:])
+    red_sh = partition_graph(red["src"], red["dst"], red["n"], SHARD_P,
+                             dense="auto")
+    phase("sharded", f"reddit at scale {SHARD_REDDIT_SCALE} ({red['n']} "
+          f"nodes, {len(red['src'])} edges after dedup): R-MAT, task and "
+          f"{SHARD_P} shards (dense=auto: hub blocks fwd "
+          f"{red_sh.fwd_dense is not None} bwd {red_sh.bwd_dense is not None}"
+          f", C={red_sh.nodes_per_shard}, halo max {red_sh.halo_max}) in "
+          f"{time.perf_counter() - t0:.1f} s on the host")
+
+    # the gid kernels against their plain versions on shard 1's layout, at
+    # the widths the training runs give them (pubmed, reddit) and on cora's
+    # forced blocks; their times with and without the table on pubmed's
+    # bins and cora's blocks at the hidden width
+    shard_times = {}
+    for name, sh, shapes, timed in (
+            ("pubmed", shards["pubmed"], SHAPES, "bin"),
+            ("cora", shards["cora"], DENSE_SHAPES, "dense"),
+            (f"reddit scale {SHARD_REDDIT_SCALE}", red_sh, REDDIT_SHAPES,
+             None)):
+        view = shard_view(sh, 1)
+        for h, f in shapes:
+            tb = {k: v.to(dev) for k, v in
+                  shard_tables(gat_forward, view, h, f, srng).items()}
+            vd = view.to(dev)
+            n_cmp = check_gid_kernels(bins, dense, vd, tb, err)
+            phase("sharded", f"{name} shard 1 H={h} F={f} p=0.3: {n_cmp} "
+                  "gid kernel/plain comparisons agree")
+            if timed is None or (h, f) != shapes[0]:
+                continue
+            for kname, (fn, fn_nogid, fn_plain, inputs, edges) in gid_jobs(
+                    bins, dense, vd, tb).items():
+                if not kname.startswith(timed):
+                    continue
+                _, plain_ms = time_pair(fn, fn_plain, time_calls, dev)
+                ms = graph_ms(fn, dev, 10)
+                nogid_ms = graph_ms(fn_nogid, dev, 10)
+                bound_ms, bound_by = bound(kname, inputs, flat(fn()), edges,
+                                           h * f, h)
+                shard_times[(kname, h, f)] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None, no_gid_ms=nogid_ms)
+                phase("sharded", f"{kname} {name} shard 1 H={h} F={f} p=0.3 "
+                      f"({edges} edges): {ms:.4f} ms with gid, "
+                      f"{nogid_ms:.4f} ms without, plain {plain_ms:.4f} ms, "
+                      f"bound {bound_ms:.4f} ms ({bound_by}) | {smi}")
+            del tb, vd
+
+    # the sharded models against the single-device port on the card, same
+    # weights, dense_dtype float32, forward and every parameter gradient
+    gen = torch.Generator().manual_seed(5)
+    specs, wants = {}, {}
+    for name, dsname in (("gat pubmed", "pubmed"),
+                         ("gat cora forced block", "cora")):
+        dd = data[dsname]
+        graph = structure.build_graph(
+            dd["src"], dd["dst"], dd["n"], edge_tables=False,
+            dense="auto" if dsname == "pubmed" else None).to(dev)
+        kw = dict(in_feats=dd["features"].shape[1], num_layers=1,
+                  n_hidden=64, n_classes=dd["n_classes"], heads=(4, 1),
+                  feat_drop=0.0, attn_drop=0.3)
+        model = GAT(kw["in_feats"], 1, 64, dd["n_classes"], (4, 1),
+                    attn_drop=0.3, generator=gen)
+        seeds = [int(s) for s in srng.integers(0, 2 ** 32, 2)]
+        specs[name], wants[name] = compare_spec(
+            "gat", shards[dsname], graph, dict(dd, extra={}), model, dev,
+            seeds=seeds)
+        specs[name]["kwargs"] = dict(kw, dense_dtype="float32")
+    # MoNet: node pseudo on cora (forced block), binned pseudo on pubmed
+    dd = data["cora"]
+    graph = structure.build_graph(dd["src"], dd["dst"], dd["n"],
+                                  edge_tables=False).to(dev)
+    deg = np.bincount(np.concatenate([dd["dst"], np.arange(dd["n"])]),
+                      minlength=dd["n"])
+    rsq = (1.0 / np.sqrt(np.maximum(deg, 1))).astype(np.float32)[:, None]
+    kw = dict(in_feats=dd["features"].shape[1], n_hidden=64,
+              out_feats=dd["n_classes"], n_layers=1, dim=GMM_D, n_kernels=3,
+              dropout=0.0, pseudo="node")
+    model = MoNet(**kw, generator=gen)
+    npseudo = NodePseudo(src=torch.from_numpy(rsq).to(dev),
+                         dst=torch.from_numpy(rsq).to(dev))
+    specs["monet node cora forced block"], wants[
+        "monet node cora forced block"] = compare_spec(
+        "monet", shards["cora"], graph, dict(dd, extra=dict(
+            psrc=rsq, pdst=rsq)), model, dev, pseudo="node",
+        pseudo_args=(npseudo,))
+    specs["monet node cora forced block"]["kwargs"] = dict(
+        kw, dense_dtype="float32")
+    dd = data["pubmed"]
+    graph = structure.build_graph(dd["src"], dd["dst"], dd["n"],
+                                  edge_tables=True).to(dev)
+    pflat = srng.normal(size=(graph.num_edges, 2)).astype(np.float32)
+    kw = dict(in_feats=dd["features"].shape[1], n_hidden=64,
+              out_feats=dd["n_classes"], n_layers=1, dim=GMM_D, n_kernels=3,
+              dropout=0.0, pseudo="binned")
+    model = MoNet(**kw, generator=gen)
+    specs["monet binned pubmed"], wants["monet binned pubmed"] = compare_spec(
+        "monet", shards["pubmed"], graph, dict(dd, extra=dict(
+            pseudo_flat=pflat)), model, dev, pseudo="binned",
+        pseudo_args=(bin_pseudo(graph, torch.from_numpy(pflat).to(dev)),))
+    specs["monet binned pubmed"]["kwargs"] = dict(kw, dense_dtype="float32")
+    del graph, model
+    torch.cuda.empty_cache()
+
+    # training: GAT at the bench width (feat_drop 0.5, attn_drop 0.3)
+    def job(dd, sh, steps=SHARD_STEPS):
+        return GATJob(shards=sh, features=dd["features"], labels=dd["labels"],
+                      train_mask=dd["train_mask"], n_classes=dd["n_classes"],
+                      steps=steps, warmup=SHARD_WARMUP, device="cuda")
+
+    jobs = [job(data["pubmed"], shards["pubmed"]), job(red, red_sh)]
+    t0 = time.perf_counter()
+    compared, trained, coll = zip(*run_ranks(sharded_rank, SHARD_P, specs,
+                                             jobs))
+    phase("sharded", f"{SHARD_P} ranks on the card (gloo): the comparisons "
+          f"and both training runs took {time.perf_counter() - t0:.1f} s "
+          "(spawn included)")
+    # the launches each rank made in its comparison runs, exactly: one
+    # forward and one backward over both layers (the GATs with attention
+    # dropout on, so under the gid names; binned-pseudo MoNet launches none)
+    want_launches = {
+        name: ([{}] * SHARD_P if spec.get("pseudo") == "binned" else
+               expected_shard_launches(
+                   bins, spec["shards"], "gat" if spec["model"] == "gat"
+                   else "gmm", 2, gid=spec["model"] == "gat"))
+        for name, spec in specs.items()}
+    for name, spec in specs.items():
+        worst = check_compared(name, wants[name], compared,
+                               spec["features"].shape[0])
+        got = [r[name][2] for r in compared]
+        assert got == want_launches[name], (name, got, want_launches[name])
+        phase("sharded", f"{name}: {SHARD_P}-rank sharded model = the "
+              "single-device model on the card, same weights, dense_dtype "
+              "float32: output (max |diff| {:.3g}; rtol {}, atol {} of the "
+              "largest) and every parameter gradient (rtol {}, atol {} of "
+              "the largest) on every rank; launches a rank {} (exact)".format(
+                  worst, SHARD_FWD_TOL["rtol"], SHARD_FWD_TOL["atol_scale"],
+                  SHARD_GRAD_TOL["rtol"], SHARD_GRAD_TOL["atol_scale"],
+                  got))
+    launches = {}
+    for (title, sh, dd), runs in zip(
+            (("pubmed", shards["pubmed"], data["pubmed"]),
+             (f"reddit scale {SHARD_REDDIT_SCALE}", red_sh, red)),
+            zip(*trained)):
+        line = train_line(runs, sh)
+        assert all(np.isfinite(line["loss"])), line["loss"]
+        assert line["loss"][-1] < line["loss"][0], line["loss"]
+        want = expected_shard_launches(
+            bins, sh, "gat", (SHARD_STEPS + SHARD_WARMUP) * 2, gid=True)
+        for r, w in zip(runs, want):
+            assert r["launches"] == w, (title, r["launches"], w)
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        assert all(np.isfinite(r["logits"]).all() for r in runs)
+        phase("sharded", f"train {title} GAT heads (4,1) hidden 64 feat_drop "
+              f"0.5 attn_drop 0.3, P={SHARD_P}: "
+              f"{SHARD_STEPS + SHARD_WARMUP} steps, loss {line['loss'][0]:.4f}"
+              f" -> {line['loss'][-1]:.4f}, {line['ms']:.3f} ms/step, halo "
+              f"{line['halo_rows']} rows in all (max {line['halo_max']} a "
+              f"pair), {line['bytes_per_exchange']} bytes an exchange a rank "
+              f"({line['exchanges']} exchanges, route {line['route']}), peak "
+              f"{line['peak_mb']:.0f} MB a rank, launches a rank "
+              f"{[r['launches'] for r in runs]} (exact; no other kernel "
+              f"and no plain version on the card) | {smi}")
+    phase("sharded", f"pubmed P={SHARD_P}, the collectives alone (CUDA "
+          "events around the call, after the training runs): one halo "
+          "exchange of the hidden layer's payload "
+          f"{max(c['exchange_ms'] for c in coll):.3f} ms a call (slowest "
+          "rank), one all-reduce of the "
+          f"{coll[0]['params']} gradients "
+          f"{max(c['allreduce_ms'] for c in coll):.3f} ms; a training step "
+          "makes 4 exchanges (2 layers, forward and backward) and 1 "
+          f"all-reduce | {smi}")
+    # ms a step at P = 1, 2 and 4 on pubmed: the ranks share the card, so
+    # T(P) / T(1) is the work ratio
+    scaling = {SHARD_P: train_line([t[0] for t in trained], shards["pubmed"])}
+    for p in (1, 2):
+        sh = partition_graph(data["pubmed"]["src"], data["pubmed"]["dst"],
+                             data["pubmed"]["n"], p, dense="auto")
+        runs = run_ranks(train_gat_rank, p,
+                         job(data["pubmed"], sh, SHARD_SCALING_STEPS))
+        scaling[p] = train_line(runs, sh)
+    t1 = scaling[1]["ms"]
+    phase("sharded", "pubmed GAT bench width, ms a step at P = 1, 2, 4 ranks "
+          "on one card (work ratio T(P)/T(1)): " + "; ".join(
+              f"P={p} {scaling[p]['ms']:.3f} ms ({scaling[p]['ms'] / t1:.3f})"
+              f", halo {scaling[p]['halo_rows']} rows, "
+              f"{scaling[p]['bytes_per_exchange']} B an exchange a rank, "
+              f"peak {scaling[p]['peak_mb']:.0f} MB a rank, route "
+              f"{scaling[p]['route']}" for p in sorted(scaling))
+          + f" | {smi}")
+    phase("sharded", f"the phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches, shard_times
 
 
 def main():
@@ -1882,7 +2446,13 @@ def main():
                                                            tmp))
     phase("baselines", f"the phase took {time.perf_counter() - t0:.1f} s")
 
-    # 7. times: kernel and plain, in turns.  One job per (kernel, shape):
+    # 7. sharded: the sharded path, SHARD_P ranks on the card
+    launches["sharded"], shard_times = run_sharded(
+        bins, dense, structure, _gat_forward, dev, smi, err, time_calls,
+        gather_study.graph_ms)
+    torch.cuda.empty_cache()
+
+    # 8. times: kernel and plain, in turns.  One job per (kernel, shape):
     #    (what it ran on, kernel call, plain call, input tensors, edges,
     #    feature columns, heads or Gaussian kernels).  The bin kernels one
     #    call over every bin, float32 and bf16 rows (the reddit path's
@@ -2198,6 +2768,7 @@ def main():
           f"peak {PEAK_BYTES_S / 1e12} TB/s) | {smi}")
     del src, dst
 
+    times.update(shard_times)  # the gid kernels, timed on a shard's layout
     report = []
     for name, meta in KERNELS.items():
         # the kernel's first job: the hidden layer's width (GAT, MoNet), the
@@ -2213,6 +2784,8 @@ def main():
             run = ("edgeconv", name.rsplit("_", 1)[1])
         elif name.startswith("gather"):
             run = "gather"
+        elif name.endswith("_gid"):
+            run = "sharded"
         else:
             run = ("gat" if "gat" in name else "gmm",
                    "reddit" if name.endswith("_bf16") else "cora")

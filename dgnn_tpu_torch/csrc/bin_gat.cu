@@ -68,7 +68,12 @@
 //
 // Dropout re-derives dgnn_tpu/ops/common.py:pair_keep bit for bit
 // (gat_common.cuh).  Forward: dst = segment row, src = slot; backward:
-// dst = slot, src = segment row.
+// dst = slot, src = segment row.  On a graph shard (parallel/partition.py)
+// rows are local ids and slots extended ids, and the launcher is given the
+// shard's table of global ids (ext_gids, `gid`): the hash reads both ids
+// through it, so the mask is the single-device graph's, while the gathers
+// keep the shard's ids.  Without a table (null) the ids are hashed as they
+// are.
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
@@ -111,7 +116,7 @@ bin_gat_fwd_kernel(
     const float* __restrict__ ac,     // [N, H]   source coefficients
     const float* __restrict__ ar,     // [Nr, H]  destination coefficients
     const BinList bl, int G, int H, int F, float slope, int with_pos,
-    float p, float inv_keep, uint32_t seed,
+    float p, float inv_keep, uint32_t seed, const int* gid,
     float* __restrict__ m_out,        // [total, H]
     float* __restrict__ l_out,        // [total, H]
     float* __restrict__ lpos_out,     // [total, H]    (with_pos)
@@ -131,6 +136,10 @@ bin_gat_fwd_kernel(
   const int r = sg.row;
   const int HF = H * F;
   const bool drop = p > 0.f;
+  // the segment row's id in the dropout hash: its global id where a table
+  // is given (graph shards), read only when dropping
+  const uint32_t hr = drop && gid ? static_cast<uint32_t>(__ldg(gid + r))
+                                  : static_cast<uint32_t>(r);
   int* sj = reinterpret_cast<int*>(smem) + grp * G;  // the chunk's slot ids
   float* spd = smem + gpb * G + grp * 2 * G * H;     // [G][H] dropped weight
   float* spp = spd + G * H;                          // the same where sr >= 0
@@ -211,9 +220,10 @@ bin_gat_fwd_kernel(
             if (h < H) sr[h] = arr[h] + __ldg(ac + static_cast<size_t>(j) * H + h);
           }
         }
-        const uint32_t base = drop ? pair_base(seed, static_cast<uint32_t>(r),
-                                               static_cast<uint32_t>(j))
-                                   : 0u;
+        const uint32_t base =
+            drop ? pair_base(seed, hr, gid ? __ldg(gid + j)
+                                           : static_cast<uint32_t>(j))
+                 : 0u;
 #pragma unroll
         for (int h = 0; h < HMAX; ++h) {
           if (h < H) {
@@ -305,12 +315,14 @@ template <typename T, int HMAX, bool VEC, int CPL>
 void launch_gat_fwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
                     const T* x, const float* ac, const float* ar, int H,
                     int F, float slope, int with_pos, float p, float inv_keep,
-                    uint32_t seed, float* m, float* l, float* lpos, float* acc,
+                    uint32_t seed,
+                    const int* gid, float* m, float* l, float* lpos, float* acc,
                     float* accpos) {
   const int gpb = dgnn::kGroupThreads / G;
   const int blocks = (bl.total + gpb - 1) / gpb;
   bin_gat_fwd_kernel<T, HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
-      x, ac, ar, bl, G, H, F, slope, with_pos, p, inv_keep, seed, m, l, lpos,
+      x, ac, ar, bl, G, H, F, slope, with_pos, p, inv_keep, seed,
+      gid, m, l, lpos,
       acc, accpos);
 }
 
@@ -320,12 +332,13 @@ void dispatch_gat_fwd(bool vec, int cpl, const BinList& bl, int G,
                       size_t shm, cudaStream_t st, const T* x,
                       const float* ac, const float* ar, int H, int F,
                       float slope, int with_pos, float p, float inv_keep,
-                      uint32_t seed, float* m, float* l, float* lpos,
+                      uint32_t seed,
+                      const int* gid, float* m, float* l, float* lpos,
                       float* acc, float* accpos) {
 #define DGNN_GAT_FWD(V, C)                                                  \
   launch_gat_fwd<T, HMAX, V, C>(bl, G, shm, st, x, ac, ar, H, F, slope,     \
-                             with_pos, p, inv_keep, seed, m, l, lpos, acc,  \
-                             accpos)
+                             with_pos, p, inv_keep, seed, gid, m, l, lpos,  \
+                             acc, accpos)
   if (vec && cpl == 8) DGNN_GAT_FWD(true, 8);
   else if (vec) DGNN_GAT_FWD(true, 4);
   else if (cpl == 8) DGNN_GAT_FWD(false, 8);
@@ -355,6 +368,7 @@ bin_gat_bwd_kernel(
     const T* __restrict__ x,          // [Ns, H*F] source features
     const BinList bl,                 // nbr: destination ids; row: source id
     int G, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
+    const int* gid,
     float* __restrict__ dx_out,       // [total, H*F]
     float* __restrict__ dac_out) {    // [total, H]
   extern __shared__ float smem[];
@@ -371,6 +385,10 @@ bin_gat_bwd_kernel(
   const int r = sg.row;
   const int HF = H * F;
   const bool drop = p > 0.f;
+  // the segment row's id in the dropout hash: its global id where a table
+  // is given (graph shards), read only when dropping
+  const uint32_t hr = drop && gid ? static_cast<uint32_t>(__ldg(gid + r))
+                                  : static_cast<uint32_t>(r);
   int* si = reinterpret_cast<int*>(smem) + grp * G;  // the chunk's slot ids
   float* sah = smem + gpb * G + grp * 2 * G * H;     // [G][H] a^
   float* sahd = sah + G * H;                         // [G][H] a^ d'
@@ -401,9 +419,10 @@ bin_gat_bwd_kernel(
         // one lane a slot: its H weights into the slab
         const int i = w0 == 0 ? i0 : __ldg(sg.nbr + w0 + gl);
         const size_t ih = static_cast<size_t>(i) * H;
-        const uint32_t base = drop ? pair_base(seed, static_cast<uint32_t>(i),
-                                               static_cast<uint32_t>(r))
-                                   : 0u;
+        const uint32_t base =
+            drop ? pair_base(seed, gid ? __ldg(gid + i)
+                                       : static_cast<uint32_t>(i), hr)
+                 : 0u;
 #pragma unroll
         for (int h = 0; h < HMAX; ++h) {
           if (h < H) {
@@ -498,11 +517,12 @@ void launch_gat_bwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
                     const T* g, const float* ar, const float* M,
                     const float* Linv, const float* ws, const float* ac,
                     const T* x, int H, int F, float slope, float p,
-                    float inv_keep, uint32_t seed, float* dx, float* dac) {
+                    float inv_keep, uint32_t seed,
+                    const int* gid, float* dx, float* dac) {
   const int gpb = dgnn::kGroupThreads / G;
   const int blocks = (bl.total + gpb - 1) / gpb;
   bin_gat_bwd_kernel<T, HMAX, VEC, CPL><<<blocks, gpb * G, shm, st>>>(
-      g, ar, M, Linv, ws, ac, x, bl, G, H, F, slope, p, inv_keep, seed, dx,
+      g, ar, M, Linv, ws, ac, x, bl, G, H, F, slope, p, inv_keep, seed, gid, dx,
       dac);
 }
 
@@ -513,10 +533,10 @@ void dispatch_gat_bwd(bool vec, int cpl, const BinList& bl, int G,
                       const float* ar, const float* M, const float* Linv,
                       const float* ws, const float* ac, const T* x, int H,
                       int F, float slope, float p, float inv_keep,
-                      uint32_t seed, float* dx, float* dac) {
+                      uint32_t seed, const int* gid, float* dx, float* dac) {
 #define DGNN_GAT_BWD(V, C)                                                  \
   launch_gat_bwd<T, HMAX, V, C>(bl, G, shm, st, g, ar, M, Linv, ws, ac, x, \
-                                H, F, slope, p, inv_keep, seed, dx, dac)
+                                H, F, slope, p, inv_keep, seed, gid, dx, dac)
   if (vec && cpl == 8) DGNN_GAT_BWD(true, 8);
   else if (vec) DGNN_GAT_BWD(true, 4);
   else if (cpl == 8) DGNN_GAT_BWD(false, 8);
@@ -539,7 +559,8 @@ template <typename T>
 int run_gat_fwd(const T* x, const float* ac, const float* ar, int nbins,
                 void* const* nbr, void* const* row, void* const* count,
                 const int* S, const int* W, int H, int F, float slope,
-                int with_pos, float p, float inv_keep, uint32_t seed, float* m,
+                int with_pos, float p, float inv_keep, uint32_t seed,
+                const int* gid, float* m,
                 float* l, float* lpos, float* acc, float* accpos,
                 void* stream) {
   BinList bl;
@@ -554,11 +575,13 @@ int run_gat_fwd(const T* x, const float* ac, const float* ar, int nbins,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (H <= 4)
       dispatch_gat_fwd<T, 4>(vec, cpl, bl, G, shm, st, x, ac, ar, H, F,
-                             slope, with_pos, p, inv_keep, seed, m, l, lpos,
+                             slope, with_pos, p, inv_keep, seed,
+                             gid, m, l, lpos,
                              acc, accpos);
     else
       dispatch_gat_fwd<T, kMaxHeads>(vec, cpl, bl, G, shm, st, x, ac, ar, H,
-                                     F, slope, with_pos, p, inv_keep, seed, m,
+                                     F, slope, with_pos, p, inv_keep, seed,
+                                     gid, m,
                                      l, lpos, acc, accpos);
   }
   return static_cast<int>(cudaGetLastError());
@@ -570,6 +593,7 @@ int run_gat_bwd(const T* g, const float* ar, const float* M,
                 const T* x, int nbins, void* const* nbr, void* const* row,
                 void* const* count, const int* S, const int* W, int H, int F,
                 float slope, float p, float inv_keep, uint32_t seed,
+                const int* gid,
                 float* dx, float* dac, void* stream) {
   BinList bl;
   if (!dgnn::pack_bins(nbins, nbr, row, count, S, W, &bl) || H < 1 ||
@@ -584,11 +608,12 @@ int run_gat_bwd(const T* g, const float* ar, const float* M,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (H <= 4)
       dispatch_gat_bwd<T, 4>(vec, cpl, bl, G, shm, st, g, ar, M, Linv, ws,
-                             ac, x, H, F, slope, p, inv_keep, seed, dx, dac);
+                             ac, x, H, F, slope, p, inv_keep, seed,
+                             gid, dx, dac);
     else
       dispatch_gat_bwd<T, kMaxHeads>(vec, cpl, bl, G, shm, st, g, ar, M,
                                      Linv, ws, ac, x, H, F, slope, p,
-                                     inv_keep, seed, dx, dac);
+                                     inv_keep, seed, gid, dx, dac);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -605,14 +630,16 @@ int dgnn_bin_gat_fwd(const void* x, const float* ac, const float* ar,
                      int nbins, void* const* nbr, void* const* row,
                      void* const* count, const int* S, const int* W, int H,
                      int F, int bf16, float slope, int with_pos, float p,
-                     float inv_keep, uint32_t seed, float* m, float* l,
+                     float inv_keep, uint32_t seed,
+                     const int* gid, float* m, float* l,
                      float* lpos, float* acc, float* accpos, void* stream) {
   if (bf16)
     return run_gat_fwd(static_cast<const __nv_bfloat16*>(x), ac, ar, nbins,
                        nbr, row, count, S, W, H, F, slope, with_pos, p,
-                       inv_keep, seed, m, l, lpos, acc, accpos, stream);
+                       inv_keep, seed, gid, m, l, lpos, acc, accpos, stream);
   return run_gat_fwd(static_cast<const float*>(x), ac, ar, nbins, nbr, row,
-                     count, S, W, H, F, slope, with_pos, p, inv_keep, seed, m,
+                     count, S, W, H, F, slope, with_pos, p, inv_keep, seed,
+                     gid, m,
                      l, lpos, acc, accpos, stream);
 }
 
@@ -623,16 +650,18 @@ int dgnn_bin_gat_bwd(const void* g, const float* ar, const float* M,
                      const void* x, int nbins, void* const* nbr,
                      void* const* row, void* const* count, const int* S,
                      const int* W, int H, int F, int bf16, float slope,
-                     float p, float inv_keep, uint32_t seed, float* dx,
+                     float p, float inv_keep, uint32_t seed,
+                     const int* gid, float* dx,
                      float* dac, void* stream) {
   if (bf16)
     return run_gat_bwd(static_cast<const __nv_bfloat16*>(g), ar, M, Linv, ws,
                        ac, static_cast<const __nv_bfloat16*>(x), nbins, nbr,
-                       row, count, S, W, H, F, slope, p, inv_keep, seed, dx,
+                       row, count, S, W, H, F, slope, p, inv_keep, seed,
+                       gid, dx,
                        dac, stream);
   return run_gat_bwd(static_cast<const float*>(g), ar, M, Linv, ws, ac,
                      static_cast<const float*>(x), nbins, nbr, row, count, S,
-                     W, H, F, slope, p, inv_keep, seed, dx, dac, stream);
+                     W, H, F, slope, p, inv_keep, seed, gid, dx, dac, stream);
 }
 
 }  // extern "C"

@@ -58,7 +58,12 @@
 //
 // Dropout re-derives pair_keep bit for bit (gat_common.cuh) on the global
 // ids: forward dst = row_ids[r], src = col_ids[c]; backward dst =
-// col_ids[c], src = row_ids[r].
+// col_ids[c], src = row_ids[r].  On a graph shard (parallel/partition.py)
+// the block's ids are local and extended ids, and the launcher is given
+// the shard's table of global ids (ext_gids, `gid`): the hash reads both
+// ids through it, so the mask is the single-device graph's, while the
+// gathers keep the block's own ids.  Without a table (null) the ids are
+// hashed as they are.
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
@@ -114,7 +119,7 @@ dense_gat_fwd_kernel(
     const int* __restrict__ ct,          // [T]
     const int* __restrict__ chunk_ptr,   // [R / kRT + 1]
     int R, int H, int F, float slope, int with_pos, float p, float inv_keep,
-    uint32_t seed, int bf16,
+    uint32_t seed, const int* __restrict__ gid, int bf16,
     float* __restrict__ m_out,           // [R, H]
     float* __restrict__ l_out,           // [R, H]
     float* __restrict__ lpos_out,        // [R, H]    (with_pos)
@@ -136,6 +141,10 @@ dense_gat_fwd_kernel(
   const bool use_bf = bf16 != 0;
   const int chunk = r / kRT;
   const uint32_t rid = static_cast<uint32_t>(row_ids[r]);
+  // the ids the dropout hash takes: global ids where a table is given
+  // (graph shards); the gathers keep the block's own ids
+  const uint32_t hrid = drop && gid ? static_cast<uint32_t>(__ldg(gid + rid))
+                                    : rid;
   const int t_end = chunk_ptr[chunk + 1];
   float* hd = head[warp];
   if (lane < H) {
@@ -174,7 +183,8 @@ dense_gat_fwd_kernel(
       if (lane < n) {
         cid = static_cast<uint32_t>(cid_tile[cols[warp][lane]]);
         const float* acj = ac + static_cast<size_t>(cid) * H;
-        const uint32_t pb = drop ? pair_base(seed, rid, cid) : 0u;
+        const uint32_t pb =
+            drop ? pair_base(seed, hrid, gid ? __ldg(gid + cid) : cid) : 0u;
         float* sl = slot[warp] + lane * kSlot;
         uint32_t pos = 0;
 #pragma unroll
@@ -315,7 +325,7 @@ dense_gat_bwd_kernel(
     const int* __restrict__ ct,          // [T]
     const int* __restrict__ chunk_ptr,   // [R / kRT + 1]
     int R, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
-    int bf16,
+    const int* __restrict__ gid, int bf16,
     float* __restrict__ dx_out,          // [R, H*F]
     float* __restrict__ dac_out) {       // [R, H]
   constexpr int kSlot = 2 * HMAX + 1;  // floats a lane; odd: no bank conflicts
@@ -333,6 +343,10 @@ dense_gat_bwd_kernel(
   const int chunk = r / kRT;
   // the row's own ac is requested before its mask (its x after the walk)
   const uint32_t sid = static_cast<uint32_t>(row_ids[r]);
+  // the ids the dropout hash takes: global ids where a table is given
+  // (graph shards); the gathers keep the block's own ids
+  const uint32_t hsid = drop && gid ? static_cast<uint32_t>(__ldg(gid + sid))
+                                    : sid;
   const int t_end = chunk_ptr[chunk + 1];
   float acs[HMAX];  // ac of the row, a head
   head_row<HMAX>(ac, sid, H, acs);
@@ -387,7 +401,8 @@ dense_gat_bwd_kernel(
         head_row<HMAX>(Mx, did, H, mxv);
         head_row<HMAX>(Linv, did, H, liv);
         head_row<HMAX>(ws, did, H, wsv);
-        const uint32_t pb = drop ? pair_base(seed, did, sid) : 0u;
+        const uint32_t pb =
+            drop ? pair_base(seed, gid ? __ldg(gid + did) : did, hsid) : 0u;
         const bool live = lane < n;
         float* sl = slot[warp] + lane * kSlot;
 #pragma unroll
@@ -472,7 +487,8 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
                        const int* col_ids, const void* mask, const int* ct,
                        const int* chunk_ptr, int R, int H, int F, float slope,
                        int with_pos, float p, float inv_keep, uint32_t seed,
-                       int bf16, int hmax, int nc, float* m, float* l,
+                       const int* gid, int bf16, int hmax, int nc, float* m,
+                       float* l,
                        float* lpos, float* acc, float* accpos, void* stream) {
   // the instance ops/dense.py dense_gat_fwd_instance chose, checked
   if (bad_instance(H, F, hmax, nc)) {
@@ -485,7 +501,7 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
 #define DGNN_GAT_FWD(HM, NCC)                                               \
   dense_gat_fwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(              \
       x, ac, ar, acmax, row_ids, col_ids, msk, ct, chunk_ptr, R, H, F, slope, \
-      with_pos, p, inv_keep, seed, bf16, m, l, lpos, acc, accpos)
+      with_pos, p, inv_keep, seed, gid, bf16, m, l, lpos, acc, accpos)
   if (hmax == 4) {
     DGNN_GAT_NC(DGNN_GAT_FWD, 4);
   } else {
@@ -500,8 +516,9 @@ int dgnn_dense_gat_bwd(const float* g, const float* ar, const float* M,
                        const float* x, const int* row_ids, const int* col_ids,
                        const void* mask, const int* ct, const int* chunk_ptr,
                        int R, int H, int F, float slope, float p,
-                       float inv_keep, uint32_t seed, int bf16, int hmax,
-                       int nc, float* dx, float* dac, void* stream) {
+                       float inv_keep, uint32_t seed, const int* gid,
+                       int bf16, int hmax, int nc, float* dx, float* dac,
+                       void* stream) {
   // the instance ops/dense.py dense_gat_bwd_instance chose, checked
   if (bad_instance(H, F, hmax, nc)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -513,7 +530,7 @@ int dgnn_dense_gat_bwd(const float* g, const float* ar, const float* M,
 #define DGNN_GAT_BWD(HM, NCC)                                                \
   dense_gat_bwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(               \
       g, ar, M, Linv, ws, ac, x, row_ids, col_ids, msk, ct, chunk_ptr, R, H, \
-      F, slope, p, inv_keep, seed, bf16, dx, dac)
+      F, slope, p, inv_keep, seed, gid, bf16, dx, dac)
   if (hmax == 4) {
     DGNN_GAT_NC(DGNN_GAT_BWD, 4);
   } else {

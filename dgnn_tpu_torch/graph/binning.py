@@ -242,12 +242,15 @@ def bin_csr(
     col_ind: np.ndarray,
     edge_ids: np.ndarray | None = None,
     widths: Sequence[int] = DEFAULT_WIDTHS,
+    keep_empty: bool = False,
 ) -> BinnedCSR:
     """Bin a CSR adjacency by row degree into padded fixed-width tables.
 
     ``edge_ids[j]`` gives the global edge id of CSR slot ``j`` (identity for
     the forward graph; the `permute` array for the transposed graph).
-    Bins that no row falls into are left out.
+    Bins that no row falls into are left out, unless ``keep_empty``: then
+    each is kept as _SEG_PAD empty segments, so graphs binned with the same
+    widths have the same bins (the graph shards of parallel/partition.py).
     """
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     num_rows = row_ptr.shape[0] - 1
@@ -274,6 +277,12 @@ def bin_csr(
             sel = np.nonzero((deg > lo) & (deg <= w))[0]
         lo = w
         if sel.size == 0:
+            if keep_empty:
+                nbr_b.append(np.zeros((_SEG_PAD, w), np.int32))
+                edge_b.append(np.zeros((_SEG_PAD, w), np.int32))
+                row_b.append(np.zeros(_SEG_PAD, np.int32))
+                count_b.append(np.zeros(_SEG_PAD, np.int32))
+                used_widths.append(w)
             continue
         d = deg[sel]
         if w == wmax:

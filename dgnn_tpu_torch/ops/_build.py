@@ -117,6 +117,7 @@ def load() -> ctypes.CDLL:
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
             ci, ci, ci,                         # H F bf16
             cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
+            vp,                                 # gid (null: ids as they are)
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
             vp]                                 # stream
         lib.dgnn_bin_gat_fwd.restype = ci
@@ -125,6 +126,7 @@ def load() -> ctypes.CDLL:
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
             ci, ci, ci,                         # H F bf16
             cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
+            vp,                                 # gid
             vp, vp,                             # dx dac
             vp]                                 # stream
         lib.dgnn_bin_gat_bwd.restype = ci
@@ -133,6 +135,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             ci, ci, ci,                         # R H F
             cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
+            vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
             vp]                                 # stream
@@ -142,6 +145,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             ci, ci, ci,                         # R H F
             cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
+            vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp,                             # dx dac
             vp]                                 # stream

@@ -33,7 +33,16 @@ give, and so their plain versions.  A direction with more than
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
 only where the kernel is launched), so a run can show that its main path
 went through the kernels; a launch of a kernel's bf16 instance counts
-under its name with ``_bf16`` appended (``launch_name``).
+under its name with ``_bf16`` appended, and a GAT launch given a table of
+global ids (``gid``) with ``_gid`` appended after that (``launch_name``).
+
+``gid`` (the GAT passes, optional): an int32 table that maps the ids of
+the call's node tables to the ids the attention-dropout hash takes.  A
+graph shard (parallel/partition.py) indexes its sources in an extended
+local + halo space; its ``ext_gids`` table gives each extended id its
+global node id, so the shard's dropout mask is bit for bit the
+single-device graph's.  The hash alone reads it: every gather keeps the
+call's own ids.  None hashes the ids as they are.
 """
 
 from __future__ import annotations
@@ -78,12 +87,15 @@ LAUNCHES = {name + suffix: 0
             for name in ("bin_gat_fwd", "bin_gat_bwd", "bin_gmm_node_fwd",
                          "bin_gmm_node_bwd")
             for suffix in ("", "_bf16")}
+LAUNCHES.update({name + suffix + "_gid": 0
+                 for name in ("bin_gat_fwd", "bin_gat_bwd")
+                 for suffix in ("", "_bf16")})
 
 
-def launch_name(name: str, bf16: int) -> str:
+def launch_name(name: str, bf16: int, gid: bool = False) -> str:
     """The LAUNCHES key of a launch of ``name``'s float32 or bf16
-    instance."""
-    return name + "_bf16" if bf16 else name
+    instance, given a table of global ids for the dropout hash or not."""
+    return name + ("_bf16" if bf16 else "") + ("_gid" if gid else "")
 
 
 def reset_launches() -> None:
@@ -151,6 +163,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _opt(t):
+    """[t], or [] for None: an optional tensor among _on_cpu's."""
+    return [] if t is None else [t]
+
+
 def _seg_tensors(segs):
     return [t for seg in segs for t in seg]
 
@@ -191,6 +208,23 @@ def _bin_arrays(part):
             ints(*(nbr.shape[1] for nbr, _, _ in part)))
 
 
+def _hash_ids(ids, gid):
+    """The ids the dropout hash takes: ``gid[ids]``, or ``ids`` without a
+    table."""
+    return ids if gid is None else gid.long()[ids]
+
+
+def _check_gid(name, gid, like):
+    """A gid table: 1-D int32, contiguous, on the node tables' device."""
+    if gid is None:
+        return
+    if gid.dim() != 1 or gid.device != like.device:
+        raise ValueError(f"{name}: gid must be a 1-D table on "
+                         f"{like.device}, got {tuple(gid.shape)} on "
+                         f"{gid.device}")
+    _check_cuda(name, {}, dict(gid=gid))
+
+
 def _row_ptr(t, row):
     """Address of row ``row`` of a contiguous output (None stays None)."""
     return None if t is None else (t.data_ptr()
@@ -219,7 +253,8 @@ def _copy_tail(outs, rows, tail):
 
 
 def bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, *, slope: float,
-                      with_pos: bool, p: float = 0.0, seed: int = 0):
+                      with_pos: bool, p: float = 0.0, seed: int = 0,
+                      gid=None):
     """Plain PyTorch per-bin forward; same arguments and outputs as
     ``bin_gat_fwd``."""
     S, W = nbr.shape
@@ -232,7 +267,8 @@ def bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, *, slope: float,
     m = s.amax(dim=1)                                     # [S, H]
     w = torch.where(mask, torch.exp(s - m[:, None, :]), 0.0)
     l = w.sum(dim=1)
-    w_agg = w * pair_keep(seed, rw[:, None], nb, H, p) if p > 0 else w
+    w_agg = (w * pair_keep(seed, _hash_ids(rw, gid)[:, None],
+                           _hash_ids(nb, gid), H, p) if p > 0 else w)
     x = feat[nb].float()                                  # [S, W, H, F]
     acc = torch.einsum("swh,swhf->shf", w_agg, x)
     if not with_pos:
@@ -244,7 +280,7 @@ def bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, *, slope: float,
 
 
 def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
-                with_pos: bool, p: float = 0.0, seed: int = 0):
+                with_pos: bool, p: float = 0.0, seed: int = 0, gid=None):
     """One degree bin of the GAT forward (pass A).
 
     Args:
@@ -253,25 +289,27 @@ def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
       ar: [Nr, H] float32 destination coefficients (indexed by ``row``).
       nbr: [S, W] int32 source id per slot; row, count: [S] int32.
       p, seed: attention-dropout probability and uint32 seed (p = 0: off).
+      gid: None, or the int32 table of the ids the dropout hash takes
+        (module docstring), indexed by row and by nbr.
     Returns (m, l, lpos, acc, accpos): m, l, lpos [S, H]; acc, accpos
     [S, H, F]; lpos/accpos are None unless ``with_pos``.  m is the exact
     per-segment score maximum, -1e30 for an empty segment.
     """
     _check_seg(nbr, row, count)
-    if _on_cpu(feat, ac, ar, nbr, row, count):
+    if _on_cpu(feat, ac, ar, nbr, row, count, *_opt(gid)):
         return bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, slope=slope,
-                                 with_pos=with_pos, p=p, seed=seed)
+                                 with_pos=with_pos, p=p, seed=seed, gid=gid)
     return _gat_fwd_cuda(feat, ac, ar, [(nbr, row, count)], slope, with_pos,
-                         p, seed, None)
+                         p, seed, None, gid)
 
 
 def bin_gat_fwd_list_plain(feat, ac, ar, segs, *, slope: float,
                            with_pos: bool, p: float = 0.0, seed: int = 0,
-                           tail=None):
+                           tail=None, gid=None):
     """Plain PyTorch list forward: the per-bin plain versions, then
     ``torch.cat``; same arguments and outputs as ``bin_gat_fwd_list``."""
     parts = [bin_gat_fwd_plain(feat, ac, ar, *seg, slope=slope,
-                               with_pos=with_pos, p=p, seed=seed)
+                               with_pos=with_pos, p=p, seed=seed, gid=gid)
              for seg in segs]
     if tail is not None:
         parts.append(tuple(tail))
@@ -283,7 +321,7 @@ def bin_gat_fwd_list_plain(feat, ac, ar, segs, *, slope: float,
 
 
 def bin_gat_fwd_list(feat, ac, ar, segs, *, slope: float, with_pos: bool,
-                     p: float = 0.0, seed: int = 0, tail=None):
+                     p: float = 0.0, seed: int = 0, tail=None, gid=None):
     """Every degree bin of a CSR adjacency in one launch of the
     ``bin_gat_fwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
 
@@ -295,21 +333,22 @@ def bin_gat_fwd_list(feat, ac, ar, segs, *, slope: float, with_pos: bool,
     """
     _check_segs(segs)
     tail_t = [] if tail is None else [t for t in tail if t is not None]
-    if _on_cpu(feat, ac, ar, *_seg_tensors(segs), *tail_t):
+    if _on_cpu(feat, ac, ar, *_seg_tensors(segs), *tail_t, *_opt(gid)):
         return bin_gat_fwd_list_plain(feat, ac, ar, segs, slope=slope,
                                       with_pos=with_pos, p=p, seed=seed,
-                                      tail=tail)
+                                      tail=tail, gid=gid)
     return _gat_fwd_cuda(feat, ac, ar, list(segs), slope, with_pos, p, seed,
-                         tail)
+                         tail, gid)
 
 
-def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
+def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail, gid):
     N, H, F = feat.shape
     if ac.shape != (N, H) or ar.dim() != 2 or ar.shape[1] != H:
         raise ValueError(f"bin_gat_fwd: feat {tuple(feat.shape)}, ac "
                          f"{tuple(ac.shape)}, ar {tuple(ar.shape)}")
     bf16 = _check_cuda("bin_gat_fwd", dict(ac=ac, ar=ar), _seg_ints(segs), H,
                        rows=dict(feat=feat))
+    _check_gid("bin_gat_fwd", gid, feat)
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if tail is None else tail[0].shape[0])
     new = dict(device=feat.device, dtype=torch.float32)
@@ -323,13 +362,13 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
         err = lib.dgnn_bin_gat_fwd(
             _ptr(feat), _ptr(ac), _ptr(ar), len(part), *_bin_arrays(part),
             H, F, bf16, float(slope), int(with_pos), float(p), _inv_keep(p),
-            int(seed) & 0xFFFFFFFF, *(_row_ptr(t, base) for t in outs),
-            stream)
+            int(seed) & 0xFFFFFFFF, _ptr(gid),
+            *(_row_ptr(t, base) for t in outs), stream)
         if err:
             raise RuntimeError(
                 f"bin_gat_fwd kernel launch failed: CUDA error {err} (bins "
                 f"{[tuple(nbr.shape) for nbr, _, _ in part]}, H={H}, F={F})")
-        LAUNCHES[launch_name("bin_gat_fwd", bf16)] += 1
+        LAUNCHES[launch_name("bin_gat_fwd", bf16, gid is not None)] += 1
     if tail is not None:
         _copy_tail(outs, S, tail)
     return outs
@@ -341,7 +380,7 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail):
 
 
 def bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
-                      slope: float, p: float = 0.0, seed: int = 0):
+                      slope: float, p: float = 0.0, seed: int = 0, gid=None):
     """Plain PyTorch per-bin backward; same arguments and outputs as
     ``bin_gat_bwd``."""
     S, W = nbr.shape
@@ -352,7 +391,8 @@ def bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
     sr = ar[nb] + ac[rw][:, None, :]                      # [S, W, H]
     a = torch.exp(leaky_relu(sr, slope) - M[nb]) * Linv[nb]
     a = torch.where(mask, a, 0.0)
-    ah = a * pair_keep(seed, nb, rw[:, None], H, p) if p > 0 else a
+    ah = (a * pair_keep(seed, _hash_ids(nb, gid),
+                        _hash_ids(rw, gid)[:, None], H, p) if p > 0 else a)
     gi = g[nb].float()                                    # [S, W, H, F]
     dx = torch.einsum("swh,swhf->shf", ah, gi)
     ge = torch.einsum("shf,swhf->swh", feat[rw].float(), gi)
@@ -361,7 +401,7 @@ def bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
 
 
 def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
-                slope: float, p: float = 0.0, seed: int = 0):
+                slope: float, p: float = 0.0, seed: int = 0, gid=None):
     """One degree bin of the GAT backward (pass B, CSC: rows = sources).
 
     Args:
@@ -373,25 +413,28 @@ def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
       ac: [Ns, H] float32, feat: [Ns, H, F] source tables (feat of g's
         type).
       nbr: [S, W] int32 destination id per slot; row, count: [S] int32.
+      gid: None, or the int32 table of the ids the dropout hash takes
+        (module docstring), indexed by nbr and by row.
     Returns (dx [S, H, F], dac [S, H]) per segment:
       dx  = sum_w a^ g_w
       dac = sum_w (a^ <x, g_w> - a ws_w) * LeakyReLU'(ar_w + ac)
     """
     _check_seg(nbr, row, count)
-    if _on_cpu(g, ar, M, Linv, ws, ac, feat, nbr, row, count):
+    if _on_cpu(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *_opt(gid)):
         return bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row,
-                                 count, slope=slope, p=p, seed=seed)
+                                 count, slope=slope, p=p, seed=seed, gid=gid)
     return _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, [(nbr, row, count)],
-                         slope, p, seed, None)
+                         slope, p, seed, None, gid)
 
 
 def bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs, *,
                            slope: float, p: float = 0.0, seed: int = 0,
-                           tail=None):
+                           tail=None, gid=None):
     """Plain PyTorch list backward: the per-bin plain versions, then
     ``torch.cat``; same arguments and outputs as ``bin_gat_bwd_list``."""
     parts = [bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, *seg,
-                               slope=slope, p=p, seed=seed) for seg in segs]
+                               slope=slope, p=p, seed=seed, gid=gid)
+             for seg in segs]
     if tail is not None:
         parts.append(tuple(tail))
     H, F = feat.shape[1:]
@@ -400,7 +443,7 @@ def bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs, *,
 
 
 def bin_gat_bwd_list(g, ar, M, Linv, ws, ac, feat, segs, *, slope: float,
-                     p: float = 0.0, seed: int = 0, tail=None):
+                     p: float = 0.0, seed: int = 0, tail=None, gid=None):
     """Every degree bin of a CSC adjacency in one launch of the
     ``bin_gat_bwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
 
@@ -412,14 +455,17 @@ def bin_gat_bwd_list(g, ar, M, Linv, ws, ac, feat, segs, *, slope: float,
     """
     _check_segs(segs)
     tail_t = [] if tail is None else list(tail)
-    if _on_cpu(g, ar, M, Linv, ws, ac, feat, *_seg_tensors(segs), *tail_t):
+    if _on_cpu(g, ar, M, Linv, ws, ac, feat, *_seg_tensors(segs), *tail_t,
+               *_opt(gid)):
         return bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs,
-                                      slope=slope, p=p, seed=seed, tail=tail)
+                                      slope=slope, p=p, seed=seed, tail=tail,
+                                      gid=gid)
     return _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, list(segs), slope, p,
-                         seed, tail)
+                         seed, tail, gid)
 
 
-def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail):
+def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail,
+                  gid):
     Nd, H, F = g.shape
     Ns = feat.shape[0]
     for key, t, shape in (("ar", ar, (Nd, H)), ("M", M, (Nd, H)),
@@ -431,6 +477,7 @@ def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail):
     bf16 = _check_cuda("bin_gat_bwd",
                        dict(ar=ar, M=M, Linv=Linv, ws=ws, ac=ac),
                        _seg_ints(segs), H, rows=dict(g=g, feat=feat))
+    _check_gid("bin_gat_bwd", gid, g)
     S = sum(nbr.shape[0] for nbr, _, _ in segs)
     rows = S + (0 if tail is None else tail[0].shape[0])
     dx = torch.empty((rows, H, F), device=g.device, dtype=torch.float32)
@@ -442,12 +489,12 @@ def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail):
             _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
             _ptr(feat), len(part), *_bin_arrays(part), H, F, bf16,
             float(slope), float(p), _inv_keep(p), int(seed) & 0xFFFFFFFF,
-            _row_ptr(dx, base), _row_ptr(dac, base), stream)
+            _ptr(gid), _row_ptr(dx, base), _row_ptr(dac, base), stream)
         if err:
             raise RuntimeError(
                 f"bin_gat_bwd kernel launch failed: CUDA error {err} (bins "
                 f"{[tuple(nbr.shape) for nbr, _, _ in part]}, H={H}, F={F})")
-        LAUNCHES[launch_name("bin_gat_bwd", bf16)] += 1
+        LAUNCHES[launch_name("bin_gat_bwd", bf16, gid is not None)] += 1
     if tail is not None:
         _copy_tail((dx, dac), S, tail)
     return dx, dac

@@ -23,7 +23,9 @@ backward w_k and g for dx, x and g for <x, g>, while c_k = <x, g> w_k and
 the stat rows use the unrounded w_k); "float32" rounds nothing.
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
-only where the kernel is launched).  ``dense_gat_fwd_instance``,
+only where the kernel is launched); a GAT launch given a table of global
+ids for the dropout hash (``gid``, as ops/bins.py's) counts under its name
+with ``_gid`` appended.  ``dense_gat_fwd_instance``,
 ``dense_gat_bwd_instance``, ``dense_gmm_fwd_instance`` and
 ``dense_gmm_bwd_instance`` pick the template instance of each kernel that a
 call launches; the launchers refuse any other.
@@ -35,8 +37,8 @@ import torch
 
 from ..graph.hub import DENSE_CT, DENSE_RT
 from . import _build
-from .bins import (_check_cuda, _check_gmm, _check_gmm_params, _inv_keep,
-                   _on_cpu, _ptr, gmm_stat_width)
+from .bins import (_check_cuda, _check_gid, _check_gmm, _check_gmm_params,
+                   _hash_ids, _inv_keep, _on_cpu, _opt, _ptr, gmm_stat_width)
 from .common import gaussian_terms, leaky_relu, leaky_relu_grad, pair_keep
 
 __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
@@ -57,7 +59,8 @@ GMM_FWD_MODEL = (4, 2)
 GMM_BWD_MODEL = (4, 2, 2)
 
 LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0,
-            "dense_gmm_fwd": 0, "dense_gmm_bwd": 0}
+            "dense_gmm_fwd": 0, "dense_gmm_bwd": 0,
+            "dense_gat_fwd_gid": 0, "dense_gat_bwd_gid": 0}
 
 
 def reset_launches() -> None:
@@ -143,7 +146,7 @@ def _col_max(ac, db):
 
 def dense_gat_fwd_plain(db, ar, ac, feat, *, slope: float, with_pos: bool,
                         p: float = 0.0, seed: int = 0,
-                        dense_dtype: str = "bfloat16"):
+                        dense_dtype: str = "bfloat16", gid=None):
     """Plain PyTorch hub-block forward; same arguments and outputs as
     ``dense_gat_fwd``."""
     rnd = _rounder(dense_dtype)
@@ -161,7 +164,8 @@ def dense_gat_fwd_plain(db, ar, ac, feat, *, slope: float, with_pos: bool,
         rid, cid = rid_all[rows], cid_all[cols]
         s_raw = ar[rid] + ac[cid]                          # [E, H]
         pw = torch.exp(leaky_relu(s_raw, slope) - bound[rows])
-        pd = rnd(pw * pair_keep(seed, rid, cid, H, p) if p > 0 else pw)
+        pd = rnd(pw * pair_keep(seed, _hash_ids(rid, gid),
+                                _hash_ids(cid, gid), H, p) if p > 0 else pw)
         # l sums the undropped p: bf16-rounded without dropout (the TPU
         # kernel's matmul ones column), float32 with it
         lw = pw if p > 0 else pd
@@ -205,7 +209,7 @@ def _check_block(name, db, HF, H=None):
 
 def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
                   p: float = 0.0, seed: int = 0,
-                  dense_dtype: str = "bfloat16"):
+                  dense_dtype: str = "bfloat16", gid=None):
     """The hub block's share of the GAT forward (pass A).
 
     Args:
@@ -216,15 +220,18 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
       p, seed: attention-dropout probability and uint32 seed (p = 0: off),
         hashed on the global ids (dst = row_ids[r], src = col_ids[c]).
       dense_dtype: "bfloat16" or "float32" (module docstring).
+      gid: None, or the int32 table of the ids the dropout hash takes
+        (ops/bins.py), indexed by row_ids and col_ids.
     Returns (m, l, lpos, acc, accpos) per block row: m, l, lpos [R, H];
     acc, accpos [R, H, F]; lpos/accpos are None unless ``with_pos``.  m is
     the row's score bound LeakyReLU(ar + max ac), not the exact maximum; a
     row with no edge in the block has l = 0 and acc = 0.
     """
-    if _on_cpu(ar, ac, feat, db.mask, db.row_ids, db.col_ids, db.chunk_ptr):
+    if _on_cpu(ar, ac, feat, db.mask, db.row_ids, db.col_ids, db.chunk_ptr,
+               *_opt(gid)):
         return dense_gat_fwd_plain(db, ar, ac, feat, slope=slope,
                                    with_pos=with_pos, p=p, seed=seed,
-                                   dense_dtype=dense_dtype)
+                                   dense_dtype=dense_dtype, gid=gid)
     _rounder(dense_dtype)
     N, H, F = feat.shape
     if ac.shape != (N, H) or ar.dim() != 2 or ar.shape[1] != H:
@@ -232,6 +239,7 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
                          f"{tuple(ac.shape)}, ar {tuple(ar.shape)}")
     _check_cuda("dense_gat_fwd", dict(feat=feat, ac=ac, ar=ar), {}, H)
     _check_block("dense_gat_fwd", db, H * F, H)
+    _check_gid("dense_gat_fwd", gid, feat)
     R = db.row_ids.shape[0]
     acmax = _col_max(ac, db).contiguous()
     new = dict(device=feat.device, dtype=torch.float32)
@@ -247,12 +255,13 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
         _ptr(feat), _ptr(ac), _ptr(ar), _ptr(acmax), _ptr(db.row_ids),
         _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
         R, H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
-        int(seed) & 0xFFFFFFFF, int(dense_dtype == "bfloat16"), hmax, cols,
-        _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos), stream)
+        int(seed) & 0xFFFFFFFF, _ptr(gid), int(dense_dtype == "bfloat16"),
+        hmax, cols, _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos),
+        stream)
     if err:
         raise RuntimeError(f"dense_gat_fwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")
-    LAUNCHES["dense_gat_fwd"] += 1
+    LAUNCHES["dense_gat_fwd" + ("_gid" if gid is not None else "")] += 1
     return m, l, lpos, acc, accpos
 
 
@@ -263,7 +272,7 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
 
 def dense_gat_bwd_plain(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
                         p: float = 0.0, seed: int = 0,
-                        dense_dtype: str = "bfloat16"):
+                        dense_dtype: str = "bfloat16", gid=None):
     """Plain PyTorch hub-block backward; same arguments and outputs as
     ``dense_gat_bwd``."""
     rnd = _rounder(dense_dtype)
@@ -277,7 +286,8 @@ def dense_gat_bwd_plain(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
         sid, did = sid_all[rows], did_all[cols]
         s_raw = ar[did] + ac[sid]                          # [E, H]
         a = torch.exp(leaky_relu(s_raw, slope) - M[did]) * Linv[did]
-        ah = a * pair_keep(seed, did, sid, H, p) if p > 0 else a
+        ah = (a * pair_keep(seed, _hash_ids(did, gid), _hash_ids(sid, gid),
+                            H, p) if p > 0 else a)
         gi = rnd(g[did])                                   # [E, H, F]
         dx.index_add_(0, rows, rnd(ah)[..., None] * gi)
         ge = (rnd(feat[sid]) * gi).sum(dim=-1)             # [E, H]
@@ -288,7 +298,7 @@ def dense_gat_bwd_plain(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
 
 def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
                   p: float = 0.0, seed: int = 0,
-                  dense_dtype: str = "bfloat16"):
+                  dense_dtype: str = "bfloat16", gid=None):
     """The hub block's share of the GAT backward (pass B).
 
     Args:
@@ -299,15 +309,17 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
       ac: [Ns, H], feat: [Ns, H, F] float32 source tables.
       p, seed: attention dropout, hashed on the global ids (dst =
         col_ids[c], src = row_ids[r]), so the mask matches the forward's.
+      gid: None, or the int32 table of the ids the dropout hash takes
+        (ops/bins.py), indexed by row_ids and col_ids.
     Returns (dx [R, H, F], dac [R, H]) per block row:
       dx  = sum_c a^ g_c
       dac = sum_c (a^ <x, g_c> - a ws_c) * LeakyReLU'(ar_c + ac)
     """
     if _on_cpu(g, ar, M, Linv, ws, ac, feat, db.mask, db.row_ids,
-               db.col_ids, db.chunk_ptr):
+               db.col_ids, db.chunk_ptr, *_opt(gid)):
         return dense_gat_bwd_plain(db, g, ar, M, Linv, ws, ac, feat,
                                    slope=slope, p=p, seed=seed,
-                                   dense_dtype=dense_dtype)
+                                   dense_dtype=dense_dtype, gid=gid)
     _rounder(dense_dtype)
     Nd, H, F = g.shape
     Ns = feat.shape[0]
@@ -321,6 +333,7 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
                 dict(g=g, ar=ar, M=M, Linv=Linv, ws=ws, ac=ac, feat=feat),
                 {}, H)
     _check_block("dense_gat_bwd", db, H * F, H)
+    _check_gid("dense_gat_bwd", gid, g)
     R = db.row_ids.shape[0]
     dx = torch.empty((R, H, F), device=g.device, dtype=torch.float32)
     dac = torch.empty((R, H), device=g.device, dtype=torch.float32)
@@ -331,12 +344,13 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
         _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
         _ptr(feat), _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask),
         _ptr(db.ct), _ptr(db.chunk_ptr), R, H, F, float(slope), float(p),
-        _inv_keep(p), int(seed) & 0xFFFFFFFF, int(dense_dtype == "bfloat16"),
-        hmax, cols, _ptr(dx), _ptr(dac), stream)
+        _inv_keep(p), int(seed) & 0xFFFFFFFF, _ptr(gid),
+        int(dense_dtype == "bfloat16"), hmax, cols, _ptr(dx), _ptr(dac),
+        stream)
     if err:
         raise RuntimeError(f"dense_gat_bwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")
-    LAUNCHES["dense_gat_bwd"] += 1
+    LAUNCHES["dense_gat_bwd" + ("_gid" if gid is not None else "")] += 1
     return dx, dac
 
 

@@ -40,6 +40,13 @@ launch (bin_gat_bwd_list), and a graph's tile-sparse hub block
 dense_gat_bwd, whose per-row partials follow the bins' and are merged
 through the same combine tables.  Each is a CUDA kernel for CUDA tensors
 and its plain version for CPU tensors.
+
+``gat_fused`` is the op over an (adj_fwd, adj_bwd) pair whose destination
+and source spaces may differ (a graph shard of parallel/partition.py:
+destinations are the shard's rows, sources its rows and the halo rows it
+receives), as ``dgnn_tpu/ops/gat.py:_gat_fused`` is; its ``gid`` table
+maps both spaces to global node ids for the dropout hash (ops/bins.py).
+``gat_aggregate`` is that op over a Graph's two layouts.
 """
 
 from __future__ import annotations
@@ -51,25 +58,26 @@ from .bins import bin_gat_bwd_list, bin_gat_fwd_list
 from .common import combine_lse, combine_sum, gather_type, rounded
 from .dense import DENSE_DTYPES, dense_gat_bwd, dense_gat_fwd
 
-__all__ = ["gat_aggregate"]
+__all__ = ["gat_aggregate", "gat_fused"]
 
 
 def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed, dense_dtype,
-                 with_pos=True):
+                 with_pos=True, gid=None):
     """Pass A over ``adj``'s bins and hub block, merged through its combine
     table.  ``feat`` is float32 or bf16 (the gathered rows' type; the bins
-    then read ``ac`` rounded to it).  Returns (out, M, L, out_pos, r);
-    out_pos and r are None unless ``with_pos``."""
+    then read ``ac`` rounded to it).  ``gid``: the dropout hash's id table,
+    or None.  Returns (out, M, L, out_pos, r); out_pos and r are None
+    unless ``with_pos``."""
     tail = None
     if adj.dense is not None:
         # the block's partials follow every bin's: m is the rows' score
         # bound, which the log-sum-exp combine takes like an exact max
         tail = dense_gat_fwd(adj.dense, ar, ac, feat.float(), slope=slope,
                              with_pos=with_pos, p=p, seed=seed,
-                             dense_dtype=dense_dtype)
+                             dense_dtype=dense_dtype, gid=gid)
     m, l, lpos, acc, accpos = bin_gat_fwd_list(
         feat, rounded(ac, feat.dtype), ar, adj.segs(), slope=slope,
-        with_pos=with_pos, p=p, seed=seed, tail=tail)
+        with_pos=with_pos, p=p, seed=seed, tail=tail, gid=gid)
     parts = [l, acc] + ([lpos, accpos] if with_pos else [])
     M, merged = combine_lse(adj.cmb, m, parts)
     L = merged[0]
@@ -84,19 +92,20 @@ class _GATFused(torch.autograd.Function):
     """Pass A forward; closed-form d_ar and pass B backward."""
 
     @staticmethod
-    def forward(ctx, ar, ac, feat, graph, slope, p, seed, dense_dtype):
-        out, M, L, out_pos, r = _gat_forward(graph.fwd, ar, ac, feat, slope,
-                                             p, seed, dense_dtype)
+    def forward(ctx, ar, ac, feat, adj_fwd, adj_bwd, slope, p, seed,
+                dense_dtype, gid):
+        out, M, L, out_pos, r = _gat_forward(adj_fwd, ar, ac, feat, slope,
+                                             p, seed, dense_dtype, gid=gid)
         ctx.save_for_backward(ar, ac, feat, M, L, out, out_pos, r)
-        ctx.graph, ctx.slope, ctx.p, ctx.seed = graph, slope, p, seed
-        ctx.dense_dtype = dense_dtype
+        ctx.adj_bwd, ctx.slope, ctx.p, ctx.seed = adj_bwd, slope, p, seed
+        ctx.dense_dtype, ctx.gid = dense_dtype, gid
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         ar, ac, feat, M, L, out, out_pos, r = ctx.saved_tensors
-        slope, p, seed = ctx.slope, ctx.p, ctx.seed
-        adj_bwd = ctx.graph.bwd
+        slope, p, seed, gid = ctx.slope, ctx.p, ctx.seed, ctx.gid
+        adj_bwd = ctx.adj_bwd
         dt = feat.dtype  # the gathered rows' type
         g = g_out.to(dt).contiguous()
         g32 = g.float()
@@ -115,14 +124,14 @@ class _GATFused(torch.autograd.Function):
             # rows follow every bin's
             tail = dense_gat_bwd(adj_bwd.dense, g32, *cols, ac, feat.float(),
                                  slope=slope, p=p, seed=seed,
-                                 dense_dtype=ctx.dense_dtype)
+                                 dense_dtype=ctx.dense_dtype, gid=gid)
         dx, dac = bin_gat_bwd_list(g, *cols, ac, feat, adj_bwd.segs(),
-                                   slope=slope, p=p, seed=seed, tail=tail)
+                                   slope=slope, p=p, seed=seed, tail=tail,
+                                   gid=gid)
         d_feat, d_ac = combine_sum(adj_bwd.cmb, [dx, dac])
         need = ctx.needs_input_grad
         return (d_ar if need[0] else None, d_ac if need[1] else None,
-                d_feat.to(dt) if need[2] else None, None, None, None, None,
-                None)
+                d_feat.to(dt) if need[2] else None) + (None,) * 7
 
 
 def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
@@ -156,11 +165,32 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
     When no input needs a gradient (inference, or under ``torch.no_grad``),
     the forward skips the sign-split partials and saves nothing.
     """
+    return gat_fused(graph.fwd, graph.bwd, attn_row, attn_col, feat,
+                     negative_slope=negative_slope, attn_drop=attn_drop,
+                     seed=seed, training=training, gather_dtype=gather_dtype,
+                     dense_dtype=dense_dtype)
+
+
+def gat_fused(adj_fwd: BinnedAdj, adj_bwd: BinnedAdj, attn_row, attn_col,
+              feat, *, negative_slope: float = 0.2, attn_drop: float = 0.0,
+              seed: int | None = None, training: bool = False,
+              gather_dtype=None, dense_dtype: str = "bfloat16", gid=None):
+    """``gat_aggregate`` over an adjacency pair whose destination and
+    source spaces may differ.
+
+    adj_fwd: rows = the Nd destinations, slots = sources; adj_bwd: its
+    transpose, rows = the Ns sources.  attn_row: [Nd, H]; attn_col: [Ns,
+    H]; feat: [Ns, H, F].  gid: None, or an int32 table that maps both
+    spaces' ids to the ids the dropout hash takes (a graph shard's
+    ext_gids, whose first Nd entries are its destination rows' global
+    ids); it is handed to the kernels only when dropout is on.  Other
+    arguments and the result ([Nd, H, F]) as ``gat_aggregate``.
+    """
     rows = gather_type(gather_dtype)
     if dense_dtype not in DENSE_DTYPES:
         raise ValueError(f"dense_dtype must be one of {DENSE_DTYPES}, got "
                          f"{dense_dtype!r}")
-    if graph.fwd.cmb is None or graph.bwd.cmb is None:
+    if adj_fwd.cmb is None or adj_bwd.cmb is None:
         raise ValueError("gat_aggregate needs the graph's combine tables")
     for name, t in (("attn_row", attn_row), ("attn_col", attn_col),
                     ("feat", feat)):
@@ -173,12 +203,14 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
         seed = int(seed) & 0xFFFFFFFF
     else:
         seed = 0
+        gid = None  # the hash is not taken
     slope = float(negative_slope)
     ar, ac = attn_row.contiguous(), attn_col.contiguous()
     # the gathered rows' type; the cast's own gradient widens d_feat
     x = feat.to(rows).contiguous()
     if not (torch.is_grad_enabled()
             and (ar.requires_grad or ac.requires_grad or x.requires_grad)):
-        return _gat_forward(graph.fwd, ar, ac, x, slope, p, seed,
-                            dense_dtype, with_pos=False)[0]
-    return _GATFused.apply(ar, ac, x, graph, slope, p, seed, dense_dtype)
+        return _gat_forward(adj_fwd, ar, ac, x, slope, p, seed,
+                            dense_dtype, with_pos=False, gid=gid)[0]
+    return _GATFused.apply(ar, ac, x, adj_fwd, adj_bwd, slope, p, seed,
+                           dense_dtype, gid)

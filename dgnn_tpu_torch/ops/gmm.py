@@ -63,6 +63,15 @@ Gaussian weights of every edge, an SpMM over the forward bins
 backward is the same SpMM over the backward bins for dX and a per-edge
 SDDMM reordered through the bins' ``epos`` table for the weights, through
 which autograd gives d pseudo, d mu and d inv_sigma.
+
+``gmm_node_fused`` and ``gmm_binned_fused`` are the node and binned ops
+over an (adj_fwd, adj_bwd) pair whose destination and source spaces may
+differ (a graph shard of parallel/partition.py), as the JAX package's
+``_gmm_node`` and ``_gmm2`` are; ``gmm_aggregate_node`` and
+``gmm_aggregate_binned`` are those ops over a Graph's two layouts.  The
+binned op also takes layouts without combine tables: their segments are
+then summed into their rows by ``index_add_``, as the JAX op's
+``segment_sum`` does.
 """
 
 from __future__ import annotations
@@ -79,8 +88,8 @@ from .dense import DENSE_DTYPES, dense_gmm_bwd, dense_gmm_fwd
 from .primitives import _SpMM
 
 __all__ = ["NodePseudo", "gaussian_weights", "gmm_aggregate_node",
-           "gmm_aggregate_binned", "gmm_aggregate", "bin_edge_data",
-           "bin_pseudo"]
+           "gmm_node_fused", "gmm_aggregate_binned", "gmm_binned_fused",
+           "gmm_aggregate", "bin_edge_data", "bin_pseudo"]
 
 
 class NodePseudo(typing.NamedTuple):
@@ -170,13 +179,14 @@ class _GMMNode(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, sfeat, dfeat, feat, pw_s, pw_d, pbias, mu, isig, graph,
-                use_tanh, dense_dtype):
+    def forward(ctx, sfeat, dfeat, feat, pw_s, pw_d, pbias, mu, isig,
+                adj_fwd, adj_bwd, use_tanh, dense_dtype):
         alpha, beta = _project(sfeat, dfeat, pw_s, pw_d, pbias)
-        out = _node_forward(graph.fwd, alpha, beta, feat, mu, isig, use_tanh,
+        out = _node_forward(adj_fwd, alpha, beta, feat, mu, isig, use_tanh,
                             dense_dtype)
         ctx.save_for_backward(sfeat, dfeat, feat, pw_s, pw_d, pbias, mu, isig)
-        ctx.graph, ctx.use_tanh, ctx.dense_dtype = graph, use_tanh, dense_dtype
+        ctx.adj_bwd, ctx.use_tanh = adj_bwd, use_tanh
+        ctx.dense_dtype = dense_dtype
         return out
 
     @staticmethod
@@ -184,13 +194,13 @@ class _GMMNode(torch.autograd.Function):
         sfeat, dfeat, feat, pw_s, pw_d, pbias, mu, isig = ctx.saved_tensors
         alpha, beta = _project(sfeat, dfeat, pw_s, pw_d, pbias)
         d_feat, d_mu, d_isig, d_pb, d_pws, d_pwd = _node_backward(
-            ctx.graph.bwd, alpha, beta, sfeat.float().contiguous(),
+            ctx.adj_bwd, alpha, beta, sfeat.float().contiguous(),
             dfeat.float().contiguous(), feat, mu, isig, ctx.use_tanh,
             ctx.dense_dtype, g_out.float().contiguous())
         need = ctx.needs_input_grad
         grads = (None, None, d_feat, d_pws, d_pwd, d_pb, d_mu, d_isig)
         return tuple(g if n else None for g, n in zip(grads, need)) + (
-            None, None, None)
+            None,) * 4
 
 
 def gmm_aggregate_node(graph: Graph, feat, src_scalars, dst_scalars, mu,
@@ -221,11 +231,26 @@ def gmm_aggregate_node(graph: Graph, feat, src_scalars, dst_scalars, mu,
     When no input needs a gradient (inference, or under ``torch.no_grad``),
     the forward saves nothing.
     """
+    return gmm_node_fused(graph.fwd, graph.bwd, feat, src_scalars,
+                          dst_scalars, mu, inv_sigma, proj_weight=proj_weight,
+                          proj_bias=proj_bias, use_tanh=use_tanh,
+                          dense_dtype=dense_dtype, gather_dtype=gather_dtype)
+
+
+def gmm_node_fused(adj_fwd: BinnedAdj, adj_bwd: BinnedAdj, feat, src_scalars,
+                   dst_scalars, mu, inv_sigma, *, proj_weight, proj_bias,
+                   use_tanh: bool = True, dense_dtype: str = "bfloat16",
+                   gather_dtype=None):
+    """``gmm_aggregate_node`` over an adjacency pair whose destination and
+    source spaces may differ: adj_fwd's rows are the Nd destinations,
+    adj_bwd's the Ns sources; feat [Ns, K, F] and src_scalars [Ns, Ds] are
+    source tables, dst_scalars [Nd, Dd] a destination table.  Returns
+    [Nd, K, F]."""
     rows = gather_type(gather_dtype)
     if dense_dtype not in DENSE_DTYPES:
         raise ValueError(f"dense_dtype must be one of {DENSE_DTYPES}, got "
                          f"{dense_dtype!r}")
-    if graph.fwd.cmb is None or graph.bwd.cmb is None:
+    if adj_fwd.cmb is None or adj_bwd.cmb is None:
         raise ValueError("gmm_aggregate_node needs the graph's combine tables")
     ds = src_scalars.shape[-1]
     if proj_weight.shape[0] != ds + dst_scalars.shape[-1]:
@@ -245,10 +270,11 @@ def gmm_aggregate_node(graph: Graph, feat, src_scalars, dst_scalars, mu,
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in diff)):
         alpha, beta = _project(src_scalars, dst_scalars, pw_s, pw_d,
                                proj_bias)
-        return _node_forward(graph.fwd, alpha, beta, x, mu, isig,
+        return _node_forward(adj_fwd, alpha, beta, x, mu, isig,
                              bool(use_tanh), dense_dtype)
     return _GMMNode.apply(src_scalars, dst_scalars, x, pw_s, pw_d, proj_bias,
-                          mu, isig, graph, bool(use_tanh), dense_dtype)
+                          mu, isig, adj_fwd, adj_bwd, bool(use_tanh),
+                          dense_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -274,6 +300,19 @@ def bin_pseudo(graph: Graph, pseudo):
             bin_edge_data(graph.bwd, pseudo))
 
 
+def _merge_segments(adj: BinnedAdj, parts, like):
+    """The bins' per-segment rows summed into ``adj``'s rows: through its
+    combine table, or without one by ``index_add_`` over the segments'
+    row ids (pad segments are all zero)."""
+    vals = _cat_rows(parts, like.shape[1:], like)
+    if adj.cmb is not None:
+        return combine_sum(adj.cmb, vals)
+    rows = torch.cat([r.long() for r in adj.row])
+    out = torch.zeros((adj.num_rows,) + tuple(vals.shape[1:]),
+                      dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, rows, vals)
+
+
 def _project_slots(praw, pw, pbias, use_tanh):
     """[S, W, Din] raw slots -> [S, W, D] projected coordinates."""
     p = praw.float() @ pw + pbias
@@ -290,7 +329,7 @@ def _binned_forward(adj: BinnedAdj, tables, feat, pw, pbias, mu, isig,
         p = _project_slots(praw, pw, pbias, use_tanh)
         w = torch.where(mask[..., None], gaussian_terms(p, mu, isig)[2], 0.0)
         accs.append(torch.einsum("swk,swkf->skf", w, feat[nbr.long()]))
-    return combine_sum(adj.cmb, _cat_rows(accs, feat.shape[1:], feat))
+    return _merge_segments(adj, accs, feat)
 
 
 def _binned_backward(adj_bwd: BinnedAdj, tables, feat, pw, pbias, mu, isig,
@@ -322,7 +361,7 @@ def _binned_backward(adj_bwd: BinnedAdj, tables, feat, pw, pbias, mu, isig,
             dpre = dpre * (1.0 - p * p)
         d_pb = d_pb + dpre.sum(dim=(0, 1))
         d_pw = d_pw + torch.einsum("swr,swd->rd", praw, dpre)
-    d_feat = combine_sum(adj_bwd.cmb, _cat_rows(dxs, feat.shape[1:], feat))
+    d_feat = _merge_segments(adj_bwd, dxs, feat)
     return d_feat, d_pw, d_pb, d_mu, d_isig
 
 
@@ -331,22 +370,23 @@ class _GMMBinned(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, feat, pw, pbias, mu, isig, graph, tables, use_tanh):
-        out = _binned_forward(graph.fwd, tables[0], feat, pw, pbias, mu, isig,
+    def forward(ctx, feat, pw, pbias, mu, isig, adj_fwd, adj_bwd, tables,
+                use_tanh):
+        out = _binned_forward(adj_fwd, tables[0], feat, pw, pbias, mu, isig,
                               use_tanh)
         ctx.save_for_backward(feat, pw, pbias, mu, isig)
-        ctx.graph, ctx.tables, ctx.use_tanh = graph, tables, use_tanh
+        ctx.adj_bwd, ctx.tables, ctx.use_tanh = adj_bwd, tables, use_tanh
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         feat, pw, pbias, mu, isig = ctx.saved_tensors
-        grads = _binned_backward(ctx.graph.bwd, ctx.tables[1], feat, pw,
+        grads = _binned_backward(ctx.adj_bwd, ctx.tables[1], feat, pw,
                                  pbias, mu, isig, ctx.use_tanh,
                                  g_out.float().contiguous())
         need = ctx.needs_input_grad
         return tuple(g if n else None for g, n in zip(grads, need)) + (
-            None, None, None)
+            None,) * 4
 
 
 def gmm_aggregate_binned(graph: Graph, feat, pseudo_bins, mu, inv_sigma, *,
@@ -370,9 +410,21 @@ def gmm_aggregate_binned(graph: Graph, feat, pseudo_bins, mu, inv_sigma, *,
     if graph.fwd.cmb is None or graph.bwd.cmb is None:
         raise ValueError("gmm_aggregate_binned needs the graph's combine "
                          "tables")
+    return gmm_binned_fused(graph.fwd, graph.bwd, feat, pseudo_bins, mu,
+                            inv_sigma, proj_weight=proj_weight,
+                            proj_bias=proj_bias, use_tanh=use_tanh)
+
+
+def gmm_binned_fused(adj_fwd: BinnedAdj, adj_bwd: BinnedAdj, feat,
+                     pseudo_bins, mu, inv_sigma, *, proj_weight=None,
+                     proj_bias=None, use_tanh: bool = True):
+    """``gmm_aggregate_binned`` over an adjacency pair whose destination
+    and source spaces may differ (feat [Ns, K, F], result [Nd, K, F]).  A
+    layout without a combine table sums its segments by row id; a hub
+    block, which holds no slot tables, is not read (as the JAX op's)."""
     fwd_tables, bwd_tables = pseudo_bins
-    if len(fwd_tables) != graph.fwd.num_bins \
-            or len(bwd_tables) != graph.bwd.num_bins:
+    if len(fwd_tables) != adj_fwd.num_bins \
+            or len(bwd_tables) != adj_bwd.num_bins:
         raise ValueError("pseudo_bins do not match the graph's bins "
                          "(make them with bin_pseudo on this graph)")
     D = mu.shape[1]
@@ -385,7 +437,7 @@ def gmm_aggregate_binned(graph: Graph, feat, pseudo_bins, mu, inv_sigma, *,
     if proj_bias is None:
         proj_bias = torch.zeros(D, dtype=torch.float32, device=mu.device)
     return _GMMBinned.apply(feat.float().contiguous(), proj_weight,
-                            proj_bias, mu, inv_sigma, graph,
+                            proj_bias, mu, inv_sigma, adj_fwd, adj_bwd,
                             (tuple(fwd_tables), tuple(bwd_tables)),
                             bool(use_tanh))
 
