@@ -80,7 +80,12 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                copied: both backward modes, mul_dtype float32 (rtol 1e-5,
                atol 1e-6) and bfloat16 (rtol 5e-3, atol 2e-2).
   5. train   - the trainers at the bench widths, 20 steps and an eval each,
-               on cora (bin and dense kernels) and on pubmed (bin kernels):
+               on cora (bin and dense kernels) and on pubmed (bin kernels),
+               through the JAX trainers' protocol (utils/timing.py: the
+               training and the inference timed by time_epoch_loop, a
+               CUDA graph of the step captured and replayed, training on a
+               throwaway copy; then exactly 20 run_epochs replays from the
+               initial state):
                scripts/train_gat_torch.py with heads (4, 1), hidden 64,
                feat_drop 0.5, attn_drop 0.3, Adam lr 1e-3, weight decay
                5e-4; scripts/train_gmm_torch.py with hidden 64, 3 kernels,
@@ -88,10 +93,24 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                The loss must be finite and fall; the launch counts must be
                exactly what the steps, evals, layers, bins and hub blocks
                imply (each bin kernel one launch a call over every bin of
-               the direction), and the other model's kernels must not
-               launch; the
+               the direction; the steps and forwards counted on the card by
+               the trainer, a replay's launches counted as its step's), and
+               the other model's kernels must not launch; the
                trained model's logits on the card must match a CPU copy's;
                test accuracy must clear a margin above chance.
+     loop    - after each of those four runs, on its graph and a copy of
+               its model: LOOP_STEPS = 20 steps of the trainer's own step
+               (make_step) issued from the host against 20 run_epochs
+               replays from the same state and generator states; the
+               losses and every parameter within LOOP_TOL (rtol 1e-5, atol
+               1e-6 of each tensor's largest element; bit-equality
+               printed), GAT's attention seeds (logged on the card) the
+               same on both sides and different from each step to the
+               next, the launches exactly 2 x 20 steps'; then eager against
+               replayed ms a step, 50 steps each.  The GAT kernels read
+               the seed from device memory throughout: the kernels phase
+               holds them (and their bf16 and gid instances) to their
+               plain versions with the seed an int64 or int32 on the card.
                MoNet again on pubmed at the CLI's default, binned per-edge
                pseudo with no hub block (plain PyTorch: no kernel may
                launch).  Then reddit (run_reddit): the R-MAT graph at
@@ -106,6 +125,7 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                instances and the dense kernels), logits finite; it prints
                the host build's seconds and peak memory, the hub blocks'
                tiles, edges and widest row, ms/step, inference ms, peak MB,
+               eager against replayed ms a step (REDDIT_STEPS each),
                and each kernel of the path on that graph at both layers'
                widths beside its bound.
                Then scripts/train_edgeconv_torch.py at full width (B = 64,
@@ -214,6 +234,7 @@ without the rest of the repository beside it, the script exits non-zero
 and prints no result.
 """
 
+import contextlib
 import copy
 import importlib.util
 import json
@@ -285,6 +306,15 @@ EC_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 # products can cross the bfloat16 threshold (the H100 read at most 7 of
 # 2,097,152 a layer).
 EC_MASK_FLIPS = 1e-4
+# The loop phase: steps a side in the replayed-against-eager comparison; steps
+# a side in the eager-against-replayed times (REDDIT_STEPS on reddit); the
+# tolerance (atol: this times each tensor's largest element): a replayed
+# step runs the eager step's kernels on the same inputs, so only an
+# atomics order or a cuBLAS algorithm that the capture stream picks
+# differently could part them.
+LOOP_STEPS = 20
+LOOP_TIME_STEPS = 50
+LOOP_TOL = dict(rtol=1e-5, atol_scale=1e-6)
 # The reddit phase: the cut of reddit's nodes and edges it runs at (the
 # largest of 1, 1/2, 1/4, 1/8 whose host build, with the rest of the
 # script, fits the script's time limit), and its training steps.
@@ -466,6 +496,14 @@ def with_rows(tb, rows):
     return dict(tb, feat=tb["feat"].to(rows), g=tb["g"].to(rows))
 
 
+def card_seed(like, dtype=torch.int64):
+    """SEED in device memory, as a step hands the kernels an element of the
+    seed table it drew on the card: an int64 (the kernels read its low
+    word) or the bits of an int32.  The plain versions take the int."""
+    bits = SEED - (1 << 32) if dtype == torch.int32 else SEED
+    return torch.tensor(bits, dtype=dtype, device=like.device)
+
+
 def hold(bins, err, name, rows, got, want, tol, what=""):
     """One kernel output against its plain version on the same inputs,
     every element within ``tol`` whether the feature rows are float32 or
@@ -482,13 +520,14 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err, rows=torch.float32):
     """Every bin of one graph, kernel against plain, feature rows stored as
     ``rows``; returns the number of comparisons."""
     tb = with_rows(tb, rows)
+    ks = dict(seed=card_seed(tb["ac"]))  # the kernels' seed: an int64
     n_cmp = 0
     for _w, nbr, _e, row, count in adj_fwd.bins():
         for p in (0.0, 0.3):
             for with_pos in (True, False):
                 args = (tb["feat"], tb["ac"], tb["ar"], nbr, row, count)
                 kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED)
-                got = bins.bin_gat_fwd(*args, **kw)
+                got = bins.bin_gat_fwd(*args, **kw | ks)
                 want = bins.bin_gat_fwd_plain(*args, **kw)
                 for g, w in zip(got, want):
                     if w is None:
@@ -502,7 +541,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err, rows=torch.float32):
         for with_pos in (True, False):
             args = (tb["feat"], tb["ac"], tb["ar"], segs)
             kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED)
-            got = bins.bin_gat_fwd_list(*args, **kw)
+            got = bins.bin_gat_fwd_list(*args, **kw | ks)
             want = bins.bin_gat_fwd_list_plain(*args, **kw)
             for g, w in zip(got, want):
                 if w is None:
@@ -516,7 +555,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err, rows=torch.float32):
         for p in (0.0, 0.3):
             args = (*dst, nbr, row, count)
             kw = dict(slope=SLOPE, p=p, seed=SEED)
-            got = bins.bin_gat_bwd(*args, **kw)
+            got = bins.bin_gat_bwd(*args, **kw | ks)
             want = bins.bin_gat_bwd_plain(*args, **kw)
             for g, w in zip(got, want):
                 hold(bins, err, "bin_gat_bwd", rows, g, w, BWD_TOL)
@@ -524,7 +563,7 @@ def check_bins(bins, adj_fwd, adj_bwd, tb, err, rows=torch.float32):
     # the backward's every bin in one launch (the op's path)
     for p in (0.0, 0.3):
         kw = dict(slope=SLOPE, p=p, seed=SEED)
-        got = bins.bin_gat_bwd_list(*dst, adj_bwd.segs(), **kw)
+        got = bins.bin_gat_bwd_list(*dst, adj_bwd.segs(), **kw | ks)
         want = bins.bin_gat_bwd_list_plain(*dst, adj_bwd.segs(), **kw)
         for g, w in zip(got, want):
             hold(bins, err, "bin_gat_bwd", rows, g, w,
@@ -538,13 +577,15 @@ def check_dense(dense, graph, tb, err, tol=BLOCK_TOL):
     """Both dense kernels against their plain versions on one graph's hub
     blocks; returns (comparisons, elements outside the float32 tolerance)."""
     n_cmp = n_off = 0
+    # the kernels' seed: the bits of an int32
+    ks = dict(seed=card_seed(tb["ac"], torch.int32))
     for dt in DENSE_DTYPES:
         for p in (0.0, 0.3):
             for with_pos in (True, False):
                 args = (graph.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
                 kw = dict(slope=SLOPE, with_pos=with_pos, p=p, seed=SEED,
                           dense_dtype=dt)
-                got = dense.dense_gat_fwd(*args, **kw)
+                got = dense.dense_gat_fwd(*args, **kw | ks)
                 want = dense.dense_gat_fwd_plain(*args, **kw)
                 for name, g, w in zip(("m", "l", "lpos", "acc", "accpos"),
                                       got, want):
@@ -559,7 +600,7 @@ def check_dense(dense, graph, tb, err, tol=BLOCK_TOL):
             args = (graph.bwd.dense, *(tb[k] for k in (
                 "g", "ar", "M", "Linv", "ws", "ac", "feat")))
             kw = dict(slope=SLOPE, p=p, seed=SEED, dense_dtype=dt)
-            got = dense.dense_gat_bwd(*args, **kw)
+            got = dense.dense_gat_bwd(*args, **kw | ks)
             want = dense.dense_gat_bwd_plain(*args, **kw)
             for name, g, w in zip(("dx", "dac"), got, want):
                 e, off = assert_close(g, w, tol, dt,
@@ -753,14 +794,15 @@ def path_jobs(bins, dense, kind, graph, tb, rows):
     if kind == "gat":
         fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
         bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
+        ks = dict(seed=card_seed(tb["ac"]))  # the kernels': from the card
         la = (rt["feat"], rt["ac"], rt["ar"], fwd.segs())
         lb = (*(rt[k] for k in GAT_BWD_KEYS), bwd.segs())
         jobs[bins.launch_name("bin_gat_fwd", bf16)] = (
-            lambda: [bins.bin_gat_fwd_list(*la, **fkw)],
+            lambda: [bins.bin_gat_fwd_list(*la, **fkw | ks)],
             lambda: [bins.bin_gat_fwd_list_plain(*la, **fkw)],
             [*la[:3], *flat(la[3])], edges_of(fwd))
         jobs[bins.launch_name("bin_gat_bwd", bf16)] = (
-            lambda: [bins.bin_gat_bwd_list(*lb, **bkw)],
+            lambda: [bins.bin_gat_bwd_list(*lb, **bkw | ks)],
             lambda: [bins.bin_gat_bwd_list_plain(*lb, **bkw)],
             [*lb[:7], *flat(lb[7])], edges_of(bwd))
         if fwd.dense is not None:
@@ -769,12 +811,12 @@ def path_jobs(bins, dense, kind, graph, tb, rows):
             dfkw, dbkw = (dict(kw, dense_dtype="bfloat16")
                           for kw in (fkw, bkw))
             jobs["dense_gat_fwd"] = (
-                lambda: [dense.dense_gat_fwd(*fa, **dfkw)],
+                lambda: [dense.dense_gat_fwd(*fa, **dfkw | ks)],
                 lambda: [dense.dense_gat_fwd_plain(*fa, **dfkw)],
                 block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]]),
                 block_edges(fa[0]))
             jobs["dense_gat_bwd"] = (
-                lambda: [dense.dense_gat_bwd(*ba, **dbkw)],
+                lambda: [dense.dense_gat_bwd(*ba, **dbkw | ks)],
                 lambda: [dense.dense_gat_bwd_plain(*ba, **dbkw)],
                 block_inputs(ba[0], [tb["ac"], tb["feat"]],
                              [tb[k] for k in GAT_BWD_KEYS[:5]]),
@@ -1132,6 +1174,32 @@ def load_script(name):
     return mod
 
 
+def path_launches(bins, model_kind, r, launches, steps, forwards):
+    """The launch counts (every key of ``launches``) that ``steps`` training
+    steps and ``forwards`` more forwards of a trainer run ``r``'s model on
+    its graph imply: each bin kernel one launch a call for every bin of the
+    direction (the list wrappers), the dense kernels where the graph has a
+    hub block, under the instance the gathered rows' type selects; none
+    for a binned-pseudo MoNet or the naive GAT (plain PyTorch passes), and
+    none of the other model's."""
+    g = r["graph"]
+    fwd_calls = (steps + forwards) * len(r["model"].convs)
+    bwd_calls = steps * len(r["model"].convs)
+    bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
+    bf16 = r["gather_dtype"] == "bfloat16"
+    want = dict.fromkeys(launches, 0)
+    if (r.get("impl", "fused") == "fused"
+            and r.get("pseudo_mode", "node") == "node"):
+        want.update({
+            bins.launch_name(bin_fwd, bf16):
+                fwd_calls * list_launches(bins, g.fwd),
+            bins.launch_name(bin_bwd, bf16):
+                bwd_calls * list_launches(bins, g.bwd),
+            dense_fwd: fwd_calls * (g.fwd.dense is not None),
+            dense_bwd: bwd_calls * (g.bwd.dense is not None)})
+    return want
+
+
 def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
                 cpu_copy=True):
     """``steps`` steps through the trainer's entry point, at the bench width
@@ -1152,23 +1220,13 @@ def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
     losses = r["losses"]
     assert all(np.isfinite(losses)), losses
     g = r["graph"]
-    fwd_calls = (r["train_steps"] + r["infer_calls"]) * len(r["model"].convs)
-    bwd_calls = r["train_steps"] * len(r["model"].convs)
-    bin_fwd, bin_bwd, dense_fwd, dense_bwd = PATH_KERNELS[model_kind]
-    bf16 = r["gather_dtype"] == "bfloat16"
-    fused = r.get("impl", "fused") == "fused"
-    want = dict.fromkeys(launches, 0)  # the other model's kernels: none
-    if fused and r.get("pseudo_mode", "node") == "node":
-        # one launch a call for every bin of the direction (the list
-        # wrappers)
-        want.update({
-            bins.launch_name(bin_fwd, bf16):
-                fwd_calls * list_launches(bins, g.fwd),
-            bins.launch_name(bin_bwd, bf16):
-                bwd_calls * list_launches(bins, g.bwd),
-            dense_fwd: fwd_calls * (g.fwd.dense is not None),
-            dense_bwd: bwd_calls * (g.bwd.dense is not None)})
+    # the steps and forwards the card ran (the trainer counts them there:
+    # the timing loops' warmups and replays, the run_epochs replays, the
+    # last forward); a replay's launches count as the wrappers' counts do
+    want = path_launches(bins, model_kind, r, launches, r["train_steps"],
+                         r["infer_calls"])
     assert launches == want, (launches, want)
+    fused = r.get("impl", "fused") == "fused"
     if not cpu_copy:
         assert bool(torch.isfinite(r["logits"]).all())
         return r, launches
@@ -1190,6 +1248,147 @@ def run_trainer(bins, trainer, model_kind, dataset, argv=None, steps=20,
         tol = BF16_BOUND
     torch.testing.assert_close(got, logits_cpu, **tol)
     return r, launches
+
+
+# ---------------------------------------------------------------------------
+# phase "loop": the device-resident epoch loop (utils/timing.py), a step
+# captured into a CUDA graph and replayed, against the same steps issued
+# from the host
+
+
+def loop_side(trainer, kind, r, args, dev, losses=True):
+    """A copy of trainer run ``r``'s model with a fresh optimizer and the
+    trainer's generators seeded as ``args`` seeds them, and the trainer's
+    own step over them (``make_step``; its losses into a buffer of
+    LOOP_STEPS where ``losses``)."""
+    from dgnn_tpu_torch.utils import make_optimizer
+
+    model = copy.deepcopy(r["model"])
+    opt = make_optimizer(model, args.lr, args.weight_decay)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    buf = torch.zeros(LOOP_STEPS, device=dev) if losses else None
+    if kind == "gat":
+        gens = trainer.generators(args.seed, dev)
+        step = trainer.make_step(model, opt, r["graph"], r["feats"],
+                                 r["labels"], r["train_mask"], gens, count,
+                                 buf)
+    else:
+        gens = (torch.Generator(device=dev).manual_seed(args.seed),)
+        step = trainer.make_step(model, opt, r["graph"], r["feats"],
+                                 r["pseudo"], r["labels"], r["train_mask"],
+                                 gens[0], count, buf)
+    return dict(model=model, gens=gens, step=step, losses=buf)
+
+
+@contextlib.contextmanager
+def logged_seeds(trainer, log):
+    """The attention seeds the GAT trainer's steps draw, copied on the card
+    into the rows of ``log`` in turn (a row a step, replays included)."""
+    draw = trainer.draw_seeds
+    at = torch.zeros(1, dtype=torch.int64, device=log.device)
+
+    def logged(n, gen):
+        seeds = draw(n, gen)
+        log.index_copy_(0, at, seeds[None])
+        at.add_(1)
+        return seeds
+
+    trainer.draw_seeds = logged
+    try:
+        yield
+    finally:
+        trainer.draw_seeds = draw
+
+
+def step_ms(trainer, kind, r, args, dev, steps):
+    """Ms a training step of trainer run ``r``'s model, issued from the
+    host and replayed from a CUDA graph (utils.timing.StepGraph, after the
+    same warmup), each on its own copy of the state; CUDA events around
+    ``steps`` steps."""
+    from dgnn_tpu_torch.utils import StepGraph, time_calls
+
+    eager = loop_side(trainer, kind, r, args, dev, losses=False)
+    eager_ms = time_calls(eager["step"], dev, iters=steps, warmup=3) * 1e3
+    del eager
+    side = loop_side(trainer, kind, r, args, dev, losses=False)
+    graph = StepGraph(side["step"], dev, generators=side["gens"], warmup=3)
+    try:
+        graph.replay(1)
+        replay_ms = graph.seconds(steps) / steps * 1e3
+    finally:
+        graph.close()
+    return eager_ms, replay_ms
+
+
+def run_loop(bins, trainer, kind, dataset, r, dev, smi):
+    """Phase loop on one trainer run ``r`` (its graph and model at the bench
+    width): LOOP_STEPS steps of the trainer's step issued from the host
+    against LOOP_STEPS replays of ``run_epochs`` (one capture), from the
+    same state and generator states.  The losses and every parameter
+    within LOOP_TOL (atol scaled to each tensor's largest element), the
+    GAT's attention seeds the same on both sides and different from one
+    step to the next, the launches exactly 2 LOOP_STEPS steps' (a replay
+    counts its step's); then eager against replayed ms a step."""
+    from dgnn_tpu_torch.utils import run_epochs
+
+    args = trainer.parser().parse_args(["--dataset", dataset,
+                                        *trainer.BENCH_ARGV])
+    n_convs = len(r["model"].convs)
+    reset_all_launches()
+    sides, logs = [], []
+    for replayed in (False, True):
+        side = loop_side(trainer, kind, r, args, dev)
+        log = torch.zeros((LOOP_STEPS, n_convs), dtype=torch.int32,
+                          device=dev)
+        with (logged_seeds(trainer, log) if kind == "gat"
+              else contextlib.nullcontext()):
+            if replayed:
+                run_epochs(side["step"], LOOP_STEPS, device=dev,
+                           generators=side["gens"])
+            else:
+                for _ in range(LOOP_STEPS):
+                    side["step"]()
+        sides.append(side)
+        logs.append(log)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = path_launches(bins, kind, r, launches, 2 * LOOP_STEPS, 0)
+    assert launches == want, (kind, dataset, launches, want)
+    eager, replay = sides
+    pairs = [("loss", eager["losses"], replay["losses"])] + [
+        (name, a.detach(), b.detach()) for (name, a), (_, b) in zip(
+            eager["model"].named_parameters(),
+            replay["model"].named_parameters())]
+    worst, bit_equal = 0.0, True
+    for name, a, b in pairs:
+        atol = LOOP_TOL["atol_scale"] * float(a.abs().max())
+        torch.testing.assert_close(
+            b, a, rtol=LOOP_TOL["rtol"], atol=atol,
+            msg=lambda m, name=name: f"{kind} {dataset} {name}: {m}")
+        bit_equal &= torch.equal(a, b)
+        worst = max(worst, float((a - b).abs().max()))
+    seeds = ""
+    if kind == "gat":
+        assert torch.equal(logs[0], logs[1]), (logs[0], logs[1])
+        step_to_step = (logs[1][1:] != logs[1][:-1]).any(dim=1)
+        assert bool(step_to_step.all()), logs[1]
+        seeds = (f"; the {LOOP_STEPS} replays drew the eager steps' "
+                 f"attention seeds, each step's differing from the last's")
+    losses = eager["losses"].tolist()
+    used = {k: v for k, v in launches.items() if v}
+    del sides, eager, replay
+    eager_ms, replay_ms = step_ms(trainer, kind, r, args, dev, LOOP_TIME_STEPS)
+    phase("loop", f"{dataset} {kind}: {LOOP_STEPS} run_epochs replays = "
+          f"{LOOP_STEPS} eager steps from the same state (loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; losses and {len(pairs) - 1} "
+          f"parameters within rtol {LOOP_TOL['rtol']}, atol "
+          f"{LOOP_TOL['atol_scale']} x each tensor's largest element; max "
+          f"|diff| {worst:.3g}; bit-equal {bit_equal}){seeds}; launches "
+          f"{used} = 2 x {LOOP_STEPS} steps'; ms a step: eager "
+          f"{eager_ms:.4f}, replayed {replay_ms:.4f} ({LOOP_TIME_STEPS} "
+          f"steps each, CUDA events) | {smi}")
+    return dict(eager_ms=eager_ms, replay_ms=replay_ms, bit_equal=bit_equal,
+                max_diff=worst)
 
 
 def block_row_edges(db, chunk=512):
@@ -1326,6 +1525,12 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
               f"{r['host_peak_mb']:.0f} MB; native graph library calls "
               f"{calls}; bins fwd {g.fwd.widths} bwd "
               f"{g.bwd.widths}; hub block {hub_line(g)} | {smi}")
+        eager_ms, replay_ms = step_ms(
+            trainers[kind], kind, r, trainers[kind].parser().parse_args(
+                ["--dataset", "reddit", *argv[kind]]), dev, REDDIT_STEPS)
+        phase("reddit", f"{kind} scale {scale}: ms a training step, eager "
+              f"{eager_ms:.3f}, replayed from a CUDA graph {replay_ms:.3f} "
+              f"({REDDIT_STEPS} steps each, CUDA events) | {smi}")
         steps_ = r["train_steps"] + r["infer_calls"]
         kt = reddit_kernel_times(bins, dense, kind, g, shapes[kind], dev,
                                  time_calls)
@@ -1604,17 +1809,18 @@ def gid_jobs(bins, dense, view, tb):
     gid = view.ext_gids
     fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
     bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
+    ks = dict(seed=card_seed(tb["ac"]))  # the kernels': from the card
     la = (tb["feat"], tb["ac"], tb["ar"], view.fwd.segs())
     lb = (*(tb[k] for k in GAT_BWD_KEYS), view.bwd.segs())
     jobs = {
         "bin_gat_fwd_gid": (
-            lambda: [bins.bin_gat_fwd_list(*la, **fkw, gid=gid)],
-            lambda: [bins.bin_gat_fwd_list(*la, **fkw)],
+            lambda: [bins.bin_gat_fwd_list(*la, **fkw | ks, gid=gid)],
+            lambda: [bins.bin_gat_fwd_list(*la, **fkw | ks)],
             lambda: [bins.bin_gat_fwd_list_plain(*la, **fkw, gid=gid)],
             [*la[:3], *flat(la[3]), gid], edges_of(view.fwd)),
         "bin_gat_bwd_gid": (
-            lambda: [bins.bin_gat_bwd_list(*lb, **bkw, gid=gid)],
-            lambda: [bins.bin_gat_bwd_list(*lb, **bkw)],
+            lambda: [bins.bin_gat_bwd_list(*lb, **bkw | ks, gid=gid)],
+            lambda: [bins.bin_gat_bwd_list(*lb, **bkw | ks)],
             lambda: [bins.bin_gat_bwd_list_plain(*lb, **bkw, gid=gid)],
             [*lb[:7], *flat(lb[7]), gid], edges_of(view.bwd))}
     if view.fwd.dense is not None:
@@ -1622,14 +1828,14 @@ def gid_jobs(bins, dense, view, tb):
         ba = (view.bwd.dense, *(tb[k] for k in GAT_BWD_KEYS))
         dfkw, dbkw = (dict(kw, dense_dtype="float32") for kw in (fkw, bkw))
         jobs["dense_gat_fwd_gid"] = (
-            lambda: [dense.dense_gat_fwd(*fa, **dfkw, gid=gid)],
-            lambda: [dense.dense_gat_fwd(*fa, **dfkw)],
+            lambda: [dense.dense_gat_fwd(*fa, **dfkw | ks, gid=gid)],
+            lambda: [dense.dense_gat_fwd(*fa, **dfkw | ks)],
             lambda: [dense.dense_gat_fwd_plain(*fa, **dfkw, gid=gid)],
             block_inputs(fa[0], [tb["ar"]], [tb["ac"], tb["feat"]], [gid]),
             block_edges(fa[0]))
         jobs["dense_gat_bwd_gid"] = (
-            lambda: [dense.dense_gat_bwd(*ba, **dbkw, gid=gid)],
-            lambda: [dense.dense_gat_bwd(*ba, **dbkw)],
+            lambda: [dense.dense_gat_bwd(*ba, **dbkw | ks, gid=gid)],
+            lambda: [dense.dense_gat_bwd(*ba, **dbkw | ks)],
             lambda: [dense.dense_gat_bwd_plain(*ba, **dbkw, gid=gid)],
             block_inputs(ba[0], [tb["ac"], tb["feat"]],
                          [tb[k] for k in GAT_BWD_KEYS[:5]], [gid]),
@@ -1643,11 +1849,12 @@ def check_gid_kernels(bins, dense, view, tb, err):
     (sum_tol), the hub-block kernels in both dense dtypes (BLOCK_TOL, bf16
     flips as check_dense).  Returns the number of comparisons."""
     gid = view.ext_gids
+    ks = dict(seed=card_seed(tb["ac"], torch.int32))  # the kernels' seed
     n_cmp = 0
     la = (tb["feat"], tb["ac"], tb["ar"], view.fwd.segs())
     for with_pos in (True, False):
         kw = dict(slope=SLOPE, with_pos=with_pos, p=0.3, seed=SEED, gid=gid)
-        for g, w in zip(bins.bin_gat_fwd_list(*la, **kw),
+        for g, w in zip(bins.bin_gat_fwd_list(*la, **kw | ks),
                         bins.bin_gat_fwd_list_plain(*la, **kw)):
             if w is None:
                 assert g is None
@@ -1658,7 +1865,7 @@ def check_gid_kernels(bins, dense, view, tb, err):
         n_cmp += 1
     lb = (*(tb[k] for k in GAT_BWD_KEYS), view.bwd.segs())
     kw = dict(slope=SLOPE, p=0.3, seed=SEED, gid=gid)
-    for g, w in zip(bins.bin_gat_bwd_list(*lb, **kw),
+    for g, w in zip(bins.bin_gat_bwd_list(*lb, **kw | ks),
                     bins.bin_gat_bwd_list_plain(*lb, **kw)):
         torch.testing.assert_close(g, w, **sum_tol(view.bwd, BWD_TOL))
         err["bin_gat_bwd_gid"] = max(err["bin_gat_bwd_gid"],
@@ -1671,7 +1878,7 @@ def check_gid_kernels(bins, dense, view, tb, err):
             kw = dict(slope=SLOPE, with_pos=with_pos, p=0.3, seed=SEED,
                       dense_dtype=dt, gid=gid)
             args = (view.fwd.dense, tb["ar"], tb["ac"], tb["feat"])
-            for g, w in zip(dense.dense_gat_fwd(*args, **kw),
+            for g, w in zip(dense.dense_gat_fwd(*args, **kw | ks),
                             dense.dense_gat_fwd_plain(*args, **kw)):
                 if w is None:
                     continue
@@ -1680,7 +1887,7 @@ def check_gid_kernels(bins, dense, view, tb, err):
             n_cmp += 1
         kw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype=dt, gid=gid)
         args = (view.bwd.dense, *(tb[k] for k in GAT_BWD_KEYS))
-        for g, w in zip(dense.dense_gat_bwd(*args, **kw),
+        for g, w in zip(dense.dense_gat_bwd(*args, **kw | ks),
                         dense.dense_gat_bwd_plain(*args, **kw)):
             e, _ = assert_close(g, w, BLOCK_TOL, dt, f"bwd gid {dt}: ")
             err["dense_gat_bwd_gid"] = max(err["dense_gat_bwd_gid"], e)
@@ -2314,6 +2521,7 @@ def main():
     titles = {"gat": "GAT heads (4,1) hidden 64 attn_drop 0.3",
               "gmm": "MoNet hidden 64 kernels 3 dim 2 dropout 0.5 lr 1e-2"}
     launches = {}
+    loop_s = 0.0
     # pubmed: 3 classes, chance 1/3
     for kind, dataset, min_acc in (("gat", "cora", CORA_MIN_ACC),
                                    ("gat", "pubmed", 0.5),
@@ -2323,6 +2531,9 @@ def main():
                                                    kind, dataset)
         losses = r["losses"]
         assert r["test_acc"] > min_acc, (kind, dataset, r["test_acc"])
+        t0 = time.perf_counter()
+        run_loop(bins, trainers[kind], kind, dataset, r, dev, smi)
+        loop_s += time.perf_counter() - t0
         used = {k: v for k, v in launches[(kind, dataset)].items() if v}
         phase("train", f"{dataset} {titles[kind]}: "
               f"{r['train_steps']} steps, loss {losses[0]:.4f} -> "
@@ -2333,6 +2544,8 @@ def main():
               "logits match "
               f"a CPU copy (max |diff| {r['logit_err']:.3g}, "
               f"{r['logit_off']} of {r['logits'].numel()} outside 1e-4)")
+
+    phase("loop", f"the loop phase took {loop_s:.1f} s")
 
     # MoNet's CLI default on the citation graphs (the JAX CLI's set-up):
     # binned per-edge pseudo, no hub block, plain PyTorch passes
@@ -2482,8 +2695,9 @@ def main():
     # the bin kernels one launch a bin, the way they ran before the list
     # kernels, beside one launch for every bin: (per-bin loop, list call)
     per_bin = {}
-    fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED)
-    bkw = dict(slope=SLOPE, p=0.3, seed=SEED)
+    ks = card_seed(tabs[SHAPES[0]]["ac"])  # the kernels' seed: from the card
+    fkw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=ks)
+    bkw = dict(slope=SLOPE, p=0.3, seed=ks)
     for h, f in SHAPES:
         tb = tabs[(h, f)]
         fwd_args = [(tb["feat"], tb["ac"], tb["ar"], nbr, row, count)

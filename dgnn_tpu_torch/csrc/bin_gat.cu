@@ -116,7 +116,8 @@ bin_gat_fwd_kernel(
     const float* __restrict__ ac,     // [N, H]   source coefficients
     const float* __restrict__ ar,     // [Nr, H]  destination coefficients
     const BinList bl, int G, int H, int F, float slope, int with_pos,
-    float p, float inv_keep, uint32_t seed, const int* gid,
+    float p, float inv_keep, const uint32_t* __restrict__ seed_p,
+    const int* gid,
     float* __restrict__ m_out,        // [total, H]
     float* __restrict__ l_out,        // [total, H]
     float* __restrict__ lpos_out,     // [total, H]    (with_pos)
@@ -136,6 +137,8 @@ bin_gat_fwd_kernel(
   const int r = sg.row;
   const int HF = H * F;
   const bool drop = p > 0.f;
+  // the dropout seed (gat_common.cuh): one load before the walk
+  const uint32_t seed = drop ? __ldg(seed_p) : 0u;
   // the segment row's id in the dropout hash: its global id where a table
   // is given (graph shards), read only when dropping
   const uint32_t hr = drop && gid ? static_cast<uint32_t>(__ldg(gid + r))
@@ -315,7 +318,7 @@ template <typename T, int HMAX, bool VEC, int CPL>
 void launch_gat_fwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
                     const T* x, const float* ac, const float* ar, int H,
                     int F, float slope, int with_pos, float p, float inv_keep,
-                    uint32_t seed,
+                    const uint32_t* seed,
                     const int* gid, float* m, float* l, float* lpos, float* acc,
                     float* accpos) {
   const int gpb = dgnn::kGroupThreads / G;
@@ -332,7 +335,7 @@ void dispatch_gat_fwd(bool vec, int cpl, const BinList& bl, int G,
                       size_t shm, cudaStream_t st, const T* x,
                       const float* ac, const float* ar, int H, int F,
                       float slope, int with_pos, float p, float inv_keep,
-                      uint32_t seed,
+                      const uint32_t* seed,
                       const int* gid, float* m, float* l, float* lpos,
                       float* acc, float* accpos) {
 #define DGNN_GAT_FWD(V, C)                                                  \
@@ -367,8 +370,8 @@ bin_gat_bwd_kernel(
     const float* __restrict__ ac,     // [Ns, H]   source coefficients
     const T* __restrict__ x,          // [Ns, H*F] source features
     const BinList bl,                 // nbr: destination ids; row: source id
-    int G, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
-    const int* gid,
+    int G, int H, int F, float slope, float p, float inv_keep,
+    const uint32_t* __restrict__ seed_p, const int* gid,
     float* __restrict__ dx_out,       // [total, H*F]
     float* __restrict__ dac_out) {    // [total, H]
   extern __shared__ float smem[];
@@ -385,6 +388,8 @@ bin_gat_bwd_kernel(
   const int r = sg.row;
   const int HF = H * F;
   const bool drop = p > 0.f;
+  // the dropout seed (gat_common.cuh): one load before the walk
+  const uint32_t seed = drop ? __ldg(seed_p) : 0u;
   // the segment row's id in the dropout hash: its global id where a table
   // is given (graph shards), read only when dropping
   const uint32_t hr = drop && gid ? static_cast<uint32_t>(__ldg(gid + r))
@@ -517,7 +522,7 @@ void launch_gat_bwd(const BinList& bl, int G, size_t shm, cudaStream_t st,
                     const T* g, const float* ar, const float* M,
                     const float* Linv, const float* ws, const float* ac,
                     const T* x, int H, int F, float slope, float p,
-                    float inv_keep, uint32_t seed,
+                    float inv_keep, const uint32_t* seed,
                     const int* gid, float* dx, float* dac) {
   const int gpb = dgnn::kGroupThreads / G;
   const int blocks = (bl.total + gpb - 1) / gpb;
@@ -533,7 +538,8 @@ void dispatch_gat_bwd(bool vec, int cpl, const BinList& bl, int G,
                       const float* ar, const float* M, const float* Linv,
                       const float* ws, const float* ac, const T* x, int H,
                       int F, float slope, float p, float inv_keep,
-                      uint32_t seed, const int* gid, float* dx, float* dac) {
+                      const uint32_t* seed, const int* gid, float* dx,
+                      float* dac) {
 #define DGNN_GAT_BWD(V, C)                                                  \
   launch_gat_bwd<T, HMAX, V, C>(bl, G, shm, st, g, ar, M, Linv, ws, ac, x, \
                                 H, F, slope, p, inv_keep, seed, gid, dx, dac)
@@ -559,7 +565,7 @@ template <typename T>
 int run_gat_fwd(const T* x, const float* ac, const float* ar, int nbins,
                 void* const* nbr, void* const* row, void* const* count,
                 const int* S, const int* W, int H, int F, float slope,
-                int with_pos, float p, float inv_keep, uint32_t seed,
+                int with_pos, float p, float inv_keep, const uint32_t* seed,
                 const int* gid, float* m,
                 float* l, float* lpos, float* acc, float* accpos,
                 void* stream) {
@@ -592,7 +598,7 @@ int run_gat_bwd(const T* g, const float* ar, const float* M,
                 const float* Linv, const float* ws, const float* ac,
                 const T* x, int nbins, void* const* nbr, void* const* row,
                 void* const* count, const int* S, const int* W, int H, int F,
-                float slope, float p, float inv_keep, uint32_t seed,
+                float slope, float p, float inv_keep, const uint32_t* seed,
                 const int* gid,
                 float* dx, float* dac, void* stream) {
   BinList bl;
@@ -630,7 +636,7 @@ int dgnn_bin_gat_fwd(const void* x, const float* ac, const float* ar,
                      int nbins, void* const* nbr, void* const* row,
                      void* const* count, const int* S, const int* W, int H,
                      int F, int bf16, float slope, int with_pos, float p,
-                     float inv_keep, uint32_t seed,
+                     float inv_keep, const uint32_t* seed,
                      const int* gid, float* m, float* l,
                      float* lpos, float* acc, float* accpos, void* stream) {
   if (bf16)
@@ -650,7 +656,7 @@ int dgnn_bin_gat_bwd(const void* g, const float* ar, const float* M,
                      const void* x, int nbins, void* const* nbr,
                      void* const* row, void* const* count, const int* S,
                      const int* W, int H, int F, int bf16, float slope,
-                     float p, float inv_keep, uint32_t seed,
+                     float p, float inv_keep, const uint32_t* seed,
                      const int* gid, float* dx,
                      float* dac, void* stream) {
   if (bf16)

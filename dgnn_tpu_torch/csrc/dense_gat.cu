@@ -119,7 +119,8 @@ dense_gat_fwd_kernel(
     const int* __restrict__ ct,          // [T]
     const int* __restrict__ chunk_ptr,   // [R / kRT + 1]
     int R, int H, int F, float slope, int with_pos, float p, float inv_keep,
-    uint32_t seed, const int* __restrict__ gid, int bf16,
+    const uint32_t* __restrict__ seed_p, const int* __restrict__ gid,
+    int bf16,
     float* __restrict__ m_out,           // [R, H]
     float* __restrict__ l_out,           // [R, H]
     float* __restrict__ lpos_out,        // [R, H]    (with_pos)
@@ -138,6 +139,8 @@ dense_gat_fwd_kernel(
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
   const int HF = H * F;
   const bool drop = p > 0.f;
+  // the dropout seed (gat_common.cuh): one load before the walk
+  const uint32_t seed = drop ? __ldg(seed_p) : 0u;
   const bool use_bf = bf16 != 0;
   const int chunk = r / kRT;
   const uint32_t rid = static_cast<uint32_t>(row_ids[r]);
@@ -324,7 +327,8 @@ dense_gat_bwd_kernel(
     const uint32_t* __restrict__ mask,   // [T, kRT, kRowWords]
     const int* __restrict__ ct,          // [T]
     const int* __restrict__ chunk_ptr,   // [R / kRT + 1]
-    int R, int H, int F, float slope, float p, float inv_keep, uint32_t seed,
+    int R, int H, int F, float slope, float p, float inv_keep,
+    const uint32_t* __restrict__ seed_p,
     const int* __restrict__ gid, int bf16,
     float* __restrict__ dx_out,          // [R, H*F]
     float* __restrict__ dac_out) {       // [R, H]
@@ -333,12 +337,19 @@ dense_gat_bwd_kernel(
   __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
   // per lane: its edge's a^ (rounded) and a^ d' a head
   __shared__ float slot[kWarps][32 * kSlot];
+  // each warp's dropout seed (gat_common.cuh), read here at each use: held
+  // in a register across the walk, the <4, 2> instance (reddit's output
+  // layer) ran 5 % slower than with the seed passed by value
+  __shared__ uint32_t seed[kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
   const int HF = H * F;
   const bool drop = p > 0.f;
+  // one load before the walk
+  if (lane == 0) seed[warp] = drop ? __ldg(seed_p) : 0u;
+  __syncwarp();
   const bool use_bf = bf16 != 0;
   const int chunk = r / kRT;
   // the row's own ac is requested before its mask (its x after the walk)
@@ -402,7 +413,8 @@ dense_gat_bwd_kernel(
         head_row<HMAX>(Linv, did, H, liv);
         head_row<HMAX>(ws, did, H, wsv);
         const uint32_t pb =
-            drop ? pair_base(seed, gid ? __ldg(gid + did) : did, hsid) : 0u;
+            drop ? pair_base(seed[warp], gid ? __ldg(gid + did) : did, hsid)
+                 : 0u;
         const bool live = lane < n;
         float* sl = slot[warp] + lane * kSlot;
 #pragma unroll
@@ -486,7 +498,7 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
                        const float* acmax, const int* row_ids,
                        const int* col_ids, const void* mask, const int* ct,
                        const int* chunk_ptr, int R, int H, int F, float slope,
-                       int with_pos, float p, float inv_keep, uint32_t seed,
+                       int with_pos, float p, float inv_keep, const uint32_t* seed,
                        const int* gid, int bf16, int hmax, int nc, float* m,
                        float* l,
                        float* lpos, float* acc, float* accpos, void* stream) {
@@ -516,7 +528,7 @@ int dgnn_dense_gat_bwd(const float* g, const float* ar, const float* M,
                        const float* x, const int* row_ids, const int* col_ids,
                        const void* mask, const int* ct, const int* chunk_ptr,
                        int R, int H, int F, float slope, float p,
-                       float inv_keep, uint32_t seed, const int* gid,
+                       float inv_keep, const uint32_t* seed, const int* gid,
                        int bf16, int hmax, int nc, float* dx, float* dac,
                        void* stream) {
   // the instance ops/dense.py dense_gat_bwd_instance chose, checked

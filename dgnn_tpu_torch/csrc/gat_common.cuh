@@ -5,6 +5,16 @@
 //   base = mix32(dst * 0x9E3779B9 ^ mix32(src ^ seed * 0x85EBCA6B))
 //   z    = mix32(base * H + h),  u = float(z >> 8) * 2^-24
 // and a slot is kept iff u > p, kept weights scaled by float32(1 / (1 - p)).
+//
+// The kernels take the seed as a pointer to a uint32 in device memory and
+// load it once, before their walk over the edges, as the TPU kernels read
+// it from SMEM (dgnn_tpu/ops/pallas_bins.py): a step replayed from a CUDA
+// graph then reads the seed that the step drew on the device, where a
+// by-value argument would replay the seed of the capture.  The pointer may
+// be null where p == 0.  bin_gat_fwd, bin_gat_bwd and dense_gat_fwd keep
+// the seed in a register; dense_gat_bwd keeps it in shared memory and reads
+// it at each use, which kept its <4, 2> instance as fast as with the seed
+// passed by value (in a register it ran 5 % slower).
 
 #pragma once
 

@@ -14,7 +14,9 @@ the ReLU gain.  For ``attn_l`` / ``attn_r`` of shape (1, H, F) flax takes
 fan_in = H and fan_out = F (``torch.nn.init.xavier_normal_`` would take
 fan_in = H*F), so the std is computed here the flax way.  Every random draw
 (init, feature dropout) comes from an explicit ``torch.Generator``;
-attention dropout takes one uint32 seed per layer.
+attention dropout takes one uint32 seed per layer: Python ints, or a [L]
+integer tensor on the model's device that a step draws there (so that a
+CUDA graph of the step draws new seeds on every replay).
 
 ``impl`` picks the aggregation: "fused" (the default) is ``gat_aggregate``
 over the binned layouts and hub blocks; "naive" is ``ops/naive.py``'s
@@ -98,7 +100,7 @@ class GATConv(nn.Module):
 
     def forward(self, graph: Graph, feat: torch.Tensor, *,
                 generator: torch.Generator | None = None,
-                seed: int | None = None) -> torch.Tensor:
+                seed=None) -> torch.Tensor:
         x = self.W(feat).reshape(-1, self.num_heads, self.out_feats)
         if self.training and self.feat_drop > 0.0:
             x = _dropout(x, self.feat_drop, generator)
@@ -156,10 +158,12 @@ class GAT(nn.Module):
 
     def forward(self, graph: Graph, feat: torch.Tensor, *,
                 generator: torch.Generator | None = None,
-                attn_seeds: Sequence[int] | None = None) -> torch.Tensor:
+                attn_seeds: Sequence[int] | torch.Tensor | None = None
+                ) -> torch.Tensor:
         """Logits [N, n_classes].  In training, ``generator`` draws the
         feature dropout and ``attn_seeds`` holds one uint32 attention-dropout
-        seed per layer (required when attn_drop > 0)."""
+        seed per layer (required when attn_drop > 0): a sequence of ints or
+        a [L] integer tensor on the model's device, read as uint32."""
         if self.training and self.attn_drop > 0.0:
             if attn_seeds is None or len(attn_seeds) != len(self.convs):
                 raise ValueError(f"attention dropout in training needs "

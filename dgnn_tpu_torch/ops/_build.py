@@ -110,13 +110,14 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # a list of bins: nbins, then per bin the nbr / row / count
-        # pointers and S, W (host arrays)
+        # pointers and S, W (host arrays); seed*: the GAT kernels' dropout
+        # seed, a uint32 in device memory (null where p == 0)
         pa, ia = ctypes.POINTER(vp), ctypes.POINTER(ci)
         lib.dgnn_bin_gat_fwd.argtypes = [
             vp, vp, vp,                         # x ac ar
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
             ci, ci, ci,                         # H F bf16
-            cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
+            cf, ci, cf, cf, vp,                # slope with_pos p inv_keep seed*
             vp,                                 # gid (null: ids as they are)
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
             vp]                                 # stream
@@ -125,7 +126,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp,         # g ar M Linv ws ac x
             ci, pa, pa, pa, ia, ia,             # nbins nbr row count S W
             ci, ci, ci,                         # H F bf16
-            cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
+            cf, cf, cf, vp,                    # slope p inv_keep seed*
             vp,                                 # gid
             vp, vp,                             # dx dac
             vp]                                 # stream
@@ -134,7 +135,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp,                     # x ac ar acmax
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             ci, ci, ci,                         # R H F
-            cf, ci, cf, cf, ctypes.c_uint32,    # slope with_pos p inv_keep seed
+            cf, ci, cf, cf, vp,                # slope with_pos p inv_keep seed*
             vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
@@ -144,7 +145,7 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp, vp, vp, vp,         # g ar M Linv ws ac x
             vp, vp, vp, vp, vp,                 # row_ids col_ids mask ct chunk_ptr
             ci, ci, ci,                         # R H F
-            cf, cf, cf, ctypes.c_uint32,        # slope p inv_keep seed
+            cf, cf, cf, vp,                    # slope p inv_keep seed*
             vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp,                             # dx dac

@@ -54,7 +54,7 @@ import torch
 
 from . import _build
 from .common import (gaussian_terms, lane_mask, leaky_relu, leaky_relu_grad,
-                     pair_keep)
+                     pair_keep, seed_tensor)
 
 __all__ = ["bin_gat_fwd", "bin_gat_fwd_plain", "bin_gat_fwd_list",
            "bin_gat_fwd_list_plain", "bin_gat_bwd", "bin_gat_bwd_plain",
@@ -208,6 +208,12 @@ def _bin_arrays(part):
             ints(*(nbr.shape[1] for nbr, _, _ in part)))
 
 
+def _seed_arg(seed, p, like):
+    """The GAT kernels' seed argument: the seed in device memory
+    (common.seed_tensor), or None, a null pointer, where p == 0."""
+    return seed_tensor(seed, like) if p > 0 else None
+
+
 def _hash_ids(ids, gid):
     """The ids the dropout hash takes: ``gid[ids]``, or ``ids`` without a
     table."""
@@ -253,7 +259,7 @@ def _copy_tail(outs, rows, tail):
 
 
 def bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, *, slope: float,
-                      with_pos: bool, p: float = 0.0, seed: int = 0,
+                      with_pos: bool, p: float = 0.0, seed=0,
                       gid=None):
     """Plain PyTorch per-bin forward; same arguments and outputs as
     ``bin_gat_fwd``."""
@@ -280,7 +286,7 @@ def bin_gat_fwd_plain(feat, ac, ar, nbr, row, count, *, slope: float,
 
 
 def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
-                with_pos: bool, p: float = 0.0, seed: int = 0, gid=None):
+                with_pos: bool, p: float = 0.0, seed=0, gid=None):
     """One degree bin of the GAT forward (pass A).
 
     Args:
@@ -288,7 +294,10 @@ def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
       ac: [N, H] float32 source attention coefficients.
       ar: [Nr, H] float32 destination coefficients (indexed by ``row``).
       nbr: [S, W] int32 source id per slot; row, count: [S] int32.
-      p, seed: attention-dropout probability and uint32 seed (p = 0: off).
+      p, seed: attention-dropout probability and uint32 seed (p = 0: off):
+        a Python int or a one-element integer tensor on the tables'
+        device, which the kernel reads from device memory
+        (ops/common.seed_tensor).
       gid: None, or the int32 table of the ids the dropout hash takes
         (module docstring), indexed by row and by nbr.
     Returns (m, l, lpos, acc, accpos): m, l, lpos [S, H]; acc, accpos
@@ -304,7 +313,7 @@ def bin_gat_fwd(feat, ac, ar, nbr, row, count, *, slope: float,
 
 
 def bin_gat_fwd_list_plain(feat, ac, ar, segs, *, slope: float,
-                           with_pos: bool, p: float = 0.0, seed: int = 0,
+                           with_pos: bool, p: float = 0.0, seed=0,
                            tail=None, gid=None):
     """Plain PyTorch list forward: the per-bin plain versions, then
     ``torch.cat``; same arguments and outputs as ``bin_gat_fwd_list``."""
@@ -321,7 +330,7 @@ def bin_gat_fwd_list_plain(feat, ac, ar, segs, *, slope: float,
 
 
 def bin_gat_fwd_list(feat, ac, ar, segs, *, slope: float, with_pos: bool,
-                     p: float = 0.0, seed: int = 0, tail=None, gid=None):
+                     p: float = 0.0, seed=0, tail=None, gid=None):
     """Every degree bin of a CSR adjacency in one launch of the
     ``bin_gat_fwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
 
@@ -356,13 +365,14 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail, gid):
             torch.empty((rows, H), **new) if with_pos else None,
             torch.empty((rows, H, F), **new),
             torch.empty((rows, H, F), **new) if with_pos else None)
+    seed_t = _seed_arg(seed, p, feat)
     lib = _build.load()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     for base, part in _launches(segs):
         err = lib.dgnn_bin_gat_fwd(
             _ptr(feat), _ptr(ac), _ptr(ar), len(part), *_bin_arrays(part),
             H, F, bf16, float(slope), int(with_pos), float(p), _inv_keep(p),
-            int(seed) & 0xFFFFFFFF, _ptr(gid),
+            _ptr(seed_t), _ptr(gid),
             *(_row_ptr(t, base) for t in outs), stream)
         if err:
             raise RuntimeError(
@@ -380,7 +390,7 @@ def _gat_fwd_cuda(feat, ac, ar, segs, slope, with_pos, p, seed, tail, gid):
 
 
 def bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
-                      slope: float, p: float = 0.0, seed: int = 0, gid=None):
+                      slope: float, p: float = 0.0, seed=0, gid=None):
     """Plain PyTorch per-bin backward; same arguments and outputs as
     ``bin_gat_bwd``."""
     S, W = nbr.shape
@@ -401,7 +411,7 @@ def bin_gat_bwd_plain(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
 
 
 def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
-                slope: float, p: float = 0.0, seed: int = 0, gid=None):
+                slope: float, p: float = 0.0, seed=0, gid=None):
     """One degree bin of the GAT backward (pass B, CSC: rows = sources).
 
     Args:
@@ -428,7 +438,7 @@ def bin_gat_bwd(g, ar, M, Linv, ws, ac, feat, nbr, row, count, *,
 
 
 def bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs, *,
-                           slope: float, p: float = 0.0, seed: int = 0,
+                           slope: float, p: float = 0.0, seed=0,
                            tail=None, gid=None):
     """Plain PyTorch list backward: the per-bin plain versions, then
     ``torch.cat``; same arguments and outputs as ``bin_gat_bwd_list``."""
@@ -443,7 +453,7 @@ def bin_gat_bwd_list_plain(g, ar, M, Linv, ws, ac, feat, segs, *,
 
 
 def bin_gat_bwd_list(g, ar, M, Linv, ws, ac, feat, segs, *, slope: float,
-                     p: float = 0.0, seed: int = 0, tail=None, gid=None):
+                     p: float = 0.0, seed=0, tail=None, gid=None):
     """Every degree bin of a CSC adjacency in one launch of the
     ``bin_gat_bwd`` kernel (one per MAX_BINS_PER_LAUNCH bins).
 
@@ -482,13 +492,14 @@ def _gat_bwd_cuda(g, ar, M, Linv, ws, ac, feat, segs, slope, p, seed, tail,
     rows = S + (0 if tail is None else tail[0].shape[0])
     dx = torch.empty((rows, H, F), device=g.device, dtype=torch.float32)
     dac = torch.empty((rows, H), device=g.device, dtype=torch.float32)
+    seed_t = _seed_arg(seed, p, g)
     lib = _build.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     for base, part in _launches(segs):
         err = lib.dgnn_bin_gat_bwd(
             _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
             _ptr(feat), len(part), *_bin_arrays(part), H, F, bf16,
-            float(slope), float(p), _inv_keep(p), int(seed) & 0xFFFFFFFF,
+            float(slope), float(p), _inv_keep(p), _ptr(seed_t),
             _ptr(gid), _row_ptr(dx, base), _row_ptr(dac, base), stream)
         if err:
             raise RuntimeError(

@@ -6,7 +6,11 @@
   so the forward (CSR bins) and backward (CSC bins) passes agree bit for
   bit with no per-edge storage.  It is bit-identical to the JAX package's
   hash and to the one inside csrc/bin_gat.cu; ``edge_keep`` is the JAX
-  package's hash of (seed, edge id, head),
+  package's hash of (seed, edge id, head).  The seed is a Python int or a
+  one-element integer tensor on the ids' device (a seed drawn on the card
+  inside a step that a CUDA graph replays, as the JAX package draws it
+  inside its jitted step); ``seed_tensor`` gives the GAT kernels' form of
+  it, a uint32 in device memory,
 - the scatter-free segment merges ``combine_sum`` / ``combine_lse`` over a
   graph's combine table,
 - the Gaussian kernel weights of the MoNet passes (``gaussian_terms``),
@@ -22,6 +26,7 @@ __all__ = [
     "EMPTY_M",
     "NEG_INF",
     "combine_lse",
+    "check_seed",
     "combine_sum",
     "edge_keep",
     "gather_type",
@@ -32,6 +37,7 @@ __all__ = [
     "leaky_relu_grad",
     "pair_keep",
     "rounded",
+    "seed_tensor",
 ]
 
 NEG_INF = float("-inf")
@@ -119,12 +125,57 @@ def edge_keep(seed: int, edge: torch.Tensor, num_heads: int,
     return torch.where(u > p, 1.0 / (1.0 - p), 0.0).to(torch.float32)
 
 
-def pair_keep(seed: int, dst: torch.Tensor, src: torch.Tensor,
+def check_seed(seed, device: torch.device) -> None:
+    """Raises unless ``seed`` is a Python int or a one-element integer
+    tensor on ``device``."""
+    if not isinstance(seed, torch.Tensor):
+        int(seed)  # a Python int, or raises
+        return
+    if (seed.dtype.is_floating_point or seed.dtype.is_complex
+            or seed.dtype == torch.bool or seed.numel() != 1):
+        raise TypeError(f"a dropout seed tensor holds one integer, got "
+                        f"{seed.dtype} {tuple(seed.shape)}")
+    if seed.device != device:
+        raise ValueError(f"the dropout seed lies on {seed.device}, the ids "
+                         f"on {device}")
+
+
+def _seed_u32(seed, device: torch.device):
+    """The seed's uint32 value: a Python int, or an int64 0-d tensor."""
+    if not isinstance(seed, torch.Tensor):
+        return int(seed) & _M32
+    check_seed(seed, device)
+    return seed.reshape(()).to(torch.int64) & _M32
+
+
+def seed_tensor(seed, like: torch.Tensor) -> torch.Tensor:
+    """The uint32 dropout seed as a 0-d int32 tensor on ``like``'s device
+    holding its 32 bits: what the GAT kernels read through a ``const
+    uint32_t*``.
+
+    A Python int is written on the device by a fill (nothing is copied from
+    the host).  A one-element integer tensor must lie on that device: an
+    int32 one is read in place, a wider one through a view of its low
+    32-bit word (CUDA devices are little-endian), so an element of a seed
+    table drawn inside a captured step is what the kernels read on every
+    replay."""
+    if not isinstance(seed, torch.Tensor):
+        s = int(seed) & _M32
+        return torch.full((), s - (1 << 32) if s >> 31 else s,
+                          dtype=torch.int32, device=like.device)
+    check_seed(seed, like.device)
+    if seed.dtype == torch.int32:
+        return seed.reshape(())
+    return seed.reshape(1).to(torch.int64).view(torch.int32)[0]
+
+
+def pair_keep(seed, dst: torch.Tensor, src: torch.Tensor,
               num_heads: int, p: float) -> torch.Tensor:
     """Deterministic per-(dst, src, head) inverted-dropout keep mask.
 
     ``dst``/``src`` are broadcastable integer node-id tensors (read as
-    uint32); ``seed`` is a uint32 Python int.  The result has shape
+    uint32); ``seed`` is a Python int or a one-element integer tensor on
+    the ids' device, read as uint32.  The result has shape
     broadcast(dst, src) + (num_heads,) with values in {0, float32(1/(1-p))};
     a slot is kept iff u > p, with
 
@@ -136,7 +187,7 @@ def pair_keep(seed: int, dst: torch.Tensor, src: torch.Tensor,
     """
     d = dst.to(torch.int64) & _M32
     s = src.to(torch.int64) & _M32
-    seed_mix = ((int(seed) & _M32) * 0x85EBCA6B) & _M32
+    seed_mix = _mul32(_seed_u32(seed, s.device), 0x85EBCA6B)
     base = _mix32(_mul32(d, 0x9E3779B9) ^ _mix32(s ^ seed_mix))
     h = torch.arange(num_heads, device=base.device, dtype=torch.int64)
     z = _mix32((base[..., None] * num_heads + h) & _M32)

@@ -38,7 +38,8 @@ import torch
 from ..graph.hub import DENSE_CT, DENSE_RT
 from . import _build
 from .bins import (_check_cuda, _check_gid, _check_gmm, _check_gmm_params,
-                   _hash_ids, _inv_keep, _on_cpu, _opt, _ptr, gmm_stat_width)
+                   _hash_ids, _inv_keep, _on_cpu, _opt, _ptr, _seed_arg,
+                   gmm_stat_width)
 from .common import gaussian_terms, leaky_relu, leaky_relu_grad, pair_keep
 
 __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
@@ -145,7 +146,7 @@ def _col_max(ac, db):
 
 
 def dense_gat_fwd_plain(db, ar, ac, feat, *, slope: float, with_pos: bool,
-                        p: float = 0.0, seed: int = 0,
+                        p: float = 0.0, seed=0,
                         dense_dtype: str = "bfloat16", gid=None):
     """Plain PyTorch hub-block forward; same arguments and outputs as
     ``dense_gat_fwd``."""
@@ -208,7 +209,7 @@ def _check_block(name, db, HF, H=None):
 
 
 def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
-                  p: float = 0.0, seed: int = 0,
+                  p: float = 0.0, seed=0,
                   dense_dtype: str = "bfloat16", gid=None):
     """The hub block's share of the GAT forward (pass A).
 
@@ -218,7 +219,9 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
       ac: [N, H] float32 source coefficients, feat: [N, H, F] float32
         source features (indexed by col_ids).
       p, seed: attention-dropout probability and uint32 seed (p = 0: off),
-        hashed on the global ids (dst = row_ids[r], src = col_ids[c]).
+        hashed on the global ids (dst = row_ids[r], src = col_ids[c]); the
+        seed as ops/bins.py's wrappers take it (an int, or a one-element
+        integer tensor on the tables' device).
       dense_dtype: "bfloat16" or "float32" (module docstring).
       gid: None, or the int32 table of the ids the dropout hash takes
         (ops/bins.py), indexed by row_ids and col_ids.
@@ -249,13 +252,14 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
     lpos = torch.empty((R, H), **new) if with_pos else None
     accpos = torch.empty((R, H, F), **new) if with_pos else None
     hmax, cols = dense_gat_fwd_instance(H, F)
+    seed_t = _seed_arg(seed, p, feat)
     lib = _build.load()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gat_fwd(
         _ptr(feat), _ptr(ac), _ptr(ar), _ptr(acmax), _ptr(db.row_ids),
         _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
         R, H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
-        int(seed) & 0xFFFFFFFF, _ptr(gid), int(dense_dtype == "bfloat16"),
+        _ptr(seed_t), _ptr(gid), int(dense_dtype == "bfloat16"),
         hmax, cols, _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos),
         stream)
     if err:
@@ -271,7 +275,7 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
 
 
 def dense_gat_bwd_plain(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
-                        p: float = 0.0, seed: int = 0,
+                        p: float = 0.0, seed=0,
                         dense_dtype: str = "bfloat16", gid=None):
     """Plain PyTorch hub-block backward; same arguments and outputs as
     ``dense_gat_bwd``."""
@@ -297,7 +301,7 @@ def dense_gat_bwd_plain(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
 
 
 def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
-                  p: float = 0.0, seed: int = 0,
+                  p: float = 0.0, seed=0,
                   dense_dtype: str = "bfloat16", gid=None):
     """The hub block's share of the GAT backward (pass B).
 
@@ -338,13 +342,14 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
     dx = torch.empty((R, H, F), device=g.device, dtype=torch.float32)
     dac = torch.empty((R, H), device=g.device, dtype=torch.float32)
     hmax, cols = dense_gat_bwd_instance(H, F)
+    seed_t = _seed_arg(seed, p, g)
     lib = _build.load()
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.dgnn_dense_gat_bwd(
         _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
         _ptr(feat), _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask),
         _ptr(db.ct), _ptr(db.chunk_ptr), R, H, F, float(slope), float(p),
-        _inv_keep(p), int(seed) & 0xFFFFFFFF, _ptr(gid),
+        _inv_keep(p), _ptr(seed_t), _ptr(gid),
         int(dense_dtype == "bfloat16"), hmax, cols, _ptr(dx), _ptr(dac),
         stream)
     if err:

@@ -20,6 +20,11 @@ residuals (no third pass):
 The backward saves only M, L, out, out_pos, r (and the inputs) and
 recomputes per-edge attention in pass B.  Attention dropout is re-derived
 from (seed, dst, src, head) by ops/common.pair_keep's hash in both passes.
+The seed is a Python int or a one-element integer tensor on the op's
+device; the kernels read it from device memory, and the Function keeps the
+tensor (never a host copy) for pass B, so a training step that draws its
+seeds on the card can be captured into a CUDA graph and replayed with new
+seeds every step (utils/timing.py).
 
 ``gather_dtype=torch.bfloat16`` stores the gathered feature rows as bf16,
 as the JAX op does (``dgnn_tpu/ops/gat.py:505-509``), and rounds where it
@@ -55,7 +60,8 @@ import torch
 
 from ..graph.structure import BinnedAdj, Graph
 from .bins import bin_gat_bwd_list, bin_gat_fwd_list
-from .common import combine_lse, combine_sum, gather_type, rounded
+from .common import (check_seed, combine_lse, combine_sum, gather_type,
+                     rounded)
 from .dense import DENSE_DTYPES, dense_gat_bwd, dense_gat_fwd
 
 __all__ = ["gat_aggregate", "gat_fused"]
@@ -136,7 +142,7 @@ class _GATFused(torch.autograd.Function):
 
 def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
                   negative_slope: float = 0.2, attn_drop: float = 0.0,
-                  seed: int | None = None, training: bool = False,
+                  seed=None, training: bool = False,
                   gather_dtype=None, dense_dtype: str = "bfloat16"):
     """Fused GAT neighbourhood aggregation.
 
@@ -151,7 +157,10 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
       negative_slope: LeakyReLU slope for edge scores.
       attn_drop: attention dropout probability (training only).
       seed: uint32 dropout seed, required if training and attn_drop > 0
-        (the JAX package draws it as ``jax.random.bits(key, uint32)``).
+        (the JAX package draws it as ``jax.random.bits(key, uint32)``): a
+        Python int, or a one-element integer tensor on the op's device
+        read as uint32 (int32 holds its bits), which no step reads back to
+        the host.
       training: enables dropout.
       gather_dtype: None (float32) or ``torch.bfloat16`` (also
         "bfloat16"): the storage type of the gathered feature rows, rounded
@@ -173,7 +182,7 @@ def gat_aggregate(graph: Graph, attn_row, attn_col, feat, *,
 
 def gat_fused(adj_fwd: BinnedAdj, adj_bwd: BinnedAdj, attn_row, attn_col,
               feat, *, negative_slope: float = 0.2, attn_drop: float = 0.0,
-              seed: int | None = None, training: bool = False,
+              seed=None, training: bool = False,
               gather_dtype=None, dense_dtype: str = "bfloat16", gid=None):
     """``gat_aggregate`` over an adjacency pair whose destination and
     source spaces may differ.
@@ -200,7 +209,7 @@ def gat_fused(adj_fwd: BinnedAdj, adj_bwd: BinnedAdj, attn_row, attn_col,
     if p > 0.0:
         if seed is None:
             raise ValueError("attn_drop > 0 requires a seed in training")
-        seed = int(seed) & 0xFFFFFFFF
+        check_seed(seed, feat.device)
     else:
         seed = 0
         gid = None  # the hash is not taken

@@ -26,13 +26,15 @@ __all__ = ["gat_naive", "gmm_naive"]
 
 def gat_naive(graph: Graph, attn_row, attn_col, feat, *,
               negative_slope: float = 0.2, attn_drop: float = 0.0,
-              seed: int | None = None, training: bool = False):
+              seed=None, training: bool = False):
     """Edge-materialising GAT aggregation (DGL edge_softmax + update_all).
 
     Same arguments and result as ``ops.gat.gat_aggregate`` (without its
     layout options): attention dropout in training drops the pairs
     ``pair_keep(seed, dst, src)`` drops, as the fused op does, so the same
-    seed drops the same pairs in both.  Autograd saves the [E, H, F]
+    seed drops the same pairs in both; the seed is an int or a one-element
+    integer tensor on the op's device, as the fused op takes it, so a step
+    through this baseline can be captured too.  Autograd saves the [E, H, F]
     message tensor, the memory the fused op does not spend (dgNN's 8.3 GB
     against DGL's 22.5 GB on Reddit, SURVEY.md §2.2)."""
     row = edge_rows(graph)

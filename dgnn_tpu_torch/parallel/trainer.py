@@ -21,7 +21,8 @@ import torch
 
 from ..ops import bins, dense
 from ..ops.gmm import NodePseudo
-from ..utils.timing import peak_memory_mb, reset_peak_memory, time_calls
+from ..utils.timing import (device_peak_memory_mb, reset_peak_memory,
+                            time_calls)
 from ..utils.training import make_optimizer
 from .partition import GraphShards, shard_view
 from .spmd import (EXCHANGES, ShardedGAT, ShardedMoNet, allreduce_grads,
@@ -71,7 +72,7 @@ def shard_loss(logits, labels, mask, n_train: float) -> torch.Tensor:
     return (ls * mask).sum() / n_train
 
 
-def spec_grads(spec: dict, rank: int, loss, device="cpu"):
+def spec_grads(spec: dict, rank: int, loss, device="cuda"):
     """One sharded model on shard ``rank`` (the process group is formed):
     built from ``spec`` ("model": "gat" or "monet", its "kwargs" and
     "state", "training", "seeds" (attention seeds a layer, or None),
@@ -150,7 +151,7 @@ def train_gat_rank(rank: int, world: int, job: GATJob) -> dict:
     launches = {**{k: v for k, v in bins.LAUNCHES.items() if v},
                 **{k: v for k, v in dense.LAUNCHES.items() if v}}
     exchanges = dict(EXCHANGES)
-    peak = peak_memory_mb(device)
+    peak = device_peak_memory_mb(device)
     model.eval()
     with torch.no_grad():
         logits = model(view, feats)

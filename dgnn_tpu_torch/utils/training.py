@@ -19,10 +19,29 @@ def masked_loss(logits, labels, train_mask):
 
 
 def make_optimizer(model, lr: float, weight_decay: float):
-    # Adam's weight_decay adds wd * param to the gradient before the moment
-    # updates: optax.chain(add_decayed_weights(wd), adam(lr))
-    return torch.optim.Adam(model.parameters(), lr=lr,
-                            weight_decay=weight_decay)
+    """Adam with coupled L2 weight decay: its weight_decay adds wd * param to
+    the gradient before the moment updates, which is what
+    optax.chain(add_decayed_weights(wd), adam(lr)) computes.
+
+    For parameters on a CUDA device it is Adam's ``capturable`` form (its
+    step count lives on the device; the same update) with its state made
+    here, as its first step would make it: a step captured into a CUDA
+    graph (utils/timing.py) then updates that state in place, where a
+    state first made inside the capture would be made again, zeroed, on
+    every replay.  On the CPU it is the plain Adam."""
+    params = list(model.parameters())
+    cuda = any(p.is_cuda for p in params)
+    opt = torch.optim.Adam(params, lr=lr, weight_decay=weight_decay,
+                           capturable=cuda)
+    if cuda:
+        for p in params:
+            opt.state[p] = dict(
+                step=torch.zeros((), dtype=torch.float32, device=p.device),
+                exp_avg=torch.zeros_like(p,
+                                         memory_format=torch.preserve_format),
+                exp_avg_sq=torch.zeros_like(
+                    p, memory_format=torch.preserve_format))
+    return opt
 
 
 def smoothed_loss(logits, labels, eps: float = 0.2):

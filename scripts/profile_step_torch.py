@@ -20,9 +20,16 @@ profiler's own device total counts annotation spans twice).  Per step it
 prints: host ms, kernels launched, device kernel ms, the device's idle
 share (1 - kernel ms / host ms), and for each hand-written kernel its
 launches and its own time per launch; then the matrix products and the
-rest (elementwise, reductions, gathers, ``cat``, the optimizer).  The
-``edgeconv`` cell then takes the same number of steps once more with CUDA
-events around every k-NN mask build (``knn_mask_neg``) and every tie-sum
+rest (elementwise, reductions, gathers, ``cat``, the optimizer).  The GAT
+and MoNet cells do all of that twice: for the step issued from the host
+(the trainer's ``make_step``) and under
+``replayed``, for the same step captured once into a CUDA graph
+(``utils.timing.StepGraph``, the trainers' device-resident loop) and
+replayed, with the replays' device ms from CUDA events beside the trace's
+kernel ms.  The
+``edgeconv`` cell (no replayed step: its tie-sum backward reads a count on
+the host) then takes the same number of steps once more with CUDA events
+around every k-NN mask build (``knn_mask_neg``) and every tie-sum
 backward (``_dsrc_ties``), and prints each span's calls and device-stream
 ms per step (idle gaps inside a span included), and counts the admitted
 columns a row of each layer's mask on one batch (mean, most, rows over the
@@ -30,12 +37,14 @@ masked-max lists' cap and over half of it).  The last line is one JSON
 object with every number.  Needs a CUDA device.
 """
 
+
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
+import copy
 import importlib.util
 import json
 import subprocess
@@ -43,7 +52,7 @@ import time
 
 import torch
 
-from dgnn_tpu_torch.utils import make_optimizer, make_sgd_cosine
+from dgnn_tpu_torch.utils import StepGraph, make_optimizer, make_sgd_cosine
 
 # substrings of the hand-written kernels' names in a trace
 OWN = ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd",
@@ -61,25 +70,21 @@ def load_trainer(kind):
     return mod
 
 
-def make_step(kind, trainer, r, lr, weight_decay):
-    """A closure that takes one training step on the trainer's own model."""
-    model, device = r["model"], r["feats"].device
-    opt = make_optimizer(model, lr, weight_decay)
-    gen = torch.Generator(device=device).manual_seed(0)
+def make_step(kind, trainer, r, args):
+    """The trainer's own training step (``make_step``) on a copy of its
+    trained model with a fresh optimizer and its generators; returns (step,
+    generators)."""
+    model, device = copy.deepcopy(r["model"]), r["feats"].device
+    opt = make_optimizer(model, args.lr, args.weight_decay)
+    count = torch.zeros(1, dtype=torch.int64, device=device)
     if kind == "gmm":
-        return lambda: trainer.train_step(
-            model, opt, r["graph"], r["feats"], r["pseudo"], r["labels"],
-            r["train_mask"], gen)
-    seed_gen = torch.Generator().manual_seed(1)
-    n_convs = len(model.convs)
-
-    def step():
-        seeds = torch.randint(0, 2 ** 32, (n_convs,), generator=seed_gen,
-                              dtype=torch.int64).tolist()
-        trainer.train_step(model, opt, r["graph"], r["feats"], r["labels"],
-                           r["train_mask"], gen, seeds)
-
-    return step
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        return trainer.make_step(model, opt, r["graph"], r["feats"],
+                                 r["pseudo"], r["labels"], r["train_mask"],
+                                 gen, count), (gen,)
+    gens = trainer.generators(args.seed, device)
+    return trainer.make_step(model, opt, r["graph"], r["feats"], r["labels"],
+                             r["train_mask"], gens, count), gens
 
 
 def make_edgeconv_step(trainer, r, total_steps, bs):
@@ -171,38 +176,21 @@ REDDIT_ARGV = {"gat": ["--gather-dtype", "bfloat16"],
                "gmm": ["--n-kernels", "2"]}
 
 
-def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
-    trainer = load_trainer(kind)
-    if kind == "edgeconv":
-        if dataset != "modelnet":
-            raise ValueError(f"edgeconv:{dataset}: the cell is "
-                             "edgeconv:modelnet")
-        args = trainer.parser().parse_args(
-            ["--num-epochs", "1", "--schedule", schedule, "--device", "cuda"])
-        r = trainer.run(args)  # set-up (and an epoch of its own)
-        step = make_edgeconv_step(trainer, r, warmup + 3 * steps,
-                                  args.batch_size)
-    else:
-        extra = REDDIT_ARGV[kind] if dataset == "reddit" else []
-        args = trainer.parser().parse_args(
-            ["--dataset", dataset, *trainer.BENCH_ARGV, *extra, "--n-epochs",
-             "4", "--device", "cuda"])
-        r = trainer.run(args)  # set-up (and 4 steps of its own)
-        step = make_step(kind, trainer, r, args.lr, args.weight_decay)
-    for _ in range(warmup):
-        step()
+def measure(run, steps, replays=None):
+    """Host ms a step of ``run(steps)`` (unprofiled, ending in a
+    synchronize), then a torch.profiler trace of it summed by kernel name.
+    ``replays``: the StepGraph ``run`` replays, whose device ms a step
+    (CUDA events around ``steps`` replays) is added."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
+    run(steps)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
-            step()
+        run(steps)
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
@@ -219,9 +207,9 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
         hit = [(n, us) for name, (n, us) in by_name.items() if match(name)]
         return sum(n for n, _ in hit), sum(us for _, us in hit)
 
-    out = dict(cell=f"{kind}:{dataset}", steps=steps, host_ms_per_step=host_ms)
-    if kind == "edgeconv":
-        out["schedule"] = schedule
+    out = dict(host_ms_per_step=host_ms)
+    if replays is not None:
+        out["replay_device_ms_per_step"] = replays.seconds(steps) * 1e3 / steps
     n_all, us_all = group(lambda name: True)
     out["kernels_per_step"] = n_all / steps
     out["kernel_ms_per_step"] = us_all / 1e3 / steps
@@ -237,10 +225,51 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
     _, gemm_us = group(lambda name: any(g in name.lower() for g in GEMM))
     out["gemm_ms_per_step"] = gemm_us / 1e3 / steps
     out["rest_ms_per_step"] = (us_all - own_us - gemm_us) / 1e3 / steps
+    return out
+
+
+def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
+    trainer = load_trainer(kind)
     if kind == "edgeconv":
+        if dataset != "modelnet":
+            raise ValueError(f"edgeconv:{dataset}: the cell is "
+                             "edgeconv:modelnet")
+        args = trainer.parser().parse_args(
+            ["--num-epochs", "1", "--schedule", schedule, "--device", "cuda"])
+        r = trainer.run(args)  # set-up (and an epoch of its own)
+        step = make_edgeconv_step(trainer, r, warmup + 3 * steps,
+                                  args.batch_size)
+    else:
+        extra = REDDIT_ARGV[kind] if dataset == "reddit" else []
+        args = trainer.parser().parse_args(
+            ["--dataset", dataset, *trainer.BENCH_ARGV, *extra, "--n-epochs",
+             "4", "--device", "cuda"])
+        r = trainer.run(args)  # set-up (and its own timing and training)
+        step, gens = make_step(kind, trainer, r, args)
+    for _ in range(warmup):
+        step()
+
+    def eager(n):
+        for _ in range(n):
+            step()
+
+    out = dict(cell=f"{kind}:{dataset}", steps=steps,
+               **measure(eager, steps))
+    if kind == "edgeconv":
+        out["schedule"] = schedule
         out["spans"] = edgeconv_spans(step, steps)
         out["masks"] = edgeconv_mask_stats(r["model"],
                                            r["x_train"][:args.batch_size])
+        return out
+    # the same step from a CUDA graph, on a copy of its own state
+    step, gens = make_step(kind, trainer, r, args)
+    graph = StepGraph(step, r["feats"].device, generators=gens,
+                      warmup=warmup)
+    try:
+        graph.replay(warmup)
+        out["replayed"] = measure(graph.replay, steps, graph)
+    finally:
+        graph.close()
     return out
 
 

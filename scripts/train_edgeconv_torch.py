@@ -46,7 +46,7 @@ import torch
 from dgnn_tpu_torch.data import load_modelnet
 from dgnn_tpu_torch.models import DGCNN
 from dgnn_tpu_torch.utils import (CheckpointManager, append_csv_row,
-                                  make_sgd_cosine, peak_memory_mb,
+                                  device_peak_memory_mb, make_sgd_cosine,
                                   reset_peak_memory, smoothed_loss,
                                   time_calls)
 
@@ -152,7 +152,7 @@ def run(args) -> dict:
     reset_peak_memory(device)
     step_s = time_calls(step, device, iters=total_steps - WARMUP_STEPS,
                         warmup=WARMUP_STEPS)
-    max_mb = peak_memory_mb(device)
+    max_mb = device_peak_memory_mb(device)
     losses = [float(v) for v in losses]
     train_s = step_s * steps_per_epoch
     print(f"final train loss {losses[-1]:.4f}")

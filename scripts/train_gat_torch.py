@@ -16,8 +16,17 @@ then keeps its raw CSR on the device, which the fused path drops
 citeseer) the two compute different functions: the block counts a
 duplicate edge once, the baseline every copy.
 
-Training runs exactly ``--n-epochs`` steps; the steps after the first few
-(warmup) are timed with CUDA events on a CUDA device.  The graph is built
+It trains and times as the JAX CLI does (``scripts/train_gat.py:94-122``),
+with the JAX package's device-resident loop ported as a replayed CUDA graph
+(dgnn_tpu_torch/utils/timing.py): training is timed by ``time_epoch_loop``
+on a throwaway copy of the model and optimizer state; the model then trains
+exactly ``--n-epochs`` steps from its initial state by ``run_epochs`` (one
+capture, ``--n-epochs`` replays), for the accuracy; inference is timed by
+``time_epoch_loop`` over a no-grad forward.  Each step draws its feature
+dropout and its attention-dropout seeds on the device, from generators
+seeded by ``--seed`` and ``--seed + 1``, so every replay draws new ones;
+the losses go to a device buffer, read once at the end.  ``--device cpu``
+runs the same protocol in host loops.  The graph is built
 with ``dense="auto"``, as the JAX trainer builds it: on cora and citeseer
 the hub planner keeps a dense block, which the dense hub-block kernels
 take, and the rest of the edges go through the degree bins.
@@ -42,6 +51,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
+import copy
 
 import torch
 
@@ -49,10 +59,12 @@ from dgnn_tpu_torch.data import load_citation_dataset
 from dgnn_tpu_torch.data.reddit import load_reddit
 from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.models import GAT
-from dgnn_tpu_torch.utils import (append_csv_row, make_optimizer,
-                                  masked_loss, peak_memory_mb,
-                                  reset_peak_memory, time_calls)
+from dgnn_tpu_torch.utils import (append_csv_row, device_peak_memory_mb,
+                                  make_optimizer, masked_loss,
+                                  reset_peak_memory, run_epochs,
+                                  time_epoch_loop)
 
+# eager steps before a timing loop's capture
 WARMUP_STEPS = 3
 # The width of the JAX bench's gat_* configurations (bench.py): what the
 # card smoke run and scripts/profile_step_torch.py train at.
@@ -72,9 +84,47 @@ def train_step(model, opt, graph, feats, labels, train_mask, generator,
     return loss.detach()
 
 
+def generators(seed: int, device) -> tuple:
+    """(feature dropout, attention-dropout seeds): two generators on
+    ``device`` seeded by ``seed`` and ``seed + 1``."""
+    return (torch.Generator(device=device).manual_seed(seed),
+            torch.Generator(device=device).manual_seed(seed + 1))
+
+
+def draw_seeds(n: int, generator) -> torch.Tensor:
+    """``n`` uint32 attention-dropout seeds drawn on the generator's device,
+    held as the bits of int32, as the JAX model draws
+    ``jax.random.bits(key, uint32)`` inside its step."""
+    return torch.randint(-2 ** 31, 2 ** 31, (n,), dtype=torch.int32,
+                         device=generator.device, generator=generator)
+
+
+def make_step(model, opt, graph, feats, labels, train_mask, gens, count,
+              losses=None):
+    """One training step as ``time_epoch_loop`` and ``run_epochs`` take it:
+    it draws the layers' attention seeds from ``gens[1]`` on the device,
+    steps with feature dropout from ``gens[0]``, writes the loss to
+    ``losses[count]`` (a device buffer, where given) and adds one to
+    ``count`` (a [1] int64 device tensor)."""
+    drop_gen, seed_gen = gens
+
+    def step():
+        seeds = draw_seeds(len(model.convs), seed_gen)
+        loss = train_step(model, opt, graph, feats, labels, train_mask,
+                          drop_gen, seeds)
+        if losses is not None:
+            losses.index_copy_(0, count, loss.reshape(1))
+        count.add_(1)
+
+    return step
+
+
 def run(args) -> dict:
     """Train and evaluate as the CLI does; returns what it printed plus the
-    trained model and its inputs."""
+    trained model and its inputs.  ``train_steps`` and ``infer_calls`` are
+    the steps and forwards the device ran, counted there: the timing
+    loops' warmups and replays, the ``--n-epochs`` training steps and the
+    final forward."""
     if args.n_epochs <= WARMUP_STEPS:
         raise ValueError(f"--n-epochs must exceed the {WARMUP_STEPS} warmup "
                          "steps")
@@ -108,33 +158,46 @@ def run(args) -> dict:
                 gather_dtype=args.gather_dtype,
                 generator=torch.Generator().manual_seed(args.seed)).to(device)
     opt = make_optimizer(model, args.lr, args.weight_decay)
-    drop_gen = torch.Generator(device=device).manual_seed(args.seed)
-    seed_gen = torch.Generator().manual_seed(args.seed + 1)
-    n_convs = len(model.convs)
+    task = (graph, feats, labels, train_mask)
 
-    losses = []
-
-    def step():
-        seeds = torch.randint(0, 2 ** 32, (n_convs,), generator=seed_gen,
-                              dtype=torch.int64).tolist()
-        losses.append(train_step(model, opt, graph, feats, labels,
-                                 train_mask, drop_gen, seeds))
+    def counter():
+        return torch.zeros(1, dtype=torch.int64, device=device)
 
     print(args)
     print("profile training")
+    # timing on a throwaway copy of the model and optimizer state; the
+    # accuracy from EXACTLY n_epochs steps below (the timing loop runs
+    # many more: utils.timing.run_epochs)
+    model_t = copy.deepcopy(model)
+    gens_t, timed = generators(args.seed, device), counter()
+    train_s = time_epoch_loop(
+        make_step(model_t, make_optimizer(model_t, args.lr,
+                                          args.weight_decay),
+                  *task, gens_t, timed),
+        args.n_epochs, device=device, warmup=WARMUP_STEPS, generators=gens_t)
+    del model_t
+    gens, done = generators(args.seed, device), counter()
+    losses = torch.zeros(args.n_epochs, device=device)
     reset_peak_memory(device)
-    train_s = time_calls(step, device, iters=args.n_epochs - WARMUP_STEPS,
-                         warmup=WARMUP_STEPS)
-    max_mb = peak_memory_mb(device)
-    losses = [float(x) for x in losses]
+    run_epochs(make_step(model, opt, *task, gens, done, losses),
+               args.n_epochs, device=device, generators=gens)
+    max_mb = device_peak_memory_mb(device)
+    losses = losses.tolist()
     if args.verbose:
         print("final loss", losses[-1])
 
     print("profile inference")
     model.eval()
+    calls = counter()
+
+    def infer():
+        with torch.no_grad():
+            model(graph, feats)
+        calls.add_(1)
+
+    infer_s = time_epoch_loop(infer, args.n_epochs, device=device,
+                              warmup=WARMUP_STEPS)
     with torch.no_grad():
-        infer_s = time_calls(lambda: model(graph, feats), device,
-                             iters=args.n_epochs, warmup=WARMUP_STEPS)
         logits = model(graph, feats)
     pred = logits.argmax(dim=1)
     acc = float(((pred == labels) & test_mask).sum() / test_mask.sum())
@@ -156,8 +219,8 @@ def run(args) -> dict:
     return dict(losses=losses, train_s=train_s, infer_s=infer_s,
                 impl=args.impl,
                 peak_mb=max_mb, test_acc=acc, train_acc=train_acc,
-                train_steps=args.n_epochs,
-                infer_calls=args.n_epochs + WARMUP_STEPS + 1,
+                train_steps=int(timed) + int(done),
+                infer_calls=int(calls) + 1,
                 gather_dtype=args.gather_dtype, setup_s=setup_s,
                 host_peak_mb=getattr(data, "host_peak_mb", None),
                 model=model, graph=graph, feats=feats,

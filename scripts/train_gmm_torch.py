@@ -29,8 +29,17 @@ Same loss (masked mean cross-entropy over ``train_mask``) and optimizer
 inference seconds per epoch, peak device memory and test accuracy, and
 appends one CSV row named ``train_GMM_dgnn_tpu_torch``.
 
-Training runs exactly ``--n-epochs`` steps; the steps after the first few
-(warmup) are timed with CUDA events on a CUDA device.  With node pseudo the
+It trains and times as the JAX CLI does (``scripts/train_gmm.py:104-130``),
+with the JAX package's device-resident loop ported as a replayed CUDA graph
+(dgnn_tpu_torch/utils/timing.py): training is timed by ``time_epoch_loop``
+on a throwaway copy of the model and optimizer state; the model then trains
+exactly ``--n-epochs`` steps from its initial state by ``run_epochs`` (one
+capture, ``--n-epochs`` replays), for the accuracy; inference is timed by
+``time_epoch_loop`` over a no-grad forward.  Each step draws its feature
+dropout on the device from a generator seeded by ``--seed``, so every
+replay draws new masks; the losses go to a device buffer, read once at the
+end.  ``--device cpu`` runs the same protocol in host loops.  With node
+pseudo the
 graph is built with ``dense="auto"``: on cora, citeseer and reddit the hub
 planner keeps a dense block, which the dense hub-block kernels take, and
 the rest of the edges go through the degree bins.
@@ -47,6 +56,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
+import copy
 
 import torch
 
@@ -55,10 +65,12 @@ from dgnn_tpu_torch.data.reddit import load_reddit
 from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.models import MoNet
 from dgnn_tpu_torch.ops.gmm import NodePseudo, bin_pseudo
-from dgnn_tpu_torch.utils import (append_csv_row, make_optimizer,
-                                  masked_loss, peak_memory_mb,
-                                  reset_peak_memory, time_calls)
+from dgnn_tpu_torch.utils import (append_csv_row, device_peak_memory_mb,
+                                  make_optimizer, masked_loss,
+                                  reset_peak_memory, run_epochs,
+                                  time_epoch_loop)
 
+# eager steps before a timing loop's capture
 WARMUP_STEPS = 3
 # The JAX bench's gmm_* configurations on the citation graphs (bench.py):
 # node pseudo at their width, what the card smoke run and
@@ -141,9 +153,29 @@ def train_step(model, opt, graph, feats, pseudo, labels, train_mask,
     return loss.detach()
 
 
+def make_step(model, opt, graph, feats, pseudo, labels, train_mask, gen,
+              count, losses=None):
+    """One training step as ``time_epoch_loop`` and ``run_epochs`` take it:
+    it steps with feature dropout from ``gen`` (on the device), writes the
+    loss to ``losses[count]`` (a device buffer, where given) and adds one
+    to ``count`` (a [1] int64 device tensor)."""
+
+    def step():
+        loss = train_step(model, opt, graph, feats, pseudo, labels,
+                          train_mask, gen)
+        if losses is not None:
+            losses.index_copy_(0, count, loss.reshape(1))
+        count.add_(1)
+
+    return step
+
+
 def run(args) -> dict:
     """Train and evaluate as the CLI does; returns what it printed plus the
-    trained model and its inputs."""
+    trained model and its inputs.  ``train_steps`` and ``infer_calls`` are
+    the steps and forwards the device ran, counted there: the timing
+    loops' warmups and replays, the ``--n-epochs`` training steps and the
+    final forward."""
     if args.n_epochs <= WARMUP_STEPS:
         raise ValueError(f"--n-epochs must exceed the {WARMUP_STEPS} warmup "
                          "steps")
@@ -166,27 +198,48 @@ def run(args) -> dict:
                   generator=torch.Generator().manual_seed(args.seed)
                   ).to(device)
     opt = make_optimizer(model, args.lr, args.weight_decay)
-    drop_gen = torch.Generator(device=device).manual_seed(args.seed)
+    task = (graph, feats, pseudo, labels, train_mask)
 
-    losses = []
+    def counter():
+        return torch.zeros(1, dtype=torch.int64, device=device)
 
-    def step():
-        losses.append(train_step(model, opt, graph, feats, pseudo, labels,
-                                 train_mask, drop_gen))
+    def drop_gen():
+        return torch.Generator(device=device).manual_seed(args.seed)
 
     print(args)
     print("profile training")
+    # timing on a throwaway copy of the model and optimizer state; the
+    # accuracy from EXACTLY n_epochs steps below (the timing loop runs
+    # many more: utils.timing.run_epochs)
+    model_t = copy.deepcopy(model)
+    gen_t, timed = drop_gen(), counter()
+    train_s = time_epoch_loop(
+        make_step(model_t, make_optimizer(model_t, args.lr,
+                                          args.weight_decay),
+                  *task, gen_t, timed),
+        args.n_epochs, device=device, warmup=WARMUP_STEPS,
+        generators=(gen_t,))
+    del model_t
+    gen, done = drop_gen(), counter()
+    losses = torch.zeros(args.n_epochs, device=device)
     reset_peak_memory(device)
-    train_s = time_calls(step, device, iters=args.n_epochs - WARMUP_STEPS,
-                         warmup=WARMUP_STEPS)
-    max_mb = peak_memory_mb(device)
-    losses = [float(x) for x in losses]
+    run_epochs(make_step(model, opt, *task, gen, done, losses),
+               args.n_epochs, device=device, generators=(gen,))
+    max_mb = device_peak_memory_mb(device)
+    losses = losses.tolist()
 
     print("profile inference")
     model.eval()
+    calls = counter()
+
+    def infer():
+        with torch.no_grad():
+            model(graph, feats, pseudo)
+        calls.add_(1)
+
+    infer_s = time_epoch_loop(infer, args.n_epochs, device=device,
+                              warmup=WARMUP_STEPS)
     with torch.no_grad():
-        infer_s = time_calls(lambda: model(graph, feats, pseudo), device,
-                             iters=args.n_epochs, warmup=WARMUP_STEPS)
         logits = model(graph, feats, pseudo)
     pred = logits.argmax(dim=1)
     acc = float(((pred == labels) & test_mask).sum() / test_mask.sum())
@@ -208,8 +261,8 @@ def run(args) -> dict:
                        train_s, infer_s, max_mb, acc)
     return dict(losses=losses, train_s=train_s, infer_s=infer_s,
                 peak_mb=max_mb, test_acc=acc, train_acc=train_acc,
-                train_steps=args.n_epochs,
-                infer_calls=args.n_epochs + WARMUP_STEPS + 1,
+                train_steps=int(timed) + int(done),
+                infer_calls=int(calls) + 1,
                 model=model, graph=graph, feats=feats, pseudo=pseudo,
                 pseudo_mode=mode, gather_dtype=gather, setup_s=setup_s,
                 host_peak_mb=host_peak_mb,

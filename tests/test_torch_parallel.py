@@ -67,7 +67,8 @@ def _rank_cases(rank, world, specs):
             results[name] = (out.numpy(), None)
             continue
         out, grads = spec_grads(
-            spec, rank, lambda o, rows, s=spec: _local_loss(o, s, rows))
+            spec, rank, lambda o, rows, s=spec: _local_loss(o, s, rows),
+            device="cpu")
         results[name] = (out.numpy(), {k: g.numpy() for k, g in grads.items()})
     return results
 
