@@ -60,6 +60,18 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                the max is exact, so tolerance 0 and the index equal; the
                list pass alone (live_counts) must count exactly the
                columns its plain rule (live_candidates) keeps.
+               tie_sum_bwd (the tie-sum backward, csrc/ec_ties.cu) against
+               its plain version _dsrc_ties on CPU copies of the same
+               inputs (m from the card's masked max): the model's k-NN
+               masks at B = 4, P = 1024, k = 40, F = 64, 128 and 256 with
+               a duplicated source row every row admits (exact ties); the
+               masks a {0, neg} rule would get wrong at B = 2, P = 300,
+               F = 70 (three values, {0, -8} beside h_src of scale 4, rows
+               that admit nothing, any floats); a row one over the
+               masked-max lists' cap; each in both mul_dtypes (float32
+               rtol 1e-5 / atol 1e-6, bfloat16 rtol 5e-3 / atol 2e-2);
+               two calls on the same inputs equal bit for bit, one launch
+               a call.
                gather_rows_sum at W in {32, 64, 256} x rows of 4 KB and 1 KB
                and on large tables in many column slices of 32 floats
                (5200 floats a row, the last slice 16; 128; 36, the last
@@ -77,8 +89,9 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                edge, so they get PARAM_TOL, scaled to the edge count.
                edge_conv_max_dense forward and (h_src, h_dst) gradients the
                same way at B = 2, P = 256, F = 96, one mask built once and
-               copied: both backward modes, mul_dtype float32 (rtol 1e-5,
-               atol 1e-6) and bfloat16 (rtol 5e-3, atol 2e-2).
+               copied: both backward modes (tie_sum through tie_sum_bwd's
+               kernel), mul_dtype float32 (rtol 1e-5, atol 1e-6) and
+               bfloat16 (rtol 5e-3, atol 2e-2).
   5. train   - the trainers at the bench widths, 20 steps and an eval each,
                on cora (bin and dense kernels) and on pubmed (bin kernels),
                through the JAX trainers' protocol (utils/timing.py: the
@@ -130,15 +143,28 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                widths beside its bound.
                Then scripts/train_edgeconv_torch.py at full width (B = 64,
                P = 1024, k = 40, DGCNN's default dims, 512 train and 128
-               test synthetic clouds): 2 epochs (16 steps) and the eval
-               batches in schedule "step1", 1 epoch in "step8".  The loss
-               must be finite and fall; masked_max must have launched
-               exactly (train steps + eval batches) x 4 layers times and no
-               other kernel at all; the trained model's logits on two test
-               clouds must match a CPU copy's (masks compared first); the
-               list pass launches once per masked_max call.  Then
+               test synthetic clouds) through the JAX trainer's protocol:
+               the training timed by time_epoch_loop over the trainer's
+               epoch (make_epoch: the shuffle, the augmentation and 8
+               steps, captured once and replayed; 1 epoch, 1 warmup epoch,
+               doubled until 2 s) on a throwaway copy, then exactly 2
+               run_epochs replays from the initial state, the inference
+               pass timed by the loop.  The loss must be finite and fall;
+               masked_max ("step8", the model's schedule) and its list pass
+               must have launched exactly (train steps + eval batches) x 4
+               layers times and tie_sum_bwd train steps x 4 (the steps and
+               batches counted on the card), no other kernel at all; the
+               trained model's logits on two test clouds must match a CPU
+               copy's (masks compared first).  Phase loop then runs
+               EC_LOOP_EPOCHS = 2 run_epochs replays of the epoch against 2
+               eager epochs from the same state and generator state: the
+               losses, every parameter and BatchNorm buffer within
+               LOOP_TOL (bit-equality printed), launches exact, eager
+               against replayed ms an epoch.  Then
                scripts/microbench_gather_torch.py, the only path of the two
-               gather kernels, with their launches counted.
+               gather kernels, and scripts/exp_ec_tiles_torch.py, the only
+               path of masked_max's "step1" schedule, with their launches
+               counted.
   6. baselines - native: the host build of pubmed (dense=None), of cora
                with its planner's hub block and of the skewed graph under
                its forced block (the kernels phase's), through the native
@@ -157,7 +183,8 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                each (ms/step, inference ms, peak MB, test accuracy; launches
                exact: none for naive; card logits against a CPU copy).
                checkpoint: scripts/train_edgeconv_torch.py at full width on
-               320 clouds saves after training; the trainer's restore into a
+               320 clouds (its whole protocol, 1 epoch) saves after
+               training; the trainer's restore into a
                model of another seed gives the run's eval logits exactly,
                and a second run with --load-model-path restores the step.
   7. sharded - the sharded path (dgnn_tpu_torch/parallel), SHARD_P = 4
@@ -209,8 +236,13 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                masked_max in both schedules, and its list pass alone, at
                the model's widths F = 256, 128 and 64 with the model's
                bfloat16 mask at B = 64, P = 1024 (and equal to the plain
-               version there too), each beside its own bound, and the op
-               around it forward + backward in both backward modes;
+               version there too), each beside its own bound; tie_sum_bwd
+               on that max at each width (a replayed CUDA graph, and from
+               the host), beside _dsrc_ties on the card and held to it,
+               beside its bound (the mask, m, h_src, g once, d_src once;
+               the operations of the pairs its filter keeps), and summed to
+               a DGCNN step (widths 64, 64, 128, 256); and the op around
+               them forward + backward in both backward modes;
                gather_rows_sum and gather_lanes at the study's shapes,
                beside the one library call that computes the same function
                (embedding_bag, torch.gather; timed here, used nowhere);
@@ -315,6 +347,14 @@ EC_MASK_FLIPS = 1e-4
 LOOP_STEPS = 20
 LOOP_TIME_STEPS = 50
 LOOP_TOL = dict(rtol=1e-5, atol_scale=1e-6)
+# DGCNN's loop: epochs a side (8 steps each at the trainer's defaults), and
+# epochs a side in the eager-against-replayed times
+EC_LOOP_EPOCHS = 2
+EC_LOOP_TIME_EPOCHS = 2
+# the tie-sum backward's check: the model's clouds a case (the CPU holds
+# the plain version at P = 1024), and the adversarial masks' shape
+EC_TIE_B = 4
+EC_TIE_ODD = (2, 300, 70)
 # The reddit phase: the cut of reddit's nodes and edges it runs at (the
 # largest of 1, 1/2, 1/4, 1/8 whose host build, with the rest of the
 # script, fits the script's time limit), and its training steps.
@@ -390,6 +430,13 @@ KERNELS = {
     "masked_max_live_lists": dict(route="cuda",
                                   source="dgnn_tpu_torch/csrc/ec_tiles.cu",
                                   replaces="scripts/exp_r5_ec_tiles.py:59"),
+    # the tie-sum backward of edge_conv_max_dense (no Pallas kernel on the
+    # TPU: an XLA pass there)
+    "tie_sum_bwd": dict(route="cuda",
+                        source="dgnn_tpu_torch/csrc/ec_ties.cu",
+                        replaces="dgnn_tpu/ops/edgeconv.py:184",
+                        note="the JAX version (_ecd_dsrc_ties) is an XLA "
+                             "pass, not a Pallas kernel"),
     "gather_rows_sum": dict(route="cuda",
                             source="dgnn_tpu_torch/csrc/gather.cu",
                             replaces="scripts/microbench_gather.py:99"),
@@ -417,6 +464,9 @@ for _k in ("masked_max_step1", "masked_max_step8"):
     FLOPS_PER_EDGE[_k] = lambda C, G: 2 * C
 # the list pass: an add and a compare per mask entry
 FLOPS_PER_EDGE["masked_max_live_lists"] = lambda C, G: 2
+# the tie-sum backward: an add, a compare and a sum per column of each pair
+# that can tie (the pairs its filter keeps)
+FLOPS_PER_EDGE["tie_sum_bwd"] = lambda C, G: 3 * C
 FLOPS_PER_EDGE["gather_rows_sum"] = lambda C, G: C
 FLOPS_PER_EDGE["gather_lanes"] = lambda C, G: 0
 for _k in ("gat_fwd", "gat_bwd"):
@@ -1105,25 +1155,105 @@ def check_edgeconv_op(dev, rng):
 
 def all_launches():
     """Every wrapper's launch count, one dict."""
-    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, gather
+    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, edgeconv, gather
 
     return {**bins.LAUNCHES, **dense.LAUNCHES, **ec_tiles.LAUNCHES,
-            **gather.LAUNCHES}
+            **edgeconv.LAUNCHES, **gather.LAUNCHES}
 
 
 def reset_all_launches():
-    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, gather
+    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, edgeconv, gather
 
-    for mod in (bins, dense, ec_tiles, gather):
+    for mod in (bins, dense, ec_tiles, edgeconv, gather):
         mod.reset_launches()
 
 
-def run_edgeconv_trainer(trainer, schedule, epochs):
-    """DGCNN at full width through the trainer's entry point, with every
-    launch count set to 0 just before and read just after."""
-    args = trainer.parser().parse_args(
-        ["--num-epochs", str(epochs), "--schedule", schedule, "--device",
-         "cuda"])
+def tie_cases(ec_tiles, dev):
+    """(description, mask, h_src) of the tie-sum backward's check: the
+    model's k-NN masks at P = 1024, k = 40 and DGCNN's widths, with two
+    duplicated source rows (exact ties) that every row admits; the masks
+    on which a {0, neg} rule would drop pairs that hit (three values,
+    neg = -8 beside h_src of scale 4, rows that admit nothing, any floats);
+    a row over the masked-max lists' cap."""
+    from dgnn_tpu_torch.graph.knn import knn_mask_neg
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    cases = []
+    for f in (64, 128, 256):
+        x = torch.randn((EC_TIE_B, EC_P, 3), generator=gen, device=dev)
+        hs = torch.randn((EC_TIE_B, EC_P, f), generator=gen, device=dev)
+        mask = knn_mask_neg(x, EC_K)
+        dup = 2 * EC_P // 3
+        hs[1, dup] = hs[1, 3]
+        mask[1, :, 3] = 0
+        mask[1, :, dup] = 0
+        cases.append((f"B={EC_TIE_B} P={EC_P} F={f} knn mask bf16, a "
+                      "duplicated source row every row admits", mask, hs))
+    b, p, f = EC_TIE_ODD
+    hs = torch.randn((b, p, f), generator=gen, device=dev)
+    hs[0, 5] = hs[0, 1]
+    pick = torch.rand((b, p, p), generator=gen, device=dev)
+    cases.append((f"B={b} P={p} F={f} three-valued mask f32 (0, -0.5, -3)",
+                  torch.where(pick < 0.3, 0.0,
+                              torch.where(pick < 0.6, -0.5, -3.0)), hs))
+    admit = torch.rand((b, p, p), generator=gen, device=dev) < 3 / p
+    cases.append((f"B={b} P={p} F={f} mask {{0, -8}} f32, h_src of scale 4",
+                  torch.where(admit, 0.0, -8.0), hs * 4))
+    mask = knn_mask_neg(torch.randn((b, p, 3), generator=gen, device=dev), 5)
+    mask[0, 4] = -1e30
+    mask[1, 2] = -1e30
+    cases.append((f"B={b} P={p} F={f} knn mask bf16, rows that admit "
+                  "nothing", mask, hs))
+    cases.append((f"B={b} P={p} F={f} random normal mask x 2 f32",
+                  torch.randn((b, p, p), generator=gen, device=dev) * 2, hs))
+    mask = knn_mask_neg(torch.randn((b, p, 3), generator=gen, device=dev), 5)
+    mask[0, 7] = -1e30
+    mask[0, 7, 3:3 + ec_tiles.LIVE_CAP + 1] = 0
+    cases.append((f"B={b} P={p} F={f} knn mask bf16, a row of "
+                  f"{ec_tiles.LIVE_CAP + 1} admitted columns (over the "
+                  "lists' cap)", mask, hs))
+    return cases
+
+
+def check_tie_sum(ec_tiles, edgeconv, dev, err):
+    """tie_sum_bwd against its plain version (_dsrc_ties) on CPU copies of
+    the same inputs (m from the card's masked max), in both mul_dtypes
+    (EC_F32_TOL / EC_BF16_TOL); two calls on the same inputs equal bit for
+    bit; one launch a call.  Returns the cases as strings."""
+    done = []
+    for what, mask, hs in tie_cases(ec_tiles, dev):
+        gen = torch.Generator(device=dev).manual_seed(14)
+        g = torch.randn(hs.shape, generator=gen, device=dev) * G_SCALE
+        m = ec_tiles.masked_max(mask, hs, schedule=edgeconv.SCHEDULE)
+        cpu = [t.cpu() for t in (m, mask, hs, g)]
+        worst = []
+        for mul_dtype, tol in ((torch.float32, EC_F32_TOL),
+                               (torch.bfloat16, EC_BF16_TOL)):
+            before = edgeconv.LAUNCHES["tie_sum_bwd"]
+            got = edgeconv.tie_sum_bwd(m, mask, hs, g, mul_dtype)
+            again = edgeconv.tie_sum_bwd(m, mask, hs, g, mul_dtype)
+            torch.cuda.synchronize()
+            assert edgeconv.LAUNCHES["tie_sum_bwd"] == before + 2, what
+            assert torch.equal(got, again), (what, "two calls differ")
+            want = edgeconv._dsrc_ties(*cpu, mul_dtype)
+            got = got.cpu()
+            torch.testing.assert_close(
+                got, want, **tol,
+                msg=lambda msg_: f"tie_sum_bwd {what} {mul_dtype}: {msg_}")
+            diff = float((got - want).abs().max())
+            err["tie_sum_bwd"] = max(err["tie_sum_bwd"], diff)
+            worst.append(f"{str(mul_dtype).split('.')[-1]} {diff:.3g}")
+        done.append(f"{what}: max |diff| " + ", ".join(worst))
+        del mask, hs, g, m, cpu
+    return done
+
+
+def run_edgeconv_trainer(trainer):
+    """DGCNN at full width through the trainer's entry point (2 epochs: the
+    timing on a copy, 2 run_epochs replays, inference timed by the loop),
+    with every launch count set to 0 just before and read just after."""
+    args = trainer.parser().parse_args(["--num-epochs", "2", "--device",
+                                        "cuda"])
     assert (args.batch_size, args.num_points, args.k) == (EC_B, EC_P, EC_K)
     reset_all_launches()
     r = trainer.run(args)
@@ -1134,9 +1264,13 @@ def run_edgeconv_trainer(trainer, schedule, epochs):
     model = r["model"]
     assert [(c.theta.in_features, c.theta.out_features)
             for c in model.convs.values()] == list(EC_LAYERS)
+    # the steps and test batches the card ran (counted there: the timing
+    # loops' warmups and replays, the run_epochs replays); a replay's
+    # launches count as the wrappers' counts do
     want = dict.fromkeys(launches, 0)  # every other kernel: none
-    want["masked_max_" + schedule] = want["masked_max_live_lists"] = (
+    want["masked_max_step8"] = want["masked_max_live_lists"] = (
         (r["train_steps"] + r["eval_batches"]) * len(model.convs))
+    want["tie_sum_bwd"] = r["train_steps"] * len(model.convs)
     assert launches == want, (launches, want)
     # the trained model on two test clouds: the card against a CPU copy
     x = r["x_test"][:2]
@@ -1387,6 +1521,97 @@ def run_loop(bins, trainer, kind, dataset, r, dev, smi):
           f"{used} = 2 x {LOOP_STEPS} steps'; ms a step: eager "
           f"{eager_ms:.4f}, replayed {replay_ms:.4f} ({LOOP_TIME_STEPS} "
           f"steps each, CUDA events) | {smi}")
+    return dict(eager_ms=eager_ms, replay_ms=replay_ms, bit_equal=bit_equal,
+                max_diff=worst)
+
+
+def ec_loop_side(trainer, r, dev, epochs, losses=True):
+    """A copy of DGCNN trainer run ``r``'s model with a fresh optimizer
+    (its cosine over ``epochs`` epochs) and a generator seeded as the
+    trainer seeds its own, and the trainer's epoch over them (``make_epoch``;
+    its losses into a buffer where ``losses``)."""
+    from dgnn_tpu_torch.utils import make_sgd_cosine
+
+    spe = r["steps_per_epoch"]
+    model = copy.deepcopy(r["model"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    buf = torch.zeros(epochs * spe, device=dev) if losses else None
+    epoch = trainer.make_epoch(model, make_sgd_cosine(model, epochs * spe),
+                               r["x_train"], r["y_train"], EC_B, gen, count,
+                               torch.zeros(2, device=dev), buf)
+    return dict(model=model, gens=(gen,), epoch=epoch, losses=buf)
+
+
+def run_edgeconv_loop(trainer, r, dev, smi):
+    """Phase loop on the DGCNN trainer run ``r`` (its clouds and model at
+    full width): EC_LOOP_EPOCHS epochs of the trainer's epoch issued from
+    the host against EC_LOOP_EPOCHS replays of ``run_epochs`` (one capture
+    of the epoch: its shuffle, augmentation and steps), from the same state
+    and generator state.  The losses, every parameter and BatchNorm buffer
+    within LOOP_TOL; the launches exactly 2 x EC_LOOP_EPOCHS epochs'; then
+    eager against replayed ms an epoch."""
+    from dgnn_tpu_torch.utils import StepGraph, run_epochs, time_calls
+
+    spe, n_convs = r["steps_per_epoch"], len(r["model"].convs)
+    reset_all_launches()
+    sides = []
+    for replayed in (False, True):
+        side = ec_loop_side(trainer, r, dev, EC_LOOP_EPOCHS)
+        if replayed:
+            run_epochs(side["epoch"], EC_LOOP_EPOCHS, device=dev,
+                       generators=side["gens"])
+        else:
+            for _ in range(EC_LOOP_EPOCHS):
+                side["epoch"]()
+        sides.append(side)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    steps = 2 * EC_LOOP_EPOCHS * spe
+    want = dict.fromkeys(launches, 0)
+    want["masked_max_step8"] = want["masked_max_live_lists"] = \
+        want["tie_sum_bwd"] = steps * n_convs
+    assert launches == want, ("edgeconv loop", launches, want)
+    eager, replay = sides
+    pairs = [("loss", eager["losses"], replay["losses"])] + [
+        (name, a.detach(), b.detach()) for (name, a), (_, b) in zip(
+            eager["model"].state_dict().items(),
+            replay["model"].state_dict().items())]
+    worst, bit_equal = 0.0, True
+    for name, a, b in pairs:
+        atol = LOOP_TOL["atol_scale"] * float(a.abs().max())
+        torch.testing.assert_close(
+            b, a, rtol=LOOP_TOL["rtol"], atol=atol,
+            msg=lambda m, name=name: f"edgeconv modelnet {name}: {m}")
+        bit_equal &= torch.equal(a, b)
+        worst = max(worst, float((a - b).abs().max()))
+    losses = eager["losses"].tolist()
+    used = {k: v for k, v in launches.items() if v}
+    del sides, eager, replay
+    # eager against replayed ms an epoch, each on its own copy of the state
+    side = ec_loop_side(trainer, r, dev, 3 + EC_LOOP_TIME_EPOCHS, False)
+    eager_ms = time_calls(side["epoch"], dev, iters=EC_LOOP_TIME_EPOCHS,
+                          warmup=1) * 1e3
+    side = ec_loop_side(trainer, r, dev, 3 + EC_LOOP_TIME_EPOCHS, False)
+    graph = StepGraph(side["epoch"], dev, generators=side["gens"], warmup=1)
+    try:
+        graph.replay(1)
+        replay_ms = graph.seconds(EC_LOOP_TIME_EPOCHS) / \
+            EC_LOOP_TIME_EPOCHS * 1e3
+    finally:
+        graph.close()
+    del side
+    phase("loop", f"modelnet DGCNN: {EC_LOOP_EPOCHS} run_epochs replays of "
+          f"the trainer's epoch ({spe} steps, its shuffle and augmentation "
+          f"drawn on the card) = {EC_LOOP_EPOCHS} eager epochs from the same "
+          f"state (loss {losses[0]:.4f} -> {losses[-1]:.4f}; losses and "
+          f"{len(pairs) - 1} parameters and BatchNorm buffers within rtol "
+          f"{LOOP_TOL['rtol']}, atol {LOOP_TOL['atol_scale']} x each "
+          f"tensor's largest element; max |diff| {worst:.3g}; bit-equal "
+          f"{bit_equal}); launches {used} = 2 x {EC_LOOP_EPOCHS} epochs'; ms "
+          f"an epoch: eager {eager_ms:.4f}, replayed {replay_ms:.4f} "
+          f"({EC_LOOP_TIME_EPOCHS} epochs each, CUDA events; a step "
+          f"{eager_ms / spe:.4f} / {replay_ms / spe:.4f}) | {smi}")
     return dict(eager_ms=eager_ms, replay_ms=replay_ms, bit_equal=bit_equal,
                 max_diff=worst)
 
@@ -2286,7 +2511,8 @@ def main():
     from dgnn_tpu_torch import native
     from dgnn_tpu_torch.data import synthetic_citation
     from dgnn_tpu_torch.graph import structure
-    from dgnn_tpu_torch.ops import _build, bins, dense, ec_tiles, gather
+    from dgnn_tpu_torch.ops import _build, bins, dense, ec_tiles, edgeconv, \
+        gather
     from dgnn_tpu_torch.ops.edgeconv import edge_conv_max_dense
     from dgnn_tpu_torch.ops.gat import _gat_forward, gat_aggregate
     from dgnn_tpu_torch.ops.gmm import gmm_aggregate_node
@@ -2437,6 +2663,12 @@ def main():
         phase("kernels", f"masked_max {what}: {n_cmp} kernel/plain "
               "comparisons equal, both schedules, index included, and the "
               "list pass's live counts")
+    for what in check_tie_sum(ec_tiles, edgeconv, dev, err):
+        phase("kernels", f"tie_sum_bwd {what}: the kernel matches "
+              "_dsrc_ties on CPU copies (f32: rtol "
+              f"{EC_F32_TOL['rtol']}, atol {EC_F32_TOL['atol']}; bf16: rtol "
+              f"{EC_BF16_TOL['rtol']}, atol {EC_BF16_TOL['atol']}), two "
+              "calls equal bit for bit, one launch a call")
     done = check_gathers(gather, gather_study, dev, err)
     phase("kernels", "gather_rows_sum (rtol 1e-5, atol 8 W 2^-23) and "
           f"gather_lanes (exact) agree with their plain versions: {done}")
@@ -2572,24 +2804,28 @@ def main():
           "(host build included)")
 
     ec_trainer = load_script("train_edgeconv_torch")
-    for schedule, epochs in (("step1", 2), ("step8", 1)):
-        r, launches[("edgeconv", schedule)] = run_edgeconv_trainer(
-            ec_trainer, schedule, epochs)
-        losses = r["losses"]
-        used = {k: v for k, v in launches[("edgeconv", schedule)].items()
-                if v}
-        phase("train", f"modelnet (synthetic) DGCNN B={EC_B} P={EC_P} "
-              f"k={EC_K} dims {[f for _, f in EC_LAYERS]} schedule "
-              f"{schedule}: {r['train_steps']} steps + {r['eval_batches']} "
-              f"eval batches, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-              f"train {r['step_s'] * 1e3:.3f} ms/step, inference "
-              f"{r['infer_s'] * 1e3:.3f} ms a pass over the test batches, "
-              f"peak {r['peak_mb']:.0f} MB, test acc {r['test_acc']:.4f}, "
-              f"launches {used} (every other kernel 0); card logits on two "
-              f"clouds match a CPU copy given the card's masks (max |diff| "
-              f"{r['logit_err']:.3g}; mask entries that differ per layer "
-              f"{r['mask_flips']}) | {smi}")
-        del r
+    r, launches[("edgeconv",)] = run_edgeconv_trainer(ec_trainer)
+    losses = r["losses"]
+    used = {k: v for k, v in launches[("edgeconv",)].items() if v}
+    phase("train", f"modelnet (synthetic) DGCNN B={EC_B} P={EC_P} k={EC_K} "
+          f"dims {[f for _, f in EC_LAYERS]}: {r['train_steps']} steps (2 "
+          f"epochs of {r['steps_per_epoch']} by run_epochs, the rest the "
+          f"timing copy's) + {r['eval_batches']} eval batches, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (last epoch's mean "
+          f"{r['epoch_loss']:.4f}, train acc {r['epoch_acc']:.4f}), train "
+          f"{r['train_s'] * 1e3:.3f} ms an epoch ({r['step_s'] * 1e3:.3f} "
+          f"ms/step, a replayed CUDA graph of the epoch), inference "
+          f"{r['infer_s'] * 1e3:.3f} ms a pass over the test batches "
+          f"(replayed), peak {r['peak_mb']:.0f} MB, test acc "
+          f"{r['test_acc']:.4f}, lr at the end {r['last_lr']:.6g}, launches "
+          f"{used} (every other kernel 0); card logits on two clouds match a "
+          f"CPU copy given the card's masks (max |diff| "
+          f"{r['logit_err']:.3g}; mask entries that differ per layer "
+          f"{r['mask_flips']}) | {smi}")
+    t0 = time.perf_counter()
+    run_edgeconv_loop(ec_trainer, r, dev, smi)
+    phase("loop", f"the DGCNN loop took {time.perf_counter() - t0:.1f} s")
+    del r
     # the gather kernels' only path: the study script
     study_iters = 5
     reset_all_launches()
@@ -2603,6 +2839,22 @@ def main():
                 gather_lanes=(per_case + per_graph)
                 * len(gather_study.LANES_CASES))
     assert launches["gather"] == want, (launches["gather"], want)
+    # masked_max's "step1" schedule: the model runs "step8"; "step1" runs in
+    # the masked-max study (its float32 study mask), its only path now
+    reset_all_launches()
+    ec_case = ec_study.study(dev, iters=study_iters)
+    launches["ec_study"] = all_launches()
+    per_variant = 1 + 2 + study_iters  # a check, the warmup, the timed calls
+    want = dict.fromkeys(launches["ec_study"], 0)
+    want.update(masked_max_step1=2 * per_variant,
+                masked_max_step8=2 * per_variant,
+                masked_max_live_lists=1 + (2 + study_iters)
+                + 4 * per_variant)
+    assert launches["ec_study"] == want, (launches["ec_study"], want)
+    phase("train", f"masked-max study {ec_case['shape']}: " + ", ".join(
+        f"{row['variant']} {row['ms']:.4f} ms" for row in ec_case["rows"])
+        + "; launches "
+        + f"{ {k: v for k, v in launches['ec_study'].items() if v} } | {smi}")
     for case in gather_cases:
         phase("train", f"gather study {case['case']}: " + ", ".join(
             f"{row['variant']} {row['ms']:.4f} ms "
@@ -2842,10 +3094,40 @@ def main():
                   f"{2 * admitted * f / 1e9:.3f} G admitted of "
                   f"{2 * EC_B * EC_P * EC_P * f / 1e9:.1f} G dense), no "
                   f"single library call | {smi}")
+        # the tie-sum backward at this layer's width, on the max it saves:
+        # the wrapper (amin + kernel) from the host and from a replayed CUDA
+        # graph, beside its plain version on the card (torch ops and a
+        # torch.nonzero) and held to it there too
+        g_t = torch.randn(hs.shape, generator=torch.Generator(
+            device=dev).manual_seed(15), device=dev) * G_SCALE
+        tie_fns = [lambda: edgeconv._dsrc_ties(want, mask, hs, g_t,
+                                               torch.bfloat16),
+                   lambda: edgeconv.tie_sum_bwd(want, mask, hs, g_t)]
+        tie_plain_ms, tie_host_ms = time_turns(tie_fns, time_calls, dev,
+                                               [3, 20])
+        tie_ms = gather_study.graph_ms(tie_fns[1], dev, 5)
+        tie_out = tie_fns[1]()
+        torch.testing.assert_close(tie_out, tie_fns[0](), **EC_BF16_TOL)
+        # the pairs its filter keeps: what the function has to test
+        pairs = int((mask.to(torch.float32) + hs.amax(dim=-1)[:, None, :]
+                     >= want.amin(dim=-1)[:, :, None]).sum())
+        bound_ms, bound_by = bound("tie_sum_bwd", [mask, want, hs, g_t],
+                                   [tie_out], pairs, f, 1)
+        times[("tie_sum_bwd", f)] = dict(ms=tie_ms, plain_ms=tie_plain_ms,
+                                         bound_ms=bound_ms,
+                                         bound_by=bound_by, library_ms=None)
+        phase("times", f"tie_sum_bwd B={EC_B} P={EC_P} F={f} knn mask bf16, "
+              f"mul_dtype bfloat16 ({pairs / (EC_B * EC_P):.1f} pairs a row "
+              f"pass its filter): {tie_ms:.4f} ms a call in a replayed CUDA "
+              f"graph (amin + kernel; {tie_host_ms:.4f} ms from the host), "
+              f"plain {tie_plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({tie_ms / bound_ms:.1f} times it), no single "
+              f"library call | {smi}")
+        del g_t, tie_fns, tie_out
         # the op around the kernel, forward + backward, in both backward
-        # modes: "tie_sum" (the default, as the JAX op's) walks the admitted
-        # pairs in torch ops; "argmax" has the kernel save the first winner
-        # and scatters g to it
+        # modes: "tie_sum" (the default, as the JAX op's) sums g over the
+        # tied sources (tie_sum_bwd); "argmax" has the kernel save the first
+        # winner and scatters g to it
         a, b = (t.requires_grad_(True) for t in (hs, torch.zeros_like(hs)))
         g_out = torch.ones_like(hs)
 
@@ -2859,6 +3141,18 @@ def main():
               f"mul_dtype bfloat16: tie_sum {tie_ms:.4f} ms, argmax "
               f"{arg_ms:.4f} ms | {smi}")
         del mask, hs, fns, want, counts, a, b, g_out
+    # the tie-sum backward a DGCNN step: one call a layer, widths 64, 64,
+    # 128 and 256, beside the sum of the layers' bounds
+    widths = [f for _, f in EC_LAYERS]
+    tie_step = sum(times[("tie_sum_bwd", f)]["ms"] for f in widths)
+    tie_bound = sum(times[("tie_sum_bwd", f)]["bound_ms"] for f in widths)
+    phase("times", f"tie_sum_bwd a DGCNN step, layers {widths}: "
+          + " + ".join(f"{times[('tie_sum_bwd', f)]['ms']:.4f}"
+                       for f in widths)
+          + f" = {tie_step:.4f} ms against a bound of {tie_bound:.5f} ms "
+          f"({tie_step / tie_bound:.1f} times it); plain "
+          f"{sum(times[('tie_sum_bwd', f)]['plain_ms'] for f in widths):.4f}"
+          f" ms | {smi}")
     for width, sub in ((64, 8), (32, 8), (256, 8), (64, 2)):
         feat, nbr = gather_study.rows_inputs(dev, sub=sub, width=width,
                                              seed=9)
@@ -2986,16 +3280,19 @@ def main():
     report = []
     for name, meta in KERNELS.items():
         # the kernel's first job: the hidden layer's width (GAT, MoNet), the
-        # widest layer (masked max), the study's default shape (gathers)
+        # widest layer (masked max, tie-sum backward), the study's default
+        # shape (gathers)
         first = next(key for key in times if key[0] == name)
         # launches: the cora run of the kernel's model, the path that runs
-        # its bin and its dense kernels; the DGCNN run in the kernel's
-        # schedule; the gather study
+        # its bin and its dense kernels; the DGCNN run (masked max "step8"
+        # and its list pass, the tie-sum backward); the studies (masked max
+        # "step1", the gathers)
         # the bf16 instances: the reddit run of their model (bf16 gathers)
-        if name == "masked_max_live_lists":
-            run = ("edgeconv", "step1")
-        elif name.startswith("masked_max"):
-            run = ("edgeconv", name.rsplit("_", 1)[1])
+        if name in ("masked_max_live_lists", "masked_max_step8",
+                    "tie_sum_bwd"):
+            run = ("edgeconv",)
+        elif name == "masked_max_step1":
+            run = "ec_study"
         elif name.startswith("gather"):
             run = "gather"
         elif name.endswith("_gid"):

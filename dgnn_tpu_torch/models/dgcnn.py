@@ -82,10 +82,9 @@ class EdgeConv(nn.Module):
     [B, P, C] features (the path the model takes)."""
 
     def __init__(self, in_feats: int, out_feats: int, *,
-                 batch_norm: bool = False, schedule: str = "step1",
+                 batch_norm: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.schedule = schedule
         self.theta = _dense(in_feats, out_feats, False, generator)
         self.phi = _dense(in_feats, out_feats, False, generator)
         self.bn = BatchNorm(out_feats) if batch_norm else None
@@ -94,8 +93,7 @@ class EdgeConv(nn.Module):
         h_theta = self.theta(feat)
         h_phi = self.phi(feat)
         if adj.dim() == 3:
-            out = edge_conv_max_dense(adj, h_theta, h_phi - h_theta,
-                                      schedule=self.schedule)
+            out = edge_conv_max_dense(adj, h_theta, h_phi - h_theta)
         else:
             out = edge_conv_max(adj, h_theta, h_phi - h_theta)
         if self.bn is not None:
@@ -112,7 +110,7 @@ class DGCNN(nn.Module):
                  feature_dims: Sequence[int] = (64, 64, 128, 256),
                  emb_dims: Sequence[int] = (512, 512, 256),
                  output_classes: int = 40, dropout: float = 0.5, *,
-                 in_feats: int = 3, schedule: str = "step1",
+                 in_feats: int = 3,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.k = k
@@ -120,8 +118,7 @@ class DGCNN(nn.Module):
         convs = {}
         width = in_feats
         for i, dim in enumerate(feature_dims):
-            convs[f"conv_{i}"] = EdgeConv(width, dim, schedule=schedule,
-                                          generator=generator)
+            convs[f"conv_{i}"] = EdgeConv(width, dim, generator=generator)
             width = dim
         self.convs = nn.ModuleDict(convs)
         self.proj = _dense(sum(feature_dims), emb_dims[0], True, generator)

@@ -27,7 +27,7 @@ __all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("bin_gat.cu", "dense_gat.cu", "bin_gmm.cu", "dense_gmm.cu",
-            "ec_tiles.cu", "gather.cu")
+            "ec_tiles.cu", "ec_ties.cu", "gather.cu")
 _HEADERS = ("bin_common.cuh", "gat_common.cuh", "dense_common.cuh",
             "gmm_common.cuh")
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dgnn_tpu_torch"
@@ -197,6 +197,12 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp,                     # entries count out idx
             vp]                                 # stream
         lib.dgnn_ec_masked_max.restype = ci
+        lib.dgnn_ec_tie_sum.argtypes = [
+            vp, ci, vp, vp, vp, vp,             # mask mask_bf16 m hs g mmin
+            ci, ci, ci, ci,                     # B P F mul_bf16
+            vp,                                 # dsrc
+            vp]                                 # stream
+        lib.dgnn_ec_tie_sum.restype = ci
         lib.dgnn_gather_rows_sum.argtypes = [
             vp, vp,                             # feat nbr
             ci, ci, ci, ci,                     # N S W row

@@ -6,26 +6,34 @@
 ``edge_conv_max_dense`` is the path the DGCNN model takes: point clouds make
 the k-NN graph block-diagonal with small blocks, so the neighbour max is
 taken densely per cloud under an additive mask (graph/knn.py
-``knn_mask_neg``) by the hand-written kernel of ops/ec_tiles.py.  Its
-backward has no kernel in the JAX package either and is torch ops here, but
-not the JAX formulation carried over: that one broadcasts a
-[B, Pj, Pi, Fc] indicator, which no card holds at ModelNet width.  Instead:
+``knn_mask_neg``) by the hand-written kernel of ops/ec_tiles.py, in its
+"step8" schedule.  Its backward:
 
+- ``bwd_mode="tie_sum"`` (the default, as in the JAX op) sums g over every
+  source whose candidate equals the saved max: ``tie_sum_bwd``, the
+  hand-written kernel of csrc/ec_ties.cu for CUDA tensors (no host sync, no
+  allocation whose size depends on the data, a fixed summation order), and
+  its plain version ``_dsrc_ties`` for CPU tensors.  The JAX counterpart
+  (``_ecd_dsrc_ties``) is an XLA pass that broadcasts a [B, Pj, Pi, Fc]
+  indicator, which no card holds at ModelNet width.  ``_dsrc_ties`` walks
+  only the (i, j) pairs that can tie (``torch.nonzero`` of a filter), in
+  slices whose [pairs, F] float32 intermediates stay under ``PAIR_BYTES``
+  each, recomputes ``h_src[j] + mask[i, j]`` with the float32 add the
+  forward used, and ``index_add_``s g to every source whose candidate
+  equals the saved max.  The filter keeps every pair that can hit, for any
+  float mask: rounded addition is monotone, so a hit in feature f needs
+  fl(mask[i, j] + max_f h_src[j]) >= m[i, f] >= min_f m[i].  On the
+  model's k-NN masks it keeps about the admitted pairs.  The kernel tests
+  the same filter and the same equality, so its hits are the plain
+  version's bit for bit.
 - ``bwd_mode="argmax"`` scatters g to the saved first-winner index with one
-  ``scatter_add_`` over [B, P, F];
-- ``bwd_mode="tie_sum"`` (the default, as in the JAX op) walks only the
-  (i, j) pairs that can tie (``torch.nonzero`` of a filter: one host sync
-  per call), in slices whose [pairs, F] float32 intermediates stay under
-  ``PAIR_BYTES`` each, recomputes ``h_src[j] + mask[i, j]`` with the
-  float32 add the forward used, and ``index_add_``s g to every source
-  whose candidate equals the saved max.  The filter keeps every pair that
-  can hit, for any float mask: rounded addition is monotone, so a hit in
-  feature f needs fl(mask[i, j] + max_f h_src[j]) >= m[i, f] >= min_f
-  m[i].  On the model's k-NN masks it keeps about the admitted pairs
-  (``_dsrc_ties``).
+  ``scatter_add_`` over [B, P, F].
 
 ``mul_dtype`` follows the JAX op: bfloat16 (the default) rounds g to
 bfloat16, sums in float32 and rounds the sum once; float32 is exact.
+
+``LAUNCHES`` counts ``tie_sum_bwd``'s kernel launches (a plain int, added
+to only where the kernel is launched).
 
 ``edge_conv_max`` is the gather path over an explicit [N, k] neighbour
 table, in torch ops in both directions (the JAX package has no kernel for
@@ -36,10 +44,13 @@ from __future__ import annotations
 
 import torch
 
+from . import _build
+from .bins import _on_cpu, _ptr
 from .ec_tiles import masked_max
 
-__all__ = ["edge_conv_max", "edge_conv_max_dense", "MUL_DTYPES", "BWD_MODES",
-           "PAIR_BYTES"]
+__all__ = ["edge_conv_max", "edge_conv_max_dense", "tie_sum_bwd",
+           "MUL_DTYPES", "BWD_MODES", "PAIR_BYTES", "LAUNCHES",
+           "reset_launches"]
 
 MUL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MODES = ("tie_sum", "argmax")
@@ -47,6 +58,15 @@ BWD_MODES = ("tie_sum", "argmax")
 # [rows, k, F] one of the gather path, holds at most this many bytes; about
 # five are alive at once.
 PAIR_BYTES = 256 << 20
+# The masked-max kernel's schedule on the model's path (ops/ec_tiles.py):
+# eight candidates a step, the faster of the two at DGCNN's widths.
+SCHEDULE = "step8"
+LAUNCHES = {"tie_sum_bwd": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _round(t: torch.Tensor, mul_dtype: torch.dtype) -> torch.Tensor:
@@ -102,19 +122,68 @@ def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
     return _round(d_src, mul_dtype).reshape(B, P, F)
 
 
+def tie_sum_bwd(m, mask_neg, h_src, g, mul_dtype=torch.bfloat16):
+    """d_src[b, j, f] = sum_i gq[b, i, f]
+                        [fl32(h_src[b, j, f] + mask[b, i, j]) == m[b, i, f]]
+    (gq: g rounded to ``mul_dtype``; the sum in float32, rounded once to
+    ``mul_dtype``): the tie-sum backward of ``edge_conv_max_dense``.
+
+    For CUDA tensors the kernel of csrc/ec_ties.cu (one launch, after an
+    ``amin`` of m for its filter), which raises on what it does not take;
+    for CPU tensors the plain version ``_dsrc_ties``.
+
+    Args:
+      m: [B, P, F] float32, the forward's max (``masked_max``).
+      mask_neg: [B, P, P] bfloat16 or float32, the forward's mask.
+      h_src, g: [B, P, F] float32.
+    Returns d_src [B, P, F] float32."""
+    if mul_dtype not in MUL_DTYPES:
+        raise ValueError(f"mul_dtype must be one of {MUL_DTYPES}, got "
+                         f"{mul_dtype}")
+    B, P, F = h_src.shape
+    if (tuple(m.shape) != (B, P, F) or tuple(g.shape) != (B, P, F)
+            or tuple(mask_neg.shape) != (B, P, P)):
+        raise ValueError(f"tie_sum_bwd: m {tuple(m.shape)}, mask "
+                         f"{tuple(mask_neg.shape)}, h_src {(B, P, F)} and g "
+                         f"{tuple(g.shape)} do not fit")
+    if mask_neg.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("tie_sum_bwd: the mask must be bfloat16 or float32, "
+                        f"got {mask_neg.dtype}")
+    if {m.dtype, h_src.dtype, g.dtype} != {torch.float32}:
+        raise TypeError("tie_sum_bwd: m, h_src and g must be float32")
+    if _on_cpu(m, mask_neg, h_src, g):
+        return _dsrc_ties(m, mask_neg, h_src, g, mul_dtype)
+    if not all(t.is_contiguous() for t in (m, mask_neg, h_src, g)):
+        raise ValueError("tie_sum_bwd: m, mask, h_src and g must be "
+                         "contiguous")
+    mmin = m.amin(dim=-1)
+    d_src = torch.empty_like(h_src)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(h_src.device).cuda_stream
+    err = lib.dgnn_ec_tie_sum(
+        _ptr(mask_neg), int(mask_neg.dtype == torch.bfloat16), _ptr(m),
+        _ptr(h_src), _ptr(g), _ptr(mmin), B, P, F,
+        int(mul_dtype == torch.bfloat16), _ptr(d_src), stream)
+    if err:
+        raise RuntimeError(f"tie_sum_bwd kernel launch failed: CUDA error "
+                           f"{err} (B={B}, P={P}, F={F})")
+    LAUNCHES["tie_sum_bwd"] += 1
+    return d_src
+
+
 class _EdgeConvMaxDense(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, mask_neg, h_src, h_dst, mul_dtype, bwd_mode, schedule):
+    def forward(ctx, mask_neg, h_src, h_dst, mul_dtype, bwd_mode):
         ctx.mul_dtype = mul_dtype
         ctx.bwd_mode = bwd_mode
         if bwd_mode == "argmax":
-            m, kstar = masked_max(mask_neg, h_src, schedule=schedule,
+            m, kstar = masked_max(mask_neg, h_src, schedule=SCHEDULE,
                                   with_index=True)
             ctx.save_for_backward(kstar)
         else:
             # save only the max VALUE: the forward stays a plain max and the
             # backward matches sources by exact value equality
-            m = masked_max(mask_neg, h_src, schedule=schedule)
+            m = masked_max(mask_neg, h_src, schedule=SCHEDULE)
             ctx.save_for_backward(m, mask_neg, h_src)
         return h_dst + m
 
@@ -126,16 +195,15 @@ class _EdgeConvMaxDense(torch.autograd.Function):
             d_src = _dsrc_argmax(kstar, g, ctx.mul_dtype)
         else:
             m, mask_neg, h_src = ctx.saved_tensors
-            d_src = _dsrc_ties(m, mask_neg, h_src, g, ctx.mul_dtype)
+            d_src = tie_sum_bwd(m, mask_neg, h_src, g, ctx.mul_dtype)
         # d/d h_dst is the identity (h_dst[i, f] is in every candidate); the
         # mask is not differentiated
-        return None, d_src, g, None, None, None
+        return None, d_src, g, None, None
 
 
 def edge_conv_max_dense(mask_neg, h_src, h_dst,
                         mul_dtype: torch.dtype = torch.bfloat16,
-                        bwd_mode: str = "tie_sum", *,
-                        schedule: str = "step1"):
+                        bwd_mode: str = "tie_sum"):
     """out[b, i, f] = max over the j that ``mask_neg[b, i]`` admits of
     (h_dst[b, i, f] + h_src[b, j, f]).
 
@@ -148,7 +216,6 @@ def edge_conv_max_dense(mask_neg, h_src, h_dst,
       bwd_mode: "tie_sum" (default) saves only the max value and sums the
         gradient over every exactly tied source; "argmax" saves the
         first-winner index and gives it the whole gradient.
-      schedule: the kernel schedule of ``ops.ec_tiles.masked_max``.
     Returns [B, P, F].
     """
     if mul_dtype not in MUL_DTYPES:
@@ -158,7 +225,7 @@ def edge_conv_max_dense(mask_neg, h_src, h_dst,
         raise ValueError(f"bwd_mode must be one of {BWD_MODES}, got "
                          f"{bwd_mode!r}")
     return _EdgeConvMaxDense.apply(mask_neg, h_src, h_dst, mul_dtype,
-                                   bwd_mode, schedule)
+                                   bwd_mode)
 
 
 def _gather_max(nbr, h_src, h_dst):

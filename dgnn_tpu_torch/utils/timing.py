@@ -21,7 +21,8 @@ never reads a device value on the host (no ``.item()``, ``int(t)``,
 graph's private pool, at the same addresses on every replay.
 
 The kernel wrappers count their launches in Python (``LAUNCHES`` of
-ops/bins.py, ops/dense.py, ops/ec_tiles.py and ops/gather.py), which runs
+ops/bins.py, ops/dense.py, ops/ec_tiles.py, ops/edgeconv.py and
+ops/gather.py), which runs
 where a step is issued from the host or captured, never on a replay.  A
 ``StepGraph`` takes back what its capture counted (the capture issues
 nothing to the card) and adds it again on every replay, so the counts stay
@@ -46,9 +47,10 @@ __all__ = ["StepGraph", "time_epoch_loop", "run_epochs", "fetch_scalar",
 
 def _launch_counters() -> list[dict]:
     """Every kernel wrapper's launch counts."""
-    from ..ops import bins, dense, ec_tiles, gather
+    from ..ops import bins, dense, ec_tiles, edgeconv, gather
 
-    return [bins.LAUNCHES, dense.LAUNCHES, ec_tiles.LAUNCHES, gather.LAUNCHES]
+    return [bins.LAUNCHES, dense.LAUNCHES, ec_tiles.LAUNCHES,
+            edgeconv.LAUNCHES, gather.LAUNCHES]
 
 
 def _cuda(device) -> torch.device:

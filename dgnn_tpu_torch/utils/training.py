@@ -8,7 +8,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["masked_loss", "make_optimizer", "smoothed_loss", "cosine_lr",
-           "make_sgd_cosine"]
+           "SGDCosine", "make_sgd_cosine"]
 
 
 def masked_loss(logits, labels, train_mask):
@@ -55,25 +55,88 @@ def smoothed_loss(logits, labels, eps: float = 0.2):
     return -(smooth * F.log_softmax(logits, dim=1)).sum(dim=1).mean()
 
 
-def cosine_lr(step: int, decay_steps: int, init: float = 0.1,
-              alpha: float = 0.01) -> float:
+def cosine_lr(step, decay_steps: int, init: float = 0.1,
+              alpha: float = 0.01):
     """optax.cosine_decay_schedule(init, decay_steps, alpha) at ``step``:
-    from init down to alpha * init, constant after ``decay_steps``."""
+    from init down to alpha * init, constant after ``decay_steps``.  An int
+    step gives a Python float; an integer tensor step gives a float32
+    tensor on its device, computed in optax's order, in float32 as optax
+    computes it (``SGDCosine`` reads its step count so, on the device)."""
+    if isinstance(step, torch.Tensor):
+        t = step.clamp(max=decay_steps).to(torch.float32)
+        c = 0.5 * (1.0 + torch.cos(math.pi * t / decay_steps))
+        return init * ((1.0 - alpha) * c + alpha)
     frac = min(step, decay_steps) / decay_steps
     return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * frac))
                    + alpha)
 
 
+class SGDCosine(torch.optim.Optimizer):
+    """SGD with momentum, coupled weight decay and a per-step cosine, as
+    optax.chain(add_decayed_weights(wd), sgd(cosine_decay_schedule(lr,
+    decay_steps, alpha), momentum)) computes it: for every parameter with
+    a gradient (batch norm's included),
+
+        trace <- (g + wd p) + momentum trace;  p <- p - lr(step) trace
+
+    with lr(step) = ``cosine_lr`` of the step count, clamped after
+    ``decay_steps``.  The count is an int64 tensor on the parameters'
+    device and the learning rate a float32 tensor computed from it there,
+    so a step reads nothing on the host; the momentum buffers and the count
+    are made here, before any step.  A step captured into a CUDA graph
+    (utils/timing.py) therefore updates state that outlives the graph and
+    takes the cosine's next value on every replay, where a learning rate
+    held as a Python float would be frozen into the graph.  The same
+    optimizer runs on the CPU."""
+
+    def __init__(self, params, decay_steps: int, *, lr: float = 0.1,
+                 momentum: float = 0.9, weight_decay: float = 1e-4,
+                 alpha: float = 0.01):
+        if decay_steps <= 0:
+            raise ValueError(f"decay_steps must be positive, got "
+                             f"{decay_steps}")
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      weight_decay=weight_decay,
+                                      alpha=alpha, decay_steps=decay_steps))
+        params = [p for grp in self.param_groups for p in grp["params"]]
+        for p in params:
+            self.state[p] = dict(momentum_buffer=torch.zeros_like(
+                p, memory_format=torch.preserve_format))
+        self.count = torch.zeros((), dtype=torch.int64,
+                                 device=params[0].device)
+
+    def lr(self) -> torch.Tensor:
+        """The learning rate the next step takes (a float32 tensor on the
+        parameters' device)."""
+        grp = self.param_groups[0]
+        return cosine_lr(self.count, grp["decay_steps"], grp["lr"],
+                         grp["alpha"])
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("SGDCosine.step takes no closure")
+        for grp in self.param_groups:
+            params = [p for p in grp["params"] if p.grad is not None]
+            if not params:
+                continue
+            bufs = [self.state[p]["momentum_buffer"] for p in params]
+            d = torch._foreach_add([p.grad for p in params], params,
+                                   alpha=grp["weight_decay"])
+            torch._foreach_mul_(bufs, grp["momentum"])
+            torch._foreach_add_(bufs, d)
+            lr = cosine_lr(self.count, grp["decay_steps"], grp["lr"],
+                           grp["alpha"])
+            torch._foreach_sub_(params, torch._foreach_mul(bufs, lr))
+        self.count.add_(1)
+
+
 def make_sgd_cosine(model, decay_steps: int, *, lr: float = 0.1,
                     momentum: float = 0.9, weight_decay: float = 1e-4,
-                    alpha: float = 0.01):
-    """(optimizer, scheduler) of the EdgeConv trainer: SGD with momentum and
-    coupled weight decay on EVERY parameter, batch norm's included (what
-    optax.chain(add_decayed_weights(wd), sgd(schedule, momentum)) computes),
-    and a per-step cosine from ``lr`` to ``alpha * lr``.  Call
-    ``scheduler.step()`` after each ``optimizer.step()``."""
-    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum,
-                          weight_decay=weight_decay)
-    sched = torch.optim.lr_scheduler.LambdaLR(
-        opt, lambda step: cosine_lr(step, decay_steps, 1.0, alpha))
-    return opt, sched
+                    alpha: float = 0.01) -> SGDCosine:
+    """The EdgeConv trainer's optimizer (``SGDCosine``) over every
+    parameter of ``model``: lr 0.1 with a per-step cosine to 0.001 over
+    ``decay_steps``, momentum 0.9, weight decay 1e-4."""
+    return SGDCosine(model.parameters(), decay_steps, lr=lr,
+                     momentum=momentum, weight_decay=weight_decay,
+                     alpha=alpha)

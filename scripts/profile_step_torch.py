@@ -27,14 +27,17 @@ and MoNet cells do all of that twice: for the step issued from the host
 (``utils.timing.StepGraph``, the trainers' device-resident loop) and
 replayed, with the replays' device ms from CUDA events beside the trace's
 kernel ms.  The
-``edgeconv`` cell (no replayed step: its tie-sum backward reads a count on
-the host) then takes the same number of steps once more with CUDA events
-around every k-NN mask build (``knn_mask_neg``) and every tie-sum
-backward (``_dsrc_ties``), and prints each span's calls and device-stream
-ms per step (idle gaps inside a span included), and counts the admitted
-columns a row of each layer's mask on one batch (mean, most, rows over the
-masked-max lists' cap and over half of it).  The last line is one JSON
-object with every number.  Needs a CUDA device.
+``edgeconv`` cell profiles the trainer's ``train_step`` issued from the
+host and, under ``replayed``, the trainer's epoch (``make_epoch``: the
+shuffle, the augmentation and every step of an epoch) captured once and
+replayed, its numbers divided by the epoch's steps; then it takes the same
+number of eager steps once more with CUDA events around every k-NN mask
+build (``knn_mask_neg``) and every tie-sum backward (``tie_sum_bwd``, the
+kernel of csrc/ec_ties.cu with its ``amin``), and prints each span's calls
+and device-stream ms per step (idle gaps inside a span included), and
+counts the admitted columns a row of each layer's mask on one batch (mean,
+most, rows over the masked-max lists' cap and over half of it).  The last
+line is one JSON object with every number.  Needs a CUDA device.
 """
 
 
@@ -57,7 +60,7 @@ from dgnn_tpu_torch.utils import StepGraph, make_optimizer, make_sgd_cosine
 # substrings of the hand-written kernels' names in a trace
 OWN = ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd",
        "bin_gmm_fwd", "bin_gmm_bwd", "dense_gmm_fwd", "dense_gmm_bwd",
-       "ec_masked_max", "ec_live_list", "ec_hs_range")
+       "ec_masked_max", "ec_live_list", "ec_hs_range", "ec_tie_sum")
 GEMM = ("gemm", "cutlass", "cublas")
 
 
@@ -88,10 +91,11 @@ def make_step(kind, trainer, r, args):
 
 
 def make_edgeconv_step(trainer, r, total_steps, bs):
-    """A closure that takes one DGCNN training step on the trainer's own
-    model, walking the (augmented) training clouds batch by batch."""
-    model, xs, ys = r["model"], r["x_train"], r["y_train"]
-    opt, sched = make_sgd_cosine(model, total_steps)
+    """A closure that takes one DGCNN training step (the trainer's
+    ``train_step``) on a copy of the trainer's model with a fresh
+    optimizer, walking the (augmented) training clouds batch by batch."""
+    model, xs, ys = copy.deepcopy(r["model"]), r["x_train"], r["y_train"]
+    opt = make_sgd_cosine(model, total_steps)
     gen = torch.Generator(device=xs.device).manual_seed(0)
     state = dict(i=0)
 
@@ -99,9 +103,21 @@ def make_edgeconv_step(trainer, r, total_steps, bs):
         i = state["i"] % (xs.shape[0] // bs)
         state["i"] += 1
         x = trainer.augment(xs[i * bs:(i + 1) * bs], gen)
-        trainer.train_step(model, opt, sched, x, ys[i * bs:(i + 1) * bs], gen)
+        trainer.train_step(model, opt, x, ys[i * bs:(i + 1) * bs], gen)
 
     return step
+
+
+def make_edgeconv_epoch(trainer, r, total_steps, bs):
+    """The trainer's epoch (``make_epoch``) on a copy of its model with a
+    fresh optimizer; returns (epoch, generators)."""
+    model, xs = copy.deepcopy(r["model"]), r["x_train"]
+    opt = make_sgd_cosine(model, total_steps)
+    gen = torch.Generator(device=xs.device).manual_seed(0)
+    count = torch.zeros(1, dtype=torch.int64, device=xs.device)
+    stats = torch.zeros(2, device=xs.device)
+    return trainer.make_epoch(model, opt, xs, r["y_train"], bs, gen, count,
+                              stats), (gen,)
 
 
 class Spans:
@@ -138,15 +154,15 @@ def edgeconv_spans(step, steps):
     from dgnn_tpu_torch.ops import edgeconv
 
     spans = Spans()
-    saved = dgcnn.knn_mask_neg, edgeconv._dsrc_ties
+    saved = dgcnn.knn_mask_neg, edgeconv.tie_sum_bwd
     dgcnn.knn_mask_neg = spans.wrap("knn_mask_neg", saved[0])
-    edgeconv._dsrc_ties = spans.wrap("tie_sum_backward", saved[1])
+    edgeconv.tie_sum_bwd = spans.wrap("tie_sum_backward", saved[1])
     try:
         for _ in range(steps):
             step()
         return spans.per_step(steps)
     finally:
-        dgcnn.knn_mask_neg, edgeconv._dsrc_ties = saved
+        dgcnn.knn_mask_neg, edgeconv.tie_sum_bwd = saved
 
 
 def edgeconv_mask_stats(model, x):
@@ -176,21 +192,23 @@ REDDIT_ARGV = {"gat": ["--gather-dtype", "bfloat16"],
                "gmm": ["--n-kernels", "2"]}
 
 
-def measure(run, steps, replays=None):
-    """Host ms a step of ``run(steps)`` (unprofiled, ending in a
-    synchronize), then a torch.profiler trace of it summed by kernel name.
+def measure(run, calls, replays=None, steps_per_call=1):
+    """Host ms a step of ``run(calls)`` (unprofiled, ending in a
+    synchronize), then a torch.profiler trace of it summed by kernel name;
+    a call is ``steps_per_call`` steps (an epoch replay: its steps).
     ``replays``: the StepGraph ``run`` replays, whose device ms a step
-    (CUDA events around ``steps`` replays) is added."""
+    (CUDA events around ``calls`` replays) is added."""
+    steps = calls * steps_per_call
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(steps)
+    run(calls)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        run(steps)
+        run(calls)
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
@@ -209,7 +227,7 @@ def measure(run, steps, replays=None):
 
     out = dict(host_ms_per_step=host_ms)
     if replays is not None:
-        out["replay_device_ms_per_step"] = replays.seconds(steps) * 1e3 / steps
+        out["replay_device_ms_per_step"] = replays.seconds(calls) * 1e3 / steps
     n_all, us_all = group(lambda name: True)
     out["kernels_per_step"] = n_all / steps
     out["kernel_ms_per_step"] = us_all / 1e3 / steps
@@ -228,15 +246,15 @@ def measure(run, steps, replays=None):
     return out
 
 
-def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
+def profile_cell(kind, dataset, steps, warmup):
     trainer = load_trainer(kind)
     if kind == "edgeconv":
         if dataset != "modelnet":
             raise ValueError(f"edgeconv:{dataset}: the cell is "
                              "edgeconv:modelnet")
-        args = trainer.parser().parse_args(
-            ["--num-epochs", "1", "--schedule", schedule, "--device", "cuda"])
-        r = trainer.run(args)  # set-up (and an epoch of its own)
+        args = trainer.parser().parse_args(["--num-epochs", "1", "--device",
+                                            "cuda"])
+        r = trainer.run(args)  # set-up (and its own timing and training)
         step = make_edgeconv_step(trainer, r, warmup + 3 * steps,
                                   args.batch_size)
     else:
@@ -256,7 +274,20 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
     out = dict(cell=f"{kind}:{dataset}", steps=steps,
                **measure(eager, steps))
     if kind == "edgeconv":
-        out["schedule"] = schedule
+        # the trainer's epoch from a CUDA graph, on a copy of its own
+        # state: enough epochs for ``steps`` steps, read a step
+        spe = r["steps_per_epoch"]
+        epochs = max(1, -(-steps // spe))
+        epoch, gens = make_edgeconv_epoch(trainer, r, (2 + 3 * epochs) * spe,
+                                          args.batch_size)
+        graph = StepGraph(epoch, r["x_train"].device, generators=gens,
+                          warmup=1)
+        try:
+            graph.replay(1)
+            out["replayed"] = measure(graph.replay, epochs, graph,
+                                      steps_per_call=spe)
+        finally:
+            graph.close()
         out["spans"] = edgeconv_spans(step, steps)
         out["masks"] = edgeconv_mask_stats(r["model"],
                                            r["x_train"][:args.batch_size])
@@ -275,10 +306,8 @@ def profile_cell(kind, dataset, steps, warmup, schedule="step1"):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("cells", nargs="+", help="model:dataset: gat or gmm on cora, citeseer, "
-                    "pubmed or reddit; edgeconv:modelnet, or "
-                    "edgeconv:modelnet:step8 for the masked-max kernel's "
-                    "second schedule")
+    ap.add_argument("cells", nargs="+", help="model:dataset: gat or gmm on "
+                    "cora, citeseer, pubmed or reddit; edgeconv:modelnet")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--warmup", type=int, default=5)
     args = ap.parse_args()
@@ -292,8 +321,8 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     results = []
     for cell in args.cells:
-        kind, dataset, *rest = cell.split(":")
-        res = profile_cell(kind, dataset, args.steps, args.warmup, *rest)
+        kind, dataset = cell.split(":")
+        res = profile_cell(kind, dataset, args.steps, args.warmup)
         results.append(res)
         print(f"[profile] {cell} | {smi}")
         for key, val in res.items():

@@ -3,24 +3,37 @@
 scripts/train_edgeconv.py).
 
 Same flags and defaults as scripts/train_edgeconv.py, plus ``--device``
-(default ``cuda``), ``--seed`` and ``--schedule`` (the masked-max kernel's
-schedule, "step1" or "step8").  Same model (DGCNN with its default widths,
-dropout 0.5), loss (label-smoothed cross entropy, eps 0.2) and optimizer
-(SGD momentum 0.9, weight decay 1e-4 on every parameter, lr 0.1 with a
-per-step cosine to 0.001 over ``--num-epochs`` epochs).  The clouds are
-ModelNet40 when ``--dataset-path`` (or ``$DGNN_TPU_DATA``) holds
-``modelnet40-sampled-2048.h5`` and h5py is importable, else synthetic point
-clouds.
+(default ``cuda``) and ``--seed``.  Same model (DGCNN with its default
+widths, dropout 0.5), loss (label-smoothed cross entropy, eps 0.2) and
+optimizer (SGD momentum 0.9, weight decay 1e-4 on every parameter, lr 0.1
+with a per-step cosine to 0.001 over ``--num-epochs`` epochs, its step
+count and learning rate on the device: utils/training.py ``SGDCosine``).
+The clouds are ModelNet40 when ``--dataset-path`` (or ``$DGNN_TPU_DATA``)
+holds ``modelnet40-sampled-2048.h5`` and h5py is importable, else synthetic
+point clouds.
 
-The whole dataset lives on the device.  Every epoch draws a permutation
-and a random anisotropic scale and shift per cloud from a device
-``torch.Generator``; the dynamic k-NN masks are rebuilt from the features
-on the device before every EdgeConv layer.  Training runs exactly
-``--num-epochs`` epochs; the steps after the first few (warmup) are timed
-with CUDA events on a CUDA device.  Inference runs the test batches once
-as warmup and ``--num-epochs`` times timed.  Prints train seconds per step
-and per epoch, inference seconds per pass over the test batches, peak
-device memory and test accuracy, and appends one CSV row named
+It trains and times as the JAX CLI does (``scripts/train_edgeconv.py``:
+``epoch_step`` and its protocol, :100-167), with the JAX package's
+device-resident loop ported as a replayed CUDA graph
+(dgnn_tpu_torch/utils/timing.py).  The whole dataset lives on the device,
+and one epoch (``make_epoch``) is the unit of the loop: it draws a
+permutation of the training clouds and a random anisotropic scale and
+shift per cloud from a device generator, then takes every training step of
+the epoch (the dynamic k-NN masks rebuilt from the features on the device
+before every EdgeConv layer), writing each step's loss to a device buffer
+and the epoch's mean loss and accuracy to device tensors.  Training is
+timed by ``time_epoch_loop`` (1 epoch, 1 warmup epoch, doubled until 2 s,
+the JAX arguments) on a throwaway copy of the model and optimizer state
+with freshly seeded generators; the model then trains exactly
+``--num-epochs`` epochs from its initial state by ``run_epochs`` (one
+capture of the epoch, ``--num-epochs`` replays), over which peak device
+memory is taken; inference is timed by ``time_epoch_loop`` over a no-grad
+pass across the test batches that keeps its count of correct predictions
+on the device.  On a CUDA device every epoch and inference pass is a
+replayed CUDA graph (a failed capture raises); ``--device cpu`` runs the
+same functions in host loops.  Prints train seconds per epoch (and per
+step), inference seconds per pass over the test batches, peak device
+memory and test accuracy, and appends one CSV row named
 ``train_edgeconv_dgnn_tpu_torch`` (train seconds per epoch).
 
 ``--load-model-path DIR`` restores the newest checkpoint in DIR (the
@@ -40,6 +53,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import argparse
+import copy
 
 import torch
 
@@ -47,10 +61,14 @@ from dgnn_tpu_torch.data import load_modelnet
 from dgnn_tpu_torch.models import DGCNN
 from dgnn_tpu_torch.utils import (CheckpointManager, append_csv_row,
                                   device_peak_memory_mb, make_sgd_cosine,
-                                  reset_peak_memory, smoothed_loss,
-                                  time_calls)
+                                  reset_peak_memory, run_epochs,
+                                  smoothed_loss, time_epoch_loop)
 
-WARMUP_STEPS = 3
+# The JAX CLI's timing arguments (scripts/train_edgeconv.py:136, :165):
+# one epoch a run, one eager warmup epoch, runs doubled until 2 s.
+TIME_EPOCHS = 1
+WARMUP_EPOCHS = 1
+MIN_SIGNAL_S = 2.0
 
 
 def augment(x, generator):
@@ -60,6 +78,13 @@ def augment(x, generator):
     s = torch.rand(shape, generator=generator, device=x.device)
     t = torch.rand(shape, generator=generator, device=x.device)
     return x * (2 / 3 + s * (3 / 2 - 2 / 3)) + (t * 0.4 - 0.2)
+
+
+def permutation(n, generator):
+    """A permutation of range(n) drawn on the generator's device: the
+    argsort of n uniform draws, which a CUDA graph captures."""
+    return torch.argsort(torch.rand(n, generator=generator,
+                                    device=generator.device))
 
 
 def checkpoint_manager(args):
@@ -80,20 +105,55 @@ def restore_checkpoint(ckpt, model):
     return step
 
 
-def train_step(model, opt, sched, x, y, generator):
-    """One optimizer step; returns the (detached) loss before the step."""
+def train_step(model, opt, x, y, generator):
+    """One optimizer step; returns the (detached) loss before the step and
+    the batch's accuracy, both device tensors."""
     model.train()
     opt.zero_grad(set_to_none=True)
-    loss = smoothed_loss(model(x, generator=generator), y)
+    logits = model(x, generator=generator)
+    loss = smoothed_loss(logits, y)
     loss.backward()
     opt.step()
-    sched.step()
-    return loss.detach()
+    acc = (logits.detach().argmax(dim=1) == y).to(torch.float32).mean()
+    return loss.detach(), acc
+
+
+def make_epoch(model, opt, x_train, y_train, batch_size, generator, count,
+               epoch_stats, losses=None):
+    """One training epoch as ``time_epoch_loop`` and ``run_epochs`` take it
+    (the counterpart of the JAX CLI's ``epoch_step``): a permutation of the
+    training clouds and their scale and shift drawn from ``generator`` (a
+    generator on their device, which also draws the dropout), then
+    ``len(x_train) // batch_size`` training steps in order.  Each step adds
+    one to ``count`` (a [1] int64 device tensor) and writes its loss to
+    ``losses[count]`` (a device buffer, where given); the epoch's mean loss
+    and accuracy go to ``epoch_stats`` (a [2] float32 device tensor), as
+    the JAX carry holds them.  Nothing is read on the host."""
+    steps = x_train.shape[0] // batch_size
+
+    def epoch():
+        order = permutation(x_train.shape[0], generator)
+        xs = augment(x_train[order], generator)
+        ys = y_train[order]
+        total = torch.zeros(2, device=x_train.device)
+        for i in range(steps):
+            sl = slice(i * batch_size, (i + 1) * batch_size)
+            loss, acc = train_step(model, opt, xs[sl], ys[sl], generator)
+            if losses is not None:
+                losses.index_copy_(0, count, loss.reshape(1))
+            count.add_(1)
+            total += torch.stack([loss, acc])
+        epoch_stats.copy_(total / steps)
+
+    return epoch
 
 
 def run(args) -> dict:
     """Train and evaluate as the CLI does; returns what it printed plus the
-    trained model and the clouds on the device."""
+    trained model and the clouds on the device.  ``train_steps`` and
+    ``eval_batches`` are the training steps and test batches the device
+    ran, counted there: the timing loops' warmups and replays, the
+    ``--num-epochs`` training epochs."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but torch sees no CUDA device")
@@ -108,10 +168,10 @@ def run(args) -> dict:
     n_classes = int(max(ytr.max(), yte.max())) + 1
     bs = args.batch_size
     steps_per_epoch = len(xtr) // bs
+    if steps_per_epoch < 1 or args.num_epochs < 1:
+        raise ValueError(f"{len(xtr)} training clouds in batches of {bs} "
+                         f"for {args.num_epochs} epochs: no training step")
     total_steps = args.num_epochs * steps_per_epoch
-    if total_steps <= WARMUP_STEPS:
-        raise ValueError(f"{total_steps} training steps; need more than the "
-                         f"{WARMUP_STEPS} warmup steps")
     xtr_d = torch.from_numpy(xtr[: steps_per_epoch * bs]).to(device)
     ytr_d = torch.from_numpy(ytr[: steps_per_epoch * bs]).long().to(device)
     n_eval = max(len(xte) // bs, 1)
@@ -119,7 +179,6 @@ def run(args) -> dict:
     yte_d = torch.from_numpy(yte[: n_eval * bs]).long().to(device)
 
     model = DGCNN(k=args.k, output_classes=n_classes, dropout=0.5,
-                  schedule=args.schedule,
                   generator=torch.Generator().manual_seed(args.seed)
                   ).to(device)
     ckpt = checkpoint_manager(args)
@@ -128,50 +187,59 @@ def run(args) -> dict:
         restored_step = restore_checkpoint(ckpt, model)
         if restored_step is not None:
             print(f"restored checkpoint at step {restored_step}")
-    opt, sched = make_sgd_cosine(model, total_steps)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    opt = make_sgd_cosine(model, total_steps)
 
-    def batches():
-        for _ in range(args.num_epochs):
-            order = torch.randperm(xtr_d.shape[0], generator=gen,
-                                   device=device)
-            xs = augment(xtr_d[order], gen)
-            ys = ytr_d[order]
-            for i in range(steps_per_epoch):
-                yield xs[i * bs:(i + 1) * bs], ys[i * bs:(i + 1) * bs]
+    def counter():
+        return torch.zeros(1, dtype=torch.int64, device=device)
 
-    feed = batches()
-    losses = []
-
-    def step():
-        x, y = next(feed)
-        losses.append(train_step(model, opt, sched, x, y, gen))
+    def epoch_on(model_, opt_, count, losses=None):
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        stats = torch.zeros(2, device=device)
+        return (make_epoch(model_, opt_, xtr_d, ytr_d, bs, gen, count, stats,
+                           losses), gen, stats)
 
     print(args)
     print("profile training")
+    # timing on a throwaway copy of the model and optimizer state with
+    # freshly seeded generators; the accuracy from EXACTLY num_epochs
+    # epochs below (the timing loop trains many more: utils.run_epochs)
+    model_t = copy.deepcopy(model)
+    timed = counter()
+    epoch_t, gen_t, _ = epoch_on(model_t, make_sgd_cosine(model_t,
+                                                          total_steps), timed)
+    train_s = time_epoch_loop(epoch_t, TIME_EPOCHS, device=device,
+                              warmup=WARMUP_EPOCHS, min_signal=MIN_SIGNAL_S,
+                              generators=(gen_t,))
+    del model_t, epoch_t
+    done = counter()
+    losses = torch.zeros(total_steps, device=device)
+    epoch, gen, stats = epoch_on(model, opt, done, losses)
     reset_peak_memory(device)
-    step_s = time_calls(step, device, iters=total_steps - WARMUP_STEPS,
-                        warmup=WARMUP_STEPS)
+    run_epochs(epoch, args.num_epochs, device=device, generators=(gen,))
     max_mb = device_peak_memory_mb(device)
-    losses = [float(v) for v in losses]
-    train_s = step_s * steps_per_epoch
-    print(f"final train loss {losses[-1]:.4f}")
+    losses = losses.tolist()
+    epoch_loss, epoch_acc = stats.tolist()
+    step_s = train_s / steps_per_epoch
+    print(f"final train loss {epoch_loss:.4f} acc {epoch_acc:.4f}")
 
     print("profile inference")
     model.eval()
-    correct = torch.zeros((), device=device, dtype=torch.long)
+    correct = torch.zeros((), device=device, dtype=torch.int64)
+    passes = counter()
 
     def infer_pass():
         correct.zero_()
-        for i in range(n_eval):
-            logits = model(xte_d[i * bs:(i + 1) * bs])
-            correct.add_((logits.argmax(dim=1)
-                          == yte_d[i * bs:(i + 1) * bs]).sum())
+        with torch.no_grad():
+            for i in range(n_eval):
+                sl = slice(i * bs, (i + 1) * bs)
+                logits = model(xte_d[sl])
+                correct.add_((logits.argmax(dim=1) == yte_d[sl]).sum())
+        passes.add_(1)
 
-    infer_passes = max(args.num_epochs, 1)
-    with torch.no_grad():
-        infer_s = time_calls(infer_pass, device, iters=infer_passes, warmup=1)
-    acc = float(correct) / (n_eval * bs)
+    infer_s = time_epoch_loop(infer_pass, max(args.num_epochs, 1),
+                              device=device, warmup=WARMUP_EPOCHS,
+                              min_signal=MIN_SIGNAL_S)
+    acc = int(correct) / (n_eval * bs)
 
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
@@ -188,11 +256,15 @@ def run(args) -> dict:
         append_csv_row(args.output, "train_edgeconv_dgnn_tpu_torch",
                        f"{args.batch_size} {args.k}", train_s, infer_s,
                        max_mb, acc)
+    infer_passes = int(passes)
     return dict(losses=losses, step_s=step_s, train_s=train_s,
                 infer_s=infer_s, peak_mb=max_mb, test_acc=acc,
-                train_steps=total_steps,
-                eval_batches=n_eval * (1 + infer_passes),
-                last_lr=opt.param_groups[0]["lr"], model=model,
+                epoch_loss=epoch_loss, epoch_acc=epoch_acc,
+                steps_per_epoch=steps_per_epoch,
+                train_steps=int(timed) + int(done),
+                infer_passes=infer_passes,
+                eval_batches=n_eval * infer_passes,
+                last_lr=float(opt.lr()), model=model,
                 restored_step=restored_step, n_classes=n_classes,
                 x_train=xtr_d, y_train=ytr_d, x_test=xte_d, y_test=yte_d)
 
@@ -210,9 +282,6 @@ def parser():
     p.add_argument("--save-model-path", type=str, default="")
     p.add_argument("--load-model-path", type=str, default="")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--schedule", type=str, default="step1",
-                   choices=["step1", "step8"],
-                   help="schedule of the masked-max kernel")
     p.add_argument("--device", type=str, default="cuda")
     return p
 

@@ -92,6 +92,9 @@ def test_edgeconv_trainer_saves_then_loads(tmp_path, capsys):
     eval logits then equal the first run's; a second run loads the step
     before it trains, as the JAX CLI does."""
     trainer = _trainer()
+    # a short timing signal: at the CLI's 2 s the timing loops only run
+    # longer on the host
+    trainer.MIN_SIGNAL_S = 0.05
     ckpt = tmp_path / "ckpt"
     r = trainer.run(trainer.parser().parse_args(
         TINY + ["--save-model-path", str(ckpt)]))

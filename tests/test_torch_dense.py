@@ -190,7 +190,13 @@ def test_fwd_plain_matches_jax_kernel(multi_pair, with_pos, p, dense_dtype):
             continue
         g = g.reshape(g.shape[0], -1).numpy()
         _assert_close(g, w, dense_dtype, BLOCK_TOL, name)
-        np.testing.assert_array_equal(v.reshape(v.shape[0], -1).numpy(), g)
+        # the wrapper's CPU call against a second plain call: the same
+        # terms, but the CPU index_add_ may sum a hub row's terms in
+        # another order from one call to the next (under load), so float32
+        # summation order (BLOCK_TOL, in both dense dtypes: the bf16 mode
+        # rounds the same operands on both calls and sums in float32)
+        np.testing.assert_allclose(v.reshape(v.shape[0], -1).numpy(), g,
+                                   err_msg=name, **BLOCK_TOL)
     # padded rows are finite
     assert all(torch.isfinite(x).all() for x in got if x is not None)
 

@@ -341,12 +341,10 @@ def _jax_dense_grads(mask, hs, hd, gout, mul_dtype, bwd_mode):
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 
-def _torch_dense_grads(mask, hs, hd, gout, mul_dtype, bwd_mode,
-                       schedule="step1"):
+def _torch_dense_grads(mask, hs, hd, gout, mul_dtype, bwd_mode):
     a = torch.from_numpy(hs).requires_grad_(True)
     b = torch.from_numpy(hd).requires_grad_(True)
-    out = edge_conv_max_dense(mask, a, b, mul_dtype, bwd_mode,
-                              schedule=schedule)
+    out = edge_conv_max_dense(mask, a, b, mul_dtype, bwd_mode)
     out.backward(torch.from_numpy(gout))
     return out.detach().numpy(), [a.grad.numpy(), b.grad.numpy()]
 
@@ -739,7 +737,7 @@ def test_dgcnn_train_step_matches_flax(small_dgcnn):
     updates, _ = tx.update(jgrads, tx.init(params), params)
     new_params = optax.apply_updates(params, updates)
 
-    opt, sched = make_sgd_cosine(model, 8)
+    opt = make_sgd_cosine(model, 8)
     loss = smoothed_loss(model(torch.from_numpy(x)), torch.from_numpy(y))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
@@ -751,7 +749,6 @@ def test_dgcnn_train_step_matches_flax(small_dgcnn):
         np.testing.assert_allclose(p.grad.numpy(), want_g[key].numpy(),
                                    err_msg=f"gradient of {key}", **MODEL_TOL)
     opt.step()
-    sched.step()
     want_sd = flax_dgcnn_state_dict(_np_tree(new_params), _np_tree(new_stats))
     got_sd = model.state_dict()
     assert set(got_sd) == set(want_sd)
@@ -815,19 +812,45 @@ def test_smoothed_loss_matches_jax_trainer(rng):
         torch.from_numpy(logits), torch.from_numpy(y)))) > 1e-3
 
 
-def test_cosine_schedule_matches_optax():
+def test_cosine_schedule_matches_optax(rng):
+    """The trainer's optimizer (SGDCosine: its step count and learning rate
+    on the parameters' device) against optax.chain(add_decayed_weights(1e-4),
+    sgd(cosine_decay_schedule(0.1, 16, alpha=0.01), momentum=0.9)) over 24
+    steps of numpy-made gradients, past the cosine's end: the learning rate
+    and every parameter within rtol 1e-6 (float32 on both sides, the same
+    operations in the same order)."""
+    import jax.numpy as jnp
     import optax
 
     sched = optax.cosine_decay_schedule(0.1, 16, alpha=0.01)
-    model = torch.nn.Linear(2, 2)
-    opt, lr_sched = make_sgd_cosine(model, 16)
-    for step in range(20):
+    tx = optax.chain(optax.add_decayed_weights(1e-4),
+                     optax.sgd(sched, momentum=0.9))
+    model = torch.nn.Linear(5, 3)
+    opt = make_sgd_cosine(model, 16)
+    params = {k: jnp.asarray(v.detach().numpy().copy())
+              for k, v in model.named_parameters()}
+    state = tx.init(params)
+    for step in range(24):
         np.testing.assert_allclose(cosine_lr(step, 16), float(sched(step)),
                                    rtol=1e-6)
-        np.testing.assert_allclose(opt.param_groups[0]["lr"],
-                                   float(sched(step)), rtol=1e-6)
+        lr = opt.lr()
+        assert lr.dtype == torch.float32 and lr.device == opt.count.device
+        np.testing.assert_allclose(float(lr), float(sched(step)), rtol=1e-6)
+        np.testing.assert_allclose(
+            float(cosine_lr(torch.tensor(step), 16)), float(sched(step)),
+            rtol=1e-6)
+        grads = {k: _f32(rng, *v.shape) for k, v in params.items()}
+        for k, p in model.named_parameters():
+            p.grad = torch.from_numpy(grads[k].copy())
         opt.step()
-        lr_sched.step()
+        updates, state = tx.update({k: jnp.asarray(v) for k, v in
+                                    grads.items()}, state, params)
+        params = optax.apply_updates(params, updates)
+        for k, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(params[k]), rtol=1e-6,
+                                       atol=1e-7, err_msg=f"{k}, step {step}")
+    assert int(opt.count) == 24
     assert abs(cosine_lr(16, 16) - 0.001) < 1e-9
 
 
@@ -852,23 +875,43 @@ def _load_trainer():
     return _load_script("train_edgeconv_torch")
 
 
-def test_trainer_runs_on_cpu(tmp_path):
+def test_trainer_runs_on_cpu(tmp_path, monkeypatch):
+    from dgnn_tpu_torch.ops import edgeconv
+
     trainer = _load_trainer()
+    # a short timing signal: at the CLI's 2 s the timing loops only run
+    # longer on the host
+    monkeypatch.setattr(trainer, "MIN_SIGNAL_S", 0.05)
     out = tmp_path / "rows.csv"
     args = trainer.parser().parse_args(
         ["--device", "cpu", "--num-epochs", "2", "--batch-size", "4",
          "--k", "4", "--num-points", "16", "--train-samples", "16",
          "--test-samples", "8", "--output", str(out)])
     ec_tiles.reset_launches()
+    edgeconv.reset_launches()
     r = trainer.run(args)
-    assert r["train_steps"] == 8 and len(r["losses"]) == 8
+    # 2 epochs of 4 steps trained; the timing copy's warmup epoch and its
+    # timed epochs beside them, counted where they ran
+    assert r["steps_per_epoch"] == 4 and len(r["losses"]) == 8
+    assert r["train_steps"] >= 8 + 4 * (trainer.WARMUP_EPOCHS
+                                        + trainer.TIME_EPOCHS)
+    assert (r["train_steps"] - 8) % 4 == 0
     assert all(np.isfinite(r["losses"]))
-    assert r["eval_batches"] == 2 * (1 + 2)
+    assert np.isfinite([r["epoch_loss"], r["epoch_acc"]]).all()
+    # the last epoch's mean loss is the mean of its steps' losses
+    np.testing.assert_allclose(r["epoch_loss"], np.mean(r["losses"][4:]),
+                               rtol=1e-6)
+    # two test batches a pass: the warmup pass and at least num_epochs
+    # timed ones
+    assert r["infer_passes"] >= 1 + 2
+    assert r["eval_batches"] == 2 * r["infer_passes"]
     assert 0.0 <= r["test_acc"] <= 1.0
     assert ec_tiles.LAUNCHES == dict.fromkeys(ec_tiles.LAUNCHES, 0)
+    assert edgeconv.LAUNCHES == dict.fromkeys(edgeconv.LAUNCHES, 0)
     assert "train_edgeconv_dgnn_tpu_torch,4 4," in out.read_text()
-    # the schedule reached its end: lr 0.001 after num_epochs * steps
-    assert abs(r["last_lr"] - cosine_lr(8, 8)) < 1e-12
+    # the schedule reached its end: lr 0.001 after num_epochs * steps, a
+    # float32 on the device
+    assert np.float32(r["last_lr"]) == np.float32(cosine_lr(8, 8))
 
 
 def test_trainer_refuses_checkpoint_flags(tmp_path):
