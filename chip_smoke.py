@@ -60,18 +60,23 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                the max is exact, so tolerance 0 and the index equal; the
                list pass alone (live_counts) must count exactly the
                columns its plain rule (live_candidates) keeps.
-               tie_sum_bwd (the tie-sum backward, csrc/ec_ties.cu) against
-               its plain version _dsrc_ties on CPU copies of the same
-               inputs (m from the card's masked max): the model's k-NN
-               masks at B = 4, P = 1024, k = 40, F = 64, 128 and 256 with
-               a duplicated source row every row admits (exact ties); the
-               masks a {0, neg} rule would get wrong at B = 2, P = 300,
-               F = 70 (three values, {0, -8} beside h_src of scale 4, rows
-               that admit nothing, any floats); a row one over the
-               masked-max lists' cap; each in both mul_dtypes (float32
-               rtol 1e-5 / atol 1e-6, bfloat16 rtol 5e-3 / atol 2e-2);
-               two calls on the same inputs equal bit for bit, one launch
-               a call.
+               tie_sum_bwd (the tie-sum backward, csrc/ec_ties.cu: its
+               list pass, then the sum) against its plain version
+               _dsrc_ties on CPU copies of the same inputs (m from the
+               card's masked max): the model's k-NN masks at B = 4,
+               P = 1024, k = 40, F = 64, 128 and 256 with a duplicated
+               source row every row admits (exact ties; columns past the
+               lists' cap, walked densely); the masks a {0, neg} rule
+               would get wrong at B = 2, P = 300, F = 70 (three values,
+               {0, -8} beside h_src of scale 4, rows that admit nothing,
+               any floats); a row one over the masked-max lists' cap; a
+               k-NN mask at P = 1101, past the sum's 1024-row chunk, with
+               a column every row admits and passes; each in both
+               mul_dtypes, max |diff| 0 (every case sums the same pairs in
+               the same order); two calls on the same inputs equal bit for
+               bit, one list pass and one sum a call; the list pass alone
+               (counts, and each list's entries) equal to its plain
+               version tie_lists_plain.
                gather_rows_sum at W in {32, 64, 256} x rows of 4 KB and 1 KB
                and on large tables in many column slices of 32 floats
                (5200 floats a row, the last slice 16; 128; 36, the last
@@ -152,7 +157,8 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                pass timed by the loop.  The loss must be finite and fall;
                masked_max ("step8", the model's schedule) and its list pass
                must have launched exactly (train steps + eval batches) x 4
-               layers times and tie_sum_bwd train steps x 4 (the steps and
+               layers times and tie_sum_bwd and its list pass train steps
+               x 4 (the steps and
                batches counted on the card), no other kernel at all; the
                trained model's logits on two test clouds must match a CPU
                copy's (masks compared first).  Phase loop then runs
@@ -238,11 +244,13 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                bfloat16 mask at B = 64, P = 1024 (and equal to the plain
                version there too), each beside its own bound; tie_sum_bwd
                on that max at each width (a replayed CUDA graph, and from
-               the host), beside _dsrc_ties on the card and held to it,
-               beside its bound (the mask, m, h_src, g once, d_src once;
-               the operations of the pairs its filter keeps), and summed to
-               a DGCNN step (widths 64, 64, 128, 256); and the op around
-               them forward + backward in both backward modes;
+               the host), beside _dsrc_ties on the card and held to it
+               bit for bit, beside its bound (the mask, m, h_src, g once,
+               d_src once; the operations of the pairs its filter keeps),
+               and summed to a DGCNN step (widths 64, 64, 128, 256), with
+               its list pass alone (tie_sum_lists) beside that pass's
+               plain version and bound; and the op around them forward +
+               backward in both backward modes;
                gather_rows_sum and gather_lanes at the study's shapes,
                beside the one library call that computes the same function
                (embedding_bag, torch.gather; timed here, used nowhere);
@@ -352,9 +360,11 @@ LOOP_TOL = dict(rtol=1e-5, atol_scale=1e-6)
 EC_LOOP_EPOCHS = 2
 EC_LOOP_TIME_EPOCHS = 2
 # the tie-sum backward's check: the model's clouds a case (the CPU holds
-# the plain version at P = 1024), and the adversarial masks' shape
+# the plain version at P = 1024), the adversarial masks' shape, and a shape
+# past the sum kernel's 1024-row chunk (odd P: the list pass's scalar reads)
 EC_TIE_B = 4
 EC_TIE_ODD = (2, 300, 70)
+EC_TIE_LONG = (2, 1101, 70)
 # The reddit phase: the cut of reddit's nodes and edges it runs at (the
 # largest of 1, 1/2, 1/4, 1/8 whose host build, with the rest of the
 # script, fits the script's time limit), and its training steps.
@@ -431,12 +441,20 @@ KERNELS = {
                                   source="dgnn_tpu_torch/csrc/ec_tiles.cu",
                                   replaces="scripts/exp_r5_ec_tiles.py:59"),
     # the tie-sum backward of edge_conv_max_dense (no Pallas kernel on the
-    # TPU: an XLA pass there)
+    # TPU: an XLA pass there); its ms is the whole call, its list pass's
+    # included
     "tie_sum_bwd": dict(route="cuda",
                         source="dgnn_tpu_torch/csrc/ec_ties.cu",
                         replaces="dgnn_tpu/ops/edgeconv.py:184",
                         note="the JAX version (_ecd_dsrc_ties) is an XLA "
-                             "pass, not a Pallas kernel"),
+                             "pass, not a Pallas kernel; ms: the whole call "
+                             "(list pass and sum)"),
+    # its list pass (bounds and lists), timed alone
+    "tie_sum_lists": dict(route="cuda",
+                          source="dgnn_tpu_torch/csrc/ec_ties.cu",
+                          replaces="dgnn_tpu/ops/edgeconv.py:184",
+                          note="the list pass of tie_sum_bwd: the pair "
+                               "filter of the XLA pass _ecd_dsrc_ties"),
     "gather_rows_sum": dict(route="cuda",
                             source="dgnn_tpu_torch/csrc/gather.cu",
                             replaces="scripts/microbench_gather.py:99"),
@@ -465,8 +483,10 @@ for _k in ("masked_max_step1", "masked_max_step8"):
 # the list pass: an add and a compare per mask entry
 FLOPS_PER_EDGE["masked_max_live_lists"] = lambda C, G: 2
 # the tie-sum backward: an add, a compare and a sum per column of each pair
-# that can tie (the pairs its filter keeps)
+# that can tie (the pairs its filter keeps); its list pass an add and a
+# compare per mask entry
 FLOPS_PER_EDGE["tie_sum_bwd"] = lambda C, G: 3 * C
+FLOPS_PER_EDGE["tie_sum_lists"] = lambda C, G: 2
 FLOPS_PER_EDGE["gather_rows_sum"] = lambda C, G: C
 FLOPS_PER_EDGE["gather_lanes"] = lambda C, G: 0
 for _k in ("gat_fwd", "gat_bwd"):
@@ -1212,28 +1232,58 @@ def tie_cases(ec_tiles, dev):
     cases.append((f"B={b} P={p} F={f} knn mask bf16, a row of "
                   f"{ec_tiles.LIVE_CAP + 1} admitted columns (over the "
                   "lists' cap)", mask, hs))
+    b, p, f = EC_TIE_LONG
+    hs = torch.randn((b, p, f), generator=gen, device=dev)
+    mask = knn_mask_neg(torch.randn((b, p, 3), generator=gen, device=dev),
+                        EC_K)
+    mask[1, :, 7] = 0
+    hs[1, 7] += 4  # the column passes every row's filter: walked densely
+    hs[0, p - 1] = hs[0, 2]
+    cases.append((f"B={b} P={p} F={f} knn mask bf16 past the sum's "
+                  "1024-row chunk, a column every row admits and passes",
+                  mask, hs))
     return cases
+
+
+def check_tie_lists(edgeconv, m, mask, hs, cpu, what):
+    """The tie-sum list pass on the card against tie_lists_plain on CPU
+    copies: the counts, and each list's entries up to its count or the
+    cap, exactly.  Returns (columns over the cap, largest count)."""
+    _, entries, count = edgeconv._tie_lists(m, mask, hs)
+    want_entries, want_count = edgeconv.tie_lists_plain(cpu[0], cpu[1],
+                                                        cpu[2])
+    count = count.cpu()
+    assert torch.equal(count, want_count), (what, "list counts")
+    slot = torch.arange(edgeconv.TIE_CAP)
+    used = slot < count.clamp(max=edgeconv.TIE_CAP)[..., None]
+    assert torch.equal(entries.cpu()[used], want_entries[used]), \
+        (what, "list entries")
+    return int((count > edgeconv.TIE_CAP).sum()), int(count.max())
 
 
 def check_tie_sum(ec_tiles, edgeconv, dev, err):
     """tie_sum_bwd against its plain version (_dsrc_ties) on CPU copies of
-    the same inputs (m from the card's masked max), in both mul_dtypes
-    (EC_F32_TOL / EC_BF16_TOL); two calls on the same inputs equal bit for
-    bit; one launch a call.  Returns the cases as strings."""
+    the same inputs (m from the card's masked max), in both mul_dtypes:
+    equal bit for bit (the same pairs summed in the same order), and two
+    calls on the same inputs too; one list pass and one sum a call; the
+    list pass alone equal to tie_lists_plain.  Returns the cases as
+    strings."""
     done = []
     for what, mask, hs in tie_cases(ec_tiles, dev):
         gen = torch.Generator(device=dev).manual_seed(14)
         g = torch.randn(hs.shape, generator=gen, device=dev) * G_SCALE
         m = ec_tiles.masked_max(mask, hs, schedule=edgeconv.SCHEDULE)
         cpu = [t.cpu() for t in (m, mask, hs, g)]
+        over, largest = check_tie_lists(edgeconv, m, mask, hs, cpu, what)
         worst = []
         for mul_dtype, tol in ((torch.float32, EC_F32_TOL),
                                (torch.bfloat16, EC_BF16_TOL)):
-            before = edgeconv.LAUNCHES["tie_sum_bwd"]
+            before = dict(edgeconv.LAUNCHES)
             got = edgeconv.tie_sum_bwd(m, mask, hs, g, mul_dtype)
             again = edgeconv.tie_sum_bwd(m, mask, hs, g, mul_dtype)
             torch.cuda.synchronize()
-            assert edgeconv.LAUNCHES["tie_sum_bwd"] == before + 2, what
+            assert edgeconv.LAUNCHES == {k: v + 2 for k, v in
+                                         before.items()}, what
             assert torch.equal(got, again), (what, "two calls differ")
             want = edgeconv._dsrc_ties(*cpu, mul_dtype)
             got = got.cpu()
@@ -1241,9 +1291,12 @@ def check_tie_sum(ec_tiles, edgeconv, dev, err):
                 got, want, **tol,
                 msg=lambda msg_: f"tie_sum_bwd {what} {mul_dtype}: {msg_}")
             diff = float((got - want).abs().max())
+            assert diff == 0, (what, mul_dtype, diff)
             err["tie_sum_bwd"] = max(err["tie_sum_bwd"], diff)
             worst.append(f"{str(mul_dtype).split('.')[-1]} {diff:.3g}")
-        done.append(f"{what}: max |diff| " + ", ".join(worst))
+        done.append(f"{what} ({over} columns over the lists' cap of "
+                    f"{edgeconv.TIE_CAP}, the largest count {largest}): max "
+                    "|diff| " + ", ".join(worst))
         del mask, hs, g, m, cpu
     return done
 
@@ -1270,7 +1323,8 @@ def run_edgeconv_trainer(trainer):
     want = dict.fromkeys(launches, 0)  # every other kernel: none
     want["masked_max_step8"] = want["masked_max_live_lists"] = (
         (r["train_steps"] + r["eval_batches"]) * len(model.convs))
-    want["tie_sum_bwd"] = r["train_steps"] * len(model.convs)
+    want["tie_sum_bwd"] = want["tie_sum_lists"] = (r["train_steps"]
+                                                   * len(model.convs))
     assert launches == want, (launches, want)
     # the trained model on two test clouds: the card against a CPU copy
     x = r["x_test"][:2]
@@ -1570,7 +1624,7 @@ def run_edgeconv_loop(trainer, r, dev, smi):
     steps = 2 * EC_LOOP_EPOCHS * spe
     want = dict.fromkeys(launches, 0)
     want["masked_max_step8"] = want["masked_max_live_lists"] = \
-        want["tie_sum_bwd"] = steps * n_convs
+        want["tie_sum_bwd"] = want["tie_sum_lists"] = steps * n_convs
     assert launches == want, ("edgeconv loop", launches, want)
     eager, replay = sides
     pairs = [("loss", eager["losses"], replay["losses"])] + [
@@ -3095,35 +3149,53 @@ def main():
                   f"{2 * EC_B * EC_P * EC_P * f / 1e9:.1f} G dense), no "
                   f"single library call | {smi}")
         # the tie-sum backward at this layer's width, on the max it saves:
-        # the wrapper (amin + kernel) from the host and from a replayed CUDA
-        # graph, beside its plain version on the card (torch ops and a
-        # torch.nonzero) and held to it there too
+        # the wrapper (list pass + sum) from the host and from a replayed
+        # CUDA graph, beside its plain version on the card (torch ops and a
+        # torch.nonzero) and held to it there too, bit for bit; its list
+        # pass alone, beside that pass's plain version
         g_t = torch.randn(hs.shape, generator=torch.Generator(
             device=dev).manual_seed(15), device=dev) * G_SCALE
         tie_fns = [lambda: edgeconv._dsrc_ties(want, mask, hs, g_t,
                                                torch.bfloat16),
-                   lambda: edgeconv.tie_sum_bwd(want, mask, hs, g_t)]
-        tie_plain_ms, tie_host_ms = time_turns(tie_fns, time_calls, dev,
-                                               [3, 20])
+                   lambda: edgeconv.tie_sum_bwd(want, mask, hs, g_t),
+                   lambda: edgeconv.tie_lists_plain(want, mask, hs),
+                   lambda: edgeconv._tie_lists(want, mask, hs)]
+        tie_plain_ms, tie_host_ms, lists_plain_ms = time_turns(
+            tie_fns[:3], time_calls, dev, [3, 20, 2])
         tie_ms = gather_study.graph_ms(tie_fns[1], dev, 5)
+        lists_ms = gather_study.graph_ms(tie_fns[3], dev, 5)
         tie_out = tie_fns[1]()
-        torch.testing.assert_close(tie_out, tie_fns[0](), **EC_BF16_TOL)
-        # the pairs its filter keeps: what the function has to test
-        pairs = int((mask.to(torch.float32) + hs.amax(dim=-1)[:, None, :]
-                     >= want.amin(dim=-1)[:, :, None]).sum())
+        assert torch.equal(tie_out, tie_fns[0]()), ("tie_sum_bwd", f)
+        bounds, _, count = tie_fns[3]()
+        # the pairs its filter keeps: what the function has to test, and
+        # what the list pass writes (8 bytes a listed pair)
+        pairs = int(count.sum())
+        listed = torch.empty((int(count.clamp(max=edgeconv.TIE_CAP).sum()),
+                              2), dtype=torch.int32, device=dev)
         bound_ms, bound_by = bound("tie_sum_bwd", [mask, want, hs, g_t],
                                    [tie_out], pairs, f, 1)
         times[("tie_sum_bwd", f)] = dict(ms=tie_ms, plain_ms=tie_plain_ms,
                                          bound_ms=bound_ms,
                                          bound_by=bound_by, library_ms=None)
+        lists_bound_ms, lists_by = bound(
+            "tie_sum_lists", [mask, want, hs], [bounds, count, listed],
+            mask.numel(), 1, 1)
+        times[("tie_sum_lists", f)] = dict(
+            ms=lists_ms, plain_ms=lists_plain_ms, bound_ms=lists_bound_ms,
+            bound_by=lists_by, library_ms=None)
         phase("times", f"tie_sum_bwd B={EC_B} P={EC_P} F={f} knn mask bf16, "
-              f"mul_dtype bfloat16 ({pairs / (EC_B * EC_P):.1f} pairs a row "
-              f"pass its filter): {tie_ms:.4f} ms a call in a replayed CUDA "
-              f"graph (amin + kernel; {tie_host_ms:.4f} ms from the host), "
-              f"plain {tie_plain_ms:.4f} ms, bound {bound_ms:.5f} ms by "
-              f"{bound_by} ({tie_ms / bound_ms:.1f} times it), no single "
-              f"library call | {smi}")
-        del g_t, tie_fns, tie_out
+              f"mul_dtype bfloat16 ({pairs / (EC_B * EC_P):.1f} pairs a "
+              f"column pass its filter, the largest count {int(count.max())}"
+              f", {int((count > edgeconv.TIE_CAP).sum())} columns over the "
+              f"lists' cap): {tie_ms:.4f} ms a call in a replayed CUDA graph "
+              f"(list pass + sum; {tie_host_ms:.4f} ms from the host), plain "
+              f"{tie_plain_ms:.4f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+              f"({tie_ms / bound_ms:.1f} times it), no single library call; "
+              f"the list pass alone {lists_ms:.4f} ms (plain "
+              f"{lists_plain_ms:.4f} ms, bound {lists_bound_ms:.5f} ms by "
+              f"{lists_by}, {lists_ms / lists_bound_ms:.1f} times it) | "
+              f"{smi}")
+        del g_t, tie_fns, tie_out, bounds, count, listed
         # the op around the kernel, forward + backward, in both backward
         # modes: "tie_sum" (the default, as the JAX op's) sums g over the
         # tied sources (tie_sum_bwd); "argmax" has the kernel save the first
@@ -3146,11 +3218,13 @@ def main():
     widths = [f for _, f in EC_LAYERS]
     tie_step = sum(times[("tie_sum_bwd", f)]["ms"] for f in widths)
     tie_bound = sum(times[("tie_sum_bwd", f)]["bound_ms"] for f in widths)
+    lists_step = sum(times[("tie_sum_lists", f)]["ms"] for f in widths)
     phase("times", f"tie_sum_bwd a DGCNN step, layers {widths}: "
           + " + ".join(f"{times[('tie_sum_bwd', f)]['ms']:.4f}"
                        for f in widths)
           + f" = {tie_step:.4f} ms against a bound of {tie_bound:.5f} ms "
-          f"({tie_step / tie_bound:.1f} times it); plain "
+          f"({tie_step / tie_bound:.1f} times it), the list passes "
+          f"{lists_step:.4f} ms of it; plain "
           f"{sum(times[('tie_sum_bwd', f)]['plain_ms'] for f in widths):.4f}"
           f" ms | {smi}")
     for width, sub in ((64, 8), (32, 8), (256, 8), (64, 2)):
@@ -3289,7 +3363,7 @@ def main():
         # "step1", the gathers)
         # the bf16 instances: the reddit run of their model (bf16 gathers)
         if name in ("masked_max_live_lists", "masked_max_step8",
-                    "tie_sum_bwd"):
+                    "tie_sum_bwd", "tie_sum_lists"):
             run = ("edgeconv",)
         elif name == "masked_max_step1":
             run = "ec_study"

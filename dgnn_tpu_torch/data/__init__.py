@@ -1,4 +1,4 @@
-from .loaders import load_citation_dataset, load_modelnet
+from .loaders import data_dir, load_citation_dataset, load_modelnet
 from .synthetic import (
     CITATION_SHAPES,
     CitationData,
@@ -11,6 +11,7 @@ from .synthetic import (
 __all__ = [
     "CITATION_SHAPES",
     "CitationData",
+    "data_dir",
     "load_citation_dataset",
     "load_modelnet",
     "rmat_edges",

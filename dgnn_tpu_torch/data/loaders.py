@@ -2,12 +2,11 @@
 
 Port of ``dgnn_tpu/data/loaders.py``.  A real citation dataset is an
 ``.npz`` with arrays {src, dst, features, labels, train_mask, val_mask,
-test_mask} (planetoid-style) under the directory named by
-``$DGNN_TPU_DATA``; ModelNet40 is ``modelnet40-sampled-2048.h5`` there (or
-at an explicit ``path``), with train/data, train/label, test/data and
-test/label, read if h5py is importable.  Unlike the JAX package, no
-default directory under the home directory is searched: without the
-variable or the path the synthetic generators are used.
+test_mask} (planetoid-style) under ``data_dir()``: ``$DGNN_TPU_DATA``, else
+``~/.dgnn_tpu/data``, as in the JAX package; ModelNet40 is
+``modelnet40-sampled-2048.h5`` there (or at an explicit ``path``), with
+train/data, train/label, test/data and test/label, read if h5py is
+importable.  Without such a file the synthetic generators are used.
 """
 
 from __future__ import annotations
@@ -18,13 +17,19 @@ import numpy as np
 
 from . import synthetic
 
-__all__ = ["load_citation_dataset", "load_modelnet"]
+__all__ = ["load_citation_dataset", "load_modelnet", "data_dir"]
+
+
+def data_dir() -> str:
+    """Where real data sets are looked for: ``$DGNN_TPU_DATA``, else
+    ``~/.dgnn_tpu/data``."""
+    return os.environ.get("DGNN_TPU_DATA",
+                          os.path.expanduser("~/.dgnn_tpu/data"))
 
 
 def load_citation_dataset(name: str, seed: int = 0) -> synthetic.CitationData:
-    root = os.environ.get("DGNN_TPU_DATA")
-    path = os.path.join(root, f"{name}.npz") if root else None
-    if path is not None and os.path.exists(path):
+    path = os.path.join(data_dir(), f"{name}.npz")
+    if os.path.exists(path):
         z = np.load(path)
         return synthetic.CitationData(
             src=z["src"], dst=z["dst"], num_nodes=int(z["features"].shape[0]),
@@ -42,10 +47,8 @@ def load_modelnet(num_points: int = 1024, path: str | None = None,
                   seed: int = 0):
     """Returns (x_train, y_train, x_test, y_test): [S, P, 3] float32 clouds
     and [S] int32 labels."""
-    root = os.environ.get("DGNN_TPU_DATA")
-    if path is None and root:
-        path = os.path.join(root, "modelnet40-sampled-2048.h5")
-    if path is not None and os.path.exists(path):
+    path = path or os.path.join(data_dir(), "modelnet40-sampled-2048.h5")
+    if os.path.exists(path):
         try:
             import h5py  # optional dependency
 

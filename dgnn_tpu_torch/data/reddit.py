@@ -9,8 +9,10 @@ levels of cache under ``.bench_cache/`` at the root of the checkout, as
 
 - ``rmat_raw_{n}_{e}_torch.npz``: the raw CSR / CSC / permute arrays
   (``build_raw``; the keys and dtypes of ``scripts/build_reddit_raw.py``);
-- ``rmat_graph_{n}_{e}_d6_torch.npz``: the binned graph with its hub block
-  (``dense="auto"``, no edge tables), in graph/cache.py's layout.
+- ``rmat_graph_{n}_{e}_d6_{key}_torch.npz``: the binned graph with its hub
+  block (``dense="auto"``, no edge tables), in graph/cache.py's layout;
+  ``key`` (``graph_key``) hashes the constants that layout depends on, so a
+  graph built under other constants is rebuilt, never loaded.
 
 ``scale`` cuts both counts as the bench's ``BENCH_SCALE`` does
 (``bench.py:122-125``).
@@ -19,6 +21,8 @@ levels of cache under ``.bench_cache/`` at the root of the checkout, as
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import inspect
 import json
 import os
 import resource
@@ -27,13 +31,15 @@ from pathlib import Path
 
 import numpy as np
 
+from ..graph import binning as _binning
 from ..graph import build as _gbuild
-from ..graph.cache import load_graph, save_graph
+from ..graph import hub as _hub
+from ..graph.cache import LAYOUT, load_graph, save_graph
 from ..graph.structure import Graph, build_graph_from_csr
 from .synthetic import CITATION_SHAPES, rmat_edges, structure_task_from_csr
 
 __all__ = ["RedditData", "reddit_size", "build_raw", "load_reddit",
-           "CACHE_DIR"]
+           "graph_key", "CACHE_DIR"]
 
 CACHE_DIR = Path(__file__).resolve().parents[2] / ".bench_cache"
 
@@ -42,6 +48,25 @@ def reddit_size(scale: float = 1.0) -> tuple[int, int]:
     """(nodes, edges before self loops) of the reddit graph at ``scale``."""
     n, e, _, _ = CITATION_SHAPES["reddit"]
     return int(n * scale), int(e * scale)
+
+
+def graph_key() -> str:
+    """A short hash of what the cached graph depends on beyond its size:
+    the degree binning's and the hub planner's module constants and the
+    defaults of the functions that build it (read now, so a constant
+    changed at run time changes the key too), and the file layout."""
+    parts = {"layout": LAYOUT}
+    for mod in (_binning, _hub):
+        for name, value in vars(mod).items():
+            if (name.lstrip("_").isupper() and not name.startswith("__")
+                    and isinstance(value, (int, float, tuple))):
+                parts[f"{mod.__name__}.{name}"] = value
+    for fn in (_binning.auto_widths, _hub.plan_dense, build_graph_from_csr):
+        for name, par in inspect.signature(fn).parameters.items():
+            if par.default is not inspect.Parameter.empty:
+                parts[f"{fn.__name__}.{name}"] = par.default
+    blob = json.dumps(parts, sort_keys=True, default=repr).encode()
+    return hashlib.sha256(blob).hexdigest()[:12]
 
 
 def _stage(seconds: dict, name: str, t0: float, log) -> None:
@@ -103,7 +128,8 @@ def load_reddit(scale: float = 1.0, seed: int = 0,
     n, e = reddit_size(scale)
     _, _, n_feats, n_classes = CITATION_SHAPES["reddit"]
     raw_path = cache / f"rmat_raw_{n}_{e}_torch.npz"
-    graph_path = cache / f"rmat_graph_{n}_{e}_d6_torch.npz"
+    graph_path = cache / (f"rmat_graph_{n}_{e}_{LAYOUT}_{graph_key()}"
+                          "_torch.npz")
     seconds = {}
     if not raw_path.exists():
         seconds.update(build_raw(n, e, str(raw_path), log=log))

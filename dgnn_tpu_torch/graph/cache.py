@@ -33,8 +33,10 @@ from . import binning as _binning
 from . import hub as _hub
 from .structure import BinnedAdj, Graph, _t, from_binned
 
-__all__ = ["save_graph", "load_graph"]
+__all__ = ["save_graph", "load_graph", "LAYOUT"]
 
+# The file layout's name: the JAX package's ``_d6`` (its cache files end so)
+LAYOUT = "d6"
 _DENSE_KEYS = ("row_ids", "col_ids", "mask", "rc", "ct", "first")
 
 

@@ -197,9 +197,16 @@ def load() -> ctypes.CDLL:
             vp, vp, vp, vp,                     # entries count out idx
             vp]                                 # stream
         lib.dgnn_ec_masked_max.restype = ci
+        lib.dgnn_ec_tie_lists.argtypes = [
+            vp, ci, vp, vp,                     # mask mask_bf16 hs m
+            ci, ci, ci, ci,                     # B P F cap
+            vp, vp, vp,                         # bounds entries count
+            vp]                                 # stream
+        lib.dgnn_ec_tie_lists.restype = ci
         lib.dgnn_ec_tie_sum.argtypes = [
-            vp, ci, vp, vp, vp, vp,             # mask mask_bf16 m hs g mmin
-            ci, ci, ci, ci,                     # B P F mul_bf16
+            vp, ci, vp, vp, vp,                 # mask mask_bf16 m hs g
+            vp, vp, vp,                         # bounds entries count
+            ci, ci, ci, ci, ci,                 # B P F cap mul_bf16
             vp,                                 # dsrc
             vp]                                 # stream
         lib.dgnn_ec_tie_sum.restype = ci

@@ -11,9 +11,13 @@ taken densely per cloud under an additive mask (graph/knn.py
 
 - ``bwd_mode="tie_sum"`` (the default, as in the JAX op) sums g over every
   source whose candidate equals the saved max: ``tie_sum_bwd``, the
-  hand-written kernel of csrc/ec_ties.cu for CUDA tensors (no host sync, no
-  allocation whose size depends on the data, a fixed summation order), and
-  its plain version ``_dsrc_ties`` for CPU tensors.  The JAX counterpart
+  hand-written kernels of csrc/ec_ties.cu for CUDA tensors (a list pass
+  that reads the mask once and lists, per source column, the rows that
+  pass the filter below, then the sum over those lists from (m, g) slabs
+  staged in shared memory; no host sync, no allocation whose size depends
+  on the data, a fixed summation order), and its plain version
+  ``_dsrc_ties`` for CPU tensors; the list pass's plain version is
+  ``tie_lists_plain``.  The JAX counterpart
   (``_ecd_dsrc_ties``) is an XLA pass that broadcasts a [B, Pj, Pi, Fc]
   indicator, which no card holds at ModelNet width.  ``_dsrc_ties`` walks
   only the (i, j) pairs that can tie (``torch.nonzero`` of a filter), in
@@ -32,8 +36,9 @@ taken densely per cloud under an additive mask (graph/knn.py
 ``mul_dtype`` follows the JAX op: bfloat16 (the default) rounds g to
 bfloat16, sums in float32 and rounds the sum once; float32 is exact.
 
-``LAUNCHES`` counts ``tie_sum_bwd``'s kernel launches (a plain int, added
-to only where the kernel is launched).
+``LAUNCHES`` counts ``tie_sum_bwd``'s launches (plain ints, added to only
+where a kernel is launched): ``tie_sum_lists`` the list pass (its bounds
+and list kernels), ``tie_sum_bwd`` the sum.
 
 ``edge_conv_max`` is the gather path over an explicit [N, k] neighbour
 table, in torch ops in both directions (the JAX package has no kernel for
@@ -49,8 +54,8 @@ from .bins import _on_cpu, _ptr
 from .ec_tiles import masked_max
 
 __all__ = ["edge_conv_max", "edge_conv_max_dense", "tie_sum_bwd",
-           "MUL_DTYPES", "BWD_MODES", "PAIR_BYTES", "LAUNCHES",
-           "reset_launches"]
+           "tie_lists_plain", "MUL_DTYPES", "BWD_MODES", "PAIR_BYTES",
+           "TIE_CAP", "LAUNCHES", "reset_launches"]
 
 MUL_DTYPES = (torch.bfloat16, torch.float32)
 BWD_MODES = ("tie_sum", "argmax")
@@ -61,7 +66,12 @@ PAIR_BYTES = 256 << 20
 # The masked-max kernel's schedule on the model's path (ops/ec_tiles.py):
 # eight candidates a step, the faster of the two at DGCNN's widths.
 SCHEDULE = "step8"
-LAUNCHES = {"tie_sum_bwd": 0}
+# Entries of a source column's list in the tie-sum list pass (the kernels'
+# kCap): the DGCNN model's k-NN masks in feature space pass well over 128
+# rows in some columns, and under 256; a column with more is walked
+# densely by the sum.
+TIE_CAP = 256
+LAUNCHES = {"tie_sum_bwd": 0, "tie_sum_lists": 0}
 
 
 def reset_launches() -> None:
@@ -82,20 +92,11 @@ def _dsrc_argmax(kstar, g, mul_dtype):
     return _round(d_src, mul_dtype)
 
 
-def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
-    """d_src[b, j, f] = sum_i g[b, i, f]
-                        [h_src[b, j, f] + mask[b, i, j] == m[b, i, f]]
-    over the pairs that can satisfy it, for any float mask.
-
-    A pair (i, j) hits in feature f only if fl(mask[i, j] + h_src[j, f])
-    == m[i, f]; rounded addition is monotone in each operand, so then
-    fl(mask[i, j] + hmax[j]) >= m[i, f] >= mmin[i], with hmax[j] the max
-    of h_src[j] over f and mmin[i] the min of m[i] over f.  The pairs that
-    pass that test are a superset of the hits, with no margin: on a
-    {0, neg} mask with neg far below the activations they are the admitted
-    pairs (and every pair of a row that admits nothing, whose max is about
-    neg)."""
-    B, P, F = h_src.shape
+def _tie_candidates(m, mask_neg, h_src):
+    """[B, P (i), P (j)] bool: the pairs (i, j) that can tie,
+    fl(mask[i, j] + hmax[j]) >= mmin[i], with hmax[j] the max of h_src[j]
+    over f and mmin[i] the min of m[i] over f."""
+    B, P, _ = h_src.shape
     hmax = h_src.amax(dim=-1)                              # [B, P] over j
     mmin = m.amin(dim=-1)                                  # [B, P] over i
     # the sum in float32 as the forward's (a bfloat16 mask is promoted),
@@ -106,7 +107,25 @@ def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
     for s in range(0, B, bstep):
         torch.ge(mask_neg[s:s + bstep] + hmax[s:s + bstep, None, :],
                  mmin[s:s + bstep, :, None], out=cand[s:s + bstep])
-    b, i, j = torch.nonzero(cand, as_tuple=True)
+    return cand
+
+
+def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
+    """d_src[b, j, f] = sum_i g[b, i, f]
+                        [h_src[b, j, f] + mask[b, i, j] == m[b, i, f]]
+    over the pairs that can satisfy it, for any float mask.
+
+    A pair (i, j) hits in feature f only if fl(mask[i, j] + h_src[j, f])
+    == m[i, f]; rounded addition is monotone in each operand, so then
+    fl(mask[i, j] + hmax[j]) >= m[i, f] >= mmin[i], with hmax[j] the max
+    of h_src[j] over f and mmin[i] the min of m[i] over f.  The pairs that
+    pass that test (``_tie_candidates``) are a superset of the hits, with
+    no margin: on a {0, neg} mask with neg far below the activations they
+    are the admitted pairs (and every pair of a row that admits nothing,
+    whose max is about neg)."""
+    B, P, F = h_src.shape
+    b, i, j = torch.nonzero(_tie_candidates(m, mask_neg, h_src),
+                            as_tuple=True)
     mval = mask_neg[b, i, j].to(torch.float32)
     dst = b * P + i
     src = b * P + j
@@ -122,15 +141,61 @@ def _dsrc_ties(m, mask_neg, h_src, g, mul_dtype):
     return _round(d_src, mul_dtype).reshape(B, P, F)
 
 
+def tie_lists_plain(m, mask_neg, h_src, cap: int = TIE_CAP):
+    """The tie-sum list pass's plain version: for each source column j of
+    each cloud, the rows i that pass ``_dsrc_ties``'s filter, in ascending
+    order, with their mask values.
+
+    Returns (entries [B, P, cap, 2] int32: entries[b, j, t] is (i, the
+    float32 bits of mask[b, i, j]) for the t-th row of column j's list,
+    for the first ``cap`` rows, zeros after them; count [B, P] int32: how
+    many rows pass, more than ``cap`` where the list is incomplete).  The
+    kernel leaves the slots past a column's count as they fall."""
+    B, P, _ = h_src.shape
+    col = _tie_candidates(m, mask_neg, h_src).transpose(1, 2)   # [B, j, i]
+    count = col.sum(dim=-1, dtype=torch.int32)
+    rank = col.cumsum(dim=-1, dtype=torch.int64) - 1
+    b, j, i = torch.nonzero(col & (rank < cap), as_tuple=True)
+    slot = rank[b, j, i]
+    entries = torch.zeros((B, P, cap, 2), dtype=torch.int32,
+                          device=h_src.device)
+    entries[b, j, slot, 0] = i.to(torch.int32)
+    entries[b, j, slot, 1] = mask_neg[b, i, j].to(torch.float32).view(
+        torch.int32)
+    return entries, count
+
+
+def _tie_lists(m, mask_neg, h_src):
+    """The list pass on the card: (bounds [2, B, P]: hmax over j, then
+    mmin over i; entries [B, P, TIE_CAP, 2] int32; count [B, P] int32),
+    in ``tie_lists_plain``'s format."""
+    B, P, F = h_src.shape
+    dev = h_src.device
+    bounds = torch.empty((2, B, P), device=dev, dtype=torch.float32)
+    entries = torch.empty((B, P, TIE_CAP, 2), device=dev, dtype=torch.int32)
+    count = torch.empty((B, P), device=dev, dtype=torch.int32)
+    lib = _build.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.dgnn_ec_tie_lists(
+        _ptr(mask_neg), int(mask_neg.dtype == torch.bfloat16), _ptr(h_src),
+        _ptr(m), B, P, F, TIE_CAP, _ptr(bounds), _ptr(entries), _ptr(count),
+        stream)
+    if err:
+        raise RuntimeError(f"tie_sum_bwd list pass launch failed: CUDA "
+                           f"error {err} (B={B}, P={P}, F={F})")
+    LAUNCHES["tie_sum_lists"] += 1
+    return bounds, entries, count
+
+
 def tie_sum_bwd(m, mask_neg, h_src, g, mul_dtype=torch.bfloat16):
     """d_src[b, j, f] = sum_i gq[b, i, f]
                         [fl32(h_src[b, j, f] + mask[b, i, j]) == m[b, i, f]]
     (gq: g rounded to ``mul_dtype``; the sum in float32, rounded once to
     ``mul_dtype``): the tie-sum backward of ``edge_conv_max_dense``.
 
-    For CUDA tensors the kernel of csrc/ec_ties.cu (one launch, after an
-    ``amin`` of m for its filter), which raises on what it does not take;
-    for CPU tensors the plain version ``_dsrc_ties``.
+    For CUDA tensors the kernels of csrc/ec_ties.cu (the list pass, then
+    the sum over its lists), which raise on what they do not take; for CPU
+    tensors the plain version ``_dsrc_ties``.
 
     Args:
       m: [B, P, F] float32, the forward's max (``masked_max``).
@@ -156,14 +221,14 @@ def tie_sum_bwd(m, mask_neg, h_src, g, mul_dtype=torch.bfloat16):
     if not all(t.is_contiguous() for t in (m, mask_neg, h_src, g)):
         raise ValueError("tie_sum_bwd: m, mask, h_src and g must be "
                          "contiguous")
-    mmin = m.amin(dim=-1)
+    bounds, entries, count = _tie_lists(m, mask_neg, h_src)
     d_src = torch.empty_like(h_src)
     lib = _build.load()
     stream = torch.cuda.current_stream(h_src.device).cuda_stream
     err = lib.dgnn_ec_tie_sum(
         _ptr(mask_neg), int(mask_neg.dtype == torch.bfloat16), _ptr(m),
-        _ptr(h_src), _ptr(g), _ptr(mmin), B, P, F,
-        int(mul_dtype == torch.bfloat16), _ptr(d_src), stream)
+        _ptr(h_src), _ptr(g), _ptr(bounds), _ptr(entries), _ptr(count), B,
+        P, F, TIE_CAP, int(mul_dtype == torch.bfloat16), _ptr(d_src), stream)
     if err:
         raise RuntimeError(f"tie_sum_bwd kernel launch failed: CUDA error "
                            f"{err} (B={B}, P={P}, F={F})")

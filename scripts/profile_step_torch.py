@@ -33,8 +33,9 @@ shuffle, the augmentation and every step of an epoch) captured once and
 replayed, its numbers divided by the epoch's steps; then it takes the same
 number of eager steps once more with CUDA events around every k-NN mask
 build (``knn_mask_neg``) and every tie-sum backward (``tie_sum_bwd``, the
-kernel of csrc/ec_ties.cu with its ``amin``), and prints each span's calls
-and device-stream ms per step (idle gaps inside a span included), and
+kernels of csrc/ec_ties.cu: its list pass and its sum), and prints each
+span's calls and device-stream ms per step (idle gaps inside a span
+included), and
 counts the admitted columns a row of each layer's mask on one batch (mean,
 most, rows over the masked-max lists' cap and over half of it).  The last
 line is one JSON object with every number.  Needs a CUDA device.
@@ -60,7 +61,8 @@ from dgnn_tpu_torch.utils import StepGraph, make_optimizer, make_sgd_cosine
 # substrings of the hand-written kernels' names in a trace
 OWN = ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd",
        "bin_gmm_fwd", "bin_gmm_bwd", "dense_gmm_fwd", "dense_gmm_bwd",
-       "ec_masked_max", "ec_live_list", "ec_hs_range", "ec_tie_sum")
+       "ec_masked_max", "ec_live_list", "ec_hs_range", "ec_tie_sum",
+       "ec_tie_list", "ec_tie_bounds")
 GEMM = ("gemm", "cutlass", "cublas")
 
 

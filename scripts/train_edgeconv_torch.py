@@ -8,8 +8,9 @@ widths, dropout 0.5), loss (label-smoothed cross entropy, eps 0.2) and
 optimizer (SGD momentum 0.9, weight decay 1e-4 on every parameter, lr 0.1
 with a per-step cosine to 0.001 over ``--num-epochs`` epochs, its step
 count and learning rate on the device: utils/training.py ``SGDCosine``).
-The clouds are ModelNet40 when ``--dataset-path`` (or ``$DGNN_TPU_DATA``)
-holds ``modelnet40-sampled-2048.h5`` and h5py is importable, else synthetic
+The clouds are ModelNet40 when ``--dataset-path`` (or the loaders'
+``data_dir()``: ``$DGNN_TPU_DATA``, else ``~/.dgnn_tpu/data``) holds
+``modelnet40-sampled-2048.h5`` and h5py is importable, else synthetic
 point clouds.
 
 It trains and times as the JAX CLI does (``scripts/train_edgeconv.py``:

@@ -24,6 +24,8 @@ machine without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_bf16.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,8 @@
 """The port's CheckpointManager (torch.save) with the JAX package's
 interface, and the DGCNN trainer's --save-model-path / --load-model-path."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 

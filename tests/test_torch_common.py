@@ -1,6 +1,8 @@
 """dgnn_tpu_torch.ops.common against dgnn_tpu.ops.common: the dropout hash
 bit for bit, the segment merges on partials with overflow rows."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,8 @@ machine without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_dense.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import dataclasses
 
 import numpy as np

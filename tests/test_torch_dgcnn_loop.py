@@ -24,6 +24,8 @@ machine without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_dgcnn_loop.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import copy
 import importlib.util
 import pathlib
@@ -273,7 +275,7 @@ def test_tie_sum_bwd_takes_the_plain_version_on_the_cpu(rng, mul_dtype):
     edgeconv.reset_launches()
     got = tie_sum_bwd(m, mask, hs, g, mul_dtype)
     assert torch.equal(got, _dsrc_ties(m, mask, hs, g, mul_dtype))
-    assert edgeconv.LAUNCHES == {"tie_sum_bwd": 0}
+    assert edgeconv.LAUNCHES == {"tie_sum_bwd": 0, "tie_sum_lists": 0}
 
 
 def test_tie_sum_bwd_refuses_bad_arguments(rng):
@@ -333,6 +335,14 @@ def _tie_case(rng, kind, b, p, f):
         mask = knn_mask_neg(torch.from_numpy(_f32(rng, b, p, 3)), 5)
         mask[0, 1] = -1e30
         mask[0, 1, :ec_tiles.LIVE_CAP + 1] = 0
+    elif kind == "full-column":  # columns every row admits, h_src raised
+        # there: every row's filter passes them, over the tie-sum lists'
+        # cap, so the sum walks them densely
+        mask = knn_mask_neg(torch.from_numpy(_f32(rng, b, p, 3)), 5)
+        mask[0, :, 2] = 0
+        mask[-1, :, p - 2] = 0
+        hs[0, 2] += 4.0
+        hs[-1, p - 2] += 4.0
     else:
         raise ValueError(kind)
     hs[0, 5] = hs[0, 1]
@@ -346,16 +356,20 @@ def _tie_case(rng, kind, b, p, f):
 @pytest.mark.parametrize("mask_dtype", [torch.bfloat16, torch.float32],
                          ids=["mask-bf16", "mask-f32"])
 @pytest.mark.parametrize("kind", ["knn", "three-valued", "near-neg",
-                                  "admits-nothing", "float", "overflow"])
+                                  "admits-nothing", "float", "overflow",
+                                  "full-column"])
 @pytest.mark.parametrize("shape", [(2, 300, 70), (2, 64, 256), (1, 40, 300)],
                          ids=["ragged", "f256", "two-slabs"])
 def test_cuda_tie_sum_bwd_matches_plain(rng, cuda_device, shape, kind,
                                         mask_dtype, mul_dtype):
-    """The kernel against ``_dsrc_ties`` on CPU copies (the same m, from the
-    card's masked max), two calls bit-equal, one launch a call."""
+    """The kernels against ``_dsrc_ties`` on CPU copies (the same m, from
+    the card's masked max): equal bit for bit, as are two calls; one list
+    pass and one sum a call."""
     b, p, f = shape
     if kind == "overflow" and p <= ec_tiles.LIVE_CAP:
         p = ec_tiles.LIVE_CAP + 44
+    if kind == "full-column" and p <= edgeconv.TIE_CAP:
+        p = edgeconv.TIE_CAP + 44
     mask, hs = _tie_case(rng, kind, b, p, f)
     mask = mask.to(mask_dtype).to(cuda_device)
     hs = hs.to(cuda_device)
@@ -365,11 +379,12 @@ def test_cuda_tie_sum_bwd_matches_plain(rng, cuda_device, shape, kind,
     got = tie_sum_bwd(m, mask, hs, g, mul_dtype)
     again = tie_sum_bwd(m, mask, hs, g, mul_dtype)
     torch.cuda.synchronize()
-    assert edgeconv.LAUNCHES == {"tie_sum_bwd": 2}
+    assert edgeconv.LAUNCHES == {"tie_sum_bwd": 2, "tie_sum_lists": 2}
     assert torch.equal(got, again)
     want = _dsrc_ties(m.cpu(), mask.cpu(), hs.cpu(), g.cpu(), mul_dtype)
     tol = F32_TOL if mul_dtype == torch.float32 else BF16_TOL
     torch.testing.assert_close(got.cpu(), want, **tol)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -422,6 +437,8 @@ def test_cuda_replayed_epochs_equal_eager_epochs(rng, cuda_device):
                       dict(edgeconv.LAUNCHES)))
     (m_e, l_e, t_e, e_e), (m_r, l_r, t_r, e_r) = sides
     layers = len(SMALL["feature_dims"])
-    assert t_r == t_e and e_r == e_e == {"tie_sum_bwd": layers * spe * 2}
+    calls = layers * spe * 2
+    assert t_r == t_e and e_r == e_e == {"tie_sum_bwd": calls,
+                                         "tie_sum_lists": calls}
     torch.testing.assert_close(l_r, l_e, **LOOP_TOL)
     _assert_same_state(m_r, m_e, **LOOP_TOL)

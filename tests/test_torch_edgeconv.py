@@ -8,6 +8,8 @@ without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_edgeconv.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from dgnn_tpu_torch.data import load_modelnet, synthetic_point_clouds
 from dgnn_tpu_torch.graph.knn import knn_graph, knn_mask_neg
 from dgnn_tpu_torch.models import (DGCNN, BatchNorm, EdgeConv,
                                    flax_dgcnn_state_dict, load_flax_dgcnn)
-from dgnn_tpu_torch.ops import ec_tiles
+from dgnn_tpu_torch.ops import ec_tiles, edgeconv
 from dgnn_tpu_torch.ops.edgeconv import edge_conv_max, edge_conv_max_dense
 from dgnn_tpu_torch.utils import cosine_lr, make_sgd_cosine, smoothed_loss
 
@@ -446,6 +448,17 @@ def test_tie_sum_backward_refuses_activations_near_neg(rng):
             np.testing.assert_allclose(g, jg, **F32_TOL)
 
 
+def _full_columns(p):
+    """(cloud, column) pairs that the "full-column" mask admits in every
+    row."""
+    return ((0, 2), (-1, p - 1))
+
+
+def _raise_full_columns(hs, p, by=4.0):
+    for bb, j in _full_columns(p):
+        hs[bb, j] += by
+
+
 def _tie_mask(rng, kind, b, p):
     """The masks on which tie_sum's pair filter must keep every hit."""
     if kind == "three-valued":
@@ -462,6 +475,13 @@ def _tie_mask(rng, kind, b, p):
         m[1, 2] = -1e30
     elif kind == "float":
         m = rng.normal(size=(b, p, p)) * 2
+    elif kind == "full-column":
+        # {0, -1e30} with a column that every row admits (_full_columns;
+        # with h_src raised there, every row's filter passes it: over the
+        # tie-sum lists' cap, so that the kernel walks it densely)
+        m = _mask(rng, b, p, 3, -1e30, torch.float32).numpy()
+        for bb, j in _full_columns(p):
+            m[bb, :, j] = 0.0
     else:
         raise ValueError(kind)
     return torch.from_numpy(m.astype(np.float32))
@@ -493,6 +513,56 @@ def test_tie_sum_takes_any_mask(rng, kind, mul_dtype):
     tol = F32_TOL if mul_dtype == torch.float32 else BF16_TOL
     for g, jg in zip(grads, jgrads):
         np.testing.assert_allclose(g, jg, **tol)
+
+
+@pytest.mark.parametrize("cap", [4, edgeconv.TIE_CAP])
+@pytest.mark.parametrize("kind", ["three-valued", "near-neg",
+                                  "admits-nothing", "float", "knn",
+                                  "full-column"])
+def test_tie_lists_hold_every_hit(rng, kind, cap):
+    """The tie-sum list pass's plain version (the kernel's output format):
+    a column's count is the number of rows that pass ``_dsrc_ties``'s
+    filter; its list holds the first ``cap`` of them in ascending order
+    with their mask values; and every hit of the column (any f with
+    fl32(h_src[j, f] + mask[i, j]) == m[i, f], found densely here) is a
+    listed row, or, past the cap, a row the dense walk finds.  Duplicated
+    source rows make exact ties; a column admitted by every row overflows
+    the cap."""
+    b, p, f = 2, 12, 6
+    hs = _f32(rng, b, p, f)
+    if kind == "knn":
+        mask = knn_mask_neg(torch.from_numpy(_f32(rng, b, p, 3)), 4)
+    else:
+        mask = _tie_mask(rng, kind, b, p)
+    if kind == "near-neg":
+        hs *= 4.0
+    if kind == "full-column":
+        _raise_full_columns(hs, p)
+    hs[0, 5] = hs[0, 1]
+    hs[1, 9] = hs[1, 3]
+    hs = torch.from_numpy(hs)
+    m = ec_tiles.masked_max(mask, hs)
+    entries, count = edgeconv.tie_lists_plain(m, mask, hs, cap)
+    mask32 = mask.to(torch.float32)
+    # [B, i, j]: the filter, and the hits in any feature, both densely
+    passes = (mask32 + hs.amax(-1)[:, None, :]) >= m.amin(-1)[:, :, None]
+    hits = ((hs[:, None] + mask32[..., None]) == m[:, :, None]).any(-1)
+    assert bool((hits <= passes).all())
+    assert torch.equal(count, passes.sum(dim=1, dtype=torch.int32))
+    if kind == "full-column":
+        assert all(int(count[bb, j]) == p for bb, j in _full_columns(p))
+    for bb in range(b):
+        for j in range(p):
+            rows = torch.nonzero(passes[bb, :, j]).flatten()
+            n = min(int(count[bb, j]), cap)
+            listed = entries[bb, j, :n]
+            assert torch.equal(listed[:, 0], rows[:n].to(torch.int32))
+            assert torch.equal(listed[:, 1].view(torch.float32),
+                               mask32[bb, rows[:n], j])
+            assert not bool(entries[bb, j, n:].any())
+            hit_rows = torch.nonzero(hits[bb, :, j]).flatten()
+            covered = rows if count[bb, j] > cap else rows[:n]
+            assert bool(torch.isin(hit_rows, covered).all())
 
 
 def test_edge_conv_max_dense_refuses_unknown_modes(rng):
@@ -1044,16 +1114,22 @@ def test_cuda_masked_max_refuses_what_the_kernel_does_not_take(rng,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("p", [64, 300])
 @pytest.mark.parametrize("kind", ["three-valued", "near-neg",
-                                  "admits-nothing", "float"])
-def test_cuda_tie_sum_any_mask_matches_cpu(rng, cuda_device, kind):
+                                  "admits-nothing", "float", "full-column"])
+def test_cuda_tie_sum_any_mask_matches_cpu(rng, cuda_device, kind, p):
     """The tie-sum backward's pair filter on the card against the CPU, on
-    the masks a {0, neg} rule would get wrong."""
-    b, p, f = 2, 64, 40
+    the masks a {0, neg} rule would get wrong and on columns every row
+    admits (over the lists' cap at P = 300), at a P on and off the
+    kernels' tiles; on the op's own m the kernels equal ``_dsrc_ties`` bit
+    for bit, and two calls each other."""
+    b, f = 2, 40
     mask = _tie_mask(rng, kind, b, p)
     hs, hd, gout = (_f32(rng, b, p, f) for _ in range(3))
     if kind == "near-neg":
         hs *= 4.0
+    if kind == "full-column":
+        _raise_full_columns(hs, p)
     hs[0, 5] = hs[0, 1]
     _, want = _torch_dense_grads(mask, hs, hd, gout, torch.float32, "tie_sum")
     a = torch.from_numpy(hs).to(cuda_device).requires_grad_(True)
@@ -1063,6 +1139,16 @@ def test_cuda_tie_sum_any_mask_matches_cpu(rng, cuda_device, kind):
     out.backward(torch.from_numpy(gout).to(cuda_device))
     for g, w in zip((a.grad, bb.grad), want):
         np.testing.assert_allclose(g.cpu().numpy(), w, **F32_TOL)
+    m = ec_tiles.masked_max(mask.to(cuda_device), a.detach())
+    g = torch.from_numpy(gout).to(cuda_device)
+    for mul_dtype in edgeconv.MUL_DTYPES:
+        got = edgeconv.tie_sum_bwd(m, mask.to(cuda_device), a.detach(), g,
+                                   mul_dtype)
+        again = edgeconv.tie_sum_bwd(m, mask.to(cuda_device), a.detach(), g,
+                                     mul_dtype)
+        assert torch.equal(got, again)
+        assert torch.equal(got.cpu(), edgeconv._dsrc_ties(
+            m.cpu(), mask, torch.from_numpy(hs), g.cpu(), mul_dtype))
 
 
 @pytest.mark.cuda

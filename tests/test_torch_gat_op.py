@@ -2,6 +2,8 @@
 op, on the same host-built graphs (tests/test_torch_graph.py holds the two
 packages' layouts equal), with and without attention dropout."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

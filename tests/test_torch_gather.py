@@ -9,6 +9,8 @@ here.  The CUDA tests run on a machine without JAX:
 python -m pytest --noconftest -m cuda tests/test_torch_gather.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 import subprocess

@@ -9,6 +9,8 @@ machine without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_gmm.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 

@@ -8,6 +8,8 @@ versions are plain PyTorch, so everything here runs on the CPU.  Tolerance:
 rtol 2e-4 / atol 2e-5, float32 sums over every edge in another order.
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 

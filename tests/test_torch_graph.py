@@ -1,6 +1,8 @@
 """The port's host layer against the JAX package's: synthetic data, degree
 bins, combine tables, hub planning and the hub block must be identical."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import numpy as np
 import pytest
 import torch

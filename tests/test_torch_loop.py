@@ -16,6 +16,8 @@ machine without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_loop.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import copy
 import importlib.util
 import pathlib

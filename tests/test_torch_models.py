@@ -1,6 +1,8 @@
 """GAT model and trainer: the port against the flax model on converted
 weights, and the port's import hygiene."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import ast
 import importlib.util
 import pathlib
@@ -253,6 +255,7 @@ def test_port_imports_no_jax():
               ROOT / "scripts" / "record_results_torch.py",
               ROOT / "scripts" / "train_edgeconv_torch.py",
               ROOT / "scripts" / "exp_ec_tiles_torch.py",
+              ROOT / "scripts" / "tie_sum_probe_torch.py",
               ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for path in files:

@@ -2,6 +2,8 @@
 package's, against the port's fused ops, and the naive GAT model against
 the flax model with impl="naive"; edge_keep against JAX's bit for bit."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 

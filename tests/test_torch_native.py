@@ -2,6 +2,8 @@
 port's numpy versions and against the JAX package's native library and
 numpy graph functions: every array equal."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import pathlib
 
 import numpy as np

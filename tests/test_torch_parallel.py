@@ -10,6 +10,8 @@ so the spawned ranks, which import this module to find their function,
 import torch and the port alone.
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,8 @@
 """The port's partition_graph against the JAX package's, array for array,
 and the shard views the ranks take from it."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import numpy as np
 import pytest
 import torch

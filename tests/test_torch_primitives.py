@@ -2,6 +2,8 @@
 against dgnn_tpu.ops.primitives on the same numpy inputs, forward and
 gradients, and against the port's dense oracles (ops/reference.py)."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

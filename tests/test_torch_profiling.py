@@ -1,6 +1,8 @@
 """utils/profiling.py: the trace writes a Chrome trace; the traffic and
 row-access counts equal the JAX package's on the same graph."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import json
 
 import numpy as np

@@ -1,6 +1,8 @@
 """scripts/record_results_torch.py: the rows of scripts/record_results.py,
 flag for flag, through the torch trainers, into results_torch.csv only."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 import subprocess

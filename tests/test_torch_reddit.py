@@ -4,6 +4,8 @@ files load equal to the port's own build; the port's files round-trip),
 ``Graph.out_degrees``, and both trainers' ``--dataset reddit`` branch on
 the CPU at a cut scale."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import importlib.util
 import pathlib
 
@@ -162,7 +164,7 @@ def test_load_reddit_builds_then_reads_its_cache(tmp_path):
     assert "bins + hub block" in first.seconds
     n, e = reddit.reddit_size(SCALE)
     names = sorted(p.name for p in tmp_path.iterdir())
-    assert names == [f"rmat_graph_{n}_{e}_d6_torch.npz",
+    assert names == [f"rmat_graph_{n}_{e}_d6_{reddit.graph_key()}_torch.npz",
                      f"rmat_raw_{n}_{e}_torch.npz"]
     g = first.graph
     assert g.num_nodes == n and g.fwd.dense is not None \

@@ -1,6 +1,8 @@
 """The port's dense oracles (ops/reference.py) against
 dgnn_tpu.ops.reference on the same numpy inputs."""
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

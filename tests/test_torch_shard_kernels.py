@@ -8,6 +8,8 @@ without JAX:  python -m pytest --noconftest -m cuda
 tests/test_torch_shard_kernels.py
 """
 
+import torch_test_threads  # noqa: F401  (torch's threads a worker)
+
 import numpy as np
 import pytest
 import torch
