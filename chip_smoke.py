@@ -146,6 +146,21 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                eager against replayed ms a step (REDDIT_STEPS each),
                and each kernel of the path on that graph at both layers'
                widths beside its bound.
+     memory  - in the same cache directory, scripts/memory_report_torch.py's
+               rows (run): the JAX memory report's GAT step (heads (4, 1),
+               hidden 64, feat_drop 0.5, attn_drop 0, Adam with weight
+               decay, cross entropy over all nodes) fused with float32 and
+               with bf16 gathers on reddit at scale 1 (read from the
+               cache), naive (ops/naive.py) and fused at the cut scales
+               1/64, 1/32, 1/16, 1/8 (built there; a scale whose predicted
+               naive peak passes 75 % of the card is left out): resident
+               and peak MB measured, the bytes autograd saves counted; the
+               naive peak's straight-line fit read at scale 1 (largest
+               relative residual at most FIT_RESIDUAL) beside its saved
+               bytes extrapolated there.  Launches exact for every row (the
+               report checks them; the naive step none), the losses finite,
+               fused below naive at every cut scale, every measured peak at
+               least its counted saved bytes.
                Then scripts/train_edgeconv_torch.py at full width (B = 64,
                P = 1024, k = 40, DGCNN's default dims, 512 train and 128
                test synthetic clouds) through the JAX trainer's protocol:
@@ -175,7 +190,10 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                with its planner's hub block and of the skewed graph under
                its forced block (the kernels phase's), through the native
                library and through the numpy versions (DGNN_TPU_NATIVE=0):
-               every array equal, the library's calls counted, both times.
+               every array equal, the library's calls counted, both times;
+               the library's R-MAT generator (rmat_edges) at reddit's size,
+               twice: equal, ids in range, its seconds beside the numpy
+               generator's in the reddit phase.
                primitives: spmm, sddmm, edge_softmax and edge_transpose on
                pubmed (dense=None, edge tables) at H = 4, F = 64 on the card
                against CPU copies, out and every gradient (rtol 1e-5 / atol
@@ -370,6 +388,9 @@ EC_TIE_LONG = (2, 1101, 70)
 # script, fits the script's time limit), and its training steps.
 REDDIT_SCALE = 1.0
 REDDIT_STEPS = 5
+# The memory phase: the largest relative residual of the naive peak's
+# straight-line fit over its cut scales
+FIT_RESIDUAL = 0.05
 # The sharded phase: ranks sharing the card, the reddit cut it trains at,
 # cora's forced per-shard block (R, C), training steps (after the warmup
 # ones; fewer for the P = 1, 2 timings).
@@ -1175,17 +1196,15 @@ def check_edgeconv_op(dev, rng):
 
 def all_launches():
     """Every wrapper's launch count, one dict."""
-    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, edgeconv, gather
+    from dgnn_tpu_torch import ops
 
-    return {**bins.LAUNCHES, **dense.LAUNCHES, **ec_tiles.LAUNCHES,
-            **edgeconv.LAUNCHES, **gather.LAUNCHES}
+    return ops.all_launches()
 
 
 def reset_all_launches():
-    from dgnn_tpu_torch.ops import bins, dense, ec_tiles, edgeconv, gather
+    from dgnn_tpu_torch import ops
 
-    for mod in (bins, dense, ec_tiles, edgeconv, gather):
-        mod.reset_launches()
+    ops.reset_all_launches()
 
 
 def tie_cases(ec_tiles, dev):
@@ -1754,8 +1773,14 @@ def run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi):
     layers' widths, timed beside its bound."""
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as cache:
-        _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
-                    cache)
+        rmat_s = _run_reddit(bins, dense, trainers, titles, launches, scale,
+                             dev, smi, cache)
+        t0 = time.perf_counter()
+        run_memory(cache, dev, smi)
+        phase("memory", f"the memory phase took "
+              f"{time.perf_counter() - t0:.1f} s (the cut scales' host "
+              "builds included)")
+    return rmat_s
 
 
 def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
@@ -1773,6 +1798,7 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
     shapes = {"gat": REDDIT_SHAPES, "gmm": ((2, 64), (2, 41))}
     titles = dict(titles, gmm="MoNet hidden 64 kernels 2 dim 2 dropout 0.5 "
                   "lr 1e-2")
+    rmat_s = None
     for kind in ("gat", "gmm"):
         native.reset_calls()
         r, launches[(kind, "reddit")] = run_trainer(
@@ -1783,8 +1809,10 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
         g = r["graph"]
         if kind == "gat":  # the host build: every stage in the library,
             # one bin fill a bin of each direction that kept edges
+            rmat_s = r["setup_s"]["rmat edges"]
             assert calls == dict(
                 coo_to_csr=1, csr_to_csc_permute=1, dense_mask_fill=2,
+                rmat_edges=0,
                 bin_fill=sum(len(a.widths) for a in (g.fwd, g.bwd)
                              if a.num_edges)), calls
         else:  # read from the cache GAT's run wrote
@@ -1822,6 +1850,58 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
                   f"{per_step:.2f} launches a step or inference | {smi}")
         del r, g
         torch.cuda.empty_cache()
+    return rmat_s
+
+
+# ---------------------------------------------------------------------------
+# phase "memory": scripts/memory_report_torch.py, the fused against the naive
+# GAT training step's peak device memory at reddit's size
+
+def run_memory(cache, dev, smi):
+    """The report's rows on the reddit graphs under ``cache`` (scale 1 read
+    from the reddit phase's cache, the cut scales built there): fused
+    float32 and bf16 at scale 1, naive and fused at each cut scale that
+    fits, naive's fit at scale 1 and its counted bytes.  Each row's
+    launches are checked by the report (exactly what the step's layers and
+    bins imply; none for the naive step); here, that the fused rows ran
+    the four GAT kernels, the losses are finite, the fused step's peak is
+    below the naive step's at every cut scale, every measured peak holds
+    the row's counted saved bytes, and the fit is within FIT_RESIDUAL."""
+    report = load_script("memory_report_torch")
+    res = report.run(dev, cache, log=lambda m: phase("memory", f"{m} | {smi}"))
+    rows = res["rows"]
+    for r in rows:
+        assert all(np.isfinite(r["losses"])), r
+        assert r["peak_mb"] >= r["saved"]["total"] / report.MB, r
+        assert r["peak_mb"] >= r["resident_mb"] > 0, r
+        if r["impl"] == "naive":
+            assert not r["launches"], r
+            continue
+        bf16 = "_bf16" if r["gather_dtype"] == "bfloat16" else ""
+        want = {"bin_gat_fwd" + bf16, "bin_gat_bwd" + bf16}
+        if r["scale"] == 1.0:  # reddit's hub blocks, both directions
+            want |= {"dense_gat_fwd", "dense_gat_bwd"}
+        assert want <= set(r["launches"]) <= want | {"dense_gat_fwd",
+                                                     "dense_gat_bwd"}, r
+    cut = sorted({r["scale"] for r in rows if r["scale"] < 1.0})
+    assert len(cut) >= 3, cut
+    for scale in cut:
+        peak = {r["impl"]: r["peak_mb"] for r in rows if r["scale"] == scale}
+        assert peak["fused"] < peak["naive"], (scale, peak)
+    assert {(r["gather_dtype"], r["impl"]) for r in rows
+            if r["scale"] == 1.0} == {("float32", "fused"),
+                                      ("bfloat16", "fused")}
+    fit = res["fit"]
+    assert fit["max_rel_residual"] <= FIT_RESIDUAL, fit
+    phase("memory", f"naive fitted at scale 1: {fit['at_one']:,.1f} MB "
+          f"(a {fit['a']:,.1f} + b {fit['b']:,.1f} x scale over scales "
+          f"{cut}, largest relative residual {fit['max_rel_residual']:.4f} <= "
+          f"{FIT_RESIDUAL}); counted saved bytes at scale 1 (extrapolated, "
+          f"a lower bound) {res['counted_mb']:,.1f} MB; fused float32 / bf16 "
+          "at scale 1 measured peak "
+          + " / ".join(f"{r['peak_mb']:,.1f}" for r in rows
+                       if r["scale"] == 1.0)
+          + f" MB; card {res['total_mb']:,.0f} MB | {smi}")
 
 
 # ---------------------------------------------------------------------------
@@ -2564,6 +2644,7 @@ def main():
         return 1
     from dgnn_tpu_torch import native
     from dgnn_tpu_torch.data import synthetic_citation
+    from dgnn_tpu_torch.data.reddit import reddit_size
     from dgnn_tpu_torch.graph import structure
     from dgnn_tpu_torch.ops import _build, bins, dense, ec_tiles, edgeconv, \
         gather
@@ -2852,10 +2933,10 @@ def main():
     del r
 
     t0 = time.perf_counter()
-    run_reddit(bins, dense, trainers, titles, launches, REDDIT_SCALE, dev,
-               smi)
-    phase("reddit", f"the reddit phase took {time.perf_counter() - t0:.1f} s "
-          "(host build included)")
+    rmat_numpy_s = run_reddit(bins, dense, trainers, titles, launches,
+                              REDDIT_SCALE, dev, smi)
+    phase("reddit", f"the reddit and memory phases took "
+          f"{time.perf_counter() - t0:.1f} s (host builds included)")
 
     ec_trainer = load_script("train_edgeconv_torch")
     r, launches[("edgeconv",)] = run_edgeconv_trainer(ec_trainer)
@@ -2934,6 +3015,22 @@ def main():
               f"bin_fill, dense_mask_fill ({calls}) give the numpy versions' "
               f"graph, {n_arr} arrays equal; host build {t_nat:.3f} s "
               f"against {t_np:.3f} s in numpy ({native.library_path()})")
+    # the native R-MAT generator at reddit's size (the port's reddit build
+    # keeps the numpy generator, as the JAX package's does)
+    n_r, e_r = reddit_size(1.0)
+    native.reset_calls()
+    t1 = time.perf_counter()
+    first = native.rmat_edges(n_r, e_r)
+    rmat_s = time.perf_counter() - t1
+    again = native.rmat_edges(n_r, e_r)
+    assert all(np.array_equal(a, b) for a, b in zip(first, again))
+    assert native.CALLS["rmat_edges"] == 2
+    assert all(int(x.min()) >= 0 and int(x.max()) < n_r for x in first)
+    phase("baselines", f"native rmat_edges at reddit's size ({n_r} nodes, "
+          f"{e_r} edges): {rmat_s:.2f} s a call, two calls equal; the numpy "
+          f"generator took {rmat_numpy_s:.1f} s in this run's reddit phase at "
+          f"scale {REDDIT_SCALE} (28 to 31 s in PERF.md §7)")
+    del first, again
     brng = np.random.default_rng(3)  # the baselines' own draws
     pub_flat = structure.build_graph(d.src, d.dst, d.num_nodes, dense=None,
                                      edge_tables=True)

@@ -1,12 +1,16 @@
 """ctypes bindings for the port's native graph-preprocessing library.
 
 ``graph_prep.cc`` (beside this file) holds O(E) counting sorts for the CSR
-and the CSC with its permutation, the degree bins' slot fill and the hub
-block's bit-mask fill.  The host graph build calls it where it is available:
+and the CSC with its permutation, the degree bins' slot fill, the hub
+block's bit-mask fill and an R-MAT generator (``rmat_edges``, the JAX
+package's xoshiro256** generator bit for bit).  The host graph build calls
+the first four where the library is available:
 ``graph/build.py`` ``coo_to_csr`` / ``csr_to_csc_permute``,
 ``graph/binning.py`` ``_build_bin`` and ``graph/hub.py``
 ``build_dense_numpy``.  Each keeps its numpy version beside the call; both
-give the same arrays.
+give the same arrays.  ``rmat_edges`` draws from another PRNG than the
+numpy ``data/synthetic.py`` ``rmat_edges`` and so gives another graph;
+the reddit build keeps the numpy generator, as the JAX package's does.
 
 The library is compiled with ``g++`` at first use into
 ``build/dgnn_tpu_torch/native/<hash>/`` at the root of the checkout (listed
@@ -35,7 +39,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["available", "build", "load", "library_path", "coo_to_csr",
-           "csr_to_csc_permute", "bin_fill", "dense_mask_fill", "CALLS",
+           "csr_to_csc_permute", "bin_fill", "dense_mask_fill", "rmat_edges",
+           "CALLS",
            "reset_calls", "CXX_FLAGS"]
 
 _SRC = Path(__file__).resolve().parent / "graph_prep.cc"
@@ -46,7 +51,7 @@ _LIB_NAME = "libdgnn_graph.so"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 CALLS = dict.fromkeys(("coo_to_csr", "csr_to_csc_permute", "bin_fill",
-                       "dense_mask_fill"), 0)
+                       "dense_mask_fill", "rmat_edges"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -111,8 +116,12 @@ def load() -> ctypes.CDLL:
         lib.dgnn_bin_fill.argtypes = [
             i64, i64, i64p, i64p, i32p, i64p, i32p, i32p]
         lib.dgnn_dense_mask_fill.argtypes = [i64, i64, i64, i64p, i64p, u8p]
+        f64 = ctypes.c_double
+        lib.dgnn_rmat.argtypes = [i64, i64, ctypes.c_uint64, f64, f64, f64,
+                                  i64p, i64p]
         for fn in (lib.dgnn_coo_to_csr, lib.dgnn_csr_to_csc_permute,
-                   lib.dgnn_bin_fill, lib.dgnn_dense_mask_fill):
+                   lib.dgnn_bin_fill, lib.dgnn_dense_mask_fill,
+                   lib.dgnn_rmat):
             fn.restype = None
         _lib = lib
         return lib
@@ -207,3 +216,26 @@ def dense_mask_fill(rows_local: np.ndarray, cols_local: np.ndarray,
                              cols_local, mask)
     CALLS["dense_mask_fill"] += 1
     return mask
+
+
+def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0, a: float = 0.57,
+               b: float = 0.19, c: float = 0.19):
+    """(src [E] int64, dst [E] int64): R-MAT edges with quadrant
+    probabilities (a, b, c, 1 - a - b - c), symmetrised (the second half
+    mirrors the first), node ids scrambled over [0, num_nodes); the same
+    arrays as ``dgnn_tpu.native.rmat_edges`` for the same arguments."""
+    lib = load()
+    if num_nodes < 1 or num_edges < 0:
+        raise ValueError(f"need num_nodes >= 1 and num_edges >= 0, got "
+                         f"{num_nodes} and {num_edges}")
+    if not 0 <= seed < 2 ** 64:
+        raise ValueError(f"seed {seed} is not a uint64")
+    probs = (a, b, c)
+    if not all(0.0 <= p <= 1.0 for p in probs) or sum(probs) > 1.0:
+        raise ValueError(f"probabilities {probs} must lie in [0, 1] and sum "
+                         "to at most 1")
+    src = np.empty(num_edges, np.int64)
+    dst = np.empty(num_edges, np.int64)
+    lib.dgnn_rmat(num_nodes, num_edges, seed, a, b, c, src, dst)
+    CALLS["rmat_edges"] += 1
+    return src, dst

@@ -1,8 +1,11 @@
 // Native host graph preprocessing for dgnn_tpu_torch: counting-sort
-// CSR/CSC construction, degree-bin slot fill, hub-block mask fill.
+// CSR/CSC construction, degree-bin slot fill, hub-block mask fill, and the
+// xoshiro256** R-MAT generator.
 //
-// A copy of dgnn_tpu/native/graph_prep.cc without its R-MAT generator (the
-// port's data path uses the numpy R-MAT of data/synthetic.py).  Graph
+// A copy of dgnn_tpu/native/graph_prep.cc.  The R-MAT generator here draws
+// from its own PRNG, so it gives another graph than the numpy R-MAT of
+// data/synthetic.py, which the reddit build uses (as the JAX package's
+// does); nothing in the port's data path calls it.  Graph
 // preprocessing is one-time host work, so the tool is an O(E) counting sort
 // in C++: numpy's lexsort is comparison-based and many times slower on
 // large edge lists.
@@ -82,6 +85,66 @@ void dgnn_bin_fill(int64_t num_seg, int64_t width, const int64_t* starts,
       nbr[base + j] = 0;
       edge[base + j] = 0;
     }
+  }
+}
+
+// R-MAT (recursive matrix) power-law edge generator, xoshiro256** PRNG
+// seeded by splitmix64.  Draws e/2+1 directed edges, each one bit of its
+// (u, v) a level over ceil(log2 n) levels (at least one), scrambles the ids
+// by a fixed odd multiplier modulo n, and writes the first e of the edges
+// and their mirrors: (src, dst)[i] = (u_i, v_i) and, from e/2+1 on,
+// (v_i, u_i).  Bit for bit the generator of dgnn_tpu/native/graph_prep.cc.
+static inline uint64_t rotl(uint64_t x, int k) {
+  return (x << k) | (x >> (64 - k));
+}
+
+void dgnn_rmat(int64_t n, int64_t e, uint64_t seed, double a, double b,
+               double c, int64_t* src, int64_t* dst) {
+  uint64_t s[4];
+  // splitmix64 seeding
+  uint64_t z = seed + 0x9E3779B97F4A7C15ULL;
+  for (int i = 0; i < 4; ++i) {
+    z += 0x9E3779B97F4A7C15ULL;
+    uint64_t t = z;
+    t = (t ^ (t >> 30)) * 0xBF58476D1CE4E5B9ULL;
+    t = (t ^ (t >> 27)) * 0x94D049BB133111EBULL;
+    s[i] = t ^ (t >> 31);
+  }
+  auto next = [&]() -> uint64_t {
+    uint64_t result = rotl(s[1] * 5, 7) * 9;
+    uint64_t t = s[1] << 17;
+    s[2] ^= s[0];
+    s[3] ^= s[1];
+    s[1] ^= s[2];
+    s[0] ^= s[3];
+    s[2] ^= t;
+    s[3] = rotl(s[3], 45);
+    return result;
+  };
+  int scale = 1;
+  while ((1LL << scale) < n) ++scale;
+  const int64_t half = e / 2 + 1;
+  const double inv = 1.0 / 18446744073709551616.0;  // 2^-64
+  // node-id scramble: fixed odd multiplier hash (keeps hubs spread out)
+  auto scramble = [&](int64_t v) -> int64_t {
+    uint64_t x = static_cast<uint64_t>(v) * 0x9E3779B97F4A7C15ULL;
+    x ^= x >> 29;
+    return static_cast<int64_t>(x % static_cast<uint64_t>(n));
+  };
+  for (int64_t i = 0; i < half; ++i) {
+    int64_t u = 0, v = 0;
+    for (int lev = 0; lev < scale; ++lev) {
+      double r = static_cast<double>(next()) * inv;
+      int down = (r >= a && r < a + b) || (r >= a + b + c);
+      int right = r >= a + b;
+      u = (u << 1) | down;
+      v = (v << 1) | right;
+    }
+    u = scramble(u % n);
+    v = scramble(v % n);
+    if (i < e) { src[i] = u; dst[i] = v; }
+    int64_t j = half + i;
+    if (j < e) { src[j] = v; dst[j] = u; }
   }
 }
 

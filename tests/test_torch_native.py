@@ -237,3 +237,60 @@ def test_bindings_refuse_bad_arguments(lib):
         lib.dense_mask_fill(np.array([4]), np.array([0]), 4, 2048, 2048)
     with pytest.raises(ValueError, match="multiple of 8"):
         lib.dense_mask_fill(np.array([0]), np.array([0]), 4, 2048, 1000)
+
+
+@pytest.fixture(scope="module")
+def jax_lib():
+    """The JAX package's native library (built beside its source at first
+    use), for the R-MAT generator's bit-for-bit comparison."""
+    if not jnative.available():
+        pytest.skip("the JAX package's native library does not load "
+                    "(no g++?)")
+    return jnative
+
+
+@pytest.mark.parametrize("n,e,seed,abc", [
+    (1000, 5000, 42, ()),
+    (1000, 5001, 42, ()),                # odd: the mirrored half is cut
+    (3000, 20000, 7, ()),                # n not a power of two
+    (3000, 9999, 5, (0.45, 0.15, 0.25)),
+    (1, 3, 0, ()),
+    (17, 0, 3, ()),
+])
+def test_rmat_edges_equal_jax_bit_for_bit(lib, jax_lib, n, e, seed, abc):
+    native.reset_calls()
+    got = lib.rmat_edges(n, e, seed, *abc)
+    want = jax_lib.rmat_edges(n, e, seed, *abc)
+    assert native.CALLS["rmat_edges"] == 1
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == np.int64 and a.shape == (e,)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_rmat_edges_range_determinism_and_power_law(lib):
+    """The JAX test's checks (tests/test_native.py): ids in range, the same
+    seed the same edges, the top 1 % of nodes by in-degree over 5 % of the
+    edges; and the second half mirrors the first."""
+    s1, d1 = lib.rmat_edges(1000, 5000, seed=42)
+    s2, d2 = lib.rmat_edges(1000, 5000, seed=42)
+    assert s1.shape == d1.shape == (5000,)
+    assert (0 <= s1).all() and (s1 < 1000).all()
+    assert (0 <= d1).all() and (d1 < 1000).all()
+    np.testing.assert_array_equal(s1, s2)
+    np.testing.assert_array_equal(d1, d2)
+    deg = np.bincount(d1, minlength=1000)
+    assert np.sort(deg)[-10:].sum() > 0.05 * 5000
+    half = 5000 // 2 + 1
+    np.testing.assert_array_equal(s1[half:], d1[:5000 - half])
+    np.testing.assert_array_equal(d1[half:], s1[:5000 - half])
+    other = lib.rmat_edges(1000, 5000, seed=43)
+    assert not np.array_equal(other[0], s1)
+
+
+def test_rmat_edges_refuses_bad_arguments(lib):
+    for args, kw in (((0, 10), {}), ((10, -1), {}),
+                     ((10, 10), dict(seed=-1)), ((10, 10), dict(seed=2 ** 64)),
+                     ((10, 10), dict(a=1.5)), ((10, 10), dict(b=-0.1)),
+                     ((10, 10), dict(a=0.6, b=0.3, c=0.2))):
+        with pytest.raises(ValueError):
+            lib.rmat_edges(*args, **kw)
