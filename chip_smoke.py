@@ -223,7 +223,8 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                shard's table of global ids (the "_gid" instances of K1,
                K2, K5, K6) against their plain versions, p 0.3, at each
                graph's layer widths (reddit's those of its training run
-               below; sum_tol / BLOCK_TOL, both dense dtypes), and timed
+               below; sum_tol / BLOCK_TOL with its atol grown with the
+               shard's widest block row, both dense dtypes), and timed
                with and without the table beside their bounds.  Then
                ShardedGAT (hidden 64, heads (4, 1), attn_drop 0.3 with the
                single-device model's seeds, feat_drop 0) on pubmed and on
@@ -234,15 +235,36 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                output (SHARD_FWD_TOL) and every parameter gradient
                (SHARD_GRAD_TOL) of the masked cross entropy, on every
                rank, and each rank's launches in that pass exactly those
-               its layout implies (the binned-pseudo MoNet none).  Then 23
-               steps (3 of them warmup) of sharded GAT at the bench width
-               (feat_drop 0.5, attn_drop 0.3, Adam 1e-3) through
-               parallel.trainer on pubmed and on the reddit cut: the loss
-               finite and falling, each rank's launches exactly the gid
+               its layout implies (the binned-pseudo MoNet none).  DGCNN
+               batch data parallel (ShardedDGCNN, B = 64 clouds of 1024
+               points, k = 40, the trainer's widths, dropout 0.5, 16
+               clouds a rank): one training step against the single-device
+               port DGCNN's on the whole batch, same weights, clouds and
+               generator seed: logits (SHARD_FWD_TOL), the summed loss and
+               every parameter gradient (SHARD_GRAD_TOL; the EdgeConv
+               layers' EC_DP_CONV_TOL, at bf16's scale; a bias that feeds a
+               batch norm, whose gradient is 0, within SHARD_GRAD_TOL's
+               share of the model's largest), the batch norms'
+               running statistics over the global batch (SHARD_FWD_TOL,
+               equal on every rank), each rank's launches exactly 4 each of
+               masked_max_step8, masked_max_live_lists, tie_sum_bwd and
+               tie_sum_lists.  Then 23 steps (3 of them warmup) through
+               parallel.trainer of sharded GAT at the bench width
+               (feat_drop 0.5, attn_drop 0.3, Adam 1e-3) on pubmed and on
+               the reddit cut, each rank's launches exactly the gid
                instances' (one list call a direction and layer, the hub
-               kernels where the shard has a block; nothing else).  Prints
-               ms a step at P = 1, 2, 4 (pubmed), the halo rows and bytes
-               an exchange, the route and the peak MB a rank.
+               kernels where the shard has a block; nothing else); of
+               sharded MoNet (hidden 64, K 3, dim 2, dropout 0.5, Adam
+               1e-2, node pseudo deg^-1/2 on both ends) on pubmed and on
+               cora's forced blocks, launches exact (K3, K4; K7, K8 on
+               cora); of DGCNN (train_dgcnn_rank: each epoch's shuffle and
+               augmentation drawn the same on every rank, SGD 0.1 with its
+               cosine) at P = 1, 2 and 4, launches and all-reduces exact,
+               the ranks' final parameters and statistics equal bit for
+               bit.  Every loss finite and falling.  Prints ms a step at
+               P = 1, 2, 4 (GAT on pubmed; DGCNN), the halo rows and bytes
+               an exchange, the all-reduces' bytes a step, the route and
+               the peak MB a rank.
   8. times   - each kernel and its plain version, CUDA events, in turns:
                the bin kernels over one pass of pubmed's bins, the dense
                kernels over cora's hub block, at both layers' widths
@@ -400,6 +422,23 @@ CORA_SHARD_FORCED = (256, 2048)
 SHARD_STEPS = 20
 SHARD_WARMUP = 3
 SHARD_SCALING_STEPS = 10
+# the data-parallel DGCNN step's comparison, and what one training step of
+# it launches on a rank: the masked max and its list pass a layer forward,
+# the tie-sum backward and its list pass a layer backward
+EC_DP = "dgcnn data-parallel step"
+# Its gradients, P ranks against one device.  The EdgeConv layers' come
+# through the tie-sum backward, which rounds g to bf16 (mul_dtype), and
+# through the masked max's exact ties, which a float32 ulp of the features
+# (matrix products on 16 clouds' rows, not 64) can resolve otherwise, so
+# they differ at bf16's scale: the H100 read 3.0e-3 of the tensor's largest
+# element on conv_0's theta, 1.2e-3 on conv_1's, against at most 4e-6 in
+# the rest of the model.  A bias that feeds a batch norm (proj's, the
+# embeddings') has gradient 0 exactly (the norm removes any shift), so both
+# sides hold rounding only (3e-8 on the H100): it is held to SHARD_GRAD_TOL's
+# share of the model's largest gradient element.
+EC_DP_CONV_TOL = dict(rtol=5e-3, atol_scale=1e-2)
+EC_DP_LAUNCHES = dict(masked_max_step8=4, masked_max_live_lists=4,
+                      tie_sum_bwd=4, tie_sum_lists=4)
 # Sharded against single-device on the card, both float32: the same sums in
 # another order (the shards' partials merge through other combine tables,
 # and the dense projections run on other matrix shapes), so an element's
@@ -985,8 +1024,9 @@ def hub_tol(graph, tol):
     """``tol`` with its atol grown with the blocks' widest row in units of
     128 terms (a bin segment's most): such a row sums thousands of terms in
     another order in the kernel than in the plain version (the rule of
-    tests/test_torch_dense.py)."""
-    widest = max(widest_row(graph.fwd.dense), widest_row(graph.bwd.dense))
+    tests/test_torch_dense.py).  ``graph``: a Graph or a ShardView."""
+    widest = max(widest_row(adj.dense) for adj in (graph.fwd, graph.bwd)
+                 if adj.dense is not None)
     return dict(tol, atol=tol["atol"] * max(1.0, widest / 128))
 
 
@@ -2205,8 +2245,12 @@ def gid_jobs(bins, dense, view, tb):
 def check_gid_kernels(bins, dense, view, tb, err):
     """The gid kernels against their plain versions on one shard, p 0.3:
     the bin kernels' list calls with and without the sign-split partials
-    (sum_tol), the hub-block kernels in both dense dtypes (BLOCK_TOL, bf16
-    flips as check_dense).  Returns the number of comparisons."""
+    (sum_tol), the hub-block kernels in both dense dtypes (BLOCK_TOL with
+    its atol grown with the shard's widest block row, ``hub_tol``, as
+    check_dense on the skewed block: the plain version sums a row of
+    thousands of terms with ``index_add_`` on the card, whose order changes
+    from run to run; bf16 flips as check_dense).  Returns the number of
+    comparisons and the hub blocks' atol (None without a block)."""
     gid = view.ext_gids
     ks = dict(seed=card_seed(tb["ac"], torch.int32))  # the kernels' seed
     n_cmp = 0
@@ -2231,7 +2275,8 @@ def check_gid_kernels(bins, dense, view, tb, err):
                                      float((g - w).abs().max()))
     n_cmp += 1
     if view.fwd.dense is None:
-        return n_cmp
+        return n_cmp, None
+    tol = hub_tol(view, BLOCK_TOL)
     for dt in DENSE_DTYPES:
         for with_pos in (True, False):
             kw = dict(slope=SLOPE, with_pos=with_pos, p=0.3, seed=SEED,
@@ -2241,28 +2286,30 @@ def check_gid_kernels(bins, dense, view, tb, err):
                             dense.dense_gat_fwd_plain(*args, **kw)):
                 if w is None:
                     continue
-                e, _ = assert_close(g, w, BLOCK_TOL, dt, f"fwd gid {dt}: ")
+                e, _ = assert_close(g, w, tol, dt, f"fwd gid {dt}: ")
                 err["dense_gat_fwd_gid"] = max(err["dense_gat_fwd_gid"], e)
             n_cmp += 1
         kw = dict(slope=SLOPE, p=0.3, seed=SEED, dense_dtype=dt, gid=gid)
         args = (view.bwd.dense, *(tb[k] for k in GAT_BWD_KEYS))
         for g, w in zip(dense.dense_gat_bwd(*args, **kw | ks),
                         dense.dense_gat_bwd_plain(*args, **kw)):
-            e, _ = assert_close(g, w, BLOCK_TOL, dt, f"bwd gid {dt}: ")
+            e, _ = assert_close(g, w, tol, dt, f"bwd gid {dt}: ")
             err["dense_gat_bwd_gid"] = max(err["dense_gat_bwd_gid"], e)
         n_cmp += 1
     torch.cuda.synchronize()
-    return n_cmp
+    return n_cmp, tol["atol"]
 
 
-def sharded_rank(rank, world, specs, jobs):
+def sharded_rank(rank, world, specs, ec_spec, jobs):
     """One rank of the phase's P-rank run: each comparison spec (the
     sharded model on this shard: its rows' output, the summed parameter
     gradients of its share of the loss, and the launches it made, every
-    count set to 0 just before), then each training job
-    (parallel.trainer.train_gat_rank)."""
-    from dgnn_tpu_torch.parallel.trainer import (shard_loss, spec_grads,
-                                                 train_gat_rank)
+    count set to 0 just before), the data-parallel DGCNN step's comparison
+    (parallel.trainer.dgcnn_grads, the same way; its loss share and batch
+    norm statistics beside), then each training job
+    (parallel.trainer.train_rank)."""
+    from dgnn_tpu_torch.parallel.trainer import (dgcnn_grads, shard_loss,
+                                                 spec_grads, train_rank)
 
     dev = torch.device("cuda", 0)
     compared = {}
@@ -2279,17 +2326,35 @@ def sharded_rank(rank, world, specs, jobs):
         launches = {k: v for k, v in all_launches().items() if v}
         compared[name] = (out.cpu().numpy(),
                           {k: g.cpu() for k, g in grads.items()}, launches)
-    trained = [train_gat_rank(rank, world, job) for job in jobs]
-    return compared, trained, collective_ms(jobs[0], rank, dev)
+    reset_all_launches()
+    r = dgcnn_grads(ec_spec, rank, world, dev)
+    torch.cuda.synchronize()
+    compared[EC_DP] = (r["logits"].cpu().numpy(),
+                       {k: g.cpu() for k, g in r["grads"].items()},
+                       {k: v for k, v in all_launches().items() if v})
+    ec = (float(r["loss"]), {k: v.cpu() for k, v in r["stats"].items()})
+    trained = [train_rank(rank, world, job) for job in jobs]
+    return compared, ec, trained, collective_ms(jobs[0], jobs[-1], rank,
+                                                dev)
 
 
-def collective_ms(job, rank, dev):
-    """ms a call of the training step's collectives alone, on this rank,
-    after the run: one halo exchange of ``job``'s hidden-layer payload
-    (features ++ attn_col, [C, H*F + H] float32) and one all-reduce of the
-    model's gradients (every parameter, float32)."""
+def train_jobs(rank, world, jobs):
+    """One rank of a P-rank run of training jobs (parallel.trainer)."""
+    from dgnn_tpu_torch.parallel.trainer import train_rank
+
+    return [train_rank(rank, world, job) for job in jobs]
+
+
+def collective_ms(job, ec_job, rank, dev):
+    """ms a call of the training steps' collectives alone, on this rank,
+    after the runs: one halo exchange of the GAT ``job``'s hidden-layer
+    payload (features ++ attn_col, [C, H*F + H] float32) and one
+    all-reduce of its model's gradients (every parameter, float32); one
+    all-reduce of the DGCNN ``ec_job``'s gradients and one of its first
+    batch norm's sums ([2, C] float32)."""
     import torch.distributed as dist
 
+    from dgnn_tpu_torch.models import DGCNN
     from dgnn_tpu_torch.parallel import ShardedGAT, halo_exchange, shard_view
     from dgnn_tpu_torch.utils import time_calls
 
@@ -2301,12 +2366,21 @@ def collective_ms(job, rank, dev):
         job.features.shape[1], len(job.heads) - 1, job.n_hidden,
         job.n_classes, job.heads).parameters())
     grads = torch.randn(n_params, device=dev)
+    ec_params = sum(p.numel() for p in DGCNN(
+        k=ec_job.k, feature_dims=ec_job.feature_dims,
+        emb_dims=ec_job.emb_dims, output_classes=ec_job.n_classes
+    ).parameters())
+    ec_grads = torch.randn(ec_params, device=dev)
+    bn_sums = torch.randn(2, ec_job.emb_dims[1], device=dev)
+
+    def ms(fn):
+        return time_calls(fn, dev, iters=10, warmup=2) * 1e3
+
     return dict(
-        exchange_ms=time_calls(lambda: halo_exchange(payload, view.send_ids),
-                               dev, iters=10, warmup=2) * 1e3,
-        allreduce_ms=time_calls(lambda: dist.all_reduce(grads), dev,
-                                iters=10, warmup=2) * 1e3,
-        params=n_params)
+        exchange_ms=ms(lambda: halo_exchange(payload, view.send_ids)),
+        allreduce_ms=ms(lambda: dist.all_reduce(grads)), params=n_params,
+        ec_allreduce_ms=ms(lambda: dist.all_reduce(ec_grads)),
+        bn_allreduce_ms=ms(lambda: dist.all_reduce(bn_sums)))
 
 
 def compare_spec(kind, shards, graph, data, state_model, dev, *, seeds=None,
@@ -2333,9 +2407,11 @@ def compare_spec(kind, shards, graph, data, state_model, dev, *, seeds=None,
     return spec, want
 
 
-def check_compared(name, want, got_ranks, n):
+def check_compared(name, want, got_ranks, n, grad_tol=None):
     """The ranks' rows of the output (concatenated, the real n) and every
-    rank's summed gradients against the single-device run on the card."""
+    rank's summed gradients against the single-device run on the card;
+    ``grad_tol(name, want)``: a gradient's tolerance, SHARD_GRAD_TOL's
+    by default."""
     out = np.concatenate([r[name][0] for r in got_ranks])[:n]
     scale = float(np.abs(want[0]).max())
     torch.testing.assert_close(
@@ -2346,13 +2422,112 @@ def check_compared(name, want, got_ranks, n):
     g0 = got_ranks[0][name][1]
     assert set(g0) == set(want[1]), (name, sorted(g0), sorted(want[1]))
     for k, w in want[1].items():
-        tol = dict(rtol=SHARD_GRAD_TOL["rtol"],
-                   atol=SHARD_GRAD_TOL["atol_scale"] * float(w.abs().max()))
+        tol = (grad_tol or shard_grad_tol)(k, w)
         torch.testing.assert_close(g0[k], w, **tol,
                                    msg=lambda m: f"{name} d {k}: {m}")
         for r in got_ranks[1:]:
             assert torch.equal(r[name][1][k], g0[k]), (name, k)
     return worst
+
+
+def shard_grad_tol(name, w):
+    """SHARD_GRAD_TOL for the gradient ``w``: atol a share of its largest
+    element."""
+    return dict(rtol=SHARD_GRAD_TOL["rtol"],
+                atol=SHARD_GRAD_TOL["atol_scale"] * float(w.abs().max()))
+
+
+def bn_fed_bias(name):
+    """Whether DGCNN's parameter ``name`` is a bias that feeds a batch norm
+    (proj's, through the pooling, and the embeddings'): its gradient is 0
+    exactly, the norm removing any shift."""
+    return name == "proj.bias" or (name.startswith("embs.")
+                                   and name.endswith(".bias"))
+
+
+def grad_shares(want, got):
+    """The largest |got - want| over the largest |want| element, of the
+    EdgeConv layers' gradients (one per tensor, rounded) and of the rest's
+    (the largest), biases before a batch norm left out."""
+    share = {k: float((got[k] - w).abs().max() / w.abs().max())
+             for k, w in want.items()}
+    conv = {k.removeprefix("convs."): float(f"{v:.3g}")
+            for k, v in share.items() if k.startswith("convs.")}
+    rest = max(v for k, v in share.items()
+               if not k.startswith("convs.") and not bn_fed_bias(k))
+    return conv, rest
+
+
+def dgcnn_grad_tol(grads):
+    """``check_compared``'s tolerances for the data-parallel DGCNN step's
+    gradients ``grads`` (the single-device step's): SHARD_GRAD_TOL, but
+    EC_DP_CONV_TOL for the EdgeConv layers' and, for a bias that feeds a
+    batch norm, an atol of SHARD_GRAD_TOL's share of the model's largest
+    gradient element (see EC_DP_CONV_TOL)."""
+    largest = max(float(w.abs().max()) for w in grads.values())
+
+    def tol(name, w):
+        if name.startswith("convs."):
+            return dict(rtol=EC_DP_CONV_TOL["rtol"],
+                        atol=EC_DP_CONV_TOL["atol_scale"]
+                        * float(w.abs().max()))
+        if bn_fed_bias(name):
+            return dict(rtol=0.0, atol=SHARD_GRAD_TOL["atol_scale"] * largest)
+        return shard_grad_tol(name, w)
+
+    return tol
+
+
+def check_dgcnn_step(want, ranks):
+    """The data-parallel DGCNN step's loss (the ranks' shares summed) at
+    SHARD_GRAD_TOL and every rank's batch-norm running statistics at
+    SHARD_FWD_TOL against the single-device step's, the statistics equal
+    on every rank.  Returns the loss's and the statistics' max |diff|."""
+    want_loss, want_stats = want
+    loss = sum(r[0] for r in ranks)
+    assert abs(loss - want_loss) <= SHARD_GRAD_TOL["rtol"] * abs(want_loss), \
+        (loss, want_loss)
+    worst = 0.0
+    for k, w in want_stats.items():
+        scale = float(w.abs().max())
+        torch.testing.assert_close(
+            ranks[0][1][k], w, rtol=SHARD_FWD_TOL["rtol"],
+            atol=SHARD_FWD_TOL["atol_scale"] * scale,
+            msg=lambda m: f"{EC_DP} {k}: {m}")
+        worst = max(worst, float((ranks[0][1][k] - w).abs().max()))
+        for r in ranks[1:]:
+            assert torch.equal(r[1][k], ranks[0][1][k]), k
+    return abs(loss - want_loss), worst
+
+
+def check_dgcnn_training(runs, n_params, emb_dims):
+    """One P-rank run of parallel.trainer.train_dgcnn_rank: the loss (the
+    ranks' shares summed) finite and falling, the ranks' final digests
+    equal, each rank's launches and all-reduces exactly what the steps
+    imply (one of the gradients and, forward and backward, one a batch
+    norm, a step; a batch norm follows each embedding past the first,
+    ``emb_dims``).
+    Returns its line: the slowest rank's ms a step, the
+    loss, all-reduces and bytes a step a rank, route, peak MB."""
+    steps = SHARD_STEPS + SHARD_WARMUP
+    loss = [sum(v) for v in zip(*(r["losses"] for r in runs))]
+    assert len(loss) == steps and all(np.isfinite(loss)), loss
+    assert loss[-1] < loss[0], loss
+    assert len({r["digest"] for r in runs}) == 1, [r["digest"] for r in runs]
+    # the batch norms' sums and sums of squares, forward and backward
+    n_bns, bn_bytes = len(emb_dims) - 1, 2 * 2 * 4 * sum(emb_dims[1:])
+    for r in runs:
+        assert r["launches"] == {k: v * steps
+                                 for k, v in EC_DP_LAUNCHES.items()}, \
+            r["launches"]
+        assert r["allreduces"]["allreduces"] == (1 + 2 * n_bns) * steps, \
+            r["allreduces"]
+        assert r["allreduces"]["bytes"] == steps * (4 * n_params + bn_bytes)
+    ar = runs[0]["allreduces"]
+    return dict(ms=max(r["step_s"] for r in runs) * 1e3, loss=loss,
+                allreduces=ar["allreduces"] // steps,
+                bytes=ar["bytes"] // steps, route=ar["route"],
+                peak_mb=max(r["peak_mb"] for r in runs))
 
 
 def train_line(results, shards):
@@ -2414,9 +2589,13 @@ def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
     from dgnn_tpu_torch.data.synthetic import CITATION_SHAPES
     from dgnn_tpu_torch.models import GAT, MoNet
     from dgnn_tpu_torch.ops.gmm import NodePseudo, bin_pseudo
+    from dgnn_tpu_torch.data import load_modelnet
+    from dgnn_tpu_torch.models import DGCNN
     from dgnn_tpu_torch.parallel import (partition_graph, run_ranks,
                                          shard_view)
-    from dgnn_tpu_torch.parallel.trainer import GATJob, train_gat_rank
+    from dgnn_tpu_torch.parallel.trainer import (DGCNNJob, GATJob, MoNetJob,
+                                                 degree_pseudo)
+    from dgnn_tpu_torch.utils.training import smoothed_loss
 
     t_phase = time.perf_counter()
     srng = np.random.default_rng(11)  # the phase's own draws
@@ -2466,9 +2645,12 @@ def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
             tb = {k: v.to(dev) for k, v in
                   shard_tables(gat_forward, view, h, f, srng).items()}
             vd = view.to(dev)
-            n_cmp = check_gid_kernels(bins, dense, vd, tb, err)
+            n_cmp, block_atol = check_gid_kernels(bins, dense, vd, tb, err)
             phase("sharded", f"{name} shard 1 H={h} F={f} p=0.3: {n_cmp} "
-                  "gid kernel/plain comparisons agree")
+                  "gid kernel/plain comparisons agree" + (
+                      "" if block_atol is None else
+                      f" (hub blocks' atol {block_atol:.3g}, grown with the "
+                      "widest block row)"))
             if timed is None or (h, f) != shapes[0]:
                 continue
             for kname, (fn, fn_nogid, fn_plain, inputs, edges) in gid_jobs(
@@ -2543,48 +2725,106 @@ def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
         pseudo_args=(bin_pseudo(graph, torch.from_numpy(pflat).to(dev)),))
     specs["monet binned pubmed"]["kwargs"] = dict(kw, dense_dtype="float32")
     del graph, model
+    # DGCNN batch data parallel at the trainer's width (B = EC_B, P = EC_P,
+    # k = EC_K, dropout 0.5): one training step of the single-device port
+    # model on the whole batch on the card, its weights, clouds and
+    # generator seed handed to the ranks (data-parallel, EC_B / SHARD_P
+    # clouds a rank)
+    xtr, ytr, _xte, yte = load_modelnet(num_points=EC_P)
+    ec_kw = dict(k=EC_K, output_classes=int(max(ytr.max(), yte.max())) + 1,
+                 dropout=0.5)
+    model = DGCNN(**ec_kw, generator=torch.Generator().manual_seed(0))
+    ec_spec = dict(kwargs=ec_kw, state=copy.deepcopy(model.state_dict()),
+                   x=xtr[:EC_B], y=ytr[:EC_B], seed=3)
+    model = model.to(dev).train()
+    logits = model(torch.from_numpy(ec_spec["x"]).to(dev),
+                   generator=torch.Generator(device=dev).manual_seed(3))
+    ec_loss = smoothed_loss(logits, torch.from_numpy(
+        ec_spec["y"].astype(np.int64)).to(dev))
+    ec_loss.backward()
+    wants[EC_DP] = (logits.detach().cpu().numpy(),
+                    {k: p.grad.cpu() for k, p in model.named_parameters()})
+    ec_want = (float(ec_loss), {k: v.cpu()
+                                for k, v in model.bns.named_buffers()})
+    n_params = sum(p.numel() for p in model.parameters())
+    del model, logits, ec_loss
     torch.cuda.empty_cache()
 
-    # training: GAT at the bench width (feat_drop 0.5, attn_drop 0.3)
+    # training: GAT at the bench width (feat_drop 0.5, attn_drop 0.3);
+    # MoNet at its CLI's (hidden 64, K 3, dim 2, dropout 0.5, Adam 1e-2)
+    # with the graft entry's node pseudo; DGCNN at the trainer's
     def job(dd, sh, steps=SHARD_STEPS):
         return GATJob(shards=sh, features=dd["features"], labels=dd["labels"],
                       train_mask=dd["train_mask"], n_classes=dd["n_classes"],
                       steps=steps, warmup=SHARD_WARMUP, device="cuda")
 
-    jobs = [job(data["pubmed"], shards["pubmed"]), job(red, red_sh)]
+    def monet_job(dd, sh):
+        return MoNetJob(shards=sh, features=dd["features"],
+                        labels=dd["labels"], train_mask=dd["train_mask"],
+                        pseudo=degree_pseudo(dd["dst"], dd["n"]),
+                        n_classes=dd["n_classes"], steps=SHARD_STEPS,
+                        warmup=SHARD_WARMUP, device="cuda")
+
+    ec_job = DGCNNJob(x_train=xtr, y_train=ytr,
+                      n_classes=ec_kw["output_classes"], batch_size=EC_B,
+                      k=EC_K, steps=SHARD_STEPS, warmup=SHARD_WARMUP,
+                      device="cuda")
+    jobs = [job(data["pubmed"], shards["pubmed"]), job(red, red_sh),
+            monet_job(data["pubmed"], shards["pubmed"]),
+            monet_job(data["cora"], shards["cora"]), ec_job]
     t0 = time.perf_counter()
-    compared, trained, coll = zip(*run_ranks(sharded_rank, SHARD_P, specs,
-                                             jobs))
+    compared, ec_ranks, trained, coll = zip(*run_ranks(
+        sharded_rank, SHARD_P, specs, ec_spec, jobs))
     phase("sharded", f"{SHARD_P} ranks on the card (gloo): the comparisons "
-          f"and both training runs took {time.perf_counter() - t0:.1f} s "
-          "(spawn included)")
+          f"and the {len(jobs)} training runs took "
+          f"{time.perf_counter() - t0:.1f} s (spawn included)")
     # the launches each rank made in its comparison runs, exactly: one
     # forward and one backward over both layers (the GATs with attention
-    # dropout on, so under the gid names; binned-pseudo MoNet launches none)
+    # dropout on, so under the gid names; binned-pseudo MoNet launches
+    # none); DGCNN's, one step's
     want_launches = {
         name: ([{}] * SHARD_P if spec.get("pseudo") == "binned" else
                expected_shard_launches(
                    bins, spec["shards"], "gat" if spec["model"] == "gat"
                    else "gmm", 2, gid=spec["model"] == "gat"))
         for name, spec in specs.items()}
-    for name, spec in specs.items():
-        worst = check_compared(name, wants[name], compared,
-                               spec["features"].shape[0])
+    want_launches[EC_DP] = [EC_DP_LAUNCHES] * SHARD_P
+    for name in want_launches:
+        worst = check_compared(
+            name, wants[name], compared, wants[name][0].shape[0],
+            dgcnn_grad_tol(wants[name][1]) if name == EC_DP else None)
         got = [r[name][2] for r in compared]
         assert got == want_launches[name], (name, got, want_launches[name])
         phase("sharded", f"{name}: {SHARD_P}-rank sharded model = the "
-              "single-device model on the card, same weights, dense_dtype "
-              "float32: output (max |diff| {:.3g}; rtol {}, atol {} of the "
-              "largest) and every parameter gradient (rtol {}, atol {} of "
-              "the largest) on every rank; launches a rank {} (exact)".format(
-                  worst, SHARD_FWD_TOL["rtol"], SHARD_FWD_TOL["atol_scale"],
+              "single-device model on the card, same weights{}: output (max "
+              "|diff| {:.3g}; rtol {}, atol {} of the largest) and every "
+              "parameter gradient (rtol {}, atol {} of the largest{}) on "
+              "every rank; launches a rank {} (exact)".format(
+                  "" if name == EC_DP else ", dense_dtype float32", worst,
+                  SHARD_FWD_TOL["rtol"], SHARD_FWD_TOL["atol_scale"],
                   SHARD_GRAD_TOL["rtol"], SHARD_GRAD_TOL["atol_scale"],
-                  got))
+                  "" if name != EC_DP else
+                  "; the EdgeConv layers' rtol {}, atol {} of the largest, "
+                  "largest |diff| / largest |element| {}; the rest {:.3g}; "
+                  "the biases before a batch norm, whose gradient is 0, "
+                  "within {} of the model's largest".format(
+                      EC_DP_CONV_TOL["rtol"], EC_DP_CONV_TOL["atol_scale"],
+                      *grad_shares(wants[name][1], compared[0][name][1]),
+                      SHARD_GRAD_TOL["atol_scale"]), got))
+    loss_err, stats_err = check_dgcnn_step(ec_want, ec_ranks)
+    phase("sharded", f"{EC_DP} B={EC_B} P={EC_P} k={EC_K} dropout 0.5 (the "
+          f"global batch's mask; {EC_B // SHARD_P} clouds a rank): the ranks' "
+          f"loss shares sum to the single-device loss {ec_want[0]:.6f} "
+          f"(|diff| {loss_err:.3g}; rtol {SHARD_GRAD_TOL['rtol']}), the "
+          "batch norms' running statistics (global mean and variance) "
+          f"within rtol {SHARD_FWD_TOL['rtol']}, atol "
+          f"{SHARD_FWD_TOL['atol_scale']} of the largest (max |diff| "
+          f"{stats_err:.3g}), equal on every rank")
     launches = {}
     for (title, sh, dd), runs in zip(
             (("pubmed", shards["pubmed"], data["pubmed"]),
              (f"reddit scale {SHARD_REDDIT_SCALE}", red_sh, red)),
-            zip(*trained)):
+            list(zip(*trained))[:2]):
         line = train_line(runs, sh)
         assert all(np.isfinite(line["loss"])), line["loss"]
         assert line["loss"][-1] < line["loss"][0], line["loss"]
@@ -2605,6 +2845,26 @@ def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
               f"{line['peak_mb']:.0f} MB a rank, launches a rank "
               f"{[r['launches'] for r in runs]} (exact; no other kernel "
               f"and no plain version on the card) | {smi}")
+    monet_runs = list(zip(*trained))[2:4]
+    for (title, sh), runs in zip((("pubmed", shards["pubmed"]),
+                                  ("cora forced block", shards["cora"])),
+                                 monet_runs):
+        line = train_line(runs, sh)
+        assert all(np.isfinite(line["loss"])), line["loss"]
+        assert line["loss"][-1] < line["loss"][0], line["loss"]
+        want = expected_shard_launches(
+            bins, sh, "gmm", (SHARD_STEPS + SHARD_WARMUP) * 2, gid=False)
+        for r, w in zip(runs, want):
+            assert r["launches"] == w, (title, r["launches"], w)
+        assert all(np.isfinite(r["logits"]).all() for r in runs)
+        phase("sharded", f"train {title} MoNet hidden 64 K 3 dim 2 dropout "
+              f"0.5 Adam 1e-2, node pseudo deg^-1/2, P={SHARD_P}: "
+              f"{SHARD_STEPS + SHARD_WARMUP} steps, loss "
+              f"{line['loss'][0]:.4f} -> {line['loss'][-1]:.4f}, "
+              f"{line['ms']:.3f} ms/step, {line['bytes_per_exchange']} bytes "
+              f"an exchange a rank ({line['exchanges']} exchanges), peak "
+              f"{line['peak_mb']:.0f} MB a rank, launches a rank "
+              f"{[r['launches'] for r in runs]} (exact) | {smi}")
     phase("sharded", f"pubmed P={SHARD_P}, the collectives alone (CUDA "
           "events around the call, after the training runs): one halo "
           "exchange of the hidden layer's payload "
@@ -2617,12 +2877,14 @@ def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
     # ms a step at P = 1, 2 and 4 on pubmed: the ranks share the card, so
     # T(P) / T(1) is the work ratio
     scaling = {SHARD_P: train_line([t[0] for t in trained], shards["pubmed"])}
+    ec_runs = {SHARD_P: [t[-1] for t in trained]}
     for p in (1, 2):
         sh = partition_graph(data["pubmed"]["src"], data["pubmed"]["dst"],
                              data["pubmed"]["n"], p, dense="auto")
-        runs = run_ranks(train_gat_rank, p,
-                         job(data["pubmed"], sh, SHARD_SCALING_STEPS))
-        scaling[p] = train_line(runs, sh)
+        runs = run_ranks(train_jobs, p, [
+            job(data["pubmed"], sh, SHARD_SCALING_STEPS), ec_job])
+        scaling[p] = train_line([r[0] for r in runs], sh)
+        ec_runs[p] = [r[1] for r in runs]
     t1 = scaling[1]["ms"]
     phase("sharded", "pubmed GAT bench width, ms a step at P = 1, 2, 4 ranks "
           "on one card (work ratio T(P)/T(1)): " + "; ".join(
@@ -2632,6 +2894,27 @@ def run_sharded(bins, dense, structure, gat_forward, dev, smi, err,
               f"peak {scaling[p]['peak_mb']:.0f} MB a rank, route "
               f"{scaling[p]['route']}" for p in sorted(scaling))
           + f" | {smi}")
+    ec_lines = {p: check_dgcnn_training(runs, n_params, ec_job.emb_dims)
+                for p, runs in sorted(ec_runs.items())}
+    ec1 = ec_lines[1]["ms"]
+    phase("sharded", f"train DGCNN B={EC_B} P={EC_P} k={EC_K} dropout 0.5 "
+          f"SGD 0.1 cosine, batch data parallel on {len(xtr)} synthetic "
+          f"clouds ({SHARD_STEPS + SHARD_WARMUP} steps, {SHARD_WARMUP} of "
+          "them warmup, the slowest rank's ms a step), every rank's final "
+          "parameters and batch-norm statistics equal bit for bit, launches "
+          "exact (masked_max_step8, masked_max_live_lists, tie_sum_bwd, "
+          "tie_sum_lists 4 a step a rank, nothing else): " + "; ".join(
+              f"P={p} {ln['ms']:.3f} ms ({ln['ms'] / ec1:.3f} of P=1), loss "
+              f"{ln['loss'][0]:.4f} -> {ln['loss'][-1]:.4f}, "
+              f"{ln['allreduces']} all-reduces and {ln['bytes']} bytes a "
+              f"step a rank ({n_params} parameters), route {ln['route']}, "
+              f"peak {ln['peak_mb']:.0f} MB a rank"
+              for p, ln in ec_lines.items())
+          + f"; at P={SHARD_P} the collectives alone (CUDA events around "
+          "the call, slowest rank): one all-reduce of the gradients "
+          f"{max(c['ec_allreduce_ms'] for c in coll):.3f} ms, one of a "
+          f"batch norm's sums {max(c['bn_allreduce_ms'] for c in coll):.3f}"
+          " ms, 4 of those a step | " + smi)
     phase("sharded", f"the phase took {time.perf_counter() - t_phase:.1f} s")
     return launches, shard_times
 

@@ -56,11 +56,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
+    def batch_stats(self, x: torch.Tensor):
+        """The mean and biased variance of ``x`` over every axis but the
+        last, in training."""
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        return mean, ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            mean, var = self.batch_stats(x)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     mean, alpha=1.0 - self.momentum)
@@ -159,5 +164,10 @@ class DGCNN(nn.Module):
         for emb, bn in zip(self.embs.values(), self.bns.values()):
             h = F.leaky_relu(bn(emb(h)), negative_slope=0.2)
             if self.training and self.dropout > 0.0:
-                h = _dropout(h, self.dropout, generator)
+                h = self.feature_dropout(h, generator)
         return self.head(h)
+
+    def feature_dropout(self, h: torch.Tensor,
+                        generator: torch.Generator | None) -> torch.Tensor:
+        """The head's dropout of the clouds' features h [B, C]."""
+        return _dropout(h, self.dropout, generator)

@@ -24,13 +24,25 @@ for bit; feature dropout draws from each rank's own ``torch.Generator``
 (the JAX package's per-shard feature mask is not the single-device one
 either).
 
+Batch data parallelism (``ShardedDGCNN``): each rank runs DGCNN on its
+contiguous B/P clouds of every batch.  Its batch norm takes the mean and
+variance over the GLOBAL batch (``GlobalBatchNorm``: one differentiable
+all-reduce of the local sums), as flax's BatchNorm does under ``jit`` on
+a batch sharded over a mesh, and its feature dropout draws the global
+batch's mask from a generator seeded the same on every rank and takes the
+rank's rows, so that a P-rank step is the single-device step up to float32
+summation order, dropout on.  That is unlike the graph models' feature
+dropout above, which draws from each rank's own generator.
+
 Exchange routes.  Every collective hands its tensors to the process
 group's backend as they are: NCCL on CUDA tensors, gloo on CPU tensors and
 on CUDA tensors too (P ranks sharing one card, where NCCL refuses a card
 shared by ranks): the installed torch's gloo takes CUDA tensors for
 all_to_all_single and all_reduce and copies them through the host itself
 (checked on an H100 with torch 2.11).  ``EXCHANGES`` counts the exchanges,
-the bytes they sent and their route ("<backend>/<device type>").
+the bytes they sent and their route ("<backend>/<device type>");
+``ALLREDUCES`` the all-reduces (the gradient sums and the batch norm's
+statistics, forward and backward) the same way.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..models.dgcnn import DGCNN, BatchNorm
 from ..models.gat import GATConv, _dropout
 from ..models.monet import GMMConv, _mode_of
 from ..ops.gat import gat_fused
@@ -51,13 +64,17 @@ from .partition import ShardView, merge_binned
 __all__ = ["halo_exchange", "merge_binned", "shard_edge_data",
            "allreduce_grads", "exchange_route", "batch_parallel",
            "ShardedGATConv", "ShardedGAT", "ShardedGMMConv", "ShardedMoNet",
-           "EXCHANGES", "reset_exchanges"]
+           "GlobalBatchNorm", "ShardedDGCNN", "EXCHANGES", "ALLREDUCES",
+           "reset_exchanges"]
 
 EXCHANGES = {"exchanges": 0, "bytes": 0, "route": None}
+ALLREDUCES = {"allreduces": 0, "bytes": 0, "route": None}
 
 
 def reset_exchanges() -> None:
+    """Set ``EXCHANGES`` and ``ALLREDUCES`` to 0."""
     EXCHANGES.update(exchanges=0, bytes=0, route=None)
+    ALLREDUCES.update(allreduces=0, bytes=0, route=None)
 
 
 def exchange_route(t: torch.Tensor, group=None) -> str:
@@ -76,6 +93,29 @@ def _all_to_all(send: torch.Tensor, group) -> torch.Tensor:
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     return recv
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """SUM ``t`` over the ranks in place, counted in ``ALLREDUCES``."""
+    ALLREDUCES["allreduces"] += 1
+    ALLREDUCES["bytes"] += t.numel() * t.element_size()
+    ALLREDUCES["route"] = exchange_route(t, group)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of ``x`` over the ranks; its backward sums the gradient over
+    the ranks too (every rank's loss share reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), ctx.group), None
 
 
 class _HaloExchange(torch.autograd.Function):
@@ -121,7 +161,7 @@ def allreduce_grads(module: nn.Module, group=None) -> None:
     flat = torch.cat([(p.grad if p.grad is not None
                        else torch.zeros_like(p)).reshape(-1)
                       for p in params])
-    dist.all_reduce(flat, group=group)
+    _all_reduce(flat, group)
     off = 0
     for p in params:
         n = p.numel()
@@ -145,6 +185,64 @@ def batch_parallel(model: nn.Module, x: torch.Tensor, group=None):
     parts = [torch.empty_like(local) for _ in range(world)]
     dist.all_gather(parts, local, group=group)
     return torch.cat(parts)
+
+
+class GlobalBatchNorm(BatchNorm):
+    """models.dgcnn.BatchNorm over the global batch of a batch-data-parallel
+    model: in training, each rank's sum and sum of squares over its rows
+    (every axis but the last) are summed over the ranks by one
+    differentiable all-reduce, and the mean and biased variance are taken
+    over the global count, as BatchNorm takes them on the whole batch; so
+    the output, the input gradient and the running statistics (the same on
+    every rank) are the single-device ones.  In eval mode it reads the
+    running statistics, with no collective.  Every rank must hold as many
+    rows.  Parameters and buffers as BatchNorm's."""
+
+    def __init__(self, num_features: int, *, group=None, **kw):
+        super().__init__(num_features, **kw)
+        self.group = group
+
+    def batch_stats(self, x: torch.Tensor):
+        axes = tuple(range(x.dim() - 1))
+        count = x.numel() // x.shape[-1] * dist.get_world_size(self.group)
+        sums = _AllReduceSum.apply(
+            torch.stack([x.sum(dim=axes), (x * x).sum(dim=axes)]), self.group)
+        mean = sums[0] / count
+        return mean, (sums[1] / count - mean * mean).clamp(min=0.0)
+
+
+class ShardedDGCNN(DGCNN):
+    """DGCNN trained batch-data-parallel: rank r runs the model on its
+    contiguous B/P clouds of a batch of B (the same on every rank), its
+    ``bns`` are ``GlobalBatchNorm``s and its feature dropout draws the
+    global [B, C] mask (``feature_dropout``).  DGCNN's arguments, parameter
+    names and init, so a single-device ``state_dict`` and
+    ``models.load_flax_dgcnn`` load into it strictly; ``group``: the
+    process group of the ranks.  Each rank's loss share is its clouds'
+    terms over B, and ``allreduce_grads`` sums the gradients."""
+
+    def __init__(self, *args, group=None, **kw):
+        super().__init__(*args, **kw)
+        self.group = group
+        self.bns = nn.ModuleDict({
+            name: GlobalBatchNorm(bn.scale.numel(), momentum=bn.momentum,
+                                  eps=bn.eps, group=group)
+            for name, bn in self.bns.items()})
+
+    def feature_dropout(self, h: torch.Tensor,
+                        generator: torch.Generator | None) -> torch.Tensor:
+        """Dropout of this rank's rows h [B/P, C] under the mask of the
+        global batch [B, C], drawn whole on every rank from ``generator``
+        (seeded the same on every rank), so the draws are the single-device
+        model's and the ranks' generators stay in step."""
+        if generator is None:
+            raise ValueError("feature dropout in training needs a "
+                             "torch.Generator")
+        b, rank = h.shape[0], dist.get_rank(self.group)
+        u = torch.rand((dist.get_world_size(self.group) * b,) + h.shape[1:],
+                       generator=generator, device=h.device)
+        return torch.where(u[rank * b:(rank + 1) * b] < 1.0 - self.dropout,
+                           h / (1.0 - self.dropout), 0.0)
 
 
 def shard_edge_data(view: ShardView, data: torch.Tensor):

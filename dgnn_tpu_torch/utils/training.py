@@ -1,4 +1,5 @@
-"""The loss and optimizer that the training CLIs share."""
+"""The losses, optimizers and point-cloud augmentation that the training
+CLIs and the sharded trainers share."""
 
 from __future__ import annotations
 
@@ -8,7 +9,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["masked_loss", "make_optimizer", "smoothed_loss", "cosine_lr",
-           "SGDCosine", "make_sgd_cosine"]
+           "SGDCosine", "make_sgd_cosine", "augment", "permutation",
+           "shuffle_augment"]
 
 
 def masked_loss(logits, labels, train_mask):
@@ -140,3 +142,27 @@ def make_sgd_cosine(model, decay_steps: int, *, lr: float = 0.1,
     return SGDCosine(model.parameters(), decay_steps, lr=lr,
                      momentum=momentum, weight_decay=weight_decay,
                      alpha=alpha)
+
+
+def augment(x, generator):
+    """Random anisotropic scale in [2/3, 3/2] and shift in [-0.2, 0.2] per
+    cloud and axis (the reference's ModelNetDataset.translate)."""
+    shape = (x.shape[0], 1, 3)
+    s = torch.rand(shape, generator=generator, device=x.device)
+    t = torch.rand(shape, generator=generator, device=x.device)
+    return x * (2 / 3 + s * (3 / 2 - 2 / 3)) + (t * 0.4 - 0.2)
+
+
+def permutation(n, generator):
+    """A permutation of range(n) drawn on the generator's device: the
+    argsort of n uniform draws, which a CUDA graph captures."""
+    return torch.argsort(torch.rand(n, generator=generator,
+                                    device=generator.device))
+
+
+def shuffle_augment(x, y, generator):
+    """An epoch's clouds and labels: a permutation of the clouds x [S, P, 3]
+    and labels y [S], then each cloud's scale and shift, drawn from
+    ``generator`` in that order (the DGCNN trainer's epoch)."""
+    order = permutation(x.shape[0], generator)
+    return augment(x[order], generator), y[order]

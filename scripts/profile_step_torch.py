@@ -57,6 +57,7 @@ import time
 import torch
 
 from dgnn_tpu_torch.utils import StepGraph, make_optimizer, make_sgd_cosine
+from dgnn_tpu_torch.utils.training import augment
 
 # substrings of the hand-written kernels' names in a trace
 OWN = ("bin_gat_fwd", "bin_gat_bwd", "dense_gat_fwd", "dense_gat_bwd",
@@ -104,7 +105,7 @@ def make_edgeconv_step(trainer, r, total_steps, bs):
     def step():
         i = state["i"] % (xs.shape[0] // bs)
         state["i"] += 1
-        x = trainer.augment(xs[i * bs:(i + 1) * bs], gen)
+        x = augment(xs[i * bs:(i + 1) * bs], gen)
         trainer.train_step(model, opt, x, ys[i * bs:(i + 1) * bs], gen)
 
     return step

@@ -64,28 +64,13 @@ from dgnn_tpu_torch.utils import (CheckpointManager, append_csv_row,
                                   device_peak_memory_mb, make_sgd_cosine,
                                   reset_peak_memory, run_epochs,
                                   smoothed_loss, time_epoch_loop)
+from dgnn_tpu_torch.utils.training import shuffle_augment
 
 # The JAX CLI's timing arguments (scripts/train_edgeconv.py:136, :165):
 # one epoch a run, one eager warmup epoch, runs doubled until 2 s.
 TIME_EPOCHS = 1
 WARMUP_EPOCHS = 1
 MIN_SIGNAL_S = 2.0
-
-
-def augment(x, generator):
-    """Random anisotropic scale in [2/3, 3/2] and shift in [-0.2, 0.2] per
-    cloud and axis (the reference's ModelNetDataset.translate)."""
-    shape = (x.shape[0], 1, 3)
-    s = torch.rand(shape, generator=generator, device=x.device)
-    t = torch.rand(shape, generator=generator, device=x.device)
-    return x * (2 / 3 + s * (3 / 2 - 2 / 3)) + (t * 0.4 - 0.2)
-
-
-def permutation(n, generator):
-    """A permutation of range(n) drawn on the generator's device: the
-    argsort of n uniform draws, which a CUDA graph captures."""
-    return torch.argsort(torch.rand(n, generator=generator,
-                                    device=generator.device))
 
 
 def checkpoint_manager(args):
@@ -133,9 +118,7 @@ def make_epoch(model, opt, x_train, y_train, batch_size, generator, count,
     steps = x_train.shape[0] // batch_size
 
     def epoch():
-        order = permutation(x_train.shape[0], generator)
-        xs = augment(x_train[order], generator)
-        ys = y_train[order]
+        xs, ys = shuffle_augment(x_train, y_train, generator)
         total = torch.zeros(2, device=x_train.device)
         for i in range(steps):
             sl = slice(i * batch_size, (i + 1) * batch_size)

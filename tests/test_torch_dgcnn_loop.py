@@ -39,6 +39,7 @@ from dgnn_tpu_torch.models import DGCNN, flax_dgcnn_state_dict, load_flax_dgcnn
 from dgnn_tpu_torch.ops import ec_tiles, edgeconv
 from dgnn_tpu_torch.ops.edgeconv import _dsrc_ties, tie_sum_bwd
 from dgnn_tpu_torch.utils import SGDCosine, make_sgd_cosine, run_epochs
+from dgnn_tpu_torch.utils.training import augment
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = dict(k=4, feature_dims=(8, 8), emb_dims=(16, 16, 8),
@@ -88,7 +89,7 @@ def _plain_epoch(trainer, model, opt, x, y, bs, gen):
     the scale and shift, then the steps one by one; returns the steps'
     losses and accuracies."""
     order = torch.argsort(torch.rand(x.shape[0], generator=gen))
-    xs, ys = trainer.augment(x[order], gen), y[order]
+    xs, ys = augment(x[order], gen), y[order]
     out = []
     for i in range(x.shape[0] // bs):
         loss, acc = trainer.train_step(model, opt, xs[i * bs:(i + 1) * bs],
