@@ -37,6 +37,17 @@
 //     (scripts/dense_variants_torch.py).
 // A masked pair contributes exactly 0 in the TPU kernels, so skipping it
 // changes nothing but the summation order.
+//
+// Row spans (utils/profiling.py): every kernel takes the recorder's flag
+// word (probe) and an [R, 2] buffer (spans), both null or both given.
+// While the word is set, lane 0 of a row's warp stores %globaltimer (ns)
+// at the row's start, at once (stamp_row_start), and at its end
+// (stamp_row_end).  Each stamp reads the word again, and the end stamp
+// reads its row and lane afresh from %ctaid and %tid, so nothing is held
+// over the edge walk for it: with r and lane taken from the start, K8's
+// model instance went from 124 to 128 registers and ran 1.3 % slower on
+// the Reddit stand-in (PERF.md §6).  With the probes off a warp pays a
+// load of the word and a uniform branch at each of the two stamps.
 
 #pragma once
 
@@ -134,6 +145,39 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
 #pragma unroll
   for (int o = 16 / NV; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
   return s;
+}
+
+// The row's start into spans[2 r], where spans is given and the flag word
+// is set; every lane of the warp calls it.
+__device__ __forceinline__ void stamp_row_start(
+    const int* __restrict__ probe, unsigned long long* __restrict__ spans,
+    int r, int lane) {
+  if (spans == nullptr || __ldg(probe) == 0) return;
+  if (lane == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    spans[2 * static_cast<size_t>(r)] = t;
+  }
+}
+
+// The calling warp's row's end into spans[2 r + 1], as stamp_row_start;
+// the row (blockIdx.x * kWarps + warp) and the lane read afresh.
+__device__ __forceinline__ void stamp_row_end(
+    const int* __restrict__ probe, unsigned long long* __restrict__ spans) {
+  if (spans == nullptr || __ldg(probe) == 0) return;
+  unsigned int cta, tid;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  if ((tid & 31) == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    spans[2 * (static_cast<size_t>(cta) * kWarps + (tid >> 5)) + 1] = t;
+  }
+}
+
+// The launchers' check of the probe arguments: both null or both given.
+inline bool bad_probe(const int* probe, const unsigned long long* spans) {
+  return (probe == nullptr) != (spans == nullptr);
 }
 
 // Feature columns per lane, rounded up to a power of two (HF <= 1024).

@@ -87,6 +87,8 @@ using dgnn::pair_u_head;
 using dgnn::reduce_scatter;
 using dgnn::rnd;
 using dgnn::RowList;
+using dgnn::stamp_row_end;
+using dgnn::stamp_row_start;
 
 constexpr int kMaxHeads = 16;          // the wrapper refuses H > kMaxHeads
 
@@ -125,7 +127,9 @@ dense_gat_fwd_kernel(
     float* __restrict__ l_out,           // [R, H]
     float* __restrict__ lpos_out,        // [R, H]    (with_pos)
     float* __restrict__ acc_out,         // [R, H*F]
-    float* __restrict__ accpos_out) {    // [R, H*F]  (with_pos)
+    float* __restrict__ accpos_out,      // [R, H*F]  (with_pos)
+    const int* __restrict__ probe,       // row spans (dense_common.cuh)
+    unsigned long long* __restrict__ spans) {  // [R, 2]
   constexpr int kSlot = 2 * HMAX + 1;  // floats a lane; odd: no bank conflicts
   constexpr int PF = gat_fwd_prefetch(NC);
   __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
@@ -137,6 +141,7 @@ dense_gat_fwd_kernel(
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
+  stamp_row_start(probe, spans, r, lane);
   const int HF = H * F;
   const bool drop = p > 0.f;
   // the dropout seed (gat_common.cuh): one load before the walk
@@ -278,6 +283,7 @@ dense_gat_fwd_kernel(
     l_out[ro * H + lane] = lh;
     if (with_pos) lpos_out[ro * H + lane] = lph;
   }
+  stamp_row_end(probe, spans);
 }
 
 // The backward's instances, as the forward's: HMAX heads held, NC columns
@@ -331,7 +337,9 @@ dense_gat_bwd_kernel(
     const uint32_t* __restrict__ seed_p,
     const int* __restrict__ gid, int bf16,
     float* __restrict__ dx_out,          // [R, H*F]
-    float* __restrict__ dac_out) {       // [R, H]
+    float* __restrict__ dac_out,         // [R, H]
+    const int* __restrict__ probe,       // row spans (dense_common.cuh)
+    unsigned long long* __restrict__ spans) {  // [R, 2]
   constexpr int kSlot = 2 * HMAX + 1;  // floats a lane; odd: no bank conflicts
   constexpr int PF = gat_bwd_prefetch(NC);
   __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
@@ -345,6 +353,7 @@ dense_gat_bwd_kernel(
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
+  stamp_row_start(probe, spans, r, lane);
   const int HF = H * F;
   const bool drop = p > 0.f;
   // one load before the walk
@@ -472,6 +481,7 @@ dense_gat_bwd_kernel(
   const float s = reduce_scatter<HMAX>(v, lane);
   const int h = lane / (32 / HMAX);
   if ((lane & (32 / HMAX - 1)) == 0 && h < H) dac_out[ro * H + h] = s;
+  stamp_row_end(probe, spans);
 }
 
 // Both kernels' instances: heads held 4 or kMaxHeads (at least H), the
@@ -501,9 +511,11 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
                        int with_pos, float p, float inv_keep, const uint32_t* seed,
                        const int* gid, int bf16, int hmax, int nc, float* m,
                        float* l,
-                       float* lpos, float* acc, float* accpos, void* stream) {
+                       float* lpos, float* acc, float* accpos,
+                       const int* probe, unsigned long long* spans,
+                       void* stream) {
   // the instance ops/dense.py dense_gat_fwd_instance chose, checked
-  if (bad_instance(H, F, hmax, nc)) {
+  if (bad_instance(H, F, hmax, nc) || dgnn::bad_probe(probe, spans)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
@@ -513,7 +525,8 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
 #define DGNN_GAT_FWD(HM, NCC)                                               \
   dense_gat_fwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(              \
       x, ac, ar, acmax, row_ids, col_ids, msk, ct, chunk_ptr, R, H, F, slope, \
-      with_pos, p, inv_keep, seed, gid, bf16, m, l, lpos, acc, accpos)
+      with_pos, p, inv_keep, seed, gid, bf16, m, l, lpos, acc, accpos, probe, \
+      spans)
   if (hmax == 4) {
     DGNN_GAT_NC(DGNN_GAT_FWD, 4);
   } else {
@@ -530,9 +543,10 @@ int dgnn_dense_gat_bwd(const float* g, const float* ar, const float* M,
                        int R, int H, int F, float slope, float p,
                        float inv_keep, const uint32_t* seed, const int* gid,
                        int bf16, int hmax, int nc, float* dx, float* dac,
+                       const int* probe, unsigned long long* spans,
                        void* stream) {
   // the instance ops/dense.py dense_gat_bwd_instance chose, checked
-  if (bad_instance(H, F, hmax, nc)) {
+  if (bad_instance(H, F, hmax, nc) || dgnn::bad_probe(probe, spans)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
@@ -542,7 +556,7 @@ int dgnn_dense_gat_bwd(const float* g, const float* ar, const float* M,
 #define DGNN_GAT_BWD(HM, NCC)                                                \
   dense_gat_bwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(               \
       g, ar, M, Linv, ws, ac, x, row_ids, col_ids, msk, ct, chunk_ptr, R, H, \
-      F, slope, p, inv_keep, seed, gid, bf16, dx, dac)
+      F, slope, p, inv_keep, seed, gid, bf16, dx, dac, probe, spans)
   if (hmax == 4) {
     DGNN_GAT_NC(DGNN_GAT_BWD, 4);
   } else {

@@ -82,6 +82,8 @@ using dgnn::kRowWords;
 using dgnn::kWarps;
 using dgnn::rnd;
 using dgnn::RowList;
+using dgnn::stamp_row_end;
+using dgnn::stamp_row_start;
 
 // The forward's instances: KM kernels and DM dimensions held, the models'
 // (4, 2) or the general (kGmmMaxK, kGmmMaxD), each at 1, 8 or 32 columns a
@@ -117,7 +119,9 @@ dense_gmm_fwd_kernel(
     const float* __restrict__ mu,        // [K, D]
     const float* __restrict__ isig,      // [K, D]
     int R, int K, int D, int F, int use_tanh, int bf16,
-    float* __restrict__ acc_out) {       // [R, K*F]
+    float* __restrict__ acc_out,         // [R, K*F]
+    const int* __restrict__ probe,       // row spans (dense_common.cuh)
+    unsigned long long* __restrict__ spans) {  // [R, 2]
   constexpr int kSlot = KM | 1;  // floats a lane; odd: no bank conflicts
   constexpr int PF = gmm_fwd_prefetch(NC);
   __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
@@ -135,6 +139,7 @@ dense_gmm_fwd_kernel(
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
+  stamp_row_start(probe, spans, r, lane);
   const int KF = K * F;
   const bool use_bf = bf16 != 0;
   const bool tanh_on = use_tanh != 0;
@@ -225,6 +230,7 @@ dense_gmm_fwd_kernel(
     const int c = lane + 32 * j;
     if (c < KF) acc_out[static_cast<size_t>(r) * KF + c] = acc[j];
   }
+  stamp_row_end(probe, spans);
 }
 
 // The backward's instances: stat sizes held in registers (KM kernels, DM
@@ -273,7 +279,9 @@ dense_gmm_bwd_kernel(
     const float* __restrict__ isig,      // [K, D]
     int R, int K, int D, int Dd, int F, int use_tanh, int bf16,
     float* __restrict__ dx_out,          // [R, K*F]
-    float* __restrict__ st_out) {        // [R, 2KD + D + D*Dd]
+    float* __restrict__ st_out,          // [R, 2KD + D + D*Dd]
+    const int* __restrict__ probe,       // row spans (dense_common.cuh)
+    unsigned long long* __restrict__ spans) {  // [R, 2]
   using Stage = BwdStage<KM, DM, DDM>;
   __shared__ Stage stage[kWarps];
   __shared__ float mu_sh[KM * DM];    // index k * DM + d
@@ -289,6 +297,7 @@ dense_gmm_bwd_kernel(
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
+  stamp_row_start(probe, spans, r, lane);
   Stage& st = stage[warp];
   const int KF = K * F;
   const int KD = K * D;
@@ -463,6 +472,7 @@ dense_gmm_bwd_kernel(
     for (int l = 0; l < held; ++l) v += st.u.slab[l * Stage::kSlab + c];
     st_out[ro * ns + c] = v;
   }
+  stamp_row_end(probe, spans);
 }
 
 bool bad_dims(int K, int D, int Dd, int F) {
@@ -485,10 +495,12 @@ int dgnn_dense_gmm_fwd(const float* x, const float* alpha, const float* beta,
                        const void* mask, const int* ct, const int* chunk_ptr,
                        const float* mu, const float* isig, int R, int K, int D,
                        int F, int use_tanh, int bf16, int general, int nc,
-                       float* acc, void* stream) {
+                       float* acc, const int* probe, unsigned long long* spans,
+                       void* stream) {
   // the instance ops/dense.py dense_gmm_fwd_instance chose, checked
   const bool fits = general ? true : K <= 4 && D <= 2;
-  if (bad_dims(K, D, 1, F) || !fits || bad_cols(K * F, nc)) {
+  if (bad_dims(K, D, 1, F) || !fits || bad_cols(K * F, nc) ||
+      dgnn::bad_probe(probe, spans)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
@@ -498,7 +510,7 @@ int dgnn_dense_gmm_fwd(const float* x, const float* alpha, const float* beta,
 #define DGNN_GMM_FWD(KM, DM, NC)                                         \
   dense_gmm_fwd_kernel<KM, DM, NC><<<blocks, kWarps * 32, 0, s>>>(        \
       x, alpha, beta, row_ids, col_ids, m, ct, chunk_ptr, mu, isig, R, K, \
-      D, F, use_tanh, bf16, acc)
+      D, F, use_tanh, bf16, acc, probe, spans)
   if (!general) {
     if (nc == 1) DGNN_GMM_FWD(4, 2, 1);
     else if (nc == 8) DGNN_GMM_FWD(4, 2, 8);
@@ -518,10 +530,12 @@ int dgnn_dense_gmm_bwd(const float* g, const float* beta, const float* dfeat,
                        const int* chunk_ptr, const float* mu,
                        const float* isig, int R, int K, int D, int Dd, int F,
                        int use_tanh, int bf16, int general, int nc, float* dx,
-                       float* st, void* stream) {
+                       float* st, const int* probe, unsigned long long* spans,
+                       void* stream) {
   // the instance ops/dense.py dense_gmm_bwd_instance chose, checked
   const bool fits = general ? true : K <= 4 && D <= 2 && Dd <= 2;
-  if (bad_dims(K, D, Dd, F) || !fits || bad_cols(K * F, nc)) {
+  if (bad_dims(K, D, Dd, F) || !fits || bad_cols(K * F, nc) ||
+      dgnn::bad_probe(probe, spans)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
@@ -531,7 +545,7 @@ int dgnn_dense_gmm_bwd(const float* g, const float* beta, const float* dfeat,
 #define DGNN_GMM_BWD(KM, DM, DDM, NC)                                        \
   dense_gmm_bwd_kernel<KM, DM, DDM, NC><<<blocks, kWarps * 32, 0, s>>>(      \
       g, beta, dfeat, alpha, x, row_ids, col_ids, m, ct, chunk_ptr, mu, isig, \
-      R, K, D, Dd, F, use_tanh, bf16, dx, st)
+      R, K, D, Dd, F, use_tanh, bf16, dx, st, probe, spans)
   if (!general) {
     if (nc == 1) DGNN_GMM_BWD(4, 2, 2, 1);
     else if (nc == 8) DGNN_GMM_BWD(4, 2, 2, 8);

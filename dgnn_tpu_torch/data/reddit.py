@@ -26,7 +26,6 @@ import inspect
 import json
 import os
 import resource
-import time
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +35,7 @@ from ..graph import build as _gbuild
 from ..graph import hub as _hub
 from ..graph.cache import LAYOUT, load_graph, save_graph
 from ..graph.structure import Graph, build_graph_from_csr
+from ..utils.profiling import last, span
 from .synthetic import CITATION_SHAPES, rmat_edges, structure_task_from_csr
 
 __all__ = ["RedditData", "reddit_size", "build_raw", "load_reddit",
@@ -69,8 +69,10 @@ def graph_key() -> str:
     return hashlib.sha256(blob).hexdigest()[:12]
 
 
-def _stage(seconds: dict, name: str, t0: float, log) -> None:
-    seconds[name] = time.perf_counter() - t0
+def _stage(seconds: dict, name: str, *spans: str, log) -> None:
+    """``seconds[name]``: the seconds of the recorder's newest spans named
+    ``spans`` (utils/profiling.py), summed and logged."""
+    seconds[name] = sum(last(s).seconds for s in spans)
     log(f"{name} {seconds[name]:.1f}s")
 
 
@@ -79,28 +81,30 @@ def build_raw(n: int, e: int, out_path: str, seed: int = 0,
     """R-MAT edges -> self loops -> CSR -> CSC + permute, written to
     ``out_path`` (atomically) with the keys and dtypes of
     ``scripts/build_reddit_raw.py``.  Returns the seconds each stage took,
-    from the start (``log`` prints each as it ends)."""
+    from the recorder's spans (``log`` prints each as it ends)."""
     seconds = {}
-    t0 = time.perf_counter()
     src, dst = rmat_edges(n, e, seed=seed)
-    _stage(seconds, "rmat edges", t0, log)
-    src, dst = _gbuild.remove_self_loops(src, dst)
-    src, dst = _gbuild.add_self_loops(src, dst, n)
-    row_ptr, col_ind = _gbuild.coo_to_csr(src, dst, n)
-    _stage(seconds, "csr", t0, log)
+    _stage(seconds, "rmat edges", "dgnn.data.rmat", log=log)
+    with span("dgnn.data.reddit.csr"):
+        src, dst = _gbuild.remove_self_loops(src, dst)
+        src, dst = _gbuild.add_self_loops(src, dst, n)
+        row_ptr, col_ind = _gbuild.coo_to_csr(src, dst, n)
+    _stage(seconds, "csr", "dgnn.data.reddit.csr", log=log)
     del src, dst
     col_ptr, row_ind, permute = _gbuild.csr_to_csc_permute(row_ptr, col_ind)
-    _stage(seconds, "csc+permute", t0, log)
-    meta = dict(num_nodes=n, num_edges=int(col_ind.shape[0]), seed=seed)
-    tmp = out_path + ".tmp.npz"
-    np.savez(tmp, row_ptr=row_ptr.astype(np.int64),
-             col_ind=col_ind.astype(np.int32),
-             col_ptr=col_ptr.astype(np.int64),
-             row_ind=row_ind.astype(np.int32),
-             permute=permute.astype(np.int32),
-             meta_json=np.frombuffer(json.dumps(meta).encode(), np.uint8))
-    os.replace(tmp, out_path)
-    _stage(seconds, "saved raw", t0, log)
+    _stage(seconds, "csc+permute", "dgnn.graph.csc", log=log)
+    with span("dgnn.data.reddit.save_raw"):
+        meta = dict(num_nodes=n, num_edges=int(col_ind.shape[0]), seed=seed)
+        tmp = out_path + ".tmp.npz"
+        np.savez(tmp, row_ptr=row_ptr.astype(np.int64),
+                 col_ind=col_ind.astype(np.int32),
+                 col_ptr=col_ptr.astype(np.int64),
+                 row_ind=row_ind.astype(np.int32),
+                 permute=permute.astype(np.int32),
+                 meta_json=np.frombuffer(json.dumps(meta).encode(),
+                                         np.uint8))
+        os.replace(tmp, out_path)
+    _stage(seconds, "saved raw", "dgnn.data.reddit.save_raw", log=log)
     return seconds
 
 
@@ -113,7 +117,9 @@ class RedditData:
     val_mask: np.ndarray
     test_mask: np.ndarray
     n_classes: int
-    seconds: dict            # host set-up seconds by stage
+    seconds: dict            # host set-up seconds by stage, from spans:
+    #                          the build's and the cache's stages hold the
+    #                          raw arrays' load too
     host_peak_mb: float      # the process's peak resident memory so far
 
 
@@ -133,8 +139,7 @@ def load_reddit(scale: float = 1.0, seed: int = 0,
     seconds = {}
     if not raw_path.exists():
         seconds.update(build_raw(n, e, str(raw_path), log=log))
-    t0 = time.perf_counter()
-    with np.load(raw_path) as z:
+    with span("dgnn.data.reddit.raw"), np.load(raw_path) as z:
         raw = {k: z[k] for k in ("row_ptr", "col_ind", "col_ptr", "row_ind",
                                  "permute")}
     if not graph_path.exists():
@@ -142,16 +147,18 @@ def load_reddit(scale: float = 1.0, seed: int = 0,
                                      raw["col_ptr"], raw["row_ind"],
                                      raw["permute"], dense="auto",
                                      edge_tables=False)
-        _stage(seconds, "bins + hub block", t0, log)
+        _stage(seconds, "bins + hub block", "dgnn.graph.build", log=log)
         save_graph(str(graph_path), graph)
-        _stage(seconds, "bins + hub block + save", t0, log)
+        _stage(seconds, "bins + hub block + save", "dgnn.data.reddit.raw",
+               "dgnn.graph.build", "dgnn.graph.cache.save", log=log)
     else:
         graph = load_graph(str(graph_path))
-        _stage(seconds, "cache load", t0, log)
-    t0 = time.perf_counter()
-    feats, labels, tr, va, te = structure_task_from_csr(
-        raw["row_ptr"], raw["col_ind"], n_classes, n_feats, seed=seed)
-    _stage(seconds, "task", t0, log)
+        _stage(seconds, "cache load", "dgnn.data.reddit.raw",
+               "dgnn.graph.cache.load", log=log)
+    with span("dgnn.data.reddit.task"):
+        feats, labels, tr, va, te = structure_task_from_csr(
+            raw["row_ptr"], raw["col_ind"], n_classes, n_feats, seed=seed)
+    _stage(seconds, "task", "dgnn.data.reddit.task", log=log)
     # ru_maxrss is in KiB on Linux
     peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
     return RedditData(graph=graph, features=feats, labels=labels,

@@ -15,6 +15,8 @@ import dataclasses
 
 import numpy as np
 
+from ..utils.profiling import span
+
 __all__ = ["CitationData", "synthetic_citation", "synthetic_point_clouds",
            "rmat_edges", "CITATION_SHAPES", "structure_task_from_csr"]
 
@@ -44,25 +46,26 @@ def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0,
                a: float = 0.57, b: float = 0.19, c: float = 0.19) -> tuple:
     """R-MAT power-law edge generator (Graph500-style recursive quadrants),
     vectorized over all edges at once; undirected-ized by symmetrizing."""
-    rng = np.random.default_rng(seed)
-    scale = int(np.ceil(np.log2(max(num_nodes, 2))))
-    n_half = num_edges // 2 + 1
-    src = np.zeros(n_half, dtype=np.int64)
-    dst = np.zeros(n_half, dtype=np.int64)
-    for _ in range(scale):
-        r = rng.random(n_half)
-        right = r >= a + b  # falls into lower quadrants (dst bit set)
-        down = ((r >= a) & (r < a + b)) | (r >= a + b + c)  # src bit set
-        src = (src << 1) | down.astype(np.int64)
-        dst = (dst << 1) | right.astype(np.int64)
-    src %= num_nodes
-    dst %= num_nodes
-    # permute node ids so hubs aren't clustered at low ids
-    perm = rng.permutation(num_nodes)
-    src, dst = perm[src], perm[dst]
-    s = np.concatenate([src, dst])[:num_edges]
-    d = np.concatenate([dst, src])[:num_edges]
-    return s, d
+    with span("dgnn.data.rmat"):
+        rng = np.random.default_rng(seed)
+        scale = int(np.ceil(np.log2(max(num_nodes, 2))))
+        n_half = num_edges // 2 + 1
+        src = np.zeros(n_half, dtype=np.int64)
+        dst = np.zeros(n_half, dtype=np.int64)
+        for _ in range(scale):
+            r = rng.random(n_half)
+            right = r >= a + b  # falls into lower quadrants (dst bit set)
+            down = ((r >= a) & (r < a + b)) | (r >= a + b + c)  # src bit set
+            src = (src << 1) | down.astype(np.int64)
+            dst = (dst << 1) | right.astype(np.int64)
+        src %= num_nodes
+        dst %= num_nodes
+        # permute node ids so hubs aren't clustered at low ids
+        perm = rng.permutation(num_nodes)
+        src, dst = perm[src], perm[dst]
+        s = np.concatenate([src, dst])[:num_edges]
+        d = np.concatenate([dst, src])[:num_edges]
+        return s, d
 
 
 def synthetic_citation(name: str = "cora", seed: int = 0,

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
+from ..utils.profiling import span
 
 __all__ = [
     "coo_to_csr",
@@ -37,9 +38,10 @@ def coo_to_csr(src: np.ndarray, dst: np.ndarray, num_nodes: int):
     dst = _as_int64(dst)
     if src.shape[0] >= np.iinfo(np.int32).max:
         raise ValueError("per-shard edge count must fit int32")
-    if native.available():
-        return native.coo_to_csr(src, dst, num_nodes)
-    return _coo_to_csr_numpy(src, dst, num_nodes)
+    with span("dgnn.graph.csr"):
+        if native.available():
+            return native.coo_to_csr(src, dst, num_nodes)
+        return _coo_to_csr_numpy(src, dst, num_nodes)
 
 
 def _coo_to_csr_numpy(src: np.ndarray, dst: np.ndarray, num_nodes: int):
@@ -59,9 +61,10 @@ def csr_to_csc_permute(row_ptr: np.ndarray, col_ind: np.ndarray):
     Returns (col_ptr[int64 N+1], row_ind[int32 E], permute[int32 E]) where
     ``permute[j]`` is the CSR edge id stored at CSC slot ``j``.
     """
-    if native.available():
-        return native.csr_to_csc_permute(row_ptr, col_ind)
-    return _csr_to_csc_permute_numpy(row_ptr, col_ind)
+    with span("dgnn.graph.csc"):
+        if native.available():
+            return native.csr_to_csc_permute(row_ptr, col_ind)
+        return _csr_to_csc_permute_numpy(row_ptr, col_ind)
 
 
 def _csr_to_csc_permute_numpy(row_ptr: np.ndarray, col_ind: np.ndarray):

@@ -29,6 +29,7 @@ import os
 
 import numpy as np
 
+from ..utils.profiling import span
 from . import binning as _binning
 from . import hub as _hub
 from .structure import BinnedAdj, Graph, _t, from_binned
@@ -86,23 +87,24 @@ def _unpack_binned(prefix: str, z, meta: dict) -> BinnedAdj:
 def save_graph(path: str, g: Graph) -> None:
     """Write ``g`` (on the CPU) to ``path``, atomically: an interrupted run
     leaves no partial file under that name."""
-    store = {}
-    meta = {"num_nodes": g.num_nodes, "num_edges": g.num_edges}
-    _pack_binned("fwd", g.fwd, store, meta)
-    _pack_binned("bwd", g.bwd, store, meta)
-    for name in ("row_ptr", "col_ind", "col_ptr", "row_ind", "permute"):
-        store[name] = getattr(g, name).numpy()
-    store["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
-                                       dtype=np.uint8)
-    tmp = path + ".tmp.npz"
-    np.savez(tmp, **store)
-    os.replace(tmp, path)
+    with span("dgnn.graph.cache.save"):
+        store = {}
+        meta = {"num_nodes": g.num_nodes, "num_edges": g.num_edges}
+        _pack_binned("fwd", g.fwd, store, meta)
+        _pack_binned("bwd", g.bwd, store, meta)
+        for name in ("row_ptr", "col_ind", "col_ptr", "row_ind", "permute"):
+            store[name] = getattr(g, name).numpy()
+        store["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                           dtype=np.uint8)
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **store)
+        os.replace(tmp, path)
 
 
 def load_graph(path: str) -> Graph:
     """The Graph (CPU tensors) that ``save_graph`` wrote to ``path``, or one
     that the JAX package's ``save_graph`` wrote."""
-    with np.load(path) as z:
+    with span("dgnn.graph.cache.load"), np.load(path) as z:
         meta = json.loads(bytes(z["meta_json"]).decode())
         return Graph(
             **{name: _t(z[name]) for name in ("row_ptr", "col_ind", "col_ptr",

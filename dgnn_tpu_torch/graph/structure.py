@@ -14,6 +14,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import binning as _binning
 from . import build as _build
 from . import hub as _hub
@@ -221,11 +222,14 @@ class Graph:
                                    permute=empty)
 
     def to(self, device) -> "Graph":
-        return dataclasses.replace(
-            self, row_ptr=self.row_ptr.to(device),
-            col_ind=self.col_ind.to(device), col_ptr=self.col_ptr.to(device),
-            row_ind=self.row_ind.to(device), permute=self.permute.to(device),
-            fwd=self.fwd.to(device), bwd=self.bwd.to(device))
+        with span("dgnn.graph.to"):
+            return dataclasses.replace(
+                self, row_ptr=self.row_ptr.to(device),
+                col_ind=self.col_ind.to(device),
+                col_ptr=self.col_ptr.to(device),
+                row_ind=self.row_ind.to(device),
+                permute=self.permute.to(device),
+                fwd=self.fwd.to(device), bwd=self.bwd.to(device))
 
 
 def build_graph(
@@ -281,12 +285,14 @@ def build_graph_from_csr(
     if not (dense is None or dense == "auto" or isinstance(dense, tuple)):
         raise ValueError(f"dense must be None, 'auto' or (R, C): {dense!r}")
 
-    def _one_dir(rp, ci, eids, opp_deg):
-        """Plan and split off the dense block, bin the residual."""
+    def _one_dir(way, rp, ci, eids, opp_deg):
+        """Plan and split off the dense block, bin the residual (spans
+        named by the direction ``way``)."""
         plan = None
         sel = None
         if dense == "auto":
-            sel = _hub.plan_dense(rp, ci, opp_deg)
+            with span(f"dgnn.graph.hub.plan.{way}"):
+                sel = _hub.plan_dense(rp, ci, opp_deg)
         elif isinstance(dense, tuple):
             r, c = dense
             rows_by = np.argsort(np.diff(rp), kind="stable")[::-1][:r]
@@ -296,26 +302,29 @@ def build_graph_from_csr(
             rows_sel, cols_sel, keep_tiles = sel
             if eids is None:
                 eids = np.arange(len(ci), dtype=np.int64)
-            plan, rp, ci, keep = _hub.build_dense_numpy(
-                rp, ci, rows_sel, cols_sel, keep_tiles)
+            with span(f"dgnn.graph.hub.fill.{way}"):
+                plan, rp, ci, keep = _hub.build_dense_numpy(
+                    rp, ci, rows_sel, cols_sel, keep_tiles)
             eids = eids[keep]
         w = widths if widths is not None else _binning.auto_widths(
             np.diff(rp))
-        binned = _binning.bin_csr(rp, ci, edge_ids=eids, widths=w)
-        return from_binned(binned, with_edge=edge_tables, dense=plan)
+        with span(f"dgnn.graph.bins.{way}"):
+            binned = _binning.bin_csr(rp, ci, edge_ids=eids, widths=w)
+            return from_binned(binned, with_edge=edge_tables, dense=plan)
 
-    deg_in = np.diff(row_ptr)
-    deg_out = np.diff(col_ptr)
-    fwd = _one_dir(row_ptr, col_ind, None, deg_out)
-    bwd = _one_dir(col_ptr, row_ind, permute, deg_in)
-    return Graph(
-        row_ptr=_t(row_ptr),
-        col_ind=_t(col_ind),
-        col_ptr=_t(col_ptr),
-        row_ind=_t(row_ind),
-        permute=_t(permute),
-        fwd=fwd,
-        bwd=bwd,
-        num_nodes=int(num_nodes),
-        num_edges=int(col_ind.shape[0]),
-    )
+    with span("dgnn.graph.build"):
+        deg_in = np.diff(row_ptr)
+        deg_out = np.diff(col_ptr)
+        fwd = _one_dir("fwd", row_ptr, col_ind, None, deg_out)
+        bwd = _one_dir("bwd", col_ptr, row_ind, permute, deg_in)
+        return Graph(
+            row_ptr=_t(row_ptr),
+            col_ind=_t(col_ind),
+            col_ptr=_t(col_ptr),
+            row_ind=_t(row_ind),
+            permute=_t(permute),
+            fwd=fwd,
+            bwd=bwd,
+            num_nodes=int(num_nodes),
+            num_edges=int(col_ind.shape[0]),
+        )

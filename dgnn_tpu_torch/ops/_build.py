@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.profiling import span
+
 __all__ = ["build", "load", "library_path", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -65,6 +67,11 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless the library for these sources exists."""
+    with span("dgnn.kernels.build"):
+        return _compile()
+
+
+def _compile() -> Path:
     so = library_path()
     if so.exists():
         return so
@@ -107,7 +114,8 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        with span("dgnn.kernels.load"):
+            lib = ctypes.CDLL(str(build()))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # a list of bins: nbins, then per bin the nbr / row / count
         # pointers and S, W (host arrays); seed*: the GAT kernels' dropout
@@ -139,6 +147,7 @@ def load() -> ctypes.CDLL:
             vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
+            vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gat_fwd.restype = ci
         lib.dgnn_dense_gat_bwd.argtypes = [
@@ -149,6 +158,7 @@ def load() -> ctypes.CDLL:
             vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp,                             # dx dac
+            vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gat_bwd.restype = ci
         lib.dgnn_bin_gmm_fwd.argtypes = [
@@ -174,6 +184,7 @@ def load() -> ctypes.CDLL:
             ci, ci, ci, ci, ci, ci,             # R K D F use_tanh bf16
             ci, ci,                             # general nc
             vp,                                 # acc
+            vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gmm_fwd.restype = ci
         lib.dgnn_dense_gmm_bwd.argtypes = [
@@ -183,6 +194,7 @@ def load() -> ctypes.CDLL:
             ci, ci, ci, ci, ci, ci, ci,         # R K D Dd F use_tanh bf16
             ci, ci,                             # general nc
             vp, vp,                             # dx st
+            vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gmm_bwd.restype = ci
         lib.dgnn_ec_live_lists.argtypes = [

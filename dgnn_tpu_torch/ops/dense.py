@@ -28,7 +28,9 @@ ids for the dropout hash (``gid``, as ops/bins.py's) counts under its name
 with ``_gid`` appended.  ``dense_gat_fwd_instance``,
 ``dense_gat_bwd_instance``, ``dense_gmm_fwd_instance`` and
 ``dense_gmm_bwd_instance`` pick the template instance of each kernel that a
-call launches; the launchers refuse any other.
+call launches; the launchers refuse any other.  Each launch asks the
+recorder (utils/profiling.py ``probe_args``) for its row-span probe: the
+flag word and an [R, 2] buffer, or none.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from ..graph.hub import DENSE_CT, DENSE_RT
+from ..utils import profiling
 from . import _build
 from .bins import (_check_cuda, _check_gid, _check_gmm, _check_gmm_params,
                    _hash_ids, _inv_keep, _on_cpu, _opt, _ptr, _seed_arg,
@@ -109,6 +112,15 @@ def dense_gmm_bwd_instance(K: int, D: int, Dd: int,
     a lane of a warp, the fewest that cover K*F."""
     fits = all(v <= m for v, m in zip((K, D, Dd), GMM_BWD_MODEL))
     return ("model" if fits else "general"), _gmm_cols(K * F)
+
+
+def _probe(kernel: str, args, R: int, like: torch.Tensor):
+    """The recorder's (flag, buffer) for a launch of ``kernel`` over R block
+    rows (utils/profiling.py), named ``kernel<args>``: the instance as the
+    ``*_instance`` picker gives it (GAT's template arguments; MoNet's
+    "model" or "general" sizes and columns a lane)."""
+    name = f"{kernel}<{', '.join(map(str, args))}>"
+    return profiling.probe_args(name, R, like.device)
 
 
 def unpack_mask(bits_u8: torch.Tensor) -> torch.Tensor:
@@ -254,6 +266,7 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
     hmax, cols = dense_gat_fwd_instance(H, F)
     seed_t = _seed_arg(seed, p, feat)
     lib = _build.load()
+    flag, spans = _probe("dense_gat_fwd_kernel", (hmax, cols), R, feat)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gat_fwd(
         _ptr(feat), _ptr(ac), _ptr(ar), _ptr(acmax), _ptr(db.row_ids),
@@ -261,7 +274,7 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
         R, H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
         _ptr(seed_t), _ptr(gid), int(dense_dtype == "bfloat16"),
         hmax, cols, _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos),
-        stream)
+        _ptr(flag), _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gat_fwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")
@@ -344,6 +357,7 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
     hmax, cols = dense_gat_bwd_instance(H, F)
     seed_t = _seed_arg(seed, p, g)
     lib = _build.load()
+    flag, spans = _probe("dense_gat_bwd_kernel", (hmax, cols), R, g)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.dgnn_dense_gat_bwd(
         _ptr(g), _ptr(ar), _ptr(M), _ptr(Linv), _ptr(ws), _ptr(ac),
@@ -351,7 +365,7 @@ def dense_gat_bwd(db, g, ar, M, Linv, ws, ac, feat, *, slope: float,
         _ptr(db.ct), _ptr(db.chunk_ptr), R, H, F, float(slope), float(p),
         _inv_keep(p), _ptr(seed_t), _ptr(gid),
         int(dense_dtype == "bfloat16"), hmax, cols, _ptr(dx), _ptr(dac),
-        stream)
+        _ptr(flag), _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gat_bwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")
@@ -418,13 +432,14 @@ def dense_gmm_fwd(db, beta, alpha, feat, mu, isig, *, use_tanh: bool,
     acc = torch.empty((R, K, F), device=feat.device, dtype=torch.float32)
     sizes, cols = dense_gmm_fwd_instance(K, D, F)
     lib = _build.load()
+    flag, spans = _probe("dense_gmm_fwd_kernel", (sizes, cols), R, feat)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gmm_fwd(
         _ptr(feat), _ptr(alpha), _ptr(beta), _ptr(db.row_ids),
         _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
         _ptr(mu), _ptr(isig), R, K, D, F, int(use_tanh),
         int(dense_dtype == "bfloat16"), int(sizes == "general"), cols,
-        _ptr(acc), stream)
+        _ptr(acc), _ptr(flag), _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gmm_fwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, K={K}, D={D}, F={F})")
@@ -508,13 +523,15 @@ def dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu, isig, *,
                      dtype=torch.float32)
     sizes, cols = dense_gmm_bwd_instance(K, D, Dd, F)
     lib = _build.load()
+    flag, spans = _probe("dense_gmm_bwd_kernel", (sizes, cols), R, g)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.dgnn_dense_gmm_bwd(
         _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
         _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct),
         _ptr(db.chunk_ptr), _ptr(mu), _ptr(isig), R, K, D, Dd, F,
         int(use_tanh), int(dense_dtype == "bfloat16"),
-        int(sizes == "general"), cols, _ptr(dx), _ptr(st), stream)
+        int(sizes == "general"), cols, _ptr(dx), _ptr(st), _ptr(flag),
+        _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gmm_bwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, K={K}, D={D}, Dd={Dd}, F={F})")
