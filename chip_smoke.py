@@ -353,6 +353,7 @@ REDDIT_SHAPES = ((4, 64), (1, 41))  # (H, F) of reddit's GAT layers
 DENSE_DTYPES = ("float32", "bfloat16")
 PUBMED_FORCED = (1000, 5000)  # a forced pubmed block: 4 x 3 tiles
 PL_FORCED = (512, 3000)  # a forced block of hub_graph: 2 x 2 tiles
+STAR = dict(n=48_000, fan=40_000, r=512)  # star_graph: rows K7/K8 cut
 CORA_MIN_ACC = 0.4  # 7 classes: chance is 1/7; 20 CPU steps reach 0.72
 # Scale of the random output gradients.  d ac is a difference of sums of
 # terms up to |x| |g| F, so its float32 rounding floor grows with |g|: at
@@ -852,6 +853,31 @@ def check_gmm_dense(dense, graph, tb, err, tol=BLOCK_TOL):
     return n_cmp, n_off
 
 
+def check_gmm_cut(dense, graph, tb, err, tol):
+    """check_gmm_dense on a graph whose blocks K7/K8 walk as work lists with
+    rows cut into pieces (one merge launch a call), and a second launch of
+    each kernel equal to the first bit for bit; returns (comparisons,
+    elements outside ``tol``, the two directions' lists)."""
+    lists = [dense.gmm_work(adj.dense) for adj in (graph.fwd, graph.bwd)]
+    for wl in lists:
+        assert wl is not None and wl.split_rows >= 1, wl
+    merges = dense.LAUNCHES["dense_gmm_merge"]
+    n_cmp, n_off = check_gmm_dense(dense, graph, tb, err, tol)
+    assert dense.LAUNCHES["dense_gmm_merge"] == merges + n_cmp, (
+        dense.LAUNCHES, merges, n_cmp)
+    fwd_args, bwd_args = gmm_dense_args(graph, tb)
+    for dt in DENSE_DTYPES:
+        kw = dict(use_tanh=True, dense_dtype=dt)
+        for fn, args in ((dense.dense_gmm_fwd, fwd_args),
+                         (dense.dense_gmm_bwd, bwd_args)):
+            one, two = fn(*args, **kw), fn(*args, **kw)
+            for a, b in zip(*(v if isinstance(v, tuple) else (v,)
+                              for v in (one, two))):
+                assert torch.equal(a, b), (fn.__name__, dt)
+    torch.cuda.synchronize()
+    return n_cmp, n_off, lists
+
+
 def block_stats(adj):
     """Tiles, padded rows x columns and edges of one direction's block."""
     db = adj.dense
@@ -1014,6 +1040,22 @@ def hub_graph(structure, rng):
     return g
 
 
+def star_graph(structure, rng):
+    """Sparse random edges and a star of STAR["fan"] edges into node 0 and
+    three quarters of that out of node 1, under a forced block of STAR["r"]
+    rows and every column (the star block of tests/test_torch_dense.py):
+    in each direction a row far over the work list's ROW_FLOOR."""
+    n, fan = STAR["n"], STAR["fan"]
+    base = rng.integers(0, n, (2 * n, 2))
+    into = rng.choice(np.arange(2, n), fan, replace=False)
+    out_of = rng.choice(np.arange(2, n), fan * 3 // 4, replace=False)
+    src = np.concatenate([base[:, 0], into, np.full(len(out_of), 1)])
+    dst = np.concatenate([base[:, 1], np.zeros(fan, np.int64), out_of])
+    uniq = np.unique(np.stack([src, dst], 1), axis=0)
+    return structure.build_graph(uniq[:, 0], uniq[:, 1], n,
+                                 dense=(STAR["r"], n), edge_tables=False)
+
+
 def widest_row(db):
     """Most set columns in one tile row of a hub block."""
     bits = np.unpackbits(db.mask.cpu().numpy(), axis=-1)
@@ -1027,6 +1069,16 @@ def hub_tol(graph, tol):
     tests/test_torch_dense.py).  ``graph``: a Graph or a ShardView."""
     widest = max(widest_row(adj.dense) for adj in (graph.fwd, graph.bwd)
                  if adj.dense is not None)
+    return dict(tol, atol=tol["atol"] * max(1.0, widest / 128))
+
+
+def row_tol(graph, tol):
+    """``tol`` with its atol grown with the blocks' widest row (every tile
+    of its chunk) in units of 128 terms: the rule of hub_tol for a block
+    whose rows K7/K8 cut into pieces, which sum a row's tiles in another
+    order than the plain version."""
+    widest = max(int(block_row_edges(adj.dense).max())
+                 for adj in (graph.fwd, graph.bwd))
     return dict(tol, atol=tol["atol"] * max(1.0, widest / 128))
 
 
@@ -1444,6 +1496,12 @@ def path_launches(bins, model_kind, r, launches, steps, forwards):
                 bwd_calls * list_launches(bins, g.bwd),
             dense_fwd: fwd_calls * (g.fwd.dense is not None),
             dense_bwd: bwd_calls * (g.bwd.dense is not None)})
+        if model_kind == "gmm":  # a merge after each launch on a work list
+            from dgnn_tpu_torch.ops.dense import gmm_work
+
+            want["dense_gmm_merge"] = sum(
+                calls * (a.dense is not None and gmm_work(a.dense) is not None)
+                for calls, a in ((fwd_calls, g.fwd), (bwd_calls, g.bwd)))
     return want
 
 
@@ -1852,10 +1910,12 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
             rmat_s = r["setup_s"]["rmat edges"]
             assert calls == dict(
                 coo_to_csr=1, csr_to_csc_permute=1, dense_mask_fill=2,
-                rmat_edges=0,
+                rmat_edges=0, tile_row_edges=0,
                 bin_fill=sum(len(a.widths) for a in (g.fwd, g.bwd)
                              if a.num_edges)), calls
-        else:  # read from the cache GAT's run wrote
+        else:  # read from the cache GAT's run wrote; the blocks' tile rows
+            # counted at their first MoNet launch (the work lists)
+            assert calls.pop("tile_row_edges") == 2, calls
             assert not any(calls.values()), calls
             assert "cache load" in r["setup_s"], r["setup_s"]
         assert r["logits"].shape == (n, 41), r["logits"].shape
@@ -3074,6 +3134,24 @@ def main():
               f"F={f} D={GMM_D}: {n_cmp} kernel/plain comparisons agree "
               f"(atol {tol['atol']:.3g}; {n_off} bf16 elements outside "
               "it)")
+    # a block whose long rows K7/K8 cut into pieces and merge, from a
+    # generator of its own
+    srng = np.random.default_rng(3)
+    star = star_graph(structure, srng).to(dev)
+    tol = row_tol(star, BLOCK_TOL)
+    for k, f in ((2, 64), (3, 7)):  # 8 columns a lane (reddit's); 1
+        n_cmp, n_off, lists = check_gmm_cut(dense, star, gmm_tables(
+            star.num_nodes, k, f, srng, dev), err, tol)
+        cut = "; ".join(
+            f"{way} block {block_stats(adj)}: {wl.num_pieces} pieces, "
+            f"{wl.split_rows} rows cut, budget {wl.budget}, "
+            f"{wl.split_share:.3f} of the edges in cut rows"
+            for way, adj, wl in zip(("fwd", "bwd"), (star.fwd, star.bwd),
+                                    lists))
+        phase("kernels", f"star block {STAR} MoNet K={k} F={f} D={GMM_D}, "
+              f"work lists: {cut}: {n_cmp} kernel/plain comparisons agree "
+              f"(atol {tol['atol']:.3g}; {n_off} bf16 elements outside "
+              "it), one merge a launch, a second launch equal bit for bit")
     ec_study = load_script("exp_ec_tiles_torch")
     gather_study = load_script("microbench_gather_torch")
     for what, n_cmp in check_masked_max(ec_tiles, ec_study.make_inputs, dev,

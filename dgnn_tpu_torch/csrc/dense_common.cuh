@@ -14,9 +14,14 @@
 // of its (row, col) pairs, 4.4 edges a row.  So a kernel's cost is the
 // chain of dependent loads a row waits on, not FLOPs or bytes, and the
 // design keeps that chain short:
-//   - a warp a block row, kWarps rows a thread block, no block barrier
-//     after the start; a row's sums stay in its warp's registers, so no
-//     kernel needs atomics;
+//   - a warp a work item, kWarps items a thread block, no block barrier
+//     after the start; an item's sums stay in its warp's registers, so no
+//     kernel needs atomics.  K5/K6 (dense_gat.cu) take a block row an
+//     item.  K7/K8 (dense_gmm.cu) walk the block's work list where it has
+//     one (graph/structure.py work_list): a row is an item where its edges
+//     fit the list's budget, and a longer row is cut at tile boundaries
+//     into pieces, each written to a row of partials that a merge kernel
+//     adds in piece order; without a list, a block row an item;
 //   - one pass over a tile row's kRowWords mask words lists its set
 //     columns (RowList: one 8-byte load a lane, one popcount scan, columns
 //     handed out 32 at a time), so a cora row's edges form one batch and
@@ -39,11 +44,12 @@
 // changes nothing but the summation order.
 //
 // Row spans (utils/profiling.py): every kernel takes the recorder's flag
-// word (probe) and an [R, 2] buffer (spans), both null or both given.
-// While the word is set, lane 0 of a row's warp stores %globaltimer (ns)
-// at the row's start, at once (stamp_row_start), and at its end
+// word (probe) and a buffer of two stamps a work item (spans: [R, 2], or
+// [pieces, 2] for K7/K8 on a work list), both null or both given.  While
+// the word is set, lane 0 of an item's warp stores %globaltimer (ns) at
+// the item's start, at once (stamp_row_start), and at its end
 // (stamp_row_end).  Each stamp reads the word again, and the end stamp
-// reads its row and lane afresh from %ctaid and %tid, so nothing is held
+// reads its item and lane afresh from %ctaid and %tid, so nothing is held
 // over the edge walk for it: with r and lane taken from the start, K8's
 // model instance went from 124 to 128 registers and ran 1.3 % slower on
 // the Reddit stand-in (PERF.md §6).  With the probes off a warp pays a
@@ -147,8 +153,8 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
   return s;
 }
 
-// The row's start into spans[2 r], where spans is given and the flag word
-// is set; every lane of the warp calls it.
+// Work item r's start into spans[2 r], where spans is given and the flag
+// word is set; every lane of the warp calls it.
 __device__ __forceinline__ void stamp_row_start(
     const int* __restrict__ probe, unsigned long long* __restrict__ spans,
     int r, int lane) {
@@ -160,8 +166,8 @@ __device__ __forceinline__ void stamp_row_start(
   }
 }
 
-// The calling warp's row's end into spans[2 r + 1], as stamp_row_start;
-// the row (blockIdx.x * kWarps + warp) and the lane read afresh.
+// The calling warp's item's end into spans[2 r + 1], as stamp_row_start;
+// the item (blockIdx.x * kWarps + warp) and the lane read afresh.
 __device__ __forceinline__ void stamp_row_end(
     const int* __restrict__ probe, unsigned long long* __restrict__ spans) {
   if (spans == nullptr || __ldg(probe) == 0) return;

@@ -53,10 +53,37 @@
 //   instead of a warp sum per stat column.  Launch bounds cap the
 //   registers (gmm_bwd_min_blocks).
 //
+//   Work list (graph/structure.py work_list, WorkList; ops/dense.py
+//   gmm_work makes a block's at its first launch): a warp a block row let
+//   one row set a launch's length.  On the Reddit stand-in block
+//   row 0 (92,679 edges) walked alone for two thirds of K7's 48 ms and
+//   K8's 69 ms, after every other row had ended (the kernels' row spans,
+//   PERF.md §6).  Where a block has rows over the list's budget, a warp walks a
+//   piece instead: a block row and a range [first, end) of its chunk's
+//   schedule entries, at most the budget's edges unless one entry alone;
+//   pieces in row order, so the longest rows' pieces start first.  A piece
+//   of a cut row writes its sums (K8: its dx, then its stat row, its lanes'
+//   slabs added as a whole row's are) into its row of the partials, and
+//   dense_rows_merge_kernel adds each cut row's pieces in piece order into
+//   the output row after the launch: no atomics, so a replay gives the same
+//   bits, and only the order of a cut row's float32 sums changes.  The
+//   budget (graph/structure.py split_budget) is the block's edges over
+//   PIECES_PER_WARP times the warps these kernels keep resident on the card
+//   (dgnn_dense_gmm_resident_warps, by the occupancy calculator), at least
+//   one tile row's 2,048 edges, so blocks of short rows (cora's) keep a
+//   warp a row and launch no merge.  Measured on the stand-in's blocks
+//   (H100, 700 W, bf16, K = 2, F = 64, eager, medians of two sets of three;
+//   76.5 M edges a block, 2,640 resident warps): a warp a row K7 50.0 ms,
+//   K8 74.3 ms a launch; PIECES_PER_WARP 1: 18.6 / 33.0, 2: 16.1 / 32.1,
+//   3: 16.2 / 32.9, 4: 16.0 / 31.9 (988 rows cut into 2,666 pieces of at
+//   most 7,248 edges), 6: 16.2 / 33.1, 8: 16.4 / 33.1; the merge 3.5-4 us.
+//   Holding a piece's slot over the walk took K7's model instance from 96
+//   to more registers and four blocks an SM: 18.5 ms at its best.
+//
 // Bound on the H100: for cora-size blocks, the latency of the dependent
 // loads per edge; the bytes are one row of K*F floats per edge (768 B at
-// K=3, F=64), mostly served from L2.  Left for later PRs: splitting long
-// hub rows over several warps and tensor-core tiles for dense hub tiles.
+// K=3, F=64), mostly served from L2.  Left for later PRs: tensor-core
+// tiles for dense hub tiles.
 //
 // Plain C interface (ctypes): each launcher returns cudaGetLastError().
 
@@ -84,6 +111,38 @@ using dgnn::rnd;
 using dgnn::RowList;
 using dgnn::stamp_row_end;
 using dgnn::stamp_row_start;
+
+// One warp's work item: block row and schedule entries [first, end).
+// Without a work list, warp w walks block row w whole.
+struct Piece {
+  int row, first, end;
+};
+
+__device__ __forceinline__ Piece piece(const int4* __restrict__ work,
+                                       const int* __restrict__ chunk_ptr,
+                                       int w) {
+  if (work != nullptr) {
+    const int4 v = __ldg(work + w);
+    return Piece{v.x, v.y, v.z};
+  }
+  const int chunk = w / kRT;
+  return Piece{w, chunk_ptr[chunk], chunk_ptr[chunk + 1]};
+}
+
+// The calling warp's row of the partials, or -1 where its item is a whole
+// row (or there is no list): read from the list after the walk, the item
+// taken afresh from %ctaid and %tid, so that nothing is held over the walk
+// for it (held from the start, it took K7's model instance past the 96
+// registers that keep five blocks an SM).
+__device__ __forceinline__ int piece_slot(const int4* __restrict__ work) {
+  if (work == nullptr) return -1;
+  unsigned int cta, tid;
+  asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tid));
+  const int* v = reinterpret_cast<const int*>(
+      work + static_cast<size_t>(cta) * kWarps + (tid >> 5));
+  return __ldg(v + 3);
+}
 
 // The forward's instances: KM kernels and DM dimensions held, the models'
 // (4, 2) or the general (kGmmMaxK, kGmmMaxD), each at 1, 8 or 32 columns a
@@ -119,9 +178,12 @@ dense_gmm_fwd_kernel(
     const float* __restrict__ mu,        // [K, D]
     const float* __restrict__ isig,      // [K, D]
     int R, int K, int D, int F, int use_tanh, int bf16,
+    const int4* __restrict__ work,       // [P] pieces, or null: a row each
+    int P,
     float* __restrict__ acc_out,         // [R, K*F]
-    const int* __restrict__ probe,       // row spans (dense_common.cuh)
-    unsigned long long* __restrict__ spans) {  // [R, 2]
+    float* __restrict__ part,            // [slots, K*F] cut rows' partials
+    const int* __restrict__ probe,       // spans (dense_common.cuh)
+    unsigned long long* __restrict__ spans) {  // [pieces, 2]
   constexpr int kSlot = KM | 1;  // floats a lane; odd: no bank conflicts
   constexpr int PF = gmm_fwd_prefetch(NC);
   __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
@@ -137,16 +199,18 @@ dense_gmm_fwd_kernel(
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * kWarps + warp;
-  if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  stamp_row_start(probe, spans, r, lane);
+  const int w = blockIdx.x * kWarps + warp;
+  if (w >= (work != nullptr ? P : R)) return;  // whole warps only
+  stamp_row_start(probe, spans, w, lane);
+  const Piece pc = piece(work, chunk_ptr, w);
+  const int r = pc.row;
   const int KF = K * F;
   const bool use_bf = bf16 != 0;
   const bool tanh_on = use_tanh != 0;
   const int chunk = r / kRT;
   // the row's own beta is requested before its mask
   const size_t rid = static_cast<size_t>(row_ids[r]);
-  const int t_end = chunk_ptr[chunk + 1];
+  const int t_end = pc.end;
   float b[DM];
   gmm_row<DM>(beta + rid * D, D, b);
 
@@ -159,7 +223,7 @@ dense_gmm_fwd_kernel(
     kcol[j] = c < KF ? c / F : 0;
   }
 
-  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
+  for (int t = pc.first; t < t_end; ++t) {
     const uint32_t* mrow =
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
     const int* cid_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
@@ -225,10 +289,13 @@ dense_gmm_fwd_kernel(
     }
   }
 
+  const int ps = piece_slot(work);
+  float* out = ps < 0 ? acc_out + static_cast<size_t>(r) * KF
+                      : part + static_cast<size_t>(ps) * KF;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int c = lane + 32 * j;
-    if (c < KF) acc_out[static_cast<size_t>(r) * KF + c] = acc[j];
+    if (c < KF) out[c] = acc[j];
   }
   stamp_row_end(probe, spans);
 }
@@ -278,10 +345,13 @@ dense_gmm_bwd_kernel(
     const float* __restrict__ mu,        // [K, D]
     const float* __restrict__ isig,      // [K, D]
     int R, int K, int D, int Dd, int F, int use_tanh, int bf16,
+    const int4* __restrict__ work,       // [P] pieces, or null: a row each
+    int P,
     float* __restrict__ dx_out,          // [R, K*F]
     float* __restrict__ st_out,          // [R, 2KD + D + D*Dd]
-    const int* __restrict__ probe,       // row spans (dense_common.cuh)
-    unsigned long long* __restrict__ spans) {  // [R, 2]
+    float* __restrict__ part,            // [slots, K*F + 2KD + D + D*Dd]
+    const int* __restrict__ probe,       // spans (dense_common.cuh)
+    unsigned long long* __restrict__ spans) {  // [pieces, 2]
   using Stage = BwdStage<KM, DM, DDM>;
   __shared__ Stage stage[kWarps];
   __shared__ float mu_sh[KM * DM];    // index k * DM + d
@@ -295,9 +365,11 @@ dense_gmm_bwd_kernel(
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int r = blockIdx.x * kWarps + warp;
-  if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  stamp_row_start(probe, spans, r, lane);
+  const int w = blockIdx.x * kWarps + warp;
+  if (w >= (work != nullptr ? P : R)) return;  // whole warps only
+  stamp_row_start(probe, spans, w, lane);
+  const Piece pc = piece(work, chunk_ptr, w);
+  const int r = pc.row;
   Stage& st = stage[warp];
   const int KF = K * F;
   const int KD = K * D;
@@ -306,7 +378,7 @@ dense_gmm_bwd_kernel(
   const int chunk = r / kRT;
   // the row's own tables are requested before its mask
   const size_t sid = static_cast<size_t>(row_ids[r]);
-  const int t_end = chunk_ptr[chunk + 1];
+  const int t_end = pc.end;
   float a[DM];
 #pragma unroll
   for (int d = 0; d < DM; ++d) a[d] = d < D ? __ldg(alpha + sid * D + d) : 0.f;
@@ -331,7 +403,7 @@ dense_gmm_bwd_kernel(
   for (int i = 0; i < DM * DDM; ++i) s_df[i] = 0.f;
   int held = 0;  // lanes that held an edge: min(32, the longest tile row)
 
-  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
+  for (int t = pc.first; t < t_end; ++t) {
     const uint32_t* mrow =
         mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
     const int* did_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
@@ -434,11 +506,17 @@ dense_gmm_bwd_kernel(
     }
   }
 
-  const size_t ro = static_cast<size_t>(r);
+  const int ns = 2 * KD + D + D * Dd;
+  // a piece of a cut row writes its dx and stat row side by side into its
+  // row of the partials
+  const int ps = piece_slot(work);
+  float* dxo = ps < 0 ? dx_out + static_cast<size_t>(r) * KF
+                      : part + static_cast<size_t>(ps) * (KF + ns);
+  float* sto = ps < 0 ? st_out + static_cast<size_t>(r) * ns : dxo + KF;
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
     const int c = lane + 32 * j;
-    if (c < KF) dx_out[ro * KF + c] = dx[j];
+    if (c < KF) dxo[c] = dx[j];
   }
   // the stat row: each lane that held an edge puts its sums in its row of
   // the slab; lane c adds column c over those lanes only
@@ -466,13 +544,34 @@ dense_gmm_bwd_kernel(
     }
   }
   __syncwarp();
-  const int ns = 2 * KD + D + D * Dd;
   for (int c = lane; c < ns; c += 32) {
     float v = 0.f;
     for (int l = 0; l < held; ++l) v += st.u.slab[l * Stage::kSlab + c];
-    st_out[ro * ns + c] = v;
+    sto[c] = v;
   }
   stamp_row_end(probe, spans);
+}
+
+// The rows cut into pieces: row merge_rows[i] of out_a ([R, wa]) and out_b
+// ([R, wb], or none at wb = 0) is the sum of its pieces' rows of the
+// partials, slots merge_ptr[i]:merge_ptr[i + 1] ([slots, wa + wb]: out_a's
+// columns, then out_b's), added in slot order, so a replay gives the same
+// bits.  A thread block a cut row, a thread a column.
+__global__ void __launch_bounds__(128)
+dense_rows_merge_kernel(const float* __restrict__ part,
+                        const int* __restrict__ merge_rows,
+                        const int* __restrict__ merge_ptr, int wa, int wb,
+                        float* __restrict__ out_a, float* __restrict__ out_b) {
+  const int i = blockIdx.x;
+  const size_t r = static_cast<size_t>(merge_rows[i]);
+  const int p0 = merge_ptr[i], p1 = merge_ptr[i + 1];
+  const int width = wa + wb;
+  for (int c = threadIdx.x; c < width; c += blockDim.x) {
+    float v = 0.f;
+    for (int p = p0; p < p1; ++p) v += part[static_cast<size_t>(p) * width + c];
+    if (c < wa) out_a[r * wa + c] = v;
+    else out_b[r * wb + (c - wa)] = v;
+  }
 }
 
 bool bad_dims(int K, int D, int Dd, int F) {
@@ -490,27 +589,36 @@ bool bad_cols(int KF, int nc) {
 
 extern "C" {
 
+// work: [P] int4 pieces (graph/structure.py work_list), or null: a warp a
+// block row.  With a list, the S rows cut into pieces (merge_rows,
+// merge_ptr) are summed from part into their output rows by
+// dense_rows_merge_kernel, launched after the kernel on the same stream.
 int dgnn_dense_gmm_fwd(const float* x, const float* alpha, const float* beta,
                        const int* row_ids, const int* col_ids,
                        const void* mask, const int* ct, const int* chunk_ptr,
                        const float* mu, const float* isig, int R, int K, int D,
                        int F, int use_tanh, int bf16, int general, int nc,
-                       float* acc, const int* probe, unsigned long long* spans,
+                       const void* work, int P, const int* merge_rows,
+                       const int* merge_ptr, int S, float* acc, float* part,
+                       const int* probe, unsigned long long* spans,
                        void* stream) {
   // the instance ops/dense.py dense_gmm_fwd_instance chose, checked
   const bool fits = general ? true : K <= 4 && D <= 2;
   if (bad_dims(K, D, 1, F) || !fits || bad_cols(K * F, nc) ||
-      dgnn::bad_probe(probe, spans)) {
+      dgnn::bad_probe(probe, spans) ||
+      (work != nullptr && (P <= 0 || S <= 0 || part == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (R + kWarps - 1) / kWarps;
+  const int items = work != nullptr ? P : R;
+  const int blocks = (items + kWarps - 1) / kWarps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* m = static_cast<const uint32_t*>(mask);
+  const int4* wl = static_cast<const int4*>(work);
 #define DGNN_GMM_FWD(KM, DM, NC)                                         \
   dense_gmm_fwd_kernel<KM, DM, NC><<<blocks, kWarps * 32, 0, s>>>(        \
       x, alpha, beta, row_ids, col_ids, m, ct, chunk_ptr, mu, isig, R, K, \
-      D, F, use_tanh, bf16, acc, probe, spans)
+      D, F, use_tanh, bf16, wl, P, acc, part, probe, spans)
   if (!general) {
     if (nc == 1) DGNN_GMM_FWD(4, 2, 1);
     else if (nc == 8) DGNN_GMM_FWD(4, 2, 8);
@@ -521,6 +629,10 @@ int dgnn_dense_gmm_fwd(const float* x, const float* alpha, const float* beta,
     else DGNN_GMM_FWD(kGmmMaxK, kGmmMaxD, 32);
   }
 #undef DGNN_GMM_FWD
+  if (work != nullptr) {
+    dense_rows_merge_kernel<<<S, 128, 0, s>>>(part, merge_rows, merge_ptr,
+                                              K * F, 0, acc, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -529,23 +641,28 @@ int dgnn_dense_gmm_bwd(const float* g, const float* beta, const float* dfeat,
                        const int* col_ids, const void* mask, const int* ct,
                        const int* chunk_ptr, const float* mu,
                        const float* isig, int R, int K, int D, int Dd, int F,
-                       int use_tanh, int bf16, int general, int nc, float* dx,
-                       float* st, const int* probe, unsigned long long* spans,
-                       void* stream) {
+                       int use_tanh, int bf16, int general, int nc,
+                       const void* work, int P, const int* merge_rows,
+                       const int* merge_ptr, int S, float* dx, float* st,
+                       float* part, const int* probe,
+                       unsigned long long* spans, void* stream) {
   // the instance ops/dense.py dense_gmm_bwd_instance chose, checked
   const bool fits = general ? true : K <= 4 && D <= 2 && Dd <= 2;
   if (bad_dims(K, D, Dd, F) || !fits || bad_cols(K * F, nc) ||
-      dgnn::bad_probe(probe, spans)) {
+      dgnn::bad_probe(probe, spans) ||
+      (work != nullptr && (P <= 0 || S <= 0 || part == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (R <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (R + kWarps - 1) / kWarps;
+  const int items = work != nullptr ? P : R;
+  const int blocks = (items + kWarps - 1) / kWarps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* m = static_cast<const uint32_t*>(mask);
+  const int4* wl = static_cast<const int4*>(work);
 #define DGNN_GMM_BWD(KM, DM, DDM, NC)                                        \
   dense_gmm_bwd_kernel<KM, DM, DDM, NC><<<blocks, kWarps * 32, 0, s>>>(      \
       g, beta, dfeat, alpha, x, row_ids, col_ids, m, ct, chunk_ptr, mu, isig, \
-      R, K, D, Dd, F, use_tanh, bf16, dx, st, probe, spans)
+      R, K, D, Dd, F, use_tanh, bf16, wl, P, dx, st, part, probe, spans)
   if (!general) {
     if (nc == 1) DGNN_GMM_BWD(4, 2, 2, 1);
     else if (nc == 8) DGNN_GMM_BWD(4, 2, 2, 8);
@@ -556,7 +673,31 @@ int dgnn_dense_gmm_bwd(const float* g, const float* beta, const float* dfeat,
     else DGNN_GMM_BWD(kGmmMaxK, kGmmMaxD, kGmmMaxDd, 32);
   }
 #undef DGNN_GMM_BWD
+  if (work != nullptr) {
+    dense_rows_merge_kernel<<<S, 128, 0, s>>>(part, merge_rows, merge_ptr,
+                                              K * F, 2 * K * D + D + D * Dd,
+                                              dx, st);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The most warps that the forward's and the backward's instances holding
+// the models' sizes at 8 columns a lane (the hidden layers') keep resident
+// on the current device: thread blocks an SM by the occupancy calculator,
+// times the SMs and kWarps.  The work list's budget divides by it.
+int dgnn_dense_gmm_resident_warps(int* warps) {
+  int dev = 0, sms = 0, fwd = 0, bwd = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fwd, dense_gmm_fwd_kernel<4, 2, 8>, kWarps * 32, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &bwd, dense_gmm_bwd_kernel<4, 2, 2, 8>, kWarps * 32, 0);
+  *warps = (fwd > bwd ? fwd : bwd) * sms * kWarps;
+  return static_cast<int>(e);
 }
 
 }  // extern "C"

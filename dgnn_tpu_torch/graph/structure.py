@@ -4,11 +4,20 @@ Port of ``dgnn_tpu/graph/structure.py``: raw CSR/CSC for generic use plus
 the two degree-binned layouts (binning.py) that the fused ops consume,
 each with its optional tile-sparse dense hub block (hub.py).  Every
 container has ``.to(device)``; the host build returns CPU tensors.
+
+The work list of the hub-block MoNet kernels (``WorkList``;
+csrc/dense_gmm.cu) is a pure function of a block's arrays (``work_list``,
+``split_budget``): where one of its rows holds more edges than the budget,
+the rows are cut at tile boundaries into pieces that the kernels walk a
+warp a piece, so that one long row no longer sets the length of a launch.
+ops/dense.py makes a block's list at its first MoNet launch; it is never
+stored in the cache.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
@@ -19,8 +28,21 @@ from . import binning as _binning
 from . import build as _build
 from . import hub as _hub
 
-__all__ = ["BinnedAdj", "CombineTable", "DenseBlock", "Graph", "build_graph",
-           "build_graph_from_csr", "from_binned"]
+__all__ = ["BinnedAdj", "CombineTable", "DenseBlock", "Graph", "WorkList",
+           "build_graph", "build_graph_from_csr", "from_binned",
+           "split_budget", "work_list", "PIECES_PER_WARP",
+           "ROW_FLOOR"]
+
+# The work list's budget (``split_budget``): a row is cut into pieces of at
+# most the block's edges over PIECES_PER_WARP times the warps the kernels
+# keep resident on the card, and never below ROW_FLOOR edges (one tile
+# row's most), so a row of one tile is never cut and blocks of short rows
+# (cora's, 4.4 edges a row) keep a piece a row.  PIECES_PER_WARP was
+# measured on the Reddit stand-in's blocks (H100; PERF.md §6): K7 and
+# K8 ms a launch at 1, 2, 3, 4, 6 and 8; 4 was fastest by up to 1 %
+# against 2 and 3, and 1 and 6 to 8 slower.
+PIECES_PER_WARP = 4
+ROW_FLOOR = _hub.DENSE_CT
 
 
 def _t(x, dtype=torch.int32) -> torch.Tensor:
@@ -44,6 +66,125 @@ class CombineTable:
         return CombineTable(main=self.main.to(device),
                             ov_rows=self.ov_rows.to(device),
                             ov=self.ov.to(device))
+
+
+def split_budget(edges: int, warps: int) -> int:
+    """Most edges a piece of a cut row holds: a block of ``edges`` edges
+    over PIECES_PER_WARP x ``warps`` resident warps, at least ROW_FLOOR."""
+    return max(ROW_FLOOR, math.ceil(edges / (PIECES_PER_WARP * max(warps, 1))))
+
+
+def _row_edges(counts: np.ndarray, cp: np.ndarray) -> np.ndarray:
+    """[R] int64 edges of each block row: its tile rows' over its chunk's
+    entries (``counts`` [T, RT], ``cp`` the chunk_ptr)."""
+    csum = np.concatenate([np.zeros((1, counts.shape[1]), np.int64),
+                           np.cumsum(counts, axis=0, dtype=np.int64)])
+    return (csum[cp[1:]] - csum[cp[:-1]]).reshape(-1)
+
+
+def work_list(counts, chunk_ptr, budget: int):
+    """The pieces the hub-block kernels walk, a warp a piece.
+
+    ``counts``: [T, RT] edges of each (schedule entry, tile row);
+    ``chunk_ptr``: [R / RT + 1] the entries of each row chunk.  A row whose
+    edges fit ``budget`` is one piece, its chunk's entries whole; a longer
+    row is cut at entry boundaries, greedily, into pieces of at most
+    ``budget`` edges (one entry may exceed it alone).  Returns
+    (pieces [P, 4], merge_rows [S], merge_ptr [S + 1]), int32: per piece in
+    launch order, which is row order, (block row, first entry, end entry,
+    partial slot), the slot -1 for a row of one piece, else the piece's row
+    of the partials, numbered in launch order; the S rows cut, in order,
+    and the slots of row i, merge_ptr[i]:merge_ptr[i + 1]."""
+    counts = np.asarray(counts, np.int64)
+    cp = np.asarray(chunk_ptr, np.int64)
+    rt = counts.shape[1]
+    totals = _row_edges(counts, cp)
+    R = len(totals)
+    chunk = np.arange(R) // rt
+    first, end = cp[chunk], cp[chunk + 1]
+    cuts = {}
+    for r in np.flatnonzero(totals > budget).tolist():
+        per = counts[first[r]:end[r], r % rt].tolist()
+        at, acc = [int(first[r])], 0
+        for i, n in enumerate(per):
+            t = int(first[r]) + i
+            if acc + n > budget and t > at[-1]:
+                at.append(t)
+                acc = 0
+            acc += n
+        at.append(int(end[r]))
+        if len(at) > 2:
+            cuts[r] = at
+    n_pieces = np.ones(R, np.int64)
+    for r, at in cuts.items():
+        n_pieces[r] = len(at) - 1
+    pieces = np.empty((int(n_pieces.sum()), 4), np.int32)
+    at0 = np.concatenate([[0], np.cumsum(n_pieces)[:-1]])
+    pieces[at0, 0] = np.arange(R)
+    pieces[at0, 1] = first
+    pieces[at0, 2] = end
+    pieces[at0, 3] = -1
+    slot = 0
+    merge_ptr = [0]
+    for r, at in cuts.items():  # row order: dicts keep insertion order
+        k = len(at) - 1
+        i = at0[r]
+        pieces[i:i + k, 0] = r
+        pieces[i:i + k, 1] = at[:-1]
+        pieces[i:i + k, 2] = at[1:]
+        pieces[i:i + k, 3] = np.arange(slot, slot + k)
+        slot += k
+        merge_ptr.append(slot)
+    return (pieces, np.asarray(list(cuts), np.int32),
+            np.asarray(merge_ptr, np.int32))
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkList:
+    """The pieces of a hub block that the MoNet kernels walk (``work_list``)
+    and what they tell: ``budget`` edges at most a cut piece, the block's
+    ``edges`` and the ``split_edges`` in rows cut into pieces."""
+
+    pieces: torch.Tensor      # [P, 4] int32 row, entries [first, end), slot
+    merge_rows: torch.Tensor  # [S] int32 block rows cut into pieces
+    merge_ptr: torch.Tensor   # [S + 1] int32 their slots
+    budget: int
+    edges: int
+    split_edges: int
+    slots: int                # pieces of the rows cut: partials' rows
+
+    @property
+    def num_pieces(self) -> int:
+        return int(self.pieces.shape[0])
+
+    @property
+    def split_rows(self) -> int:
+        return int(self.merge_rows.shape[0])
+
+    @property
+    def split_share(self) -> float:
+        """The share of the block's edges that run in rows cut into
+        pieces."""
+        return self.split_edges / self.edges if self.edges else 0.0
+
+    @classmethod
+    def build(cls, counts, chunk_ptr, budget: int) -> "WorkList | None":
+        """The block's list for ``budget``, or None where no row is cut."""
+        pieces, rows, ptr = work_list(counts, chunk_ptr, budget)
+        if len(rows) == 0:
+            return None
+        per_row = _row_edges(np.asarray(counts),
+                             np.asarray(chunk_ptr, np.int64))
+        return cls(pieces=_t(pieces), merge_rows=_t(rows),
+                   merge_ptr=_t(ptr), budget=int(budget),
+                   edges=int(per_row.sum()),
+                   split_edges=int(per_row[rows].sum()), slots=int(ptr[-1]))
+
+    def to(self, device) -> "WorkList":
+        return dataclasses.replace(
+            self, pieces=self.pieces.to(device),
+            merge_rows=self.merge_rows.to(device),
+            merge_ptr=self.merge_ptr.to(device))
 
 
 @dataclasses.dataclass(frozen=True)

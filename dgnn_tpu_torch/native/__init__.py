@@ -8,7 +8,10 @@ the first four where the library is available:
 ``graph/build.py`` ``coo_to_csr`` / ``csr_to_csc_permute``,
 ``graph/binning.py`` ``_build_bin`` and ``graph/hub.py``
 ``build_dense_numpy``.  Each keeps its numpy version beside the call; both
-give the same arrays.  ``rmat_edges`` draws from another PRNG than the
+give the same arrays.  ``tile_row_edges`` counts the set bits of each tile
+row of a built hub block, for the work list of the hub-block MoNet kernels
+(``ops/dense.py`` ``gmm_work``, which runs only beside a card, where the
+library builds).  ``rmat_edges`` draws from another PRNG than the
 numpy ``data/synthetic.py`` ``rmat_edges`` and so gives another graph;
 the reddit build keeps the numpy generator, as the JAX package's does.
 
@@ -40,7 +43,7 @@ import numpy as np
 
 __all__ = ["available", "build", "load", "library_path", "coo_to_csr",
            "csr_to_csc_permute", "bin_fill", "dense_mask_fill", "rmat_edges",
-           "CALLS",
+           "tile_row_edges", "CALLS",
            "reset_calls", "CXX_FLAGS"]
 
 _SRC = Path(__file__).resolve().parent / "graph_prep.cc"
@@ -51,7 +54,7 @@ _LIB_NAME = "libdgnn_graph.so"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 CALLS = dict.fromkeys(("coo_to_csr", "csr_to_csc_permute", "bin_fill",
-                       "dense_mask_fill", "rmat_edges"), 0)
+                       "dense_mask_fill", "rmat_edges", "tile_row_edges"), 0)
 
 _lock = threading.Lock()
 _lib = None
@@ -116,12 +119,13 @@ def load() -> ctypes.CDLL:
         lib.dgnn_bin_fill.argtypes = [
             i64, i64, i64p, i64p, i32p, i64p, i32p, i32p]
         lib.dgnn_dense_mask_fill.argtypes = [i64, i64, i64, i64p, i64p, u8p]
+        lib.dgnn_tile_row_edges.argtypes = [i64, i64, u8p, i32p]
         f64 = ctypes.c_double
         lib.dgnn_rmat.argtypes = [i64, i64, ctypes.c_uint64, f64, f64, f64,
                                   i64p, i64p]
         for fn in (lib.dgnn_coo_to_csr, lib.dgnn_csr_to_csc_permute,
                    lib.dgnn_bin_fill, lib.dgnn_dense_mask_fill,
-                   lib.dgnn_rmat):
+                   lib.dgnn_tile_row_edges, lib.dgnn_rmat):
             fn.restype = None
         _lib = lib
         return lib
@@ -216,6 +220,21 @@ def dense_mask_fill(rows_local: np.ndarray, cols_local: np.ndarray,
                              cols_local, mask)
     CALLS["dense_mask_fill"] += 1
     return mask
+
+
+def tile_row_edges(mask: np.ndarray) -> np.ndarray:
+    """[T, RT] int32 set bits of each tile row of a packed [T, RT, CT // 8]
+    uint8 hub-block mask (graph/hub.py's layout)."""
+    lib = load()
+    mask = np.ascontiguousarray(mask, dtype=np.uint8)
+    if mask.ndim != 3 or mask.shape[2] % 8:
+        raise ValueError(f"mask must be [T, RT, bytes] with bytes a multiple "
+                         f"of 8, got {mask.shape}")
+    counts = np.zeros(mask.shape[:2], np.int32)
+    lib.dgnn_tile_row_edges(mask.shape[0] * mask.shape[1], mask.shape[2],
+                            mask, counts)
+    CALLS["tile_row_edges"] += 1
+    return counts
 
 
 def rmat_edges(num_nodes: int, num_edges: int, seed: int = 0, a: float = 0.57,

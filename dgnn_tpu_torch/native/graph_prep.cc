@@ -1,6 +1,6 @@
 // Native host graph preprocessing for dgnn_tpu_torch: counting-sort
-// CSR/CSC construction, degree-bin slot fill, hub-block mask fill, and the
-// xoshiro256** R-MAT generator.
+// CSR/CSC construction, degree-bin slot fill, hub-block mask fill and the
+// count of its tile rows' edges, and the xoshiro256** R-MAT generator.
 //
 // A copy of dgnn_tpu/native/graph_prep.cc.  The R-MAT generator here draws
 // from its own PRNG, so it gives another graph than the numpy R-MAT of
@@ -168,6 +168,30 @@ void dgnn_dense_mask_fill(
     const int64_t byte = tile * cb + in_tile % cb;
     const int64_t bit = in_tile / cb;
     mask[rows_local[e] * row_bytes + byte] |= (uint8_t)(1u << bit);
+  }
+}
+
+// Set bits of each tile row of a packed hub-block mask: counts[i] is the
+// popcount of the row_bytes bytes of row i (rows = entries x tile rows, as
+// the mask lies in memory; row_bytes a multiple of 8).  One pass over the
+// mask, 8 bytes at a time; on x86-64 with the POPCNT instruction, which
+// counted 2.5x faster than the portable sequence g++ emits without it
+// (1.5 GB, the Reddit stand-in's two masks, in about 0.3 s).
+#if defined(__x86_64__)
+__attribute__((target("popcnt")))
+#endif
+void dgnn_tile_row_edges(int64_t rows, int64_t row_bytes,
+                         const uint8_t* mask, int32_t* counts) {
+  const int64_t words = row_bytes / 8;
+  for (int64_t i = 0; i < rows; ++i) {
+    const uint8_t* m = mask + i * row_bytes;
+    int32_t n = 0;
+    for (int64_t w = 0; w < words; ++w) {
+      uint64_t v;
+      std::memcpy(&v, m + 8 * w, 8);
+      n += __builtin_popcountll(v);
+    }
+    counts[i] = n;
   }
 }
 

@@ -183,7 +183,8 @@ def load() -> ctypes.CDLL:
             vp, vp,                             # mu isig
             ci, ci, ci, ci, ci, ci,             # R K D F use_tanh bf16
             ci, ci,                             # general nc
-            vp,                                 # acc
+            vp, ci, vp, vp, ci,                 # work P merge_rows merge_ptr S
+            vp, vp,                             # acc part
             vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gmm_fwd.restype = ci
@@ -193,10 +194,13 @@ def load() -> ctypes.CDLL:
             vp, vp,                             # mu isig
             ci, ci, ci, ci, ci, ci, ci,         # R K D Dd F use_tanh bf16
             ci, ci,                             # general nc
-            vp, vp,                             # dx st
+            vp, ci, vp, vp, ci,                 # work P merge_rows merge_ptr S
+            vp, vp, vp,                         # dx st part
             vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gmm_bwd.restype = ci
+        lib.dgnn_dense_gmm_resident_warps.argtypes = [ia]  # int* warps
+        lib.dgnn_dense_gmm_resident_warps.restype = ci
         lib.dgnn_ec_live_lists.argtypes = [
             vp, ci, vp,                         # mask mask_bf16 hs
             ci, ci, ci, ci,                     # B P F cap

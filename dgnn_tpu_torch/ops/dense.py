@@ -25,19 +25,30 @@ the stat rows use the unrounded w_k); "float32" rounds nothing.
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
 only where the kernel is launched); a GAT launch given a table of global
 ids for the dropout hash (``gid``, as ops/bins.py's) counts under its name
-with ``_gid`` appended.  ``dense_gat_fwd_instance``,
-``dense_gat_bwd_instance``, ``dense_gmm_fwd_instance`` and
+with ``_gid`` appended.  The MoNet kernels walk the block's work list
+where it has one (``gmm_work``; graph.structure.WorkList: its long rows
+cut into pieces, a warp a piece; a merge kernel, counted as
+``dense_gmm_merge``, adds the cut rows' partials after each such launch),
+else a warp a block row.
+``dense_gat_fwd_instance``, ``dense_gat_bwd_instance``,
+``dense_gmm_fwd_instance`` and
 ``dense_gmm_bwd_instance`` pick the template instance of each kernel that a
 call launches; the launchers refuse any other.  Each launch asks the
 recorder (utils/profiling.py ``probe_args``) for its row-span probe: the
-flag word and an [R, 2] buffer, or none.
+flag word and a buffer of a span a warp's work item ([R, 2]; MoNet's with a
+work list [pieces, 2]), or none.
 """
 
 from __future__ import annotations
 
+import ctypes
+import weakref
+
 import torch
 
+from .. import native
 from ..graph.hub import DENSE_CT, DENSE_RT
+from ..graph.structure import WorkList, split_budget
 from ..utils import profiling
 from . import _build
 from .bins import (_check_cuda, _check_gid, _check_gmm, _check_gmm_params,
@@ -50,7 +61,8 @@ __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
            "dense_gmm_bwd", "dense_gmm_bwd_plain", "unpack_mask", "LAUNCHES",
            "reset_launches", "DENSE_DTYPES", "MAX_HF", "dense_gat_fwd_instance",
            "dense_gat_bwd_instance", "dense_gmm_fwd_instance",
-           "dense_gmm_bwd_instance", "GMM_FWD_MODEL", "GMM_BWD_MODEL"]
+           "dense_gmm_bwd_instance", "GMM_FWD_MODEL", "GMM_BWD_MODEL",
+           "gmm_work", "hold_work", "gmm_resident_warps"]
 
 DENSE_DTYPES = ("bfloat16", "float32")
 # Feature columns the kernels take: 32 lanes x at most 32 columns each.
@@ -64,12 +76,73 @@ GMM_BWD_MODEL = (4, 2, 2)
 
 LAUNCHES = {"dense_gat_fwd": 0, "dense_gat_bwd": 0,
             "dense_gmm_fwd": 0, "dense_gmm_bwd": 0,
-            "dense_gat_fwd_gid": 0, "dense_gat_bwd_gid": 0}
+            "dense_gat_fwd_gid": 0, "dense_gat_bwd_gid": 0,
+            "dense_gmm_merge": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def gmm_resident_warps(device) -> int:
+    """The most warps that the MoNet hub-block kernels (the instances of
+    the models' sizes at 8 columns a lane) keep resident on CUDA
+    ``device``, by the occupancy calculator: what the work list's budget
+    divides by (graph.structure.split_budget)."""
+    lib = _build.load()
+    warps = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.dgnn_dense_gmm_resident_warps(ctypes.byref(warps))
+    if err:
+        raise RuntimeError(f"dense_gmm occupancy query failed: CUDA error "
+                           f"{err}")
+    return warps.value
+
+
+# id(block) -> the block's work list (None: a warp a block row), for as
+# long as the block lives (``hold_work``)
+_WORK: dict = {}
+
+
+def hold_work(db, wl: WorkList | None) -> WorkList | None:
+    """Hold ``wl`` as the work list that K7/K8 walk over block ``db`` for as
+    long as ``db`` lives (None: a warp a block row); returns it."""
+    _WORK[id(db)] = wl
+    weakref.finalize(db, _WORK.pop, id(db), None)
+    return wl
+
+
+def gmm_work(db) -> WorkList | None:
+    """The work list that K7/K8 walk over CUDA hub block ``db``, made at the
+    block's first MoNet launch and held while the block lives: the tile
+    rows' edges counted by the native library over the mask (copied to
+    the host once), the budget from the block's edges and the warps the
+    kernels keep resident on the card (graph.structure.split_budget).
+    None where no row holds more edges than the budget.  The mask cannot
+    be read while a CUDA graph is captured, so a block whose first launch
+    is captured walks a warp a block row there: a capture is preceded by
+    eager steps (StepGraph's ``warmup``) where the cut matters."""
+    if id(db) in _WORK:
+        return _WORK[id(db)]
+    if torch.cuda.is_current_stream_capturing():
+        return None
+    dev = db.mask.device
+    counts = native.tile_row_edges(db.mask.cpu().numpy())
+    budget = split_budget(int(counts.sum()), gmm_resident_warps(dev))
+    wl = WorkList.build(counts, db.chunk_ptr.cpu().numpy(), budget)
+    return hold_work(db, None if wl is None else wl.to(dev))
+
+
+def _work_args(db):
+    """The launchers' work-list arguments for block ``db``: (list, pieces,
+    work items, merge_rows, merge_ptr, cut rows); without a list, a warp a
+    block row: (None, None, R, None, None, 0)."""
+    wl = gmm_work(db)
+    if wl is None:
+        return None, None, db.row_ids.shape[0], None, None, 0
+    return (wl, wl.pieces, wl.num_pieces, wl.merge_rows, wl.merge_ptr,
+            wl.split_rows)
 
 
 def dense_gat_fwd_instance(H: int, F: int) -> tuple[int, int]:
@@ -115,10 +188,11 @@ def dense_gmm_bwd_instance(K: int, D: int, Dd: int,
 
 
 def _probe(kernel: str, args, R: int, like: torch.Tensor):
-    """The recorder's (flag, buffer) for a launch of ``kernel`` over R block
-    rows (utils/profiling.py), named ``kernel<args>``: the instance as the
-    ``*_instance`` picker gives it (GAT's template arguments; MoNet's
-    "model" or "general" sizes and columns a lane)."""
+    """The recorder's (flag, buffer) for a launch of ``kernel`` over R work
+    items, block rows or pieces (utils/profiling.py), named
+    ``kernel<args>``: the instance as the ``*_instance`` picker gives it
+    (GAT's template arguments; MoNet's "model" or "general" sizes and
+    columns a lane)."""
     name = f"{kernel}<{', '.join(map(str, args))}>"
     return profiling.probe_args(name, R, like.device)
 
@@ -429,21 +503,26 @@ def dense_gmm_fwd(db, beta, alpha, feat, mu, isig, *, use_tanh: bool,
                 dict(feat=feat, alpha=alpha, beta=beta, mu=mu, isig=isig), {})
     _check_block("dense_gmm_fwd", db, K * F)
     R = db.row_ids.shape[0]
-    acc = torch.empty((R, K, F), device=feat.device, dtype=torch.float32)
+    new = dict(device=feat.device, dtype=torch.float32)
+    acc = torch.empty((R, K, F), **new)
+    wl, pieces, P, mrows, mptr, S = _work_args(db)
+    part = None if wl is None else torch.empty((wl.slots, K * F), **new)
     sizes, cols = dense_gmm_fwd_instance(K, D, F)
     lib = _build.load()
-    flag, spans = _probe("dense_gmm_fwd_kernel", (sizes, cols), R, feat)
+    flag, spans = _probe("dense_gmm_fwd_kernel", (sizes, cols), P, feat)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gmm_fwd(
         _ptr(feat), _ptr(alpha), _ptr(beta), _ptr(db.row_ids),
         _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct), _ptr(db.chunk_ptr),
         _ptr(mu), _ptr(isig), R, K, D, F, int(use_tanh),
         int(dense_dtype == "bfloat16"), int(sizes == "general"), cols,
-        _ptr(acc), _ptr(flag), _ptr(spans), stream)
+        _ptr(pieces), P, _ptr(mrows), _ptr(mptr), S, _ptr(acc), _ptr(part),
+        _ptr(flag), _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gmm_fwd kernel launch failed: CUDA error "
-                           f"{err} (R={R}, K={K}, D={D}, F={F})")
+                           f"{err} (R={R}, K={K}, D={D}, F={F}, P={P})")
     LAUNCHES["dense_gmm_fwd"] += 1
+    LAUNCHES["dense_gmm_merge"] += int(wl is not None)
     return acc
 
 
@@ -518,22 +597,29 @@ def dense_gmm_bwd(db, g, beta, dfeat, alpha, feat, mu, isig, *,
                      mu=mu, isig=isig), {})
     _check_block("dense_gmm_bwd", db, K * F)
     R = db.row_ids.shape[0]
-    dx = torch.empty((R, K, F), device=g.device, dtype=torch.float32)
-    st = torch.empty((R, gmm_stat_width(K, D, Dd)), device=g.device,
-                     dtype=torch.float32)
+    new = dict(device=g.device, dtype=torch.float32)
+    ns = gmm_stat_width(K, D, Dd)
+    dx = torch.empty((R, K, F), **new)
+    st = torch.empty((R, ns), **new)
+    wl, pieces, P, mrows, mptr, S = _work_args(db)
+    # a cut row's piece: its dx, then its stat row
+    part = None if wl is None else torch.empty((wl.slots, K * F + ns), **new)
     sizes, cols = dense_gmm_bwd_instance(K, D, Dd, F)
     lib = _build.load()
-    flag, spans = _probe("dense_gmm_bwd_kernel", (sizes, cols), R, g)
+    flag, spans = _probe("dense_gmm_bwd_kernel", (sizes, cols), P, g)
     stream = torch.cuda.current_stream(g.device).cuda_stream
     err = lib.dgnn_dense_gmm_bwd(
         _ptr(g), _ptr(beta), _ptr(dfeat), _ptr(alpha), _ptr(feat),
         _ptr(db.row_ids), _ptr(db.col_ids), _ptr(db.mask), _ptr(db.ct),
         _ptr(db.chunk_ptr), _ptr(mu), _ptr(isig), R, K, D, Dd, F,
         int(use_tanh), int(dense_dtype == "bfloat16"),
-        int(sizes == "general"), cols, _ptr(dx), _ptr(st), _ptr(flag),
+        int(sizes == "general"), cols, _ptr(pieces), P, _ptr(mrows),
+        _ptr(mptr), S, _ptr(dx), _ptr(st), _ptr(part), _ptr(flag),
         _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gmm_bwd kernel launch failed: CUDA error "
-                           f"{err} (R={R}, K={K}, D={D}, Dd={Dd}, F={F})")
+                           f"{err} (R={R}, K={K}, D={D}, Dd={Dd}, F={F}, "
+                           f"P={P})")
     LAUNCHES["dense_gmm_bwd"] += 1
+    LAUNCHES["dense_gmm_merge"] += int(wl is not None)
     return dx, st

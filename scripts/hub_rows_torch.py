@@ -14,10 +14,21 @@ Sets the cell up as ``gnnbench/run.py`` does (the graphs cached under
    turns with the probes on, as a profiler sets them, and held off (the
    recorder told that no profiler records): each hub-block kernel's device
    ms a launch from the profiler, and the steps' ms from CUDA events;
-3. from the last stretch with the probes on: each launch's row spans
-   (quantiles of a row's time, T, t95, the tail, where the longest rows lie
-   in launch order), T against the profiler's duration of the launch, and
-   each replay's ``dgnn.stepgraph.replay`` span against its first kernel.
+3. from the last stretch with the probes on: each launch's spans, one a
+   warp's work item (a block row, or for K7/K8 on a work list a piece of
+   a row; quantiles of an item's time, T, t95, the tail, where the longest
+   items lie in launch order), T against the profiler's duration of the
+   launch, and each replay's ``dgnn.stepgraph.replay`` span against its
+   first kernel;
+4. the MoNet kernels' work lists (ops/dense.py ``gmm_work``) of the cell's
+   blocks: budget, pieces a launch, rows cut, the share of the block's
+   edges in them, and the pieces a replay walks (its K7/K8 launches times
+   their block's pieces); where a block has one, the same step (request)
+   captured again over copies of the blocks held to a warp a block row
+   (``hold_work``), and profiled
+   stretches of both in turns, the probes off: K7/K8's own ms a launch,
+   the merge kernel's, and the steps' ms, with the list ("list") and
+   without ("row").
 
 Prints one JSON line (and writes it to ``--out``).
 """
@@ -25,6 +36,7 @@ Prints one JSON line (and writes it to ``--out``).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -143,10 +155,13 @@ def probe_name(kernel: str) -> str | None:
     return None
 
 
+MERGE = "dense_rows_merge_kernel"
+
+
 def kernel_ms(dev) -> dict:
     by = {}
     for n, s, e in dev:
-        name = probe_name(n)
+        name = MERGE if MERGE in n else probe_name(n)
         if name is not None:
             by.setdefault(name, []).append((e - s) / 1e3)
     return {k: {"launches": len(v), "ms": statistics.mean(v)}
@@ -201,6 +216,84 @@ def replay_spans(dev, host, steps: int) -> dict:
             "lead_us": [k - s for s, k in zip(spans, firsts)]}
 
 
+def work_lists(graph) -> dict:
+    """Each direction's hub-block work list, as the MoNet kernels walk it
+    (made at the block's first launch, in the cell's warm-up)."""
+    from dgnn_tpu_torch.ops import dense
+
+    out = {}
+    for way in ("fwd", "bwd"):
+        db = getattr(graph, way).dense
+        wl = None if db is None else dense.gmm_work(db)
+        out[way] = None if wl is None else {
+            "budget": wl.budget, "pieces": wl.num_pieces,
+            "rows": int(db.row_ids.shape[0]), "split_rows": wl.split_rows,
+            "slots": wl.slots, "edges": wl.edges,
+            "split_edge_share": wl.split_share}
+    return out
+
+
+def pieces_per_replay(launches: dict, lists: dict, graph) -> dict:
+    """Pieces (a warp's work item: a block row, or a piece of a cut row)
+    that one replay's K7 (forward block) and K8 (backward block) walk."""
+    out = {}
+    for name, way in (("dense_gmm_fwd", "fwd"), ("dense_gmm_bwd", "bwd")):
+        db = getattr(graph, way).dense
+        if db is None or not launches.get(name):
+            continue
+        wl = lists[way]
+        per = wl["pieces"] if wl else int(db.row_ids.shape[0])
+        out[name] = launches[name] * per
+    return out
+
+
+def without_lists(graph):
+    """``graph`` over copies of its blocks that walk a warp a block row."""
+    from dgnn_tpu_torch.ops import dense
+
+    def drop(adj):
+        if adj.dense is None:
+            return adj
+        db = dataclasses.replace(adj.dense)
+        dense.hold_work(db, None)
+        return dataclasses.replace(adj, dense=db)
+
+    return dataclasses.replace(graph, fwd=drop(graph.fwd),
+                               bwd=drop(graph.bwd))
+
+
+def before_after(prog, rep, steps: int, infer: bool, turns: int,
+                 dev) -> dict:
+    """K7/K8's own ms a launch, the merge's and the steps' ms, over the
+    blocks with their work lists ("list", the cell's replayer) and without
+    ("row", a copy of the program captured over the same blocks without
+    them), in turns, the probes held off."""
+    from gnnbench.harness import Replayer
+
+    twin = prog.throwaway()
+    twin.graph = without_lists(prog.graph)
+    fn = twin.infer if infer else twin.step
+    gens = [] if infer else [twin.drop_gen]
+    base = Replayer(fn, dev, generators=gens, warmup=2)
+    torch.cuda.synchronize()
+    got = {"list": [], "row": []}
+    ms = {"list": [], "row": []}
+    try:
+        for _ in range(turns):
+            for kind, r in (("list", rep), ("row", base), ("row", base),
+                            ("list", rep)):
+                d, _, step_ms = stretch(r, steps, infer, False)
+                got[kind].append(kernel_ms(d))
+                ms[kind].append(step_ms)
+    finally:
+        base.close()
+    names = sorted({k for t in got["list"] + got["row"] for k in t
+                    if k.startswith(("dense_gmm", MERGE))})
+    return {"step_ms": ms,
+            "kernel_ms": {k: {kind: [t[k]["ms"] for t in got[kind] if k in t]
+                              for kind in got} for k in names}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -213,8 +306,13 @@ def main(argv=None) -> int:
     c, prog, rep = setup(args.workload, args.seed, dev)
     infer = c.traffic["mode"] != "train"
     steps = int(c.traffic["trace_steps"])
+    launches = rep.graph.launches_per_replay()
+    lists = work_lists(prog.graph)
     res = {"workload": args.workload, "card": torch.cuda.get_device_name(),
-           "launches_per_replay": rep.graph.launches_per_replay()}
+           "launches_per_replay": launches,
+           "pieces_per_replay": pieces_per_replay(launches, lists,
+                                                  prog.graph),
+           "work_lists": lists}
     if args.host_calls:
         res["host_us"] = host_us(rep, args.host_calls, 3)
     on, off, ms = [], [], {"on": [], "off": []}
@@ -234,6 +332,9 @@ def main(argv=None) -> int:
     res["rows"] = {name: shape(name, r, d) for name, r in rows}
     res["replays"] = replay_spans(d, h, steps)
     res["tail_pct"] = profiling.tail_pct([r for _, r in rows])
+    if any(res["work_lists"].values()):
+        res["before_after"] = before_after(prog, rep, steps, infer,
+                                           args.turns, dev)
     line = json.dumps(res)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

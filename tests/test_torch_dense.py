@@ -11,13 +11,15 @@ tests/test_torch_dense.py
 import torch_test_threads  # noqa: F401  (torch's threads a worker)
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
 import torch
 
+from dgnn_tpu_torch import native
 from dgnn_tpu_torch.data import synthetic
-from dgnn_tpu_torch.graph import hub
+from dgnn_tpu_torch.graph import hub, structure
 from dgnn_tpu_torch.graph.structure import build_graph
 from dgnn_tpu_torch.ops import dense
 from dgnn_tpu_torch.ops.gat import gat_aggregate
@@ -544,6 +546,142 @@ def test_refusals(rng):
 
 
 # ---------------------------------------------------------------------------
+# (e2): the MoNet kernels' work list, as a pure function of the tile rows'
+# edges
+# ---------------------------------------------------------------------------
+
+
+def _counts(rng, chunks, entries, long_rows):
+    """[T, RT] edges of each (entry, tile row) for ``chunks`` row chunks of
+    ``entries`` schedule entries each (a list), up to 2,048 a tile row, and
+    chunk_ptr; ``long_rows`` rows of the first chunk hold many edges in
+    every entry, as a hub block's first rows do."""
+    cp = np.concatenate([[0], np.cumsum(entries)])
+    counts = rng.integers(0, 5, (int(cp[-1]), hub.DENSE_RT))
+    counts[:entries[0], :long_rows] = rng.integers(
+        900, hub.DENSE_CT + 1, (entries[0], long_rows))
+    counts[rng.random(counts.shape) < 0.3] = 0
+    return counts.astype(np.int32), cp.astype(np.int32)
+
+
+@pytest.mark.parametrize("entries,long_rows,budget", [
+    ([12, 3, 1], 5, 4096),        # rows of ~17k edges cut into ~5 pieces
+    ([12, 3, 1], 5, 2048),        # the floor: a piece ~ one entry
+    ([7, 7], 40, 1500),           # under a tile row's most: lone entries
+    ([30, 1, 2, 1], 1, 10 ** 6),  # nothing over the budget: a piece a row
+], ids=["4096", "2048", "1500", "none"])
+def test_work_list_covers_each_row_once_in_launch_order(rng, entries,
+                                                        long_rows, budget):
+    counts, cp = _counts(rng, len(entries), entries, long_rows)
+    pieces, rows, ptr = structure.work_list(counts, cp, budget)
+    R = (len(cp) - 1) * hub.DENSE_RT
+    assert pieces.dtype == rows.dtype == ptr.dtype == np.int32
+    # launch order is row order; every row's pieces tile its chunk's
+    # entries once, in order
+    assert (np.diff(pieces[:, 0]) >= 0).all()
+    assert np.array_equal(np.unique(pieces[:, 0]), np.arange(R))
+    for r in range(R):
+        mine = pieces[pieces[:, 0] == r]
+        c = r // hub.DENSE_RT
+        assert mine[0, 1] == cp[c] and mine[-1, 2] == cp[c + 1], r
+        assert (mine[1:, 1] == mine[:-1, 2]).all() and (
+            mine[:, 2] > mine[:, 1]).all(), r
+        edges = [int(counts[a:b, r % hub.DENSE_RT].sum())
+                 for _, a, b, _ in mine]
+        # no piece over the budget unless it is one entry
+        assert all(e <= budget or b - a == 1
+                   for e, (_, a, b, _) in zip(edges, mine)), (r, edges)
+        if len(mine) == 1:
+            assert mine[0, 3] == -1
+        else:  # a cut row: never cut where the budget held the whole row
+            assert sum(edges) > budget
+    # the cut rows, in order, and their pieces' slots numbered in launch
+    # order
+    cut = pieces[pieces[:, 3] >= 0]
+    assert np.array_equal(cut[:, 3], np.arange(len(cut)))
+    assert np.array_equal(rows, np.unique(cut[:, 0]))
+    assert ptr[0] == 0 and ptr[-1] == len(cut)
+    for i, r in enumerate(rows):
+        assert (cut[ptr[i]:ptr[i + 1], 0] == r).all()
+    if budget >= 10 ** 6:
+        assert len(rows) == 0 and len(pieces) == R
+    else:
+        assert len(rows) >= long_rows
+
+
+def test_work_list_counters(rng):
+    counts, cp = _counts(rng, 3, [12, 3, 1], 5)
+    wl = structure.WorkList.build(counts, cp, 4096)
+    pieces, rows, ptr = structure.work_list(counts, cp, 4096)
+    assert wl.num_pieces == len(pieces) and wl.split_rows == len(rows)
+    assert wl.slots == int(ptr[-1]) and wl.budget == 4096
+    assert wl.edges == int(counts.sum())
+    per_row = [int(counts[cp[0]:cp[1], r].sum()) for r in rows]
+    assert wl.split_edges == sum(per_row)
+    assert 0 < wl.split_share < 1
+    assert structure.WorkList.build(counts, cp, 10 ** 6) is None
+    moved = wl.to("cpu")
+    assert moved.num_pieces == wl.num_pieces and moved.slots == wl.slots
+
+
+@pytest.mark.parametrize("edges,warps,want", [
+    (76_534_337, 2640, 7248),    # the Reddit stand-in's block (PERF.md)
+    (11_000, 2640, hub.DENSE_CT),  # a cora-size block: the floor
+    (10 ** 9, 1, 250_000_000),
+])
+def test_split_budget(edges, warps, want):
+    assert structure.split_budget(edges, warps) == want
+
+
+@pytest.mark.parametrize("name,block", [("cora", "auto"),
+                                        ("citeseer", "auto"),
+                                        ("pubmed", (4096, 8192))])
+def test_citation_blocks_yield_no_cut(name, block):
+    """Cora's and citeseer's planned blocks and a forced pubmed block hold
+    no row over the floor: a piece a row, no list, whatever the card."""
+    d = synthetic.synthetic_citation(name)
+    g = build_graph(d.src, d.dst, d.num_nodes, dense=block)
+    for adj in (g.fwd, g.bwd):
+        db = adj.dense
+        counts = tile_row_edges(db).numpy()
+        cp = db.chunk_ptr.numpy()
+        for warps in (1, 2640, 10 ** 6):
+            budget = structure.split_budget(int(counts.sum()), warps)
+            pieces, rows, _ = structure.work_list(counts, cp, budget)
+            assert len(rows) == 0 and len(pieces) == db.row_ids.shape[0]
+            assert structure.WorkList.build(counts, cp, budget) is None
+
+
+@pytest.mark.parametrize("way", ["fwd", "bwd"])
+def test_tile_row_edges_counts_each_tile_rows_columns(rng, way):
+    """The native library's count of each tile row's set bits, which the
+    work list reads, against the unpacked mask."""
+    if not native.available():
+        pytest.skip("no g++: the native library cannot be built")
+    db = getattr(hub_graph(rng), way).dense
+    before = native.CALLS["tile_row_edges"]
+    got = native.tile_row_edges(db.mask.numpy())
+    assert native.CALLS["tile_row_edges"] == before + 1
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, tile_row_edges(db).numpy())
+
+
+def test_held_work_lists_live_with_their_block(rng):
+    """gmm_work gives a held list without reading the block, and the entry
+    goes with the block."""
+    db = hub_graph(rng).fwd.dense
+    counts = tile_row_edges(db).numpy()
+    wl = structure.WorkList.build(counts, db.chunk_ptr.numpy(), 2048)
+    twin = dataclasses.replace(db)
+    assert dense.hold_work(db, wl) is wl and dense.hold_work(twin, None) is None
+    assert dense.gmm_work(db) is wl and dense.gmm_work(twin) is None
+    key = id(twin)
+    del twin
+    gc.collect()
+    assert key not in dense._WORK and dense.gmm_work(db) is wl
+
+
+# ---------------------------------------------------------------------------
 # (f): the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -663,3 +801,74 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(rng, cuda_device):
     with pytest.raises(ValueError, match="feature columns"):
         dense.dense_gat_fwd(g.fwd.dense, tb["ar"], tb["ac"], wide,
                             slope=SLOPE, with_pos=True)
+
+
+# The MoNet kernels on a block whose rows are cut into pieces: a star of
+# STAR["fan"] edges into node 0 and one out of node 1, over sparse random
+# edges, every column in the block.
+STAR = dict(n=48_000, fan=40_000, r=512)
+
+
+def star_graph(rng):
+    n, fan = STAR["n"], STAR["fan"]
+    src, dst = _edges(rng, n, 2, power_law=False)
+    into = rng.choice(np.arange(2, n), fan, replace=False)
+    out_of = rng.choice(np.arange(2, n), fan * 3 // 4, replace=False)
+    src = np.concatenate([src, into, np.full(len(out_of), 1)])
+    dst = np.concatenate([dst, np.zeros(fan, np.int64), out_of])
+    uniq = np.unique(np.stack([src, dst], 1), axis=0)
+    return build_graph(uniq[:, 0], uniq[:, 1], n, dense=(STAR["r"], n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense_dtype", ["float32", "bfloat16"])
+def test_cuda_gmm_kernels_on_cut_rows_match_plain(rng, cuda_device,
+                                                  dense_dtype):
+    """A block with rows far over the work list's budget: K7 and K8 walk
+    their pieces and merge them, match their plain versions, and give the
+    same bytes on a second launch."""
+    g = star_graph(rng)
+    n, k, f, d, dd = STAR["n"], 2, 64, 2, 2  # the models' instance, 8 a lane
+
+    def a(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                ).to(cuda_device)
+
+    t = dict(feat=a(n, k, f), g=a(n, k, f) / 16, alpha=a(n, d),
+             beta=a(n, d), dfeat=a(n, dd), mu=a(k, d),
+             isig=torch.rand(k, d, device=cuda_device) + 0.5)
+    fwd_args = ("beta", "alpha", "feat", "mu", "isig")
+    bwd_args = ("g", "beta", "dfeat", "alpha", "feat", "mu", "isig")
+    kw = dict(use_tanh=True, dense_dtype=dense_dtype)
+    for way, fn, plain, keys in (
+            ("fwd", dense.dense_gmm_fwd, dense.dense_gmm_fwd_plain,
+             fwd_args),
+            ("bwd", dense.dense_gmm_bwd, dense.dense_gmm_bwd_plain,
+             bwd_args)):
+        host = getattr(g, way).dense
+        # hub_tol's rule, atol grown in units of 128 terms, taken to the
+        # widest row: its terms span many tiles here (as the widest row
+        # sets the tolerance of test_torch_gmm.py's CUDA block tests)
+        per, cp = tile_row_edges(host), host.chunk_ptr.tolist()
+        widest = max(int(per[a:b].sum(dim=0).max())
+                     for a, b in zip(cp[:-1], cp[1:]))
+        tol = dict(BLOCK_TOL, atol=BLOCK_TOL["atol"] * widest / 128)
+        db = host.to(cuda_device)
+        wl = dense.gmm_work(db)
+        assert wl is not None and wl.split_rows >= 1, way
+        assert wl.budget == structure.ROW_FLOOR and wl.split_share > 0.3
+        assert dense.gmm_work(db) is wl
+        before = dict(dense.LAUNCHES)
+        args = (db, *(t[key] for key in keys))
+        got = fn(*args, **kw)
+        again = fn(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        name = "dense_gmm_" + way
+        assert dense.LAUNCHES[name] == before[name] + 2
+        assert dense.LAUNCHES["dense_gmm_merge"] == (
+            before["dense_gmm_merge"] + 2)
+        for x, y, z in zip(*(v if isinstance(v, tuple) else (v,)
+                             for v in (got, again, want))):
+            assert torch.equal(x, y), way
+            _assert_close(x.cpu(), z.cpu(), dense_dtype, tol, way)
