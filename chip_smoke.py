@@ -145,7 +145,10 @@ Phases, one line each (a failure raises; nothing is caught and continued):
                tiles, edges and widest row, ms/step, inference ms, peak MB,
                eager against replayed ms a step (REDDIT_STEPS each),
                and each kernel of the path on that graph at both layers'
-               widths beside its bound.
+               widths beside its bound; then K5 against its plain version
+               on GAT's forward block with one column's ac lifted
+               (check_far_rows: the rows that miss it are walked again by
+               K5's second launch), both dense dtypes.
      memory  - in the same cache directory, scripts/memory_report_torch.py's
                rows (run): the JAX memory report's GAT step (heads (4, 1),
                hidden 64, feat_drop 0.5, attn_drop 0, Adam with weight
@@ -354,6 +357,9 @@ DENSE_DTYPES = ("float32", "bfloat16")
 PUBMED_FORCED = (1000, 5000)  # a forced pubmed block: 4 x 3 tiles
 PL_FORCED = (512, 3000)  # a forced block of hub_graph: 2 x 2 tiles
 STAR = dict(n=48_000, fan=40_000, r=512)  # star_graph: rows K7/K8 cut
+# planted_graph: the tests' tiny R-MAT under dense="auto", one block column's
+# source coefficient lifted by "lift" (tests/test_torch_hub_max.py)
+PLANT = dict(n=300, draws=6000, lift=400.0)
 CORA_MIN_ACC = 0.4  # 7 classes: chance is 1/7; 20 CPU steps reach 0.72
 # Scale of the random output gradients.  d ac is a difference of sums of
 # terms up to |x| |g| F, so its float32 rounding floor grows with |g|: at
@@ -1054,6 +1060,112 @@ def star_graph(structure, rng):
     uniq = np.unique(np.stack([src, dst], 1), axis=0)
     return structure.build_graph(uniq[:, 0], uniq[:, 1], n,
                                  dense=(STAR["r"], n), edge_tables=False)
+
+
+def planted_graph(structure, dense, rmat_edges):
+    """(graph, node): the R-MAT of PLANT under dense="auto", and the node of
+    the block column that the most block rows link to."""
+    src, dst = rmat_edges(PLANT["n"], PLANT["draws"], 0)
+    uniq = np.unique(np.stack([src, dst], 1), axis=0)
+    g = structure.build_graph(uniq[:, 0], uniq[:, 1], PLANT["n"],
+                              dense="auto", edge_tables=False)
+    db = g.fwd.dense
+    cols = torch.cat([c for _, c in dense._tiles(db)])
+    ids, counts = db.col_ids.long()[cols].unique(return_counts=True)
+    return g, int(ids[counts.argmax()])
+
+
+def check_planted(dense, graph, node, rng, dev, err):
+    """K5 against its plain version on ``graph``'s forward block with the
+    source coefficient of block column ``node`` lifted by PLANT["lift"]
+    over random tables: the block rows that do not link to it hold scores
+    hundreds under the TPU kernel's row bound, where exp underflows.  m
+    must agree bit for bit and be each row's exact largest score, and
+    every row with an edge must keep l > 0.  Returns (comparisons, rows
+    that miss the column, the least l of a row with an edge)."""
+    db = graph.fwd.dense
+    rows_e = block_row_edges(db)
+    has = rows_e > 0
+    has[db.num_rows:] = False
+    n = graph.num_nodes
+    ks = dict(seed=card_seed(db.mask, torch.int32))
+    n_cmp, least = 0, float("inf")
+    for h, f in DENSE_SHAPES:
+        t = lambda *s: torch.from_numpy(  # noqa: E731
+            rng.normal(size=s).astype(np.float32)).to(dev)
+        ar, ac, feat = t(n, h), t(n, h), t(n, h, f)
+        ac[node] += PLANT["lift"]
+        for dt in DENSE_DTYPES:
+            for p in (0.0, 0.3):
+                kw = dict(slope=SLOPE, with_pos=True, p=p, seed=SEED,
+                          dense_dtype=dt)
+                got = dense.dense_gat_fwd(db, ar, ac, feat, **kw | ks)
+                want = dense.dense_gat_fwd_plain(db, ar, ac, feat, **kw)
+                assert torch.equal(got[0], want[0]), f"planted m {dt} p={p}"
+                for name, g, w in zip(("l", "lpos", "acc", "accpos"),
+                                      got[1:], want[1:]):
+                    e, _ = assert_close(g, w, BLOCK_TOL, dt,
+                                        f"planted {name} {dt} p={p}: ")
+                    err["dense_gat_fwd"] = max(err["dense_gat_fwd"], e)
+                l = got[1][has]
+                assert bool((l > 0).all()), f"planted {dt} p={p}: l = 0"
+                least = min(least, float(l.min()))
+                n_cmp += 1
+    hit = torch.zeros_like(has)
+    for r, c in dense._tiles(db):
+        hit[r[db.col_ids.long()[c] == node]] = True
+    return n_cmp, int((has & ~hit).sum()), least
+
+
+def check_far_rows(dense, graph, dev):
+    """K5 against its plain version on ``graph``'s forward hub block at
+    each of reddit's GAT layer widths and in both dense dtypes (p 0.3), on
+    random tables with the source coefficient of the block's first column
+    lifted by PLANT["lift"]: the rows that miss that column hold scores
+    hundreds under the TPU kernel's row bound, so K5's second launch walks
+    them again at their m.  m must agree bit for bit; l and lpos within
+    1e-3 of l; a row's weighted means acc / l and accpos / l within 1e-3 of
+    the largest |x| (a row of 92,682 edges sums in another order).  Returns
+    (the far rows of the last call, comparisons, the largest error of a
+    mean over the largest |x|)."""
+    db = graph.fwd.dense
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rid, cid = db.row_ids.long(), db.col_ids.long()
+    ks = dict(seed=card_seed(db.mask, torch.int32))
+    n_cmp, worst, far = 0, 0.0, 0
+    for h, f in REDDIT_SHAPES:
+        n = graph.num_nodes
+        ar, ac = (torch.randn(n, h, generator=gen, device=dev)
+                  for _ in range(2))
+        feat = torch.randn(n, h, f, generator=gen, device=dev)
+        ac[cid[0]] += PLANT["lift"]
+        s = ar[rid] + ac[cid].amax(dim=0)
+        bound = torch.where(s >= 0, s, SLOPE * s)
+        top = float(feat.abs().max())
+        for dt in DENSE_DTYPES:
+            kw = dict(slope=SLOPE, with_pos=True, p=0.3, seed=SEED,
+                      dense_dtype=dt)
+            m, l, lpos, acc, accpos = dense.dense_gat_fwd(db, ar, ac, feat,
+                                                          **kw | ks)
+            wm, wl, wlpos, wacc, waccpos = dense.dense_gat_fwd_plain(
+                db, ar, ac, feat, **kw)
+            assert torch.equal(m, wm), f"far rows m {dt} ({h}, {f})"
+            for name, g, w in (("l", l, wl), ("lpos", lpos, wlpos)):
+                assert bool(((g - w).abs() <= 1e-3 * wl).all()), (
+                    f"far rows {name} {dt} ({h}, {f})")
+            den = wl.clamp(min=1e-30)[..., None]
+            for name, g, w in (("acc", acc, wacc), ("accpos", accpos,
+                                                    waccpos)):
+                e = float(((g - w) / den).abs().max()) / top
+                assert e <= 1e-3, (f"far rows {name} {dt} ({h}, {f})", e)
+                worst = max(worst, e)
+            far = int(((wm > -1e30) & (bound - wm > dense.BOUND_GAP))
+                      .any(dim=1).sum())
+            assert far > 0, f"far rows {dt} ({h}, {f}): none"
+            n_cmp += 1
+            del m, l, lpos, acc, accpos, wm, wl, wlpos, wacc, waccpos
+            torch.cuda.empty_cache()
+    return far, n_cmp, worst
 
 
 def widest_row(db):
@@ -1941,6 +2053,13 @@ def _run_reddit(bins, dense, trainers, titles, launches, scale, dev, smi,
         steps_ = r["train_steps"] + r["infer_calls"]
         kt = reddit_kernel_times(bins, dense, kind, g, shapes[kind], dev,
                                  time_calls)
+        if kind == "gat":
+            far, n_cmp, worst = check_far_rows(dense, g, dev)
+            phase("reddit", f"K5's far rows at scale {scale}: {far} of "
+                  f"{g.fwd.dense.num_rows} block rows over "
+                  f"{dense.BOUND_GAP} under the bound; {n_cmp} kernel/plain "
+                  f"comparisons agree, m bit for bit, means within "
+                  f"{worst:.3g} of the largest |x|")
         for (name, sh), v in kt.items():
             per_step = launches[(kind, "reddit")].get(name, 0) / steps_
             phase("reddit", f"{name} scale {scale} layer {sh}: "
@@ -3134,6 +3253,18 @@ def main():
               f"F={f} D={GMM_D}: {n_cmp} kernel/plain comparisons agree "
               f"(atol {tol['atol']:.3g}; {n_off} bf16 elements outside "
               "it)")
+    # a block one of whose columns tops every score of the rows that miss
+    # it by far more than exp's range (K5's exact row maximum), from a
+    # generator of its own
+    from dgnn_tpu_torch.data.synthetic import rmat_edges
+    pg, node = planted_graph(structure, dense, rmat_edges)
+    pg = pg.to(dev)
+    n_cmp, miss, least = check_planted(dense, pg, node,
+                                       np.random.default_rng(4), dev, err)
+    phase("kernels", f"planted block {PLANT}: fwd block "
+          f"{block_stats(pg.fwd)}, column of node {node}; {n_cmp} "
+          f"kernel/plain comparisons agree, m bit for bit; {miss} rows "
+          f"miss the column, least l of a row with an edge {least:.4g}")
     # a block whose long rows K7/K8 cut into pieces and merge, from a
     # generator of its own
     srng = np.random.default_rng(3)

@@ -53,7 +53,10 @@
 // over the edge walk for it: with r and lane taken from the start, K8's
 // model instance went from 124 to 128 registers and ran 1.3 % slower on
 // the Reddit stand-in (PERF.md §6).  With the probes off a warp pays a
-// load of the word and a uniform branch at each of the two stamps.
+// load of the word and a uniform branch at each of the two stamps.  A
+// kernel may keep up to two counts an item beside its two stamps (spans:
+// [R, W]), which the end stamp writes (K5: its edges walked a second time,
+// and its edges, one register held over the walk).
 
 #pragma once
 
@@ -153,8 +156,9 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[NV], int lane) {
   return s;
 }
 
-// Work item r's start into spans[2 r], where spans is given and the flag
+// Work item r's start into spans[W r], where spans is given and the flag
 // word is set; every lane of the warp calls it.
+template <int W = 2>
 __device__ __forceinline__ void stamp_row_start(
     const int* __restrict__ probe, unsigned long long* __restrict__ spans,
     int r, int lane) {
@@ -162,14 +166,17 @@ __device__ __forceinline__ void stamp_row_start(
   if (lane == 0) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    spans[2 * static_cast<size_t>(r)] = t;
+    spans[W * static_cast<size_t>(r)] = t;
   }
 }
 
-// The calling warp's item's end into spans[2 r + 1], as stamp_row_start;
-// the item (blockIdx.x * kWarps + warp) and the lane read afresh.
+// The calling warp's item's end into spans[W r + 1], and its W - 2 counts
+// (c0, c1) after it, as stamp_row_start; the item (blockIdx.x * kWarps +
+// warp) and the lane read afresh.
+template <int W = 2>
 __device__ __forceinline__ void stamp_row_end(
-    const int* __restrict__ probe, unsigned long long* __restrict__ spans) {
+    const int* __restrict__ probe, unsigned long long* __restrict__ spans,
+    int c0 = 0, int c1 = 0) {
   if (spans == nullptr || __ldg(probe) == 0) return;
   unsigned int cta, tid;
   asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(cta));
@@ -177,8 +184,20 @@ __device__ __forceinline__ void stamp_row_end(
   if ((tid & 31) == 0) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    spans[2 * (static_cast<size_t>(cta) * kWarps + (tid >> 5)) + 1] = t;
+    unsigned long long* s =
+        spans + W * (static_cast<size_t>(cta) * kWarps + (tid >> 5));
+    s[1] = t;
+    if (W > 2) s[2] = static_cast<unsigned>(c0);
+    if (W > 3) s[3] = static_cast<unsigned>(c1);
   }
+}
+
+// The largest v over the warp's 32 lanes, every lane taking part: one
+// integer reduction over keys that order as the floats do.
+__device__ __forceinline__ float warp_max(float v) {
+  const int i = __float_as_int(v);
+  const int k = __reduce_max_sync(kFull, i >= 0 ? i : i ^ 0x7fffffff);
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
 }
 
 // The launchers' check of the probe arguments: both null or both given.

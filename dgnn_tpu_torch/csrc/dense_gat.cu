@@ -7,13 +7,24 @@
 //   dense_gat_fwd_kernel  replaces dgnn_tpu/ops/pallas_dense.py:dense_gat_fwd
 //     (kernel _gat_fwd_kernel).  Rows = destinations, columns = sources.
 //     Per row r and head h, with s_raw = ar[row_ids[r]] + ac[col_ids[c]]:
-//       m    = bound_r = LeakyReLU(ar_r + max_c ac_c)  (an upper bound of
-//              every score of the row, not the exact maximum)
-//       p    = exp(LeakyReLU(s_raw) - bound_r) where the mask bit is set
+//       m    = max LeakyReLU(s_raw) over the row's set bits (exact)
+//       p    = exp(LeakyReLU(s_raw) - m) where the mask bit is set
 //       l    = sum p,      acc    = sum p^ x[col_ids[c]]
 //       lpos = sum_{s_raw >= 0} p,  accpos = sum_{s_raw >= 0} p^ x
 //     with p^ = p after attention dropout.  A row with no set bit gives
-//     m = bound and zero partials; the log-sum-exp combine takes both.
+//     m = -1e30 (an empty segment, as the bins') and zero partials.  The
+//     TPU kernel returns as m a bound, bound_r = LeakyReLU(ar_r + max ac
+//     over all the block's columns) (acmax), and its partials relative to
+//     it: where a row's scores lie more than about 46 under it, L falls
+//     under the combine's 1e-20 clamp, and past 87 exp(s - bound)
+//     underflows, so the row's output shrinks or vanishes.  Here a warp
+//     walks its row first as the TPU kernel does, at the bound, keeping
+//     each lane's largest score; then one reduction gives m.  Where m lies
+//     at most kBoundGap under the bound the sums are restated at m (one
+//     multiply each); else a second launch of the kernel walks the row
+//     again at m (a row that needs none ends there at once).  So the
+//     first walk rounds p^ in bf16 mode exactly as the TPU kernel does,
+//     and a second walk is paid only where the bound is too loose.
 //
 //   dense_gat_bwd_kernel  replaces dgnn_tpu/ops/pallas_dense.py:dense_gat_bwd
 //     (kernel _gat_bwd_kernel).  The backward block is transposed: rows =
@@ -29,20 +40,27 @@
 // kernels feed their matmuls bf16 operands and accumulate in f32.  These
 // kernels round the same operands to bf16 (round to nearest even) and
 // multiply and add in f32: forward p^ (and its sign-split copy) and x;
-// backward a^, g and x.  Everything else stays f32, including the a^ inside
-// dac's first term.  One detail: without dropout the TPU kernel's l and
-// lpos ride the matmul's ones column, so they are sums of bf16-rounded p;
-// with dropout they are f32 sums of unrounded p.  Both cases are matched.
+// backward a^, g and x (the forward's p^ at the bound's scale, as the TPU
+// kernel's, on a row's first walk; at m on a second).  Everything else
+// stays f32, including the a^ inside dac's first term.  One detail:
+// without dropout the TPU kernel's l and lpos ride the matmul's ones
+// column, so they are sums of bf16-rounded p; with dropout they are f32
+// sums of unrounded p.  Both cases are matched.
 //
 // Design: dense_common.cuh's, which all four dense kernels share.  Each
 // has instances by (HMAX heads held, 4 or kMaxHeads; NC feature columns a
 // lane, 1 to 32), picked by ops/dense.py dense_gat_fwd_instance /
 // dense_gat_bwd_instance; the launchers refuse any other.
 //
-//   Forward: the row's ar and bound sit in shared memory; l and lpos are
-//   per-lane sums that a slab in shared memory gathers at the end over the
-//   lanes that held an edge.  A group of 8 lanes a row at the output layer
-//   (4 rows a warp) measured slower than a warp a row.
+//   Forward: the row's ar and the walk's reference (the bound, then m) sit
+//   in shared memory; l and lpos are per-lane sums that a slab in shared
+//   memory gathers at the end over the lanes that held an edge; each lane
+//   keeps its edges' largest score in its slot's free half.  A group of
+//   8 lanes a row at the output layer (4 rows a warp) measured slower than
+//   a warp a row.  Keeping m exact online instead (a batch's maximum and a
+//   rescale of the sums wherever it rose) measured 2-10 % slower on the
+//   Reddit stand-in, whether the batch's maximum was reduced every batch
+//   or only after a vote.
 //   Backward: the row's ac is requested before its mask and its x row
 //   after the walk; lane i requests edge i's ar, M, Linv and ws rows
 //   together, HMAX values each.  dac's two terms, <x_j, sum a^ d' g> over
@@ -91,15 +109,31 @@ using dgnn::stamp_row_end;
 using dgnn::stamp_row_start;
 
 constexpr int kMaxHeads = 16;          // the wrapper refuses H > kMaxHeads
+constexpr float kNegB = -1e30f;  // finite "-inf": max of an empty segment
+// The widest gap between a row's bound and its largest score at which the
+// first walk's sums, weighed at the bound, are kept (ops/dense.py
+// BOUND_GAP; tests/test_torch_hub_max.py holds the two equal): their
+// largest term is then at least exp(-40), and a term that underflows lies
+// e^-47 under it.
+constexpr float kBoundGap = 40.f;
+// The forward's row probe: two stamps, then the row's edges walked again
+// and its edges (utils/profiling.py row_raises).
+constexpr int kGatFwdProbe = 4;
 
 // The forward's instances: HMAX heads held (4 or kMaxHeads), NC columns a
 // lane (ops/dense.py dense_gat_fwd_instance picks one).  Those with 4 heads
 // and up to 8 columns a lane keep kGatFwdMinBlocks blocks of kWarps rows an
 // SM by their launch bounds (at most 102 registers a thread): cora's 2,560
-// block rows are then resident at once on 132 SMs.
+// block rows are then resident at once on 132 SMs.  Those of 1 or 2
+// columns a lane (the output layers) keep kGatFwdNarrowMinBlocks (at most
+// 73): the exact maximum's bookkeeping took the 2-column instance from 72
+// to 79 registers and six blocks an SM, 4 % slower on the Reddit
+// stand-in's output layer than the bound alone (2 % at 72).
 constexpr int kGatFwdMinBlocks = 5;
+constexpr int kGatFwdNarrowMinBlocks = 7;
 constexpr int gat_fwd_min_blocks(int hmax, int nc) {
-  return hmax <= 4 && nc <= 8 ? kGatFwdMinBlocks : 1;
+  return hmax > 4 ? 1 : nc <= 2 ? kGatFwdNarrowMinBlocks
+                                : nc <= 8 ? kGatFwdMinBlocks : 1;
 }
 // Edges whose feature rows are requested together: as many as keep
 // kGatFwdPrefetch values a lane in flight, at most 8 edges.
@@ -122,26 +156,30 @@ dense_gat_fwd_kernel(
     const int* __restrict__ chunk_ptr,   // [R / kRT + 1]
     int R, int H, int F, float slope, int with_pos, float p, float inv_keep,
     const uint32_t* __restrict__ seed_p, const int* __restrict__ gid,
-    int bf16,
-    float* __restrict__ m_out,           // [R, H]
+    int bf16, int again,                 // again: the second launch
+    int* __restrict__ far_rows,          // [1] rows the second walks (zeroed)
+    float* __restrict__ m_out,           // [R, H]: written, or read (again)
     float* __restrict__ l_out,           // [R, H]
     float* __restrict__ lpos_out,        // [R, H]    (with_pos)
     float* __restrict__ acc_out,         // [R, H*F]
     float* __restrict__ accpos_out,      // [R, H*F]  (with_pos)
     const int* __restrict__ probe,       // row spans (dense_common.cuh)
-    unsigned long long* __restrict__ spans) {  // [R, 2]
+    unsigned long long* __restrict__ spans) {  // [R, kGatFwdProbe]
   constexpr int kSlot = 2 * HMAX + 1;  // floats a lane; odd: no bank conflicts
   constexpr int PF = gat_fwd_prefetch(NC);
   __shared__ unsigned short cols[kWarps][32];  // per lane: its edge's column
   __shared__ uint32_t posb[kWarps][32];        // its edge's bit h: s_raw >= 0
-  // per lane: its edge's p^ a head; after the walk, its l and lpos sums
+  // per lane: its edge's p^ a head, and its edges' largest score a head
+  // (first walk); after the walks, its l and lpos sums
   __shared__ float slot[kWarps][32 * kSlot];
-  __shared__ float head[kWarps][2 * HMAX];     // the row's ar and bound
+  __shared__ float head[kWarps][2 * HMAX];  // the row's ar and reference
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int r = blockIdx.x * kWarps + warp;
   if (r >= R) return;  // whole warps only; no block-wide barrier follows
-  stamp_row_start(probe, spans, r, lane);
+  // the second launch ends at once where the first found no far row
+  if (again && *static_cast<volatile int*>(far_rows) == 0) return;
+  stamp_row_start<kGatFwdProbe>(probe, spans, r, lane);
   const int HF = H * F;
   const bool drop = p > 0.f;
   // the dropout seed (gat_common.cuh): one load before the walk
@@ -155,10 +193,23 @@ dense_gat_fwd_kernel(
                                     : rid;
   const int t_end = chunk_ptr[chunk + 1];
   float* hd = head[warp];
+  // the walk's reference: the bound (the first launch), or the row's m
+  // where that lies more than kBoundGap under the bound (the second: any
+  // other row ends here)
+  bool far = false;
   if (lane < H) {
     const float a = __ldg(ar + static_cast<size_t>(rid) * H + lane);
+    const float b = leaky(a + __ldg(acmax + lane), slope);
+    const float m = again ? m_out[static_cast<size_t>(r) * H + lane] : b;
+    far = m > kNegB && b - m > kBoundGap;
     hd[lane] = a;
-    hd[HMAX + lane] = leaky(a + __ldg(acmax + lane), slope);
+    hd[HMAX + lane] = m;
+  }
+  if (again && !__any_sync(kFull, far)) return;
+  {  // this lane's edges' largest scores, in its slot's free half
+    float* top = slot[warp] + lane * kSlot + HMAX;
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) top[h] = kNegB;
   }
   __syncwarp();
 
@@ -174,81 +225,125 @@ dense_gat_fwd_kernel(
     hcol[k] = c < HF ? c / F : 0;
   }
   int held = 0;  // lanes that held an edge: min(32, the longest tile row)
+  int edges = 0;  // the row's edges
 
-  for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
-    const uint32_t* mrow =
-        mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
-    const int* cid_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
-    RowList rl;
-    rl.load(mrow, lane);
-    held = max(held, min(32, rl.total));
-    for (int e0 = 0; e0 < rl.total; e0 += 32) {
-      const int n = min(32, rl.total - e0);
-      rl.emit(e0, cols[warp]);
-      __syncwarp();
-      // lane i: edge e0 + i's per-head weights
-      uint32_t cid = 0;
-      if (lane < n) {
-        cid = static_cast<uint32_t>(cid_tile[cols[warp][lane]]);
-        const float* acj = ac + static_cast<size_t>(cid) * H;
-        const uint32_t pb =
-            drop ? pair_base(seed, hrid, gid ? __ldg(gid + cid) : cid) : 0u;
-        float* sl = slot[warp] + lane * kSlot;
-        uint32_t pos = 0;
+  {
+    for (int t = chunk_ptr[chunk]; t < t_end; ++t) {
+      const uint32_t* mrow =
+          mask + (static_cast<size_t>(t) * kRT + (r - chunk * kRT)) * kRowWords;
+      const int* cid_tile = col_ids + static_cast<size_t>(__ldg(ct + t)) * kCT;
+      RowList rl;
+      rl.load(mrow, lane);
+      held = max(held, min(32, rl.total));
+      edges += rl.total;
+      for (int e0 = 0; e0 < rl.total; e0 += 32) {
+        const int n = min(32, rl.total - e0);
+        rl.emit(e0, cols[warp]);
+        __syncwarp();
+        // lane i: edge e0 + i's per-head weights
+        uint32_t cid = 0;
+        if (lane < n) {
+          cid = static_cast<uint32_t>(cid_tile[cols[warp][lane]]);
+          const float* acj = ac + static_cast<size_t>(cid) * H;
+          const uint32_t pb =
+              drop ? pair_base(seed, hrid, gid ? __ldg(gid + cid) : cid) : 0u;
+          float* sl = slot[warp] + lane * kSlot;
+          uint32_t pos = 0;
 #pragma unroll
-        for (int h = 0; h < HMAX; ++h) {
-          if (h < H) {
-            const float sr = hd[h] + __ldg(acj + h);
-            const float pw = expf(leaky(sr, slope) - hd[HMAX + h]);
-            float pd = pw;
-            if (drop) pd = pair_u_head(pb, H, h) > p ? pw * inv_keep : 0.f;
-            pd = rnd(pd, use_bf);
-            // l: bf16-rounded p without dropout, f32 p with it (header)
-            const float lw = drop ? pw : pd;
-            sl[h] = pd;
-            lsum[h] += lw;
-            if (sr >= 0.f) {
-              pos |= 1u << h;
-              lpsum[h] += lw;
+          for (int h = 0; h < HMAX; ++h) {
+            if (h < H) {
+              const float sr = hd[h] + __ldg(acj + h);
+              const float sv = leaky(sr, slope);
+              sl[HMAX + h] = fmaxf(sl[HMAX + h], sv);  // the largest
+              const float pw = expf(sv - hd[HMAX + h]);
+              float pd = pw;
+              if (drop) pd = pair_u_head(pb, H, h) > p ? pw * inv_keep : 0.f;
+              pd = rnd(pd, use_bf);
+              // l: bf16-rounded p without dropout, f32 p with it (header)
+              const float lw = drop ? pw : pd;
+              sl[h] = pd;
+              lsum[h] += lw;
+              if (sr >= 0.f) {
+                pos |= 1u << h;
+                lpsum[h] += lw;
+              }
             }
           }
+          posb[warp][lane] = pos;
         }
-        posb[warp][lane] = pos;
-      }
-      __syncwarp();
-      // lanes over feature columns: the n edges' weighted rows, PF edges'
-      // rows requested before any of them is used (left to itself, the
-      // compiler waits on each edge's loads in turn); every lane loads an
-      // address in the row and zeroes what lies past H*F
-      for (int i0 = 0; i0 < n; i0 += PF) {
-        float xv[PF][NC];
+        __syncwarp();
+        // lanes over feature columns: the n edges' weighted rows, PF edges'
+        // rows requested before any of them is used (left to itself, the
+        // compiler waits on each edge's loads in turn); every lane loads an
+        // address in the row and zeroes what lies past H*F
+        for (int i0 = 0; i0 < n; i0 += PF) {
+          float xv[PF][NC];
 #pragma unroll
-        for (int u = 0; u < PF; ++u) {
-          const uint32_t cj = __shfl_sync(kFull, cid, min(i0 + u, n - 1));
-          const float* xr = x + static_cast<size_t>(cj) * HF;
-#pragma unroll
-          for (int k = 0; k < NC; ++k) {
-            const int c = lane + 32 * k;
-            const float raw = __ldg(xr + min(c, HF - 1));
-            xv[u][k] = c < HF ? raw : 0.f;
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < PF; ++u) {
-          if (i0 + u < n) {
-            const float* sl = slot[warp] + (i0 + u) * kSlot;
-            const uint32_t pos = posb[warp][i0 + u];
+          for (int u = 0; u < PF; ++u) {
+            const uint32_t cj = __shfl_sync(kFull, cid, min(i0 + u, n - 1));
+            const float* xr = x + static_cast<size_t>(cj) * HF;
 #pragma unroll
             for (int k = 0; k < NC; ++k) {
-              const float v = sl[hcol[k]] * rnd(xv[u][k], use_bf);
-              acc[k] += v;
-              if ((pos >> hcol[k]) & 1u) accp[k] += v;
+              const int c = lane + 32 * k;
+              const float raw = __ldg(xr + min(c, HF - 1));
+              xv[u][k] = c < HF ? raw : 0.f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < PF; ++u) {
+            if (i0 + u < n) {
+              const float* sl = slot[warp] + (i0 + u) * kSlot;
+              const uint32_t pos = posb[warp][i0 + u];
+#pragma unroll
+              for (int k = 0; k < NC; ++k) {
+                const float v = sl[hcol[k]] * rnd(xv[u][k], use_bf);
+                acc[k] += v;
+                if ((pos >> hcol[k]) & 1u) accp[k] += v;
+              }
             }
           }
         }
+        __syncwarp();  // before the next batch overwrites the staging
       }
-      __syncwarp();  // before the next batch overwrites the staging
     }
+  }
+  if (!again) {
+    // the row's largest score a head (kNegB: no edge): its m; the sums,
+    // weighed at the bound, restated at m where it lies at most
+    // kBoundGap under it (else the second launch walks the row again)
+    float mh = kNegB;
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) {
+      if (h < H) {
+        const float m =
+            dgnn::warp_max(slot[warp][lane * kSlot + HMAX + h]);
+        far |= m > kNegB && hd[HMAX + h] - m > kBoundGap;
+        if (lane == h) mh = m;
+      }
+    }
+    // the scale a head passes through the first slots
+    float* scale = slot[warp];
+    __syncwarp();  // every lane has read the bounds and its slot
+    if (lane < H) {
+      scale[lane] = mh > kNegB && !far ? expf(hd[HMAX + lane] - mh) : 1.f;
+      m_out[static_cast<size_t>(r) * H + lane] = mh;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int h = 0; h < HMAX; ++h) {
+      if (h < H) {
+        lsum[h] *= scale[h];
+        lpsum[h] *= scale[h];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const float sc = scale[hcol[k]];
+      acc[k] *= sc;
+      accp[k] *= sc;
+    }
+    __syncwarp();  // before the sums take the slots
+    if (far && lane == 0) atomicAdd(far_rows, 1);  // a count; no result
   }
 
   const size_t ro = static_cast<size_t>(r);
@@ -279,11 +374,10 @@ dense_gat_fwd_kernel(
       lh += slot[warp][i * kSlot + lane];
       lph += slot[warp][i * kSlot + HMAX + lane];
     }
-    m_out[ro * H + lane] = hd[HMAX + lane];
     l_out[ro * H + lane] = lh;
     if (with_pos) lpos_out[ro * H + lane] = lph;
   }
-  stamp_row_end(probe, spans);
+  stamp_row_end<kGatFwdProbe>(probe, spans, far ? edges : 0, edges);
 }
 
 // The backward's instances, as the forward's: HMAX heads held, NC columns
@@ -511,7 +605,7 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
                        int with_pos, float p, float inv_keep, const uint32_t* seed,
                        const int* gid, int bf16, int hmax, int nc, float* m,
                        float* l,
-                       float* lpos, float* acc, float* accpos,
+                       float* lpos, float* acc, float* accpos, int* far_rows,
                        const int* probe, unsigned long long* spans,
                        void* stream) {
   // the instance ops/dense.py dense_gat_fwd_instance chose, checked
@@ -522,17 +616,25 @@ int dgnn_dense_gat_fwd(const float* x, const float* ac, const float* ar,
   const int blocks = (R + kWarps - 1) / kWarps;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint32_t* msk = static_cast<const uint32_t*>(mask);
+  // the row walk, then the second walk of the rows whose m lies more than
+  // kBoundGap under the bound (the others end at once; no row spans)
+  cudaMemsetAsync(far_rows, 0, sizeof(int), s);
+  for (int again = 0; again < 2; ++again) {
+    const int* pr = again ? nullptr : probe;
+    unsigned long long* sp = again ? nullptr : spans;
 #define DGNN_GAT_FWD(HM, NCC)                                               \
   dense_gat_fwd_kernel<HM, NCC><<<blocks, kWarps * 32, 0, s>>>(              \
       x, ac, ar, acmax, row_ids, col_ids, msk, ct, chunk_ptr, R, H, F, slope, \
-      with_pos, p, inv_keep, seed, gid, bf16, m, l, lpos, acc, accpos, probe, \
-      spans)
-  if (hmax == 4) {
-    DGNN_GAT_NC(DGNN_GAT_FWD, 4);
-  } else {
-    DGNN_GAT_NC(DGNN_GAT_FWD, kMaxHeads);
-  }
+      with_pos, p, inv_keep, seed, gid, bf16, again, far_rows, m, l, lpos,   \
+      acc, accpos,                                                          \
+      pr, sp)
+    if (hmax == 4) {
+      DGNN_GAT_NC(DGNN_GAT_FWD, 4);
+    } else {
+      DGNN_GAT_NC(DGNN_GAT_FWD, kMaxHeads);
+    }
 #undef DGNN_GAT_FWD
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -147,6 +147,7 @@ def load() -> ctypes.CDLL:
             vp,                                 # gid
             ci, ci, ci,                         # bf16 hmax nc
             vp, vp, vp, vp, vp,                 # m l lpos acc accpos
+            vp,                                 # far rows (one int)
             vp, vp,                             # probe spans (null: none)
             vp]                                 # stream
         lib.dgnn_dense_gat_fwd.restype = ci

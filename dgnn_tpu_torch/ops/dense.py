@@ -23,13 +23,15 @@ backward w_k and g for dx, x and g for <x, g>, while c_k = <x, g> w_k and
 the stat rows use the unrounded w_k); "float32" rounds nothing.
 
 ``LAUNCHES`` counts kernel launches per wrapper (a plain int each, added to
-only where the kernel is launched); a GAT launch given a table of global
-ids for the dropout hash (``gid``, as ops/bins.py's) counts under its name
-with ``_gid`` appended.  The MoNet kernels walk the block's work list
-where it has one (``gmm_work``; graph.structure.WorkList: its long rows
-cut into pieces, a warp a piece; a merge kernel, counted as
-``dense_gmm_merge``, adds the cut rows' partials after each such launch),
-else a warp a block row.
+only where the kernel is launched; a ``dense_gat_fwd`` call counts once,
+its kernel's second launch with it, which walks again only the rows whose
+largest score lies more than BOUND_GAP under the TPU kernel's bound); a
+GAT launch given a table of global ids for the dropout hash (``gid``, as
+ops/bins.py's) counts under its name with ``_gid`` appended.  The MoNet
+kernels walk the block's work list where it has one (``gmm_work``;
+graph.structure.WorkList: its long rows cut into pieces, a warp a piece; a
+merge kernel, counted as ``dense_gmm_merge``, adds the cut rows' partials
+after each such launch), else a warp a block row.
 ``dense_gat_fwd_instance``, ``dense_gat_bwd_instance``,
 ``dense_gmm_fwd_instance`` and
 ``dense_gmm_bwd_instance`` pick the template instance of each kernel that a
@@ -51,9 +53,9 @@ from ..graph.hub import DENSE_CT, DENSE_RT
 from ..graph.structure import WorkList, split_budget
 from ..utils import profiling
 from . import _build
-from .bins import (_check_cuda, _check_gid, _check_gmm, _check_gmm_params,
-                   _hash_ids, _inv_keep, _on_cpu, _opt, _ptr, _seed_arg,
-                   gmm_stat_width)
+from .bins import (NEG_B, _check_cuda, _check_gid, _check_gmm,
+                   _check_gmm_params, _hash_ids, _inv_keep, _on_cpu, _opt,
+                   _ptr, _seed_arg, gmm_stat_width)
 from .common import gaussian_terms, leaky_relu, leaky_relu_grad, pair_keep
 
 __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
@@ -65,6 +67,15 @@ __all__ = ["dense_gat_fwd", "dense_gat_fwd_plain", "dense_gat_bwd",
            "gmm_work", "hold_work", "gmm_resident_warps"]
 
 DENSE_DTYPES = ("bfloat16", "float32")
+# int64 entries a block row of K5's row probe (csrc/dense_gat.cu
+# kGatFwdProbe): its start and end, then its edges walked a second time and
+# its edges (utils/profiling.py row_raises)
+FWD_PROBE = 4
+# The widest gap between a hub block row's bound (the TPU kernel's m) and its
+# largest score at which K5 keeps its first walk, weighed at the bound: its
+# largest term is then at least exp(-40), and a term that underflows lies
+# e^-47 under it (csrc/dense_gat.cu kBoundGap, a constant there)
+BOUND_GAP = 40.0
 # Feature columns the kernels take: 32 lanes x at most 32 columns each.
 MAX_HF = 1024
 
@@ -187,14 +198,15 @@ def dense_gmm_bwd_instance(K: int, D: int, Dd: int,
     return ("model" if fits else "general"), _gmm_cols(K * F)
 
 
-def _probe(kernel: str, args, R: int, like: torch.Tensor):
+def _probe(kernel: str, args, R: int, like: torch.Tensor, width: int = 2):
     """The recorder's (flag, buffer) for a launch of ``kernel`` over R work
     items, block rows or pieces (utils/profiling.py), named
     ``kernel<args>``: the instance as the ``*_instance`` picker gives it
     (GAT's template arguments; MoNet's "model" or "general" sizes and
-    columns a lane)."""
+    columns a lane); ``width`` entries an item (K5: 4, its two counts
+    after the stamps)."""
     name = f"{kernel}<{', '.join(map(str, args))}>"
-    return profiling.probe_args(name, R, like.device)
+    return profiling.probe_args(name, R, like.device, width)
 
 
 def unpack_mask(bits_u8: torch.Tensor) -> torch.Tensor:
@@ -235,27 +247,44 @@ def dense_gat_fwd_plain(db, ar, ac, feat, *, slope: float, with_pos: bool,
                         p: float = 0.0, seed=0,
                         dense_dtype: str = "bfloat16", gid=None):
     """Plain PyTorch hub-block forward; same arguments and outputs as
-    ``dense_gat_fwd``."""
+    ``dense_gat_fwd``.  m is each row's largest score (a scatter amax).
+    As the kernel, a row whose m lies at most BOUND_GAP under its bound
+    LeakyReLU(ar + max ac over all the block's columns) is weighed at the
+    bound, bf16 rounding included, and restated at m; any other row is
+    weighed at m."""
     rnd = _rounder(dense_dtype)
     H, F = feat.shape[1], feat.shape[2]
     rid_all = db.row_ids.long()
     cid_all = db.col_ids.long()
     R = rid_all.shape[0]
-    bound = leaky_relu(ar[rid_all] + _col_max(ac, db)[None, :], slope)
     new = dict(device=feat.device, dtype=torch.float32)
+
+    def scores(rows, cols):
+        s_raw = ar[rid_all[rows]] + ac[cid_all[cols]]      # [E, H]
+        return s_raw, leaky_relu(s_raw, slope)
+
+    m = torch.full((R, H), NEG_B, **new)
+    for rows, cols in _tiles(db):
+        m.scatter_reduce_(0, rows[:, None].expand(-1, H),
+                          scores(rows, cols)[1], "amax")
+    bound = leaky_relu(ar[rid_all] + _col_max(ac, db)[None, :], slope)
+    again = ((m > NEG_B) & (bound - m > BOUND_GAP)).any(dim=1, keepdim=True)
+    ref = torch.where(again, m, bound)
+    scale = torch.where(again | (m <= NEG_B), 1.0, torch.exp(bound - m))
     l = torch.zeros((R, H), **new)
     acc = torch.zeros((R, H, F), **new)
     lpos = torch.zeros((R, H), **new) if with_pos else None
     accpos = torch.zeros((R, H, F), **new) if with_pos else None
     for rows, cols in _tiles(db):
         rid, cid = rid_all[rows], cid_all[cols]
-        s_raw = ar[rid] + ac[cid]                          # [E, H]
-        pw = torch.exp(leaky_relu(s_raw, slope) - bound[rows])
+        s_raw, s = scores(rows, cols)
+        pw = torch.exp(s - ref[rows])
         pd = rnd(pw * pair_keep(seed, _hash_ids(rid, gid),
                                 _hash_ids(cid, gid), H, p) if p > 0 else pw)
         # l sums the undropped p: bf16-rounded without dropout (the TPU
         # kernel's matmul ones column), float32 with it
-        lw = pw if p > 0 else pd
+        lw = (pw if p > 0 else pd) * scale[rows]
+        pd = pd * scale[rows]
         x = rnd(feat[cid])                                 # [E, H, F]
         l.index_add_(0, rows, lw)
         acc.index_add_(0, rows, pd[..., None] * x)
@@ -264,7 +293,7 @@ def dense_gat_fwd_plain(db, ar, ac, feat, *, slope: float, with_pos: bool,
             lpos.index_add_(0, rows, torch.where(pos, lw, 0.0))
             accpos.index_add_(0, rows,
                               torch.where(pos, pd, 0.0)[..., None] * x)
-    return bound, l, lpos, acc, accpos
+    return m, l, lpos, acc, accpos
 
 
 def _check_block(name, db, HF, H=None):
@@ -313,8 +342,9 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
         (ops/bins.py), indexed by row_ids and col_ids.
     Returns (m, l, lpos, acc, accpos) per block row: m, l, lpos [R, H];
     acc, accpos [R, H, F]; lpos/accpos are None unless ``with_pos``.  m is
-    the row's score bound LeakyReLU(ar + max ac), not the exact maximum; a
-    row with no edge in the block has l = 0 and acc = 0.
+    the row's exact largest score, max LeakyReLU(ar + ac) over its edges,
+    and the partials are relative to it; a row with no edge in the block
+    has m = -1e30 (an empty segment), l = 0 and acc = 0.
     """
     if _on_cpu(ar, ac, feat, db.mask, db.row_ids, db.col_ids, db.chunk_ptr,
                *_opt(gid)):
@@ -334,13 +364,15 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
     new = dict(device=feat.device, dtype=torch.float32)
     m = torch.empty((R, H), **new)
     l = torch.empty((R, H), **new)
+    far = torch.empty(1, device=feat.device, dtype=torch.int32)
     acc = torch.empty((R, H, F), **new)
     lpos = torch.empty((R, H), **new) if with_pos else None
     accpos = torch.empty((R, H, F), **new) if with_pos else None
     hmax, cols = dense_gat_fwd_instance(H, F)
     seed_t = _seed_arg(seed, p, feat)
     lib = _build.load()
-    flag, spans = _probe("dense_gat_fwd_kernel", (hmax, cols), R, feat)
+    flag, spans = _probe("dense_gat_fwd_kernel", (hmax, cols), R, feat,
+                         FWD_PROBE)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     err = lib.dgnn_dense_gat_fwd(
         _ptr(feat), _ptr(ac), _ptr(ar), _ptr(acmax), _ptr(db.row_ids),
@@ -348,7 +380,7 @@ def dense_gat_fwd(db, ar, ac, feat, *, slope: float, with_pos: bool,
         R, H, F, float(slope), int(with_pos), float(p), _inv_keep(p),
         _ptr(seed_t), _ptr(gid), int(dense_dtype == "bfloat16"),
         hmax, cols, _ptr(m), _ptr(l), _ptr(lpos), _ptr(acc), _ptr(accpos),
-        _ptr(flag), _ptr(spans), stream)
+        _ptr(far), _ptr(flag), _ptr(spans), stream)
     if err:
         raise RuntimeError(f"dense_gat_fwd kernel launch failed: CUDA error "
                            f"{err} (R={R}, H={H}, F={F})")

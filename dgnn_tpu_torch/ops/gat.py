@@ -31,11 +31,17 @@ as the JAX op does (``dgnn_tpu/ops/gat.py:505-509``), and rounds where it
 rounds: the op casts ``feat`` to bf16 before the Function, so the forward
 gathers bf16 rows of x and the bf16-rounded ``ac`` column beside them
 (``_concat_rows(feat, ac)``); the backward casts ``g`` to bf16 before the
-closed-form ws / t1 / d_ar, gathers the bf16-rounded ``ar``, ``M``,
-``Linv`` and ``ws``, reads the resident x rows in bf16, and returns
-``d_feat`` rounded to bf16, which the cast's own gradient widens.  The hub
-block takes the rounded tables as float32 values and ``ac`` unrounded, as
-the JAX op hands them to its dense kernels.  Every sum and the output stay
+closed-form ws / t1 / d_ar, reads the resident x rows in bf16, and returns
+``d_feat`` rounded to bf16, which the cast's own gradient widens.  The
+destination columns the backward reads per edge, ``ar``, ``M``, ``Linv``
+and ``ws``, stay float32 tables here, where the JAX op narrows them with
+the gathered rows: M rounded to bf16 errs by up to |M| 2^-9 in the
+exponent of every weight of its row, and ws rounded breaks the
+cancellation in d ac's terms a (<x, g> - ws): on the Reddit stand-in the
+gradients then strayed from float32's as far as fp8 operands put them
+(PERF.md).  The hub
+block takes the tables as float32 values and ``ac`` unrounded, as the JAX
+op hands them to its dense kernels.  Every sum and the output stay
 float32.
 
 Pass A runs every bin of the CSR direction in one launch
@@ -76,8 +82,8 @@ def _gat_forward(adj: BinnedAdj, ar, ac, feat, slope, p, seed, dense_dtype,
     unless ``with_pos``."""
     tail = None
     if adj.dense is not None:
-        # the block's partials follow every bin's: m is the rows' score
-        # bound, which the log-sum-exp combine takes like an exact max
+        # the block's partials follow every bin's, each row's relative to
+        # its exact maximum over its block edges, as a bin segment's are
         tail = dense_gat_fwd(adj.dense, ar, ac, feat.float(), slope=slope,
                              with_pos=with_pos, p=p, seed=seed,
                              dense_dtype=dense_dtype, gid=gid)
@@ -121,9 +127,9 @@ class _GATFused(torch.autograd.Function):
         t2 = slope + (1.0 - slope) * r
         d_ar = t1 - ws * t2
         # pass B over the CSC bins: dX and d attn_col, per-source sums; the
-        # destination columns are gathered beside g, so rounded with it
+        # destination columns in float32 (module docstring)
         Linv = 1.0 / torch.clamp(L, min=1e-20)
-        cols = [rounded(t, dt) for t in (ar, M, Linv, ws)]
+        cols = (ar, M, Linv, ws)
         tail = None
         if adj_bwd.dense is not None:
             # transposed block: rows = sources, cols = destinations; its

@@ -31,7 +31,11 @@ eager calls and ``StepGraph.replay`` ask).  A launch captured into a
 ``StepGraph`` gets a buffer of its own for the graph's life, so a graph
 captured with the probes off writes row spans on the replays a profiler
 records.  ``row_spans()`` reads the launches of the last profiled replay,
-or of the eager launches since the probes were last switched on.
+or of the eager launches since the probes were last switched on.  The
+GAT forward (K5) keeps two counts a row after its stamps ([R, 4]): its
+edges walked a second time (where its largest score lay too far under
+the TPU kernel's bound) and its edges, which ``row_raises()`` reads from
+the same launches.
 
 Replay series.  ``StepGraph.replay`` records a CUDA event after a call's
 launches at most once every ``SAMPLE_EVERY_S`` of host time, with the
@@ -56,7 +60,7 @@ import torch
 
 __all__ = ["trace", "span", "spans", "last", "totals", "reset", "recording", "Span",
            "Record", "Recorder", "RECORDER", "ReplaySeries", "probe_args",
-           "row_spans", "replay_points", "row_tail",
+           "row_spans", "row_raises", "replay_points", "row_tail",
            "tail_pct", "slow_share", "SPAN_BUFFER", "SAMPLE_EVERY_S",
            "SLOWER", "FASTEST"]
 
@@ -95,7 +99,9 @@ class Record(collections.namedtuple("Record",
     def seconds(self) -> float:
         return (self.end_ns - self.start_ns) / 1e9
 
-# one probed hub-block launch: kernel name, block rows, its [R, 2] buffer
+# one probed hub-block launch: kernel name, block rows, its [R, W] buffer
+# (W 2: the stamps; 4: the stamps, then a row's edges walked again and its
+# edges)
 _Launch = collections.namedtuple("_Launch", "name rows buf")
 
 
@@ -243,18 +249,19 @@ class Recorder:
         if on:
             self._eager.clear()
 
-    def probe_args(self, name: str, rows: int, device):
+    def probe_args(self, name: str, rows: int, device, width: int = 2):
         """(flag, buffer) for a hub-block launch of kernel ``name`` over
-        ``rows`` block rows, or (None, None): no probe.  In a capture by
-        ``StepGraph`` the buffer lives as long as the graph; other
-        captures get none.  An eager launch gets one only while a profiler
-        records."""
+        ``rows`` block rows ([rows, width] int64), or (None, None): no
+        probe.  In a capture by ``StepGraph`` the buffer lives as long as
+        the graph; other captures get none.  An eager launch gets one only
+        while a profiler records."""
         device = torch.device(device)
         if torch.cuda.is_current_stream_capturing():
             if (self._capture is None or self._flag is None
                     or self._flag.device != device):
                 return None, None
-            buf = torch.empty((rows, 2), dtype=torch.int64, device=device)
+            buf = torch.empty((rows, width), dtype=torch.int64,
+                              device=device)
             self._capture.append(_Launch(name, rows, buf))
             return self._flag, buf
         if self._flag is None:
@@ -266,7 +273,7 @@ class Recorder:
         self.sync_probes()
         if not self._flag_on:
             return None, None
-        buf = torch.empty((rows, 2), dtype=torch.int64, device=device)
+        buf = torch.empty((rows, width), dtype=torch.int64, device=device)
         if self._last is not self._eager:
             self._eager.clear()
             self._last = self._eager
@@ -292,8 +299,15 @@ class Recorder:
     def row_spans(self) -> list:
         """(kernel name, [R, 2] int64 ns: start and end a block row) of each
         probed launch of the last profiled replay, read now."""
-        return [(l.name, l.buf.cpu().numpy()) for l in self._last
+        return [(l.name, l.buf[:, :2].cpu().numpy()) for l in self._last
                 if l.rows > 0]
+
+    def row_raises(self) -> list:
+        """(kernel name, [R, 2] int64: a block row's edges walked a second
+        time, and its edges) of each probed launch of the last profiled
+        replay that counts them (K5), read now."""
+        return [(l.name, l.buf[:, 2:4].cpu().numpy()) for l in self._last
+                if l.rows > 0 and l.buf.shape[1] >= 4]
 
 
 RECORDER = Recorder()
@@ -324,12 +338,16 @@ def reset() -> None:
     RECORDER.reset()
 
 
-def probe_args(name: str, rows: int, device):
-    return RECORDER.probe_args(name, rows, device)
+def probe_args(name: str, rows: int, device, width: int = 2):
+    return RECORDER.probe_args(name, rows, device, width)
 
 
 def row_spans() -> list:
     return RECORDER.row_spans()
+
+
+def row_raises() -> list:
+    return RECORDER.row_raises()
 
 
 def replay_points() -> list:

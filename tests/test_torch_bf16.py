@@ -6,7 +6,12 @@ device, the bf16 instances of the four bin kernels against their plain
 versions.
 
 Tolerance: both sides round the same operands to bf16 at the same places,
-so nearly every element agrees to float32 summation order (TIGHT).  A
+so nearly every element agrees to float32 summation order (TIGHT).  One
+exception: the GAT op's backward reads its destination columns (ar, M,
+Linv, ws) as float32 tables, where the JAX op narrows them with the
+gathered rows, so ``gat_aggregate``'s d ac and d feat are held to the JAX
+op's float32 gradients instead: within BOUND, and no farther from them
+than the JAX op's own bf16 gradients are.  A
 float32 value that differs by an ulp between the two sides can round to
 the neighbouring bf16 value (2^-8 of itself) where it is rounded again (the
 gathered ws, Linv and M columns; d_feat): at most FLIPS (0.1 %) of the
@@ -92,15 +97,18 @@ def test_gat_aggregate_bf16_matches_jax(rng, block, p, dense_dtype):
     key = jax.random.PRNGKey(7)
     seed = int(jax.random.bits(key, dtype=jnp.uint32))
 
-    @jax.jit
-    def out_and_grads(g, ar, ac, feat, ct):
-        out, vjp = jax.vjp(
-            lambda *a: jax_gat(g, *a, attn_drop=p, key=key, training=True,
-                               gather_dtype=jnp.bfloat16,
-                               dense_dtype=dense_dtype), ar, ac, feat)
-        return out, vjp(ct)
+    def out_and_grads(gather_dtype):
+        @jax.jit
+        def run(g, ar, ac, feat, ct):
+            out, vjp = jax.vjp(
+                lambda *a: jax_gat(g, *a, attn_drop=p, key=key,
+                                   training=True, gather_dtype=gather_dtype,
+                                   dense_dtype=dense_dtype), ar, ac, feat)
+            return out, vjp(ct)
+        return run(jg, *(jnp.asarray(a) for a in arrs))
 
-    out_j, grads_j = out_and_grads(jg, *(jnp.asarray(a) for a in arrs))
+    out_j, grads_j = out_and_grads(jnp.bfloat16)
+    _, grads_32 = out_and_grads(None)
     ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs[:3]]
     out_t = gat_aggregate(tg, *ts, attn_drop=p, seed=seed, training=True,
                           gather_dtype=torch.bfloat16,
@@ -108,9 +116,14 @@ def test_gat_aggregate_bf16_matches_jax(rng, block, p, dense_dtype):
     assert out_t.dtype == torch.float32
     out_t.backward(torch.from_numpy(arrs[3]))
     _close(out_t.detach().numpy(), out_j, "out")
-    for name, t, gj in zip(("ar", "ac", "feat"), ts, grads_j):
-        assert t.grad.dtype == torch.float32
-        _close(t.grad.numpy(), gj, "d" + name)
+    assert all(t.grad.dtype == torch.float32 for t in ts)
+    _close(ts[0].grad.numpy(), grads_j[0], "dar")
+    for name, t, gj, g32 in zip(("ac", "feat"), ts[1:], grads_j[1:],
+                                grads_32[1:]):
+        got, g32 = t.grad.numpy(), np.asarray(g32)
+        np.testing.assert_allclose(got, g32, err_msg="d" + name, **BOUND)
+        assert (np.linalg.norm(got - g32)
+                <= np.linalg.norm(np.asarray(gj) - g32)), "d" + name
     # d_feat is returned rounded to bf16, as the JAX op returns it
     d_feat = ts[2].grad
     assert torch.equal(d_feat, d_feat.to(torch.bfloat16).float())
